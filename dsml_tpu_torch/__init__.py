@@ -1,0 +1,32 @@
+"""dsml_tpu_torch — the PyTorch and CUDA port of ``dsml_tpu`` for NVIDIA Hopper.
+
+The JAX package ``dsml_tpu`` stays the reference; this package does the same
+work in PyTorch, slice by slice, with every Pallas TPU kernel on a ported
+path rewritten by hand for ``sm_90a``:
+
+- ``dsml_tpu_torch.ops``    — attention, and the flash-attention forward
+  kernel (``ops/csrc/flash_fwd.cu``) behind ``ops.flash``.
+- ``dsml_tpu_torch.models`` — GPT-2 serving: prefill, KV-cache decode,
+  sampling and ``generate``.
+- ``dsml_tpu_torch.utils``  — config, logging and device selection.
+- ``dsml_tpu_torch.cli``    — entry points (``cli.generate_text``).
+
+It imports neither ``jax`` nor anything of ``dsml_tpu``. Entry points run on
+the CUDA device unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+
+# Lazy subpackage access keeps torch-heavy modules out of the import path
+# until used.
+_SUBPACKAGES = ("ops", "models", "utils", "cli")
+
+
+def __getattr__(name):
+    if name in _SUBPACKAGES:
+        import importlib
+
+        mod = importlib.import_module(f"{__name__}.{name}")
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
