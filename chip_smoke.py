@@ -3,24 +3,39 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``dsml_tpu_torch/ops/csrc/`` with
-``nvcc``, holds each against its plain PyTorch version at the shapes the
-serving path gives it, then drives that path — ``GPT2.generate`` on
-GPT-2-small (124M, vocab 50257) in bf16 with weights from seed 0, batch 8,
-a 512-token prompt and 32 greedy tokens — and checks that its prefill went
-through the kernel. Each phase prints one JSON line; a phase that fails ends
-the run with a non-zero exit and no result line. The line before the last
-is the card's name and power limit as ``nvidia-smi`` prints them; the last
-line is ``{"ok": true, "device": {...}}``.
+``nvcc``, holds each against its plain PyTorch version at the shapes its
+path gives it, then drives the port's two paths and checks that each went
+through its kernels:
+
+- serving: ``GPT2.generate`` on GPT-2-small (124M, vocab 50257) in bf16
+  with weights from seed 0, batch 8, a 512-token prompt and 32 greedy
+  tokens (the prefill's attention is the flash forward kernel);
+- training: GPT-2-small bf16 train steps at batch 8 × 1024,
+  ``GPT2.loss(attn_impl="flash")`` with dense logits, ``backward()`` and
+  AdamW(3e-4, weight_decay=0.01) — the JAX bench's headline step — through
+  the flash forward and both backward kernels.
+
+Each phase prints one JSON line; a phase that fails ends the run with a
+non-zero exit and no result line. The line before the last is the card's
+name and power limit as ``nvidia-smi`` prints them; the last line is
+``{"ok": true, "device": {...}}``.
 
 Phases: device, build, kernel (flash_fwd against ``_flash_fwd_reference``
 at b=8, h=12, d=64, s=512 and a ragged s=700, bf16 and f32, causal and not,
 plus an offset case; times of the kernel, the plain version and, as a
-yardstick the port never calls, ``F.scaled_dot_product_attention``), slice
-(the generate run, its launch counts, bf16 prefill logits against the plain
-attention prefill, f32 greedy tokens of the kernel run against the plain
-run), trace (device-busy time of a prefill and of a decode step from a
-profiler trace), cli (``dsml_tpu_torch.cli.generate_text`` once), kernels
-(one line for the whole run).
+yardstick the port never calls, ``F.scaled_dot_product_attention``),
+kernel_bwd (flash_bwd_dq and flash_bwd_dkv against ``_flash_bwd_reference``
+at [96, 1024, 64], a ragged s=700, an offset case and d=128, bf16 and f32,
+causal and not, with and without an lse cotangent; times of each kernel,
+the plain backward and SDPA's backward), slice (the generate run, its
+launch counts, bf16 prefill logits against the plain attention prefill, f32
+greedy tokens of the kernel run against the plain run), trace (device-busy
+time of a prefill, a decode step and a train step from a profiler trace),
+cli (``dsml_tpu_torch.cli.generate_text`` once), train (the train steps,
+their launch counts, step ms, tokens/s and MFU, a falling loss, and f32
+gradients of the kernel path against the plain-attention path), train_cli
+(``dsml_tpu_torch.cli.train_gpt2`` for 4 steps and the MNIST ``Trainer``
+for one epoch), kernels (one line for the whole run).
 
 Float32 matmuls stay in full f32 (TF32 off, PyTorch's default, set here
 explicitly): the f32 phases compare two paths at f32 tolerances.
@@ -30,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import sys
 import time
@@ -59,6 +75,19 @@ MARGIN = 1e-3  # f32 greedy: below this top-2 margin a step compares logits, not
 B, H, D, S = 8, 12, 64, 512  # GPT-2-small's prefill attention shape in the slice
 NEW_TOKENS = 32
 F32_TOKENS = 8
+
+# the backward kernels against their plain version, as a share of the
+# largest |gradient| of the tensor compared. f32: both sum in f32 in
+# another order. bf16: both compute in f32 from the same bf16 inputs and
+# round the result to bf16 (one bf16 ulp is at most 2^-7 of the largest
+# entry)
+TOL_BWD = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+TRAIN_B, TRAIN_S = 8, 1024  # the JAX bench's GPT-2-small train step
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+# f32 gradients, flash kernels against plain attention, as a share of each
+# tensor's largest |gradient|: f32 sums in another order through 12 layers
+# (a dropped tile or a wrong mask moves them by O(1))
+TOL_TRAIN_GRADS = 1e-4
 
 
 def emit(obj) -> None:
@@ -99,6 +128,95 @@ def attention_bound_ms(bh, s_q, s_kv, d, dtype, causal, q_start=0, k_start=0):
     flops = 4.0 * d * bh * float(kept)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def backward_bound_ms(bh, s_q, s_kv, d, dtype, causal, products, n_out):
+    """Least time for one backward kernel: the larger of its bytes (q, k, v
+    and do read once, the f32 lse and delta read once, ``n_out`` gradient
+    tensors of the inputs' shape written once) over the memory rate and its
+    operations (``products`` products of 2·d operations per kept score)
+    over the peak rate of the inputs' type."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (bh * (2 * s_q * d + 2 * s_kv * d) * elt + bh * s_q * 4 * 2
+              + n_out * bh * s_kv * d * elt)
+    rows = np.arange(s_q) + 1
+    kept = np.clip(rows, 0, s_kv).sum() if causal else s_q * s_kv
+    flops = products * 2.0 * d * bh * float(kept)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernel_bwd(tflash, dev):
+    """flash_bwd_dq and flash_bwd_dkv against _flash_bwd_reference, then
+    their times at the train step's shape."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bh_train = TRAIN_B * H
+
+    def inputs(bh, s_q, s_kv, d, dtype, q_start, causal, glse):
+        q, do = (torch.randn(bh, s_q, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+        k, v = (torch.randn(bh, s_kv, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+        out, lse = tflash._flash_fwd_reference(q, k, v, causal, q_start, 0)
+        g_lse = torch.randn(bh, s_q, generator=gen, device=dev) if glse else None
+        return q, k, v, out, lse, do, g_lse
+
+    cases = [  # (bh, s_q, s_kv, d, q_start, causal, with an lse cotangent)
+        (bh_train, TRAIN_S, TRAIN_S, D, 0, True, False), (bh_train, TRAIN_S, TRAIN_S, D, 0, False, True),
+        (bh_train, 700, 700, D, 0, True, True), (bh_train, 700, 700, D, 0, False, False),
+        (bh_train, 256, 512, D, 256, True, True), (16, TRAIN_S, TRAIN_S, 128, 0, True, True),
+    ]
+    main_err = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for bh, s_q, s_kv, d, q_start, causal, glse in cases:
+            args = inputs(bh, s_q, s_kv, d, dtype, q_start, causal, glse)
+            got = tflash.flash_bwd(*args, causal, q_start, 0)
+            torch.cuda.synchronize()
+            want = tflash._flash_bwd_reference(*args, causal, q_start, 0)
+            errs, rel = {}, 0.0
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                err = (g.float() - w.float()).abs().max().item()
+                errs[name] = err
+                rel = max(rel, err / max(w.float().abs().max().item(), 1e-30))
+            ok = (all(g.shape == a.shape and g.dtype == dtype for g, a in zip(got, args[:3]))
+                  and all(bool(torch.isfinite(g).all()) for g in got) and rel <= TOL_BWD[dtype])
+            emit({"phase": "kernel_bwd", "kernels": ["flash_bwd_dq", "flash_bwd_dkv"],
+                  "dtype": str(dtype)[6:], "bh": bh, "s_q": s_q, "s_kv": s_kv, "d": d,
+                  "q_start": q_start, "causal": causal, "g_lse": glse, "max_abs_err": errs,
+                  "max_err_over_max_abs": rel, "tol": TOL_BWD[dtype], "ok": ok})
+            check(ok, f"flash_bwd disagrees with its plain version ({dtype}, s_q={s_q}, "
+                      f"s_kv={s_kv}, d={d}, q_start={q_start}, causal={causal}, g_lse={glse})")
+            if (dtype, s_q, d, causal) == (torch.bfloat16, TRAIN_S, D, True):
+                main_err = errs
+
+    # times at the train step's shape: bf16 [96, 1024, 64], causal, no lse cotangent
+    q, k, v, out, lse, do, _ = inputs(bh_train, TRAIN_S, TRAIN_S, D, torch.bfloat16, 0, True, False)
+    reps = 10
+    per_kernel = device_kernel_ms(lambda: [tflash.flash_bwd(q, k, v, out, lse, do) for _ in range(reps)])
+    ms = {}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        found = [t / reps for k_name, t in per_kernel.items() if f"{name}_kernel" in k_name]
+        check(len(found) == 1, f"the profiler trace shows no single {name} kernel: {sorted(per_kernel)}")
+        ms[name] = found[0]
+    wrapper_ms = cuda_ms(lambda: tflash.flash_bwd(q, k, v, out, lse, do))
+    plain_ms = cuda_ms(lambda: tflash._flash_bwd_reference(q, k, v, out, lse, do))
+    q4, k4, v4, do4 = (t.view(TRAIN_B, H, TRAIN_S, D).detach().requires_grad_() for t in (q, k, v, do))
+
+    def sdpa(backward):
+        o = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        if backward:
+            torch.autograd.grad(o, (q4, k4, v4), do4)
+
+    library_ms = cuda_ms(lambda: sdpa(True)) - cuda_ms(lambda: sdpa(False))
+    timing = {}
+    for name, products, n_out in (("flash_bwd_dq", 3, 1), ("flash_bwd_dkv", 4, 2)):
+        bound_ms, bound_by = backward_bound_ms(bh_train, TRAIN_S, TRAIN_S, D, torch.bfloat16,
+                                               True, products, n_out)
+        timing[name] = {"ms": ms[name], "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": library_ms}
+    emit({"phase": "kernel_time", "kernels": ["flash_bwd_dq", "flash_bwd_dkv"],
+          "shape": [bh_train, TRAIN_S, D], "dtype": "bfloat16", "causal": True,
+          "flash_bwd_ms": wrapper_ms, "plain_note": "plain_ms and library_ms are whole backwards "
+          "(dq, dk and dv); library_ms is SDPA forward+backward minus forward", **timing})
+    return main_err, timing
 
 
 def phase_kernel(tflash, dev):
@@ -245,10 +363,9 @@ def phase_slice(tflash, dev, card):
     return launches, model, prompt
 
 
-def device_busy_ms(fn):
-    """(device ms, {kernel name: ms} of the 6 costliest) of the kernels
-    ``fn`` launches, summed from a ``torch.profiler`` trace (kernels of one
-    stream do not overlap); (None, {}) where the trace holds no device
+def device_kernel_ms(fn) -> dict[str, float]:
+    """{kernel name: device ms} of the kernels ``fn`` launches, summed from
+    a ``torch.profiler`` trace; empty where the trace holds no device
     events. Names are cut to 80 characters, which sums the instances of one
     template (PyTorch's elementwise kernels) under one name."""
     from torch.profiler import ProfilerActivity, profile
@@ -261,6 +378,14 @@ def device_busy_ms(fn):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = e.name[:80]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return by_name
+
+
+def device_busy_ms(fn):
+    """(device ms, {kernel name: ms} of the 6 costliest) of the kernels
+    ``fn`` launches (kernels of one stream do not overlap); (None, {})
+    where the trace holds no device events."""
+    by_name = device_kernel_ms(fn)
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
     return (sum(by_name.values()) if by_name else None), top
 
@@ -287,6 +412,139 @@ def phase_trace(model, prompt):
                      "device_idle_share": None if busy is None else 1 - busy / wall,
                      "top_kernels_ms": top}
     emit(row)
+
+
+def train_counts(tflash):
+    return {"flash_fwd": tflash.flash_fwd_launches, "flash_bwd_dq": tflash.flash_bwd_dq_launches,
+            "flash_bwd_dkv": tflash.flash_bwd_dkv_launches}
+
+
+def reset_counts(tflash):
+    tflash.flash_fwd_launches = tflash.flash_bwd_dq_launches = tflash.flash_bwd_dkv_launches = 0
+
+
+def phase_train(tflash, dev, card):
+    """The train step on GPT-2-small bf16 at batch 8 × 1024 (flash
+    attention, dense logits, AdamW(3e-4, weight_decay=0.01)) on one batch
+    repeated: launch counts, step time, tokens/s, MFU and a falling loss;
+    then f32 gradients of the kernel path against the plain-attention
+    path at batch 2."""
+    from dsml_tpu_torch.models.common import transformer_train_flops
+    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+
+    cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
+    model = GPT2(cfg, device=dev).init(0)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)), device=dev)
+    y = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)), device=dev)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(x, y, attn_impl="flash")
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = [step() for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path, counted
+    reset_counts(tflash)
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    counts = train_counts(tflash)
+    losses = torch.stack(losses).float().tolist()
+    flops = transformer_train_flops(cfg, TRAIN_B * TRAIN_S, TRAIN_S)
+    row = {"phase": "train", "model": "gpt2-small", "params": model.n_params(), "dtype": "bfloat16",
+           "batch": TRAIN_B, "seq": TRAIN_S, "attn_impl": "flash", "xent_chunk": 0,
+           "optimizer": "AdamW(3e-4, weight_decay=0.01)", "steps": TRAIN_STEPS,
+           "launches": counts, "step_ms": step_ms,
+           "tokens_per_s": TRAIN_B * TRAIN_S * 1e3 / step_ms, "model_flops_per_step": flops,
+           "mfu": flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "card": card}
+    want = cfg.n_layer * TRAIN_STEPS
+    check(all(n == want for n in counts.values()),
+          f"train steps launched {counts}, expected {want} of each ({cfg.n_layer} per step)")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train loss not finite and falling on a repeated batch: {losses}")
+
+    # f32, batch 2: gradients through the kernels against plain attention
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = GPT2(cfg32, device=dev).init(0)
+    grads = {}
+    for impl in ("flash", "xla"):
+        model32.zero_grad(set_to_none=True)
+        model32.loss(x[:2], y[:2], attn_impl=impl).backward()
+        grads[impl] = {n: p.grad.detach().clone() for n, p in model32.named_parameters()}
+    worst, worst_name = 0.0, None
+    for name, g in grads["xla"].items():
+        rel = (grads["flash"][name] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+        if rel >= worst:
+            worst, worst_name = rel, name
+    row.update({"f32_grads_max_err_over_max_abs": worst, "f32_grads_worst_tensor": worst_name,
+                "tol_f32_grads": TOL_TRAIN_GRADS})
+    emit(row)
+    check(worst <= TOL_TRAIN_GRADS,
+          f"f32 gradients: flash kernels vs plain attention {worst} of max |g| in {worst_name}")
+    del model32, grads
+    return counts, step
+
+
+def phase_train_trace(step):
+    """Where a train step spends its time: device-busy ms from a profiler
+    trace against the wall ms of untraced steps."""
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    by_name = device_kernel_ms(step)
+    busy = sum(by_name.values()) if by_name else None
+    by_kind = {"flash": 0.0, "gemm": 0.0, "elementwise_reduce": 0.0, "other": 0.0}
+    for name, t in by_name.items():
+        kind = ("flash" if "flash_" in name else
+                "gemm" if any(w in name for w in ("gemm", "nvjet", "cutlass")) else
+                "elementwise_reduce" if any(w in name for w in ("elementwise", "reduce", "vectorized"))
+                else "other")
+        by_kind[kind] += t
+    emit({"phase": "trace", "train_step": {
+        "wall_ms": wall, "device_busy_ms": busy,
+        "device_idle_share": None if busy is None else 1 - busy / wall, "by_kind_ms": by_kind,
+        "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])}})
+
+
+def phase_train_cli(tflash):
+    """The training entry points: cli.train_gpt2 on GPT-2-small bf16 with
+    the flash kernels, and the MNIST Trainer for one epoch."""
+    from dsml_tpu_torch.cli import train_gpt2
+    from dsml_tpu_torch.models import MLP
+    from dsml_tpu_torch.trainer import TrainConfig, Trainer
+    from dsml_tpu_torch.utils.data import load_mnist
+
+    reset_counts(tflash)
+    out = train_gpt2.main(["--model", "small", "--attn", "flash", "--dtype", "bfloat16",
+                           "--steps", "4", "--batch_size", "8", "--grad_accum", "1",
+                           "--log_every", "1", "--warmup_steps", "1"])
+    counts = train_counts(tflash)
+    ok_cli = all(n == 4 * 12 for n in counts.values()) and np.isfinite(out["last_loss"])
+    data = load_mnist(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "mnist"))
+    t0 = time.perf_counter()
+    _, history, test_acc = Trainer(MLP(device="cuda"), TrainConfig(epochs=1)).train(data)
+    mnist_s = time.perf_counter() - t0
+    emit({"phase": "train_cli", "entry": "python -m dsml_tpu_torch.cli.train_gpt2", **out,
+          "launches": counts, "mnist_trainer": {"epochs": 1, "n_train": data.n_train,
+                                                "avg_loss": history[0]["avg_loss"],
+                                                "test_accuracy": test_acc, "seconds": mnist_s}})
+    check(ok_cli, f"the train_gpt2 entry point: launches {counts}, result {out}")
+    check(np.isfinite(history[0]["avg_loss"]) and test_acc > 0.5,
+          f"the MNIST trainer: loss {history[0]['avg_loss']}, test accuracy {test_acc}")
 
 
 def phase_cli(tflash):
@@ -323,16 +581,29 @@ def main() -> None:
                     for name, log in reports.items()}})
 
     main_err, timing = phase_kernel(tflash, dev)
+    bwd_err, bwd_timing = phase_kernel_bwd(tflash, dev)
     launches, model, prompt = phase_slice(tflash, dev, card)
     phase_trace(model, prompt)
     del model
     phase_cli(tflash)
+    train_launches, step = phase_train(tflash, dev, card)
+    phase_train_trace(step)
+    del step
+    torch.cuda.empty_cache()
+    phase_train_cli(tflash)
 
-    emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda", "source": "dsml_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "dsml_tpu/ops/flash.py:198", "launches": launches,
-        "max_abs_err": main_err, **timing,
-    }]})
+    bwd_source = "dsml_tpu_torch/ops/csrc/flash_bwd.cu"
+    emit({"kernels": [
+        {"name": "flash_fwd", "route": "cuda", "source": "dsml_tpu_torch/ops/csrc/flash_fwd.cu",
+         "replaces": "dsml_tpu/ops/flash.py:198", "launches": launches,
+         "max_abs_err": main_err, **timing},
+        {"name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
+         "replaces": "dsml_tpu/ops/flash.py:481", "launches": train_launches["flash_bwd_dq"],
+         "max_abs_err": bwd_err["dq"], **bwd_timing["flash_bwd_dq"]},
+        {"name": "flash_bwd_dkv", "route": "cuda", "source": bwd_source,
+         "replaces": "dsml_tpu/ops/flash.py:526", "launches": train_launches["flash_bwd_dkv"],
+         "max_abs_err": max(bwd_err["dk"], bwd_err["dv"]), **bwd_timing["flash_bwd_dkv"]},
+    ]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

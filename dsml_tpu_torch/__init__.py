@@ -4,12 +4,16 @@ The JAX package ``dsml_tpu`` stays the reference; this package does the same
 work in PyTorch, slice by slice, with every Pallas TPU kernel on a ported
 path rewritten by hand for ``sm_90a``:
 
-- ``dsml_tpu_torch.ops``    — attention, and the flash-attention forward
-  kernel (``ops/csrc/flash_fwd.cu``) behind ``ops.flash``.
-- ``dsml_tpu_torch.models`` — GPT-2 serving: prefill, KV-cache decode,
-  sampling and ``generate``.
-- ``dsml_tpu_torch.utils``  — config, logging and device selection.
-- ``dsml_tpu_torch.cli``    — entry points (``cli.generate_text``).
+- ``dsml_tpu_torch.ops``    — attention, the flash-attention forward and
+  backward kernels (``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd.cu``)
+  behind ``ops.flash``, and the chunked cross-entropy (``ops.xent``).
+- ``dsml_tpu_torch.models`` — GPT-2 serving (prefill, KV-cache decode,
+  sampling, ``generate``) and training (``loss``), and the MNIST MLP.
+- ``dsml_tpu_torch.trainer`` — the single-device epoch trainer.
+- ``dsml_tpu_torch.utils``  — config, logging, device selection, data
+  iterators, learning-rate schedules and metrics.
+- ``dsml_tpu_torch.cli``    — entry points (``cli.generate_text``,
+  ``cli.train_gpt2``).
 
 It imports neither ``jax`` nor anything of ``dsml_tpu``. Entry points run on
 the CUDA device unless the caller passes ``device="cpu"``.

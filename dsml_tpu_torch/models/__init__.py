@@ -1,6 +1,10 @@
-"""Model families of the port. This slice serves GPT-2; the other families
-of ``dsml_tpu.models`` (Llama, the MLP, CNN and ResNet) come with later
-slices."""
+"""Model families of the port: GPT-2 (serving and training) and the MNIST
+MLP. The other families of ``dsml_tpu.models`` (Llama, the CNN and ResNet)
+come with later slices."""
+
+from dsml_tpu_torch.models.mlp import MLP
+
+__all__ = ["MLP", "model_by_family"]
 
 
 def model_by_family(family: str, name: str, device=None, **tiny_kwargs):

@@ -1,11 +1,14 @@
-"""GPT-2 serving in PyTorch — the counterpart of ``dsml_tpu/models/gpt2.py``.
+"""GPT-2 in PyTorch — the counterpart of ``dsml_tpu/models/gpt2.py``.
 
-This slice ports the single-device serving path that
-``GPT2.generate`` drives: one :meth:`GPT2.prefill` over the prompt (its
-attention through the hand-written CUDA flash kernel once the prompt reaches
-512 tokens on the card), then a loop of :meth:`GPT2.decode_step` over the
-dense KV cache, with :func:`sample_token_logits` picking each token. The
-plain forward :meth:`GPT2.apply` is here too, for the parity tests.
+Two single-device paths are ported. Serving: ``GPT2.generate`` runs one
+:meth:`GPT2.prefill` over the prompt (its attention through the
+hand-written CUDA flash kernel once the prompt reaches 512 tokens on the
+card), then a loop of :meth:`GPT2.decode_step` over the dense KV cache, with
+:func:`sample_token_logits` picking each token. Training: :meth:`GPT2.loss`
+is the mean next-token cross-entropy over the block stack, with attention
+through the flash kernels (forward and backward) when asked, dense or
+chunked logits (``xent_chunk``) and optional rematerialisation (``remat``).
+The plain forward :meth:`GPT2.apply` is here too, for the parity tests.
 
 Weights keep the JAX package's layouts (``wqkv [d, 3, d]``, ``w_in [d, d_ff]``
 used as ``x @ W``, q/k/v ``[batch, heads, seq, head_dim]``) and names: the
@@ -15,9 +18,9 @@ one onto the other. :meth:`GPT2.init` draws the same
 ``np.random.default_rng(seed)`` sequence as the JAX init, so both packages
 build identical weights from one seed.
 
-Tensor, pipeline and sequence parallelism, MoE, the int8/int4 KV cache, the
-paged and continuous-batching surfaces and speculative decoding come with
-later slices.
+Tensor, pipeline and sequence parallelism, MoE, compressed (int8) remat,
+the int8/int4 KV cache, the paged and continuous-batching surfaces and
+speculative decoding come with later slices.
 """
 
 from __future__ import annotations
@@ -29,10 +32,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dsml_tpu_torch.models.common import qmatmul
 from dsml_tpu_torch.ops.attention import _NEG_INF, attention
 from dsml_tpu_torch.ops.flash import flash_attention
+from dsml_tpu_torch.ops.xent import chunked_softmax_xent
 from dsml_tpu_torch.utils.platform import resolve_device
 
 __all__ = ["GPT2Config", "GPT2", "sample_token_logits"]
@@ -49,6 +54,12 @@ class GPT2Config:
     d_model: int = 768
     d_ff: int = 3072
     dtype: str = "float32"  # params/activations dtype: "float32" | "bfloat16"
+    # rematerialisation in the backward: True recomputes each block
+    # (torch.utils.checkpoint), "mlp" only its FFN sub-block
+    remat: bool | str = False
+    # loss: stream the unembedding in chunks of this many vocab rows
+    # (ops/xent.py) when vocab_size > xent_chunk; 0 = dense logits
+    xent_chunk: int = 8192
     # kept so that a JAX config's serving fields carry over; both raise if set
     n_experts: int = 0
     kv_quant: bool | str = False
@@ -56,6 +67,13 @@ class GPT2Config:
     def __post_init__(self):
         if self.dtype not in _DTYPES:
             raise ValueError(f"unknown dtype {self.dtype!r}; choose from {sorted(_DTYPES)}")
+        if self.remat == "int8":
+            raise NotImplementedError(
+                "compressed int8 remat (ops/quantization.py::compressed_checkpoint) comes "
+                "with the compressed-communication slice"
+            )
+        if self.remat not in (False, True, "mlp"):
+            raise ValueError(f"unknown remat mode {self.remat!r}; choose False, True or 'mlp'")
         if self.n_experts:
             raise NotImplementedError(
                 "MoE layers (n_experts > 0) come with the model-parallel training slice"
@@ -219,6 +237,9 @@ class GPT2(nn.Module):
             mlp["b_out"].zero_()
         return self
 
+    def n_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
     # ---- forward --------------------------------------------------------------
 
     def _embed(self, tokens: torch.Tensor, offset: int = 0) -> torch.Tensor:
@@ -263,25 +284,58 @@ class GPT2(nn.Module):
     def _unembed(self, h):
         return h @ self.wte.T  # tied to wte
 
-    def apply(self, tokens: torch.Tensor, attn_impl: str = "xla") -> torch.Tensor:
-        """Logits [b, s, vocab] of ``tokens`` [b, s] (causal). ``attn_impl``
-        is ``"xla"`` (plain attention) or ``"flash"`` (the flash kernel)."""
+    def _attend(self, attn_impl: str):
         if attn_impl not in self._ATTN_IMPLS:
             raise NotImplementedError(
                 f"attn_impl {attn_impl!r}: this port serves {self._ATTN_IMPLS}; the "
                 "sequence-parallel variants come with the long-context slice"
             )
-        attend = flash_attention if attn_impl == "flash" else attention
+        return flash_attention if attn_impl == "flash" else attention
+
+    def _block(self, layer, h, attend):
+        """One pre-LN block: attention residual, then the FFN residual (the
+        only checkpointed part under ``remat="mlp"``, which keeps the
+        attention activations, flash's saved residuals among them)."""
+        q, k, v = self._qkv_heads(layer, self._norm1(layer, h))
+        out = qmatmul(self._merge_heads(attend(q, k, v, causal=True)), layer["attn"]["wo"])
+        h = h + (out + layer["attn"]["bo"])
+        if self.config.remat == "mlp" and torch.is_grad_enabled():
+            return checkpoint(self._ffn, layer, h, use_reentrant=False)
+        return self._ffn(layer, h)
+
+    def _blocks(self, tokens: torch.Tensor, attn_impl: str) -> torch.Tensor:
+        """Embedding and the block stack → pre-final-norm hidden states
+        [b, s, d]; ``remat=True`` recomputes each block in the backward."""
+        attend = self._attend(attn_impl)
         h = self._embed(tokens)
+        whole = self.config.remat is True and torch.is_grad_enabled()
         for layer in self.layers:
-            q, k, v = self._qkv_heads(layer, self._norm1(layer, h))
-            out = qmatmul(self._merge_heads(attend(q, k, v, causal=True)),
-                          layer["attn"]["wo"])
-            h = h + (out + layer["attn"]["bo"])
-            h = self._ffn(layer, h)
-        return self._unembed(self._final_norm(h))
+            if whole:
+                h = checkpoint(self._block, layer, h, attend, use_reentrant=False)
+            else:
+                h = self._block(layer, h, attend)
+        return h
+
+    def apply(self, tokens: torch.Tensor, attn_impl: str = "xla") -> torch.Tensor:
+        """Logits [b, s, vocab] of ``tokens`` [b, s] (causal). ``attn_impl``
+        is ``"xla"`` (plain attention) or ``"flash"`` (the flash kernels)."""
+        return self._unembed(self._final_norm(self._blocks(tokens, attn_impl)))
 
     forward = apply
+
+    def loss(self, tokens: torch.Tensor, targets: torch.Tensor,
+             attn_impl: str = "xla") -> torch.Tensor:
+        """Mean next-token cross-entropy of ``tokens`` [b, s] against
+        ``targets`` [b, s] (the single-shard head of the JAX
+        ``_head_loss_spmd``): the chunked loss of ``ops/xent.py`` when
+        ``vocab_size > xent_chunk > 0``, else dense logits in the model's
+        type, cast to f32, then log-softmax."""
+        cfg = self.config
+        h = self._final_norm(self._blocks(tokens, attn_impl))
+        if cfg.xent_chunk and cfg.vocab_size > cfg.xent_chunk:
+            return chunked_softmax_xent(h, self.wte, targets, cfg.xent_chunk)
+        logp = torch.log_softmax(self._unembed(h).float(), dim=-1)
+        return -logp.gather(-1, targets.long()[..., None]).mean()
 
     # ---- autoregressive decoding (KV cache) -----------------------------------
     # The cache is allocated at max_seq and updated IN PLACE (the JAX
