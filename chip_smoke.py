@@ -559,6 +559,378 @@ def phase_cli(tflash):
     check(len(texts) == 2 and launches == 12, "the generate_text entry point")
 
 
+# ---- paged attention and the continuous batcher --------------------------------
+
+PAGE = 16  # the paged slice's page size
+PAGED_SLOTS, PAGED_CHUNK = 16, 256
+PAGED_REQUESTS, PAGED_F32_REQUESTS = 48, 8
+PAGED_SOURCE = "dsml_tpu_torch/ops/csrc/paged_attn.cu"
+# paged kernels against their plain version: f32 out, both sum in f32 in
+# another order; bf16 out, both round an f32 result to bf16 once, so they
+# may differ by one bf16 ulp of the value (2^-7 of its binade) plus the f32
+# difference
+TOL_PAGED_F32 = 1e-4
+
+
+def paged_case(dev, rng, gen, b, hq, hkv, hd, n_pt, positions, q_dtype, mode):
+    """Inputs of one paged-attention call: a pool whose live pages sit at
+    shuffled physical indices (dead entries at scratch page 0), the table,
+    the [b, C] positions and q [b, hq, C, hd]."""
+    from dsml_tpu_torch.ops.quantization import quantize_kv_rows
+
+    live = [0 if p.max() < 0 else int(p.max()) // PAGE + 1 for p in positions]
+    n_pages = 1 + sum(live)
+    perm = rng.permutation(np.arange(1, n_pages))
+    table = np.zeros((b, n_pt), np.int32)
+    at = 0
+    for i, n in enumerate(live):
+        table[i, :n] = perm[at:at + n]
+        at += n
+    k, v = (torch.randn(n_pages, hkv, PAGE, hd, generator=gen, device=dev) for _ in range(2))
+    if mode:
+        (kq, ks), (vq, vs) = quantize_kv_rows(k, mode), quantize_kv_rows(v, mode)
+        pool = {"k": kq, "k_s": ks, "v": vq, "v_s": vs}
+    else:
+        pool = {"k": k.to(q_dtype), "v": v.to(q_dtype)}
+    q = torch.randn(b, hq, positions.shape[1], hd, generator=gen, device=dev).to(q_dtype)
+    return (q, pool, torch.as_tensor(table, device=dev),
+            torch.as_tensor(positions, dtype=torch.int32, device=dev))
+
+
+def paged_bound_ms(q, pool, positions):
+    """Least time of one paged-attention call: the larger of its bytes (the
+    live K and V rows and their scales — positions 0..max_pos of each slot,
+    every kv head — q and out once, the table and positions) over the
+    memory rate and its operations (4·hd per kept score: key_pos <=
+    query_pos, per query head) over 989 TFLOP/s. Returns (ms, by)."""
+    b, hq, c, hd = q.shape
+    hkv = pool["k"].shape[1]
+    row = sum(pool[key].shape[-1] * pool[key].element_size() for key in pool)  # K + V (+ scales)
+    pos = positions.long().cpu()
+    live_rows = int((pos.amax(1) + 1).clamp_min(0).sum())
+    kept = int((pos + 1).clamp_min(0).sum()) * hq
+    nbytes = (live_rows * hkv * row + 2 * q.numel() * q.element_size()
+              + pos.numel() * 4 + b * (1024 // PAGE) * 4)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 4.0 * hd * kept / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each |x| (2^-7 of its binade)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def paged_kernel_ms(tpa, args, reps=20):
+    """{kernel name: device ms per call} of both paged kernels, from a
+    profiler trace of ``reps`` calls each."""
+    out = {}
+    for name, pipeline in (("paged_attn", False), ("paged_attn_pipelined", True)):
+        by_name = device_kernel_ms(
+            lambda: [tpa.paged_attention(*args, pipeline=pipeline) for _ in range(reps)])
+        found = [t / reps for k, t in by_name.items() if f"::{name}_kernel<" in k]
+        check(len(found) == 1, f"the profiler trace shows no single {name} kernel: {sorted(by_name)}")
+        out[name] = found[0]
+    return out
+
+
+def phase_kernel_paged(dev):
+    """Both paged kernels against _paged_attention_reference at GPT-2-small's
+    shapes (decode, a 256-row chunk, a verify window, GQA at hd 128) for
+    every codec, and against each other bit for bit; then their times at
+    the main path's decode and chunk shapes."""
+    from dsml_tpu_torch.ops import paged_attention as tpa
+
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n_pt = 1024 // PAGE
+    depths = rng.integers(1, 1024, PAGED_SLOTS)
+    decode_pos = (depths - 1)[:, None].copy()
+    decode_pos[[3, 11]] = -1  # dead slots
+    verify_start = rng.integers(0, 1020, PAGED_SLOTS)
+    shapes = {  # name: (b, hq, hkv, hd, positions [b, C])
+        "decode": (PAGED_SLOTS, H, H, D, decode_pos),
+        "chunk": (1, H, H, D, (512 + np.arange(PAGED_CHUNK))[None, :]),
+        "verify": (PAGED_SLOTS, H, H, D, verify_start[:, None] + np.arange(4)[None, :]),
+        "gqa": (8, 32, 8, 128, (rng.integers(1, 1024, 8) - 1)[:, None]),
+    }
+    codecs = [(torch.float32, None), (torch.bfloat16, None), (torch.float32, "int8"),
+              (torch.bfloat16, "int8"), (torch.float32, "int4"), (torch.bfloat16, "int4")]
+    main_err, timed = None, {}
+    for shape, (b, hq, hkv, hd, positions) in shapes.items():
+        for q_dtype, mode in codecs:
+            args = paged_case(dev, rng, gen, b, hq, hkv, hd, n_pt, positions, q_dtype, mode)
+            single = tpa.paged_attention(*args, mode, pipeline=False)
+            piped = tpa.paged_attention(*args, mode, pipeline=True)
+            torch.cuda.synchronize()
+            ref = tpa._paged_attention_reference(*args, mode)
+            errs = [(o.float() - ref.float()).abs() for o in (single, piped)]
+            if q_dtype == torch.float32:
+                ok_tol = all(bool((e <= TOL_PAGED_F32).all()) for e in errs)
+            else:
+                ulp = torch.maximum(bf16_ulp(single.float()), bf16_ulp(ref.float()))
+                ok_tol = all(bool((e <= ulp + TOL_PAGED_F32).all()) for e in errs)
+            bit_equal = bool(torch.equal(single, piped))
+            dead = positions.max(1) < 0
+            ok = (ok_tol and bit_equal and single.shape == args[0].shape
+                  and single.dtype == q_dtype and bool(torch.isfinite(single).all())
+                  and (not dead.any() or bool((single[torch.as_tensor(dead, device=dev)] == 0).all())))
+            err = max(e.max().item() for e in errs)
+            emit({"phase": "kernel_paged", "kernels": ["paged_attn", "paged_attn_pipelined"],
+                  "case": shape, "q_dtype": str(q_dtype)[6:], "codec": mode or "fp",
+                  "b": b, "hq": hq, "hkv": hkv, "hd": hd, "c": int(positions.shape[1]),
+                  "max_abs_err": err, "tol": "1e-4" if q_dtype == torch.float32
+                  else "one bf16 ulp + 1e-4", "bit_identical": bit_equal, "ok": ok})
+            check(ok, f"paged kernels disagree with the plain version or each other ({shape}, "
+                      f"{q_dtype}, {mode}): max abs err {err}, bit identical {bit_equal}")
+            if (q_dtype, mode) == (torch.bfloat16, "int4") and shape in ("decode", "chunk"):
+                timed[shape] = (args, mode)
+                if shape == "decode":
+                    main_err = err
+            if (q_dtype, mode, shape) == (torch.bfloat16, None, "decode"):
+                timed["decode_fp"] = (args, mode)
+
+    # smem as the kernel carves it, against the Python accounting
+    lib = tpa._lib()
+    for hd in (64, 128):
+        for mode, kind in ((None, 0), ("int8", 1), ("int4", 2)):
+            for fp in (4, 2):
+                for pipe in (False, True):
+                    want = tpa.paged_smem_bytes(hd, mode, pipe, fp)
+                    got = lib.paged_attn_smem_bytes(hd, kind, fp, int(pipe))
+                    check(got == want, f"paged_smem_bytes({hd}, {mode}, {pipe}, {fp}) = {want}, "
+                                       f"the kernel carves {got}")
+
+    timing = {}
+    for shape in ("decode", "chunk"):
+        args, mode = timed[shape]
+        call = (*args, mode)
+        per_kernel = paged_kernel_ms(tpa, call)
+        plain_ms = cuda_ms(lambda: tpa._paged_attention_reference(*call))
+        bound_ms, bound_by = paged_bound_ms(args[0], args[1], args[3])
+        for name in ("paged_attn", "paged_attn_pipelined"):
+            pipe = name == "paged_attn_pipelined"
+            timing.setdefault(name, {})[shape] = {
+                "ms": per_kernel[name],
+                "wrapper_ms": cuda_ms(lambda: tpa.paged_attention(*call, pipeline=pipe)),
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
+    # the library yardstick for fp pages: SDPA over the already gathered
+    # dense view (the gather excluded; no PyTorch call reads a page table)
+    (q, pool, table, positions), _ = timed["decode_fp"]
+    b, hq, c, hd = q.shape
+    kd, vd = (pool[key][table.long()].permute(0, 2, 1, 3, 4).reshape(b, hq, -1, hd)
+              for key in ("k", "v"))
+    mask = torch.arange(kd.shape[2], device=dev)[None, None, None, :] \
+        <= positions.long()[:, None, :, None]
+    sdpa_fp_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask))
+    fp_kernel_ms = paged_kernel_ms(tpa, (q, pool, table, positions, None))
+    emit({"phase": "kernel_time", "kernels": ["paged_attn", "paged_attn_pipelined"],
+          "decode_shape": {"slots": PAGED_SLOTS, "hq": H, "hd": D, "page": PAGE,
+                           "depths": "1-1023 (2 dead)", "q": "bfloat16", "codec": "int4"},
+          "chunk_shape": {"rows": PAGED_CHUNK, "start": 512, "q": "bfloat16", "codec": "int4"},
+          **timing,
+          "fp_bf16_decode": {"kernel_ms": fp_kernel_ms,
+                             "sdpa_over_gathered_view_ms": sdpa_fp_ms,
+                             "note": "SDPA excludes the gather; no PyTorch call reads a page table"}})
+    return main_err, timing
+
+
+def paged_counts(tpa):
+    return {"paged_attn": tpa.paged_attn_launches,
+            "paged_attn_pipelined": tpa.paged_attn_pipelined_launches}
+
+
+def drain(srv, prompts, budgets, snapshot=None):
+    """Submit every request at once and step until the batcher drains.
+    Returns (tokens per request, wall s, decode-only tick ms list)."""
+    rids = [srv.submit(p, int(n)) for p, n in zip(prompts, budgets)]
+    out, ticks = {}, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while srv.n_queued or srv.n_active or srv.n_pending:
+        p0 = srv.n_prefill_dispatches
+        t = time.perf_counter()
+        out.update(srv.step())  # each tick ends in a host fetch of its tokens
+        if srv.n_prefill_dispatches == p0:
+            ticks.append((time.perf_counter() - t) * 1e3)
+        if snapshot is not None and srv.n_active > snapshot.get("n_active", 0):
+            # layer 0's pool at the fullest tick so far
+            snapshot.update(n_active=srv.n_active, table=srv._decode_table().copy(),
+                            pos=srv._pos.copy(),
+                            pool0={k: v.clone() for k, v in srv._pool[0].items()})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = srv.collect()
+    return [done[r] for r in rids], wall, ticks
+
+
+def first_divergence_margin(model, prompt, tokens, step):
+    """Top-2 logit margin of the next token after ``prompt`` + ``tokens[:step]``
+    through the plain dense prefill: how close the step was to a tie."""
+    seq = np.concatenate([prompt, np.asarray(tokens[:step], np.int64)])
+    model._prefill_use_flash = lambda t: False
+    logits, _ = model.prefill(torch.as_tensor(seq[None], device=model.device))
+    del model._prefill_use_flash
+    top2 = logits[0].float().topk(2).values
+    return (top2[0] - top2[1]).item()
+
+
+def phase_paged_slice(dev, card):
+    """GPT-2-small bf16 through ContinuousBatcher(paged_kv="int4") on 48
+    requests submitted at once: launches of the kernels, completion, the
+    pool drained, tokens/s, TTFT, decode tick ms, the device idle share of
+    one tick; the same drain through the single-buffer kernel with
+    identical tokens; f32 fp-page greedy tokens of the kernel against the
+    gather path; a pool snapshot through both kernels against the plain
+    version."""
+    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.ops import paged_attention as tpa
+    from dsml_tpu_torch.serving import ContinuousBatcher
+
+    cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16")
+    model = GPT2(cfg, device=dev).init(0)
+    rng = np.random.default_rng(2)
+    lengths = rng.integers(64, 769, PAGED_REQUESTS)
+    budgets = rng.integers(16, 129, PAGED_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int64) for n in lengths]
+    kw = dict(paged_kv="int4", page_size=PAGE, prefill_chunk=PAGED_CHUNK, n_slots=PAGED_SLOTS)
+    srv = ContinuousBatcher(model, **kw)
+    drain(srv, prompts[:4], [8] * 4)  # warm-up: the kernels' build, cuBLAS, the allocator
+    srv.reset_latency_stats()
+
+    # the main path, counted
+    tpa.paged_attn_launches = tpa.paged_attn_pipelined_launches = 0
+    ticks0, pre0 = srv.n_plain_ticks, srv.n_prefill_dispatches
+    snapshot = {}
+    toks, wall, tick_ms = drain(srv, prompts, budgets, snapshot)
+    counts = paged_counts(tpa)
+    n_chunks, n_ticks = srv.n_prefill_dispatches - pre0, srv.n_plain_ticks - ticks0
+    dispatches = n_chunks + n_ticks * srv.decode_quantum
+    n_pages = srv.n_pages
+    lat = srv.latency_stats()
+    new_tokens = sum(len(t) for t in toks)
+    check(counts["paged_attn_pipelined"] == cfg.n_layer * dispatches and counts["paged_attn"] == 0,
+          f"the pipelined drain launched {counts}, expected {cfg.n_layer} x {dispatches} "
+          "pipelined launches")
+    check(all(len(t) == int(n) for t, n in zip(toks, budgets)),
+          "a request did not complete its budget")
+    check(srv.free_pages == srv.n_pages - 1,
+          f"{srv.free_pages} pages free after the drain, expected {srv.n_pages - 1}")
+
+    # the same drain through the single-buffer kernel
+    os.environ["DSML_PAGED_ATTN_PIPELINE"] = "0"
+    try:
+        ticks1, pre1 = srv.n_plain_ticks, srv.n_prefill_dispatches
+        toks_single, wall_single, tick_single = drain(srv, prompts, budgets)
+    finally:
+        del os.environ["DSML_PAGED_ATTN_PIPELINE"]
+    counts_single = {k: v - counts[k] for k, v in paged_counts(tpa).items()}
+    dispatches_single = (srv.n_prefill_dispatches - pre1) + (srv.n_plain_ticks - ticks1)
+    check(counts_single["paged_attn"] == cfg.n_layer * dispatches_single
+          and counts_single["paged_attn_pipelined"] == 0,
+          f"the single-buffer drain launched {counts_single}, expected {cfg.n_layer} x "
+          f"{dispatches_single} single-buffer launches")
+    check(toks_single == toks, "the single-buffer drain's tokens differ from the pipelined drain's")
+    check(srv.free_pages == srv.n_pages - 1, "pages leaked in the single-buffer drain")
+
+    # one decode tick in steady state: wall against device-busy time
+    for p in prompts[:PAGED_SLOTS]:
+        srv.submit(p[:64], 64)
+    while srv.n_queued or srv.n_pending or srv.n_active < PAGED_SLOTS:
+        srv.step()
+    walls = []
+    for _ in range(5):
+        t = time.perf_counter()
+        srv.step()
+        walls.append((time.perf_counter() - t) * 1e3)
+    by_name = device_kernel_ms(srv.step)
+    busy = sum(by_name.values()) if by_name else None
+    tick_wall = statistics.median(walls)
+    srv.abandon()
+    check(srv.free_pages == srv.n_pages - 1, "pages leaked by abandon")
+
+    # the snapshot of layer 0's pool through both kernels against the plain version
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(PAGED_SLOTS, H, 1, D, generator=gen, device=dev).to(torch.bfloat16)
+    table = torch.as_tensor(snapshot["table"], device=dev)
+    live = snapshot["table"].any(1)
+    pos = torch.as_tensor(np.where(live, snapshot["pos"], -1)[:, None], dtype=torch.int32, device=dev)
+    snap_args = (q, snapshot["pool0"], table, pos, "int4")
+    outs = [tpa.paged_attention(*snap_args, pipeline=p) for p in (False, True)]
+    ref = tpa._paged_attention_reference(*snap_args)
+    snap_err = max((o.float() - ref.float()).abs().max().item() for o in outs)
+    ulp = torch.maximum(bf16_ulp(outs[0].float()), bf16_ulp(ref.float()))
+    snap_ok = all(bool(((o.float() - ref.float()).abs() <= ulp + TOL_PAGED_F32).all()) for o in outs)
+    check(snap_ok and torch.equal(outs[0], outs[1]),
+          f"the pool snapshot: kernels vs plain max abs err {snap_err}")
+    del srv, snapshot, snap_args
+
+    # f32, fp pages, 8 requests: kernel against the gather path, greedy
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = GPT2(cfg32, device=dev).init(0)
+    sub = slice(0, PAGED_F32_REQUESTS)
+    runs = {}
+    for impl in ("pallas", "xla"):
+        os.environ["DSML_PAGED_ATTN"] = impl
+        try:
+            srv32 = ContinuousBatcher(model32, paged_kv="fp", page_size=PAGE,
+                                      prefill_chunk=PAGED_CHUNK, n_slots=PAGED_F32_REQUESTS)
+            runs[impl], _, _ = drain(srv32, prompts[sub], budgets[sub])
+        finally:
+            del os.environ["DSML_PAGED_ATTN"]
+        del srv32
+    near_ties, mismatches = [], 0
+    for i, (a, w) in enumerate(zip(runs["pallas"], runs["xla"])):
+        diff = [j for j, (x, y) in enumerate(zip(a, w)) if x != y]
+        if not diff:
+            continue
+        m = first_divergence_margin(model32, prompts[i], w, diff[0])
+        near_ties.append({"request": i, "step": diff[0], "margin": m})
+        mismatches += m >= MARGIN
+    del model32
+
+    emit({"phase": "paged_slice", "model": "gpt2-small", "dtype": "bfloat16", "paged_kv": "int4",
+          "page_size": PAGE, "prefill_chunk": PAGED_CHUNK, "n_slots": PAGED_SLOTS,
+          "n_pages": n_pages, "requests": PAGED_REQUESTS, "prompt_tokens": int(lengths.sum()),
+          "new_tokens": new_tokens, "launches": counts,
+          "dispatches": {"prefill_chunks": n_chunks, "decode_ticks": n_ticks},
+          "wall_s": wall, "tokens_per_s": new_tokens / wall,
+          "ttft_p50_s": lat.get("ttft_p50_s"), "ttft_p99_s": lat.get("ttft_p99_s"),
+          "e2e_p50_s": lat.get("e2e_p50_s"), "e2e_p99_s": lat.get("e2e_p99_s"),
+          "decode_tick_ms_median": statistics.median(tick_ms), "decode_ticks": len(tick_ms),
+          "single_buffer": {"launches": counts_single, "wall_s": wall_single,
+                            "tokens_per_s": new_tokens / wall_single,
+                            "decode_tick_ms_median": statistics.median(tick_single),
+                            "tokens_identical": True},
+          "steady_tick": {"slots": PAGED_SLOTS, "wall_ms": tick_wall, "device_busy_ms": busy,
+                          "device_idle_share": None if busy is None else 1 - busy / tick_wall,
+                          "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])},
+          "snapshot_max_abs_err": snap_err,
+          "f32_fp_pages": {"requests": PAGED_F32_REQUESTS,
+                           "tokens_equal": runs["pallas"] == runs["xla"],
+                           "near_ties": near_ties},
+          "card": card})
+    check(mismatches == 0, f"f32 fp pages: {mismatches} requests diverge from the gather path "
+                           "beyond the margin rule")
+    return counts, counts_single
+
+
+def phase_serve_cli(dev):
+    from dsml_tpu_torch.cli import serve_continuous
+    from dsml_tpu_torch.ops import paged_attention as tpa
+
+    tpa.paged_attn_launches = tpa.paged_attn_pipelined_launches = 0
+    out = serve_continuous.main(["--model", "small", "--paged_kv", "int4", "--prefill_chunk", "64",
+                                 "--requests", "16"])
+    counts = paged_counts(tpa)
+    emit({"phase": "serve_cli", "entry": "python -m dsml_tpu_torch.cli.serve_continuous",
+          **out, "launches": counts})
+    check(counts["paged_attn_pipelined"] > 0 and counts["paged_attn_pipelined"] % 12 == 0
+          and out["free_pages"] == out["n_pages"] - 1,
+          f"the serve_continuous entry point: launches {counts}, result {out}")
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: this smoke test needs the card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -580,8 +952,20 @@ def main() -> None:
                            if "registers" in line or "spill" in line]
                     for name, log in reports.items()}})
 
+    only = sys.argv[1:]  # a debugging run of some phases: no result line
+    if only:
+        phases = {"kernel": lambda: phase_kernel(tflash, dev),
+                  "kernel_bwd": lambda: phase_kernel_bwd(tflash, dev),
+                  "kernel_paged": lambda: phase_kernel_paged(dev),
+                  "paged_slice": lambda: phase_paged_slice(dev, card),
+                  "serve_cli": lambda: phase_serve_cli(dev)}
+        for name in only:
+            phases[name]()
+        raise SystemExit(f"chip_smoke: ran only {only}; no result line")
+
     main_err, timing = phase_kernel(tflash, dev)
     bwd_err, bwd_timing = phase_kernel_bwd(tflash, dev)
+    paged_err, paged_timing = phase_kernel_paged(dev)
     launches, model, prompt = phase_slice(tflash, dev, card)
     phase_trace(model, prompt)
     del model
@@ -591,6 +975,10 @@ def main() -> None:
     del step
     torch.cuda.empty_cache()
     phase_train_cli(tflash)
+    torch.cuda.empty_cache()
+    paged_launches, single_launches = phase_paged_slice(dev, card)
+    torch.cuda.empty_cache()
+    phase_serve_cli(dev)
 
     bwd_source = "dsml_tpu_torch/ops/csrc/flash_bwd.cu"
     emit({"kernels": [
@@ -603,6 +991,16 @@ def main() -> None:
         {"name": "flash_bwd_dkv", "route": "cuda", "source": bwd_source,
          "replaces": "dsml_tpu/ops/flash.py:526", "launches": train_launches["flash_bwd_dkv"],
          "max_abs_err": max(bwd_err["dk"], bwd_err["dv"]), **bwd_timing["flash_bwd_dkv"]},
+        # times at the decode tick's shape (the chunk's are in the kernel_time line);
+        # launches from the paged slice's two drains, one per kernel
+        {"name": "paged_attn", "route": "cuda", "source": PAGED_SOURCE,
+         "replaces": "dsml_tpu/ops/paged_attention.py:169",
+         "launches": single_launches["paged_attn"], "max_abs_err": paged_err,
+         **paged_timing["paged_attn"]["decode"]},
+        {"name": "paged_attn_pipelined", "route": "cuda", "source": PAGED_SOURCE,
+         "replaces": "dsml_tpu/ops/paged_attention.py:259",
+         "launches": paged_launches["paged_attn_pipelined"], "max_abs_err": paged_err,
+         **paged_timing["paged_attn_pipelined"]["decode"]},
     ]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,14 +6,20 @@ path rewritten by hand for ``sm_90a``:
 
 - ``dsml_tpu_torch.ops``    — attention, the flash-attention forward and
   backward kernels (``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd.cu``)
-  behind ``ops.flash``, and the chunked cross-entropy (``ops.xent``).
+  behind ``ops.flash``, the paged-attention kernels
+  (``ops/csrc/paged_attn.cu``) behind ``ops.paged_attention``, the KV-row
+  codec (``ops.quantization``) and the chunked cross-entropy
+  (``ops.xent``).
 - ``dsml_tpu_torch.models`` — GPT-2 serving (prefill, KV-cache decode,
-  sampling, ``generate``) and training (``loss``), and the MNIST MLP.
+  sampling, ``generate``, the per-slot dense and paged surfaces) and
+  training (``loss``), and the MNIST MLP.
+- ``dsml_tpu_torch.serving`` — the continuous batcher over a dense or
+  paged KV cache, and the page allocator.
 - ``dsml_tpu_torch.trainer`` — the single-device epoch trainer.
 - ``dsml_tpu_torch.utils``  — config, logging, device selection, data
   iterators, learning-rate schedules and metrics.
 - ``dsml_tpu_torch.cli``    — entry points (``cli.generate_text``,
-  ``cli.train_gpt2``).
+  ``cli.serve_continuous``, ``cli.train_gpt2``).
 
 It imports neither ``jax`` nor anything of ``dsml_tpu``. Entry points run on
 the CUDA device unless the caller passes ``device="cpu"``.
@@ -23,7 +29,7 @@ __version__ = "0.1.0"
 
 # Lazy subpackage access keeps torch-heavy modules out of the import path
 # until used.
-_SUBPACKAGES = ("ops", "models", "utils", "cli")
+_SUBPACKAGES = ("ops", "models", "serving", "utils", "cli")
 
 
 def __getattr__(name):

@@ -164,8 +164,11 @@ def test_config_presets_match_and_unported_options_raise():
         assert {k: j[k] for k in t} == t, name
     with pytest.raises(ValueError, match="unknown GPT-2 preset"):
         tgpt2.GPT2Config.by_name("huge")
-    with pytest.raises(NotImplementedError, match="paged-KV"):
-        tgpt2.GPT2Config(kv_quant="int8")
+    # the int8/int4 KV cache is ported; an unknown codec fails as in the JAX package
+    assert tgpt2.GPT2Config(kv_quant="int8").kv_quant == "int8"
+    with pytest.raises(ValueError, match="unknown kv_quant mode"):
+        tgpt2.GPT2(dataclasses.replace(tgpt2.GPT2Config.tiny(), kv_quant="int2"),
+                   device="cpu").init_cache(1)
     with pytest.raises(NotImplementedError, match="MoE"):
         tgpt2.GPT2Config.tiny(n_experts=4)
 
