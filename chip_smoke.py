@@ -1,41 +1,46 @@
 """Smoke test of the PyTorch/CUDA port (``dsml_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase, then the result line
+    python3 chip_smoke.py kernel_qmm wq_slice  # only the named phases, no result line
 
 Builds the port's CUDA kernels from ``dsml_tpu_torch/ops/csrc/`` with
-``nvcc``, holds each against its plain PyTorch version at the shapes its
-path gives it, then drives the port's two paths and checks that each went
-through its kernels:
+``nvcc`` (one process per source, all at once), holds each against its
+plain PyTorch version at the shapes its path gives it, then drives the
+port's paths on GPT-2-small (124M, vocab 50257, bf16, weights from seed 0)
+and checks that each went through its kernels (launch counters zeroed just
+before the path and read just after):
 
-- serving: ``GPT2.generate`` on GPT-2-small (124M, vocab 50257) in bf16
-  with weights from seed 0, batch 8, a 512-token prompt and 32 greedy
+- static serving: ``GPT2.generate``, batch 8, a 512-token prompt, 32 greedy
   tokens (the prefill's attention is the flash forward kernel);
-- training: GPT-2-small bf16 train steps at batch 8 × 1024,
-  ``GPT2.loss(attn_impl="flash")`` with dense logits, ``backward()`` and
-  AdamW(3e-4, weight_decay=0.01) — the JAX bench's headline step — through
-  the flash forward and both backward kernels.
+- training: train steps at batch 8 × 1024, ``GPT2.loss(attn_impl="flash")``
+  with dense logits, ``backward()`` and AdamW(3e-4, weight_decay=0.01) —
+  the JAX bench's headline step — through the flash forward and both
+  backward kernels;
+- continuous serving: ``ContinuousBatcher(paged_kv="int4")`` on 48
+  requests through both paged-attention kernels;
+- quantized-weight serving: the same 48 requests with
+  ``weight_quant="int4"``, every projection through the dequant-fused
+  matmul kernel (qmm), and a 16-request int8 drain;
+- compressed-remat training: the train step with ``remat="int8"``, each
+  block's input stashed through the stochastic int8 quantizer kernel.
 
 Each phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit and no result line. The line before the last is the card's
 name and power limit as ``nvidia-smi`` prints them; the last line is
 ``{"ok": true, "device": {...}}``.
 
-Phases: device, build, kernel (flash_fwd against ``_flash_fwd_reference``
-at b=8, h=12, d=64, s=512 and a ragged s=700, bf16 and f32, causal and not,
-plus an offset case; times of the kernel, the plain version and, as a
-yardstick the port never calls, ``F.scaled_dot_product_attention``),
-kernel_bwd (flash_bwd_dq and flash_bwd_dkv against ``_flash_bwd_reference``
-at [96, 1024, 64], a ragged s=700, an offset case and d=128, bf16 and f32,
-causal and not, with and without an lse cotangent; times of each kernel,
-the plain backward and SDPA's backward), slice (the generate run, its
-launch counts, bf16 prefill logits against the plain attention prefill, f32
-greedy tokens of the kernel run against the plain run), trace (device-busy
-time of a prefill, a decode step and a train step from a profiler trace),
-cli (``dsml_tpu_torch.cli.generate_text`` once), train (the train steps,
-their launch counts, step ms, tokens/s and MFU, a falling loss, and f32
-gradients of the kernel path against the plain-attention path), train_cli
-(``dsml_tpu_torch.cli.train_gpt2`` for 4 steps and the MNIST ``Trainer``
-for one epoch), kernels (one line for the whole run).
+Phases: device, build; kernel, kernel_bwd, kernel_paged, kernel_qmm,
+kernel_quant8 (each kernel against its plain version, then a kernel_time
+line with its device time, bound, plain time and library yardstick); slice
+and trace (the generate run, its launches, logits and greedy tokens against
+the plain path, device-busy time); cli (``generate_text``); train and its
+trace; train_cli (``train_gpt2`` and the MNIST ``Trainer``); paged_slice;
+wq_slice (qmm launches = 48 per chunk or tick, tokens/s, TTFT, tick ms and
+idle share, the twin's bytes, f32 int4 greedy tokens against a dense model
+holding the same codes dequantized); serve_cli (``serve_continuous``, also
+with ``DSML_WEIGHT_QUANT=int4``); train_int8remat (12 quantizer launches per
+step, the step-0 loss equal to remat=False's, f32 gradients within 0.1,
+peak memory of the three remat modes); kernels (one line for the run).
 
 Float32 matmuls stay in full f32 (TF32 off, PyTorch's default, set here
 explicitly): the f32 phases compare two paths at f32 tolerances.
@@ -494,7 +499,7 @@ def phase_train(tflash, dev, card):
     return counts, step
 
 
-def phase_train_trace(step):
+def phase_train_trace(step, label="train_step"):
     """Where a train step spends its time: device-busy ms from a profiler
     trace against the wall ms of untraced steps."""
     walls = []
@@ -507,14 +512,15 @@ def phase_train_trace(step):
     wall = statistics.median(walls)
     by_name = device_kernel_ms(step)
     busy = sum(by_name.values()) if by_name else None
-    by_kind = {"flash": 0.0, "gemm": 0.0, "elementwise_reduce": 0.0, "other": 0.0}
+    by_kind = {"flash": 0.0, "quantize_int8": 0.0, "gemm": 0.0, "elementwise_reduce": 0.0,
+               "other": 0.0}
     for name, t in by_name.items():
-        kind = ("flash" if "flash_" in name else
+        kind = ("flash" if "flash_" in name else "quantize_int8" if "quantize_int8" in name else
                 "gemm" if any(w in name for w in ("gemm", "nvjet", "cutlass")) else
                 "elementwise_reduce" if any(w in name for w in ("elementwise", "reduce", "vectorized"))
                 else "other")
         by_kind[kind] += t
-    emit({"phase": "trace", "train_step": {
+    emit({"phase": "trace", label: {
         "wall_ms": wall, "device_busy_ms": busy,
         "device_idle_share": None if busy is None else 1 - busy / wall, "by_kind_ms": by_kind,
         "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])}})
@@ -765,6 +771,29 @@ def drain(srv, prompts, budgets, snapshot=None):
     return [done[r] for r in rids], wall, ticks
 
 
+def steady_tick(srv, prompts):
+    """One decode tick with every slot decoding: the untraced wall ms
+    (median of 5) against the device-busy ms of a traced tick. Abandons
+    the requests after and checks that every page came back."""
+    for p in prompts[:srv.n_slots]:
+        srv.submit(p[:64], 64)
+    while srv.n_queued or srv.n_pending or srv.n_active < srv.n_slots:
+        srv.step()
+    walls = []
+    for _ in range(5):
+        t = time.perf_counter()
+        srv.step()
+        walls.append((time.perf_counter() - t) * 1e3)
+    by_name = device_kernel_ms(srv.step)
+    busy = sum(by_name.values()) if by_name else None
+    wall = statistics.median(walls)
+    srv.abandon()
+    check(srv.free_pages == srv.n_pages - 1, "pages leaked by abandon")
+    return {"slots": srv.n_slots, "wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": None if busy is None else 1 - busy / wall,
+            "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])}
+
+
 def first_divergence_margin(model, prompt, tokens, step):
     """Top-2 logit margin of the next token after ``prompt`` + ``tokens[:step]``
     through the plain dense prefill: how close the step was to a tie."""
@@ -834,21 +863,7 @@ def phase_paged_slice(dev, card):
     check(toks_single == toks, "the single-buffer drain's tokens differ from the pipelined drain's")
     check(srv.free_pages == srv.n_pages - 1, "pages leaked in the single-buffer drain")
 
-    # one decode tick in steady state: wall against device-busy time
-    for p in prompts[:PAGED_SLOTS]:
-        srv.submit(p[:64], 64)
-    while srv.n_queued or srv.n_pending or srv.n_active < PAGED_SLOTS:
-        srv.step()
-    walls = []
-    for _ in range(5):
-        t = time.perf_counter()
-        srv.step()
-        walls.append((time.perf_counter() - t) * 1e3)
-    by_name = device_kernel_ms(srv.step)
-    busy = sum(by_name.values()) if by_name else None
-    tick_wall = statistics.median(walls)
-    srv.abandon()
-    check(srv.free_pages == srv.n_pages - 1, "pages leaked by abandon")
+    steady = steady_tick(srv, prompts)
 
     # the snapshot of layer 0's pool through both kernels against the plain version
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -903,10 +918,7 @@ def phase_paged_slice(dev, card):
                             "tokens_per_s": new_tokens / wall_single,
                             "decode_tick_ms_median": statistics.median(tick_single),
                             "tokens_identical": True},
-          "steady_tick": {"slots": PAGED_SLOTS, "wall_ms": tick_wall, "device_busy_ms": busy,
-                          "device_idle_share": None if busy is None else 1 - busy / tick_wall,
-                          "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])},
-          "snapshot_max_abs_err": snap_err,
+          "steady_tick": steady, "snapshot_max_abs_err": snap_err,
           "f32_fp_pages": {"requests": PAGED_F32_REQUESTS,
                            "tokens_equal": runs["pallas"] == runs["xla"],
                            "near_ties": near_ties},
@@ -929,6 +941,443 @@ def phase_serve_cli(dev):
     check(counts["paged_attn_pipelined"] > 0 and counts["paged_attn_pipelined"] % 12 == 0
           and out["free_pages"] == out["n_pages"] - 1,
           f"the serve_continuous entry point: launches {counts}, result {out}")
+
+
+# ---- quantized serving weights (kernel 7) and int8 remat (kernel 8) ------------
+
+QMM_SOURCE = "dsml_tpu_torch/ops/csrc/qmm.cu"
+QUANT8_SOURCE = "dsml_tpu_torch/ops/csrc/quantize_int8.cu"
+# GPT-2-small's four block projections: (contraction d, trailing shape)
+PROJECTIONS = {"wqkv": (768, (3, 768)), "wo": (768, (768,)), "w_in": (768, (3072,)),
+               "w_out": (3072, (768,))}
+QMM_ROWS = {"decode": PAGED_SLOTS, "chunk": PAGED_CHUNK, "ragged": 7}
+# qmm against its plain version: both sum in f32 from the same inputs, in
+# another order; relative to the largest |output| (the JAX suite's bound
+# for its fused matmul, tests/test_quantization.py)
+TOL_QMM = 1e-5
+WQ_INT8_REQUESTS = 16
+KERNEL_TIMES = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+TRAIN_F32_B = 2
+TOL_INT8_REMAT_GRADS = 0.1  # the JAX suite's bound for int8 remat (tests/test_gpt2.py)
+
+
+def kernel_event_ms(fn, pattern) -> list[float]:
+    """Device ms of each launch of the kernels whose name holds
+    ``pattern`` while ``fn`` runs, in launch order, from a profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and pattern in e.name)
+    return [ms for _, ms in events]
+
+
+def bound(nbytes, ops, peak_ops):
+    """(least ms, "bytes" | "operations"): the larger of the bytes over the
+    memory rate and the operations over ``peak_ops``."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def qmm_bound_ms(x, qwt):
+    """Least time of one quantized_matmul: x read once in its type, the
+    packed codes and the scales once, the f32 out written once; 2·m·d·n
+    operations at the peak of x's type."""
+    m, d = x.shape
+    n = int(np.prod(qwt.shape[1:]))
+    nbytes = x.numel() * x.element_size() + qwt.qw.nbytes + qwt.qs.nbytes + m * n * 4
+    return bound(nbytes, 2.0 * m * d * n, PEAK_FLOPS[x.dtype])
+
+
+def phase_kernel_qmm(dev):
+    """quantized_matmul's kernel against _qmm_reference at GPT-2-small's four
+    projections (wqkv in its 3-D form) × rows {16, 256, 7} × {int8, int4} ×
+    x {f32, bf16}; the integer-exact case bit for bit; then times at the
+    decode and chunk shapes with bounds, the plain version and bf16
+    ``torch.matmul`` against the dense weight (the same product without
+    the codec), which the port never calls."""
+    from dsml_tpu_torch.ops import quantization as tq
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    weights = {name: torch.randn(d, *rest, generator=gen, device=dev) * 0.02
+               for name, (d, rest) in PROJECTIONS.items()}
+    qweights = {(name, scheme): tq.quantize_weight_blocks(w, scheme)
+                for name, w in weights.items() for scheme in ("int8", "int4")}
+    main_err = 0.0
+    for (name, scheme), qwt in qweights.items():
+        worst, cases = 0.0, 0
+        for rows in QMM_ROWS.values():
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(rows, qwt.shape[0], generator=gen, device=dev).to(dtype)
+                got = tq.quantized_matmul(x, qwt)
+                torch.cuda.synchronize()
+                ref = tq._qmm_reference(x, qwt)
+                err = (got - ref).abs().max().item()
+                rel = err / max(ref.abs().max().item(), 1e-30)
+                check(got.shape == ref.shape and bool(torch.isfinite(got).all()) and rel <= TOL_QMM,
+                      f"qmm disagrees with its plain version ({name}, {scheme}, rows {rows}, {dtype}): "
+                      f"max abs err {err}, {rel} of max |ref|")
+                worst, cases = max(worst, rel), cases + 1
+                if (scheme, dtype, rows) == ("int4", torch.bfloat16, QMM_ROWS["decode"]):
+                    main_err = max(main_err, err)
+        emit({"phase": "kernel_qmm", "kernel": "qmm", "projection": name, "scheme": scheme,
+              "weight_shape": list(qwt.shape), "kb": qwt.block, "nb": qwt.qs.shape[0],
+              "rows": list(QMM_ROWS.values()), "x_dtypes": ["float32", "bfloat16"], "cases": cases,
+              "max_err_over_max_abs": worst, "tol": TOL_QMM, "ok": True})
+
+    # the integer-exact case (tests/test_quantization.py): scales of 1, small-integer x
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.integers(-8, 9, (5, 96)), dtype=torch.float32, device=dev)
+    exact = {}
+    for scheme, qmax in (("int8", 127), ("int4", 7)):
+        w = torch.as_tensor(rng.integers(-qmax, qmax + 1, (96, 160)), dtype=torch.float32, device=dev)
+        w[0::32] = qmax
+        qwt = tq.quantize_weight_blocks(w, scheme, 32)
+        got = tq.quantized_matmul(x, qwt)
+        exact[scheme] = bool(torch.equal(got, x @ w)) and bool(torch.equal(got, tq._qmm_reference(x, qwt)))
+    emit({"phase": "kernel_qmm", "case": "integer_exact", "shape": [5, 96, 160], "block": 32,
+          "torch_equal": exact})
+    check(all(exact.values()), f"qmm is not exact on the integer case: {exact}")
+
+    # times: every projection at the decode and chunk shapes, bf16 x, both codecs
+    reps, timing, configs = 20, {}, []
+    for shape in ("decode", "chunk"):
+        for (name, scheme), qwt in qweights.items():
+            x = torch.randn(QMM_ROWS[shape], qwt.shape[0], generator=gen, device=dev).to(torch.bfloat16)
+            configs.append((shape, name, scheme, qwt, x))
+    ms = kernel_event_ms(lambda: [tq.quantized_matmul(x, qwt) for *_, qwt, x in configs
+                                  for _ in range(reps)], "qmm_kernel<")
+    check(len(ms) == reps * len(configs), f"the trace shows {len(ms)} qmm launches, "
+                                          f"expected {reps * len(configs)}")
+    for i, (shape, name, scheme, qwt, x) in enumerate(configs):
+        dense = weights[name].reshape(qwt.shape[0], -1).to(torch.bfloat16)
+        bound_ms, bound_by = qmm_bound_ms(x, qwt)
+        # the yardstick's device time, as the kernel's (its kernels summed per call)
+        library = device_kernel_ms(lambda: [torch.matmul(x, dense) for _ in range(reps)])
+        timing.setdefault(scheme, {}).setdefault(shape, {})[name] = {
+            "ms": statistics.median(ms[i * reps:(i + 1) * reps]),
+            "wrapper_ms": cuda_ms(lambda: tq.quantized_matmul(x, qwt)),
+            "plain_ms": cuda_ms(lambda: tq._qmm_reference(x, qwt)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": sum(library.values()) / reps,
+            "library_wrapper_ms": cuda_ms(lambda: torch.matmul(x, dense))}
+    per_tick = {scheme: {shape: {key: sum(row[key] for row in by_shape[shape].values()) * 12
+                                 for key in ("ms", "bound_ms", "library_ms")}
+                         for shape in by_shape} for scheme, by_shape in timing.items()}
+    emit({"phase": "kernel_time", "kernel": "qmm", "x_dtype": "bfloat16",
+          "rows": {k: QMM_ROWS[k] for k in ("decode", "chunk")}, "timing": timing,
+          "sum_of_12_layers": per_tick,
+          "library": "torch.matmul(x, W) against the dense bf16 weight: the same product "
+                     "without the codec (no PyTorch call takes this codec); ms and library_ms "
+                     "are profiler device times, *_wrapper_ms and plain_ms CUDA events around "
+                     "one call"})
+    return main_err, timing["int4"]["decode"]["wqkv"]
+
+
+def quant8_bound_ms(x):
+    """Least time of one quantize_int8: x read once in its type, the int8
+    codes and f32 scales of every 512-element block written once; 7
+    operations per element (abs, max, two divisions, add, floor, clip —
+    the hash's integer operations not counted) at the f32 rate."""
+    rows = -(-x.numel() // 512)
+    nbytes = x.numel() * x.element_size() + rows * 512 + rows * 4
+    return bound(nbytes, 7.0 * x.numel(), PEAK_FLOPS[torch.float32])
+
+
+def phase_kernel_quant8(dev):
+    """quantize_int8's kernel against _quantize_int8_reference bit for bit
+    (values and scales) at the train step's block input [8, 1024, 768] in
+    bf16 and f32, a ragged 1000-element and a 777-element tensor (the
+    padding path), every element within one scale, unbiased over 200
+    seeds; then its time with the bound and the plain version."""
+    from dsml_tpu_torch.ops import quantization as tq
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = {"block_input_bf16": ((TRAIN_B, TRAIN_S, 768), torch.bfloat16),
+             "block_input_f32": ((TRAIN_B, TRAIN_S, 768), torch.float32),
+             "ragged_1000": ((1000,), torch.float32), "padded_777": ((777,), torch.float32),
+             "padded_777_bf16": ((777,), torch.bfloat16)}
+    main = None
+    for name, (shape, dtype) in cases.items():
+        x = (torch.randn(*shape, generator=gen, device=dev) * 3).to(dtype)
+        seed = tq._leaf_seed(x)  # on the device, as on the main path
+        qt = tq.quantize_int8(x, seed)
+        torch.cuda.synchronize()
+        ref_q, ref_s = tq._quantize_int8_reference(x, seed)
+        equal = bool(torch.equal(qt.values, ref_q)) and bool(torch.equal(qt.scales, ref_s))
+        back = (qt.values.float() * qt.scales).reshape(-1)[:x.numel()]
+        scale = qt.scales.expand(-1, 512).reshape(-1)[:x.numel()]
+        # one scale, plus the rounding of the f32 product q·scale (|q| <= 127: 2^-17 of 127·scale)
+        within = bool(((back - x.float().reshape(-1)).abs() <= scale * (1 + 2 ** -16)).all())
+        diff = (qt.values.float() - ref_q.float()).abs().max().item()
+        emit({"phase": "kernel_quant8", "kernel": "quantize_int8", "case": name,
+              "shape": list(shape), "dtype": str(dtype)[6:], "torch_equal": equal,
+              "max_abs_err_values": diff, "within_one_scale": within, "ok": equal and within})
+        check(equal and within, f"quantize_int8 disagrees with its plain version ({name}): "
+                                f"torch.equal {equal}, within one scale {within}")
+        if name == "block_input_bf16":
+            main = (x, seed, diff)
+    # unbiased over 200 seeds: the suite's constant 0.303 row (absmax 0.303,
+    # so every y is exactly 127), and a row with one 1.0 that puts the 0.303
+    # entries between quanta (y = 38.48), where the rounding is random
+    x = torch.full((2, 512), 0.303, device=dev)
+    x[1, 0] = 1.0
+    acc = torch.zeros(2, 512, dtype=torch.float64, device=dev)
+    for s in range(200):
+        acc += tq.dequantize_int8(tq.quantize_int8(x, s)).double()
+    scales = tq.quantize_int8(x, 0).scales
+    bias = ((acc / 200 - x.double()).abs().amax(-1) / scales[:, 0]).tolist()
+    emit({"phase": "kernel_quant8", "case": "unbiased_200_seeds", "rows": ["constant", "between_quanta"],
+          "mean_abs_err_over_scale": bias, "limit": 0.2})
+    check(max(bias) < 0.2, f"quantize_int8 rounding is biased: {bias} of a scale")
+
+    x, seed, diff = main
+    reps = 20
+    ms = kernel_event_ms(lambda: [tq.quantize_int8(x, seed) for _ in range(reps)],
+                         "quantize_int8_kernel<")
+    check(len(ms) == reps, f"the trace shows {len(ms)} quantize_int8 launches, expected {reps}")
+    bound_ms, bound_by = quant8_bound_ms(x)
+    timing = {"ms": statistics.median(ms), "wrapper_ms": cuda_ms(lambda: tq.quantize_int8(x, seed)),
+              "plain_ms": cuda_ms(lambda: tq._quantize_int8_reference(x, seed)),
+              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    emit({"phase": "kernel_time", "kernel": "quantize_int8", "shape": [TRAIN_B, TRAIN_S, 768],
+          "dtype": "bfloat16", **timing,
+          "library": "none: no single PyTorch call quantizes with stochastic rounding"})
+    return diff, timing
+
+
+def wq_counts(tq, tpa):
+    return {"qmm": tq.qmm_launches, **paged_counts(tpa)}
+
+
+def phase_wq_slice(dev, card):
+    """GPT-2-small bf16 through ContinuousBatcher(paged_kv="int4",
+    weight_quant="int4") on the paged slice's 48 requests: launches of qmm
+    (48 per chunk or tick) and of the paged kernel, completion, pages,
+    tokens/s, TTFT, tick ms, the idle share of a steady tick and the twin's
+    bytes; a 16-request int8 drain; f32 int4 greedy tokens against a dense
+    model whose projections are the same codes dequantized."""
+    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.ops import paged_attention as tpa
+    from dsml_tpu_torch.ops import quantization as tq
+    from dsml_tpu_torch.serving import ContinuousBatcher
+
+    cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16")
+    model = GPT2(cfg, device=dev).init(0)
+    rng = np.random.default_rng(2)
+    lengths = rng.integers(64, 769, PAGED_REQUESTS)
+    budgets = rng.integers(16, 129, PAGED_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int64) for n in lengths]
+    kw = dict(paged_kv="int4", page_size=PAGE, prefill_chunk=PAGED_CHUNK, n_slots=PAGED_SLOTS)
+    srv = ContinuousBatcher(model, weight_quant="int4", **kw)
+    per_call = 4 * cfg.n_layer  # qmm launches per chunk or tick: 4 projections per layer
+    twin = [m for m in srv.model.modules() if isinstance(m, tq.QuantizedWeight)]
+    dense_proj = sum(m.dense_bytes for m in twin)
+    dense_model = sum(p.numel() * p.element_size() for p in model.parameters())
+    drain(srv, prompts[:4], [8] * 4)  # warm-up
+    srv.reset_latency_stats()
+
+    # the main path, counted
+    tq.qmm_launches = tpa.paged_attn_launches = tpa.paged_attn_pipelined_launches = 0
+    ticks0, pre0 = srv.n_plain_ticks, srv.n_prefill_dispatches
+    toks, wall, tick_ms = drain(srv, prompts, budgets)
+    counts = wq_counts(tq, tpa)
+    n_chunks, n_ticks = srv.n_prefill_dispatches - pre0, srv.n_plain_ticks - ticks0
+    dispatches = n_chunks + n_ticks * srv.decode_quantum
+    lat = srv.latency_stats()
+    new_tokens = sum(len(t) for t in toks)
+    check(counts["qmm"] == per_call * dispatches,
+          f"the int4 drain launched qmm {counts['qmm']} times, expected {per_call} x {dispatches}")
+    check(counts["paged_attn_pipelined"] == cfg.n_layer * dispatches,
+          f"the int4 drain launched {counts}, expected {cfg.n_layer} x {dispatches} paged launches")
+    check(all(len(t) == int(n) for t, n in zip(toks, budgets)), "a request did not complete its budget")
+    check(srv.free_pages == srv.n_pages - 1, f"{srv.free_pages} pages free after the int4 drain")
+    steady = steady_tick(srv, prompts)
+    del srv
+
+    # int8 weights at full width, 16 requests
+    srv8 = ContinuousBatcher(model, weight_quant="int8", **kw)
+    sub = slice(0, WQ_INT8_REQUESTS)
+    q0, p0, t0 = tq.qmm_launches, srv8.n_prefill_dispatches, srv8.n_plain_ticks
+    toks8, wall8, tick8 = drain(srv8, prompts[sub], budgets[sub])
+    d8 = (srv8.n_prefill_dispatches - p0) + (srv8.n_plain_ticks - t0)
+    check(tq.qmm_launches - q0 == per_call * d8 and all(len(t) == int(n) for t, n in
+                                                        zip(toks8, budgets[sub]))
+          and srv8.free_pages == srv8.n_pages - 1,
+          f"the int8 drain: {tq.qmm_launches - q0} qmm launches for {d8} dispatches")
+    int8_bytes = dict(srv8._wq_bytes)
+    del srv8, model
+    torch.cuda.empty_cache()
+
+    # f32: the int4 twin against a dense model holding the same codes dequantized
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = GPT2(cfg32, device=dev).init(0)
+    f32kw = dict(paged_kv="fp", page_size=PAGE, prefill_chunk=PAGED_CHUNK, n_slots=PAGED_F32_REQUESTS)
+    srv_q = ContinuousBatcher(model32, weight_quant="int4", **f32kw)
+    with torch.no_grad():
+        params = dict(model32.named_parameters())
+        for name, mod in srv_q.model.named_modules():
+            if isinstance(mod, tq.QuantizedWeight):
+                params[name].copy_(tq.dequantize_weight_blocks(mod))
+    srv_d = ContinuousBatcher(model32, weight_quant=None, **f32kw)
+    sub = slice(0, PAGED_F32_REQUESTS)
+    runs = {}
+    for key, s in (("int4_kernel", srv_q), ("dense_dequantized", srv_d)):
+        runs[key], _, _ = drain(s, prompts[sub], budgets[sub])
+    near_ties, mismatches = [], 0
+    for i, (a, w) in enumerate(zip(runs["int4_kernel"], runs["dense_dequantized"])):
+        diff = [j for j, (u, v) in enumerate(zip(a, w)) if u != v]
+        if diff:
+            m = first_divergence_margin(model32, prompts[i], w, diff[0])
+            near_ties.append({"request": i, "step": diff[0], "margin": m})
+            mismatches += m >= MARGIN
+    del srv_q, srv_d, model32
+
+    emit({"phase": "wq_slice", "model": "gpt2-small", "dtype": "bfloat16", "weight_quant": "int4",
+          "paged_kv": "int4", "page_size": PAGE, "prefill_chunk": PAGED_CHUNK,
+          "n_slots": PAGED_SLOTS, "requests": PAGED_REQUESTS, "prompt_tokens": int(lengths.sum()),
+          "new_tokens": new_tokens, "launches": counts,
+          "dispatches": {"prefill_chunks": n_chunks, "decode_ticks": n_ticks},
+          "qmm_per_dispatch": counts["qmm"] / dispatches, "wall_s": wall,
+          "tokens_per_s": new_tokens / wall, "ttft_p50_s": lat.get("ttft_p50_s"),
+          "ttft_p99_s": lat.get("ttft_p99_s"), "e2e_p50_s": lat.get("e2e_p50_s"),
+          "e2e_p99_s": lat.get("e2e_p99_s"), "decode_tick_ms_median": statistics.median(tick_ms),
+          "decode_ticks": len(tick_ms), "steady_tick": steady,
+          "twin_bytes": {"int4": dict(packed=sum(m.qw.nbytes for m in twin),
+                                      scales=sum(m.qs.nbytes for m in twin)),
+                         "int8": int8_bytes, "dense_projections_bf16": dense_proj,
+                         "dense_model_resident_bf16": dense_model},
+          "int8_drain": {"requests": WQ_INT8_REQUESTS, "dispatches": d8, "wall_s": wall8,
+                         "tokens_per_s": sum(len(t) for t in toks8) / wall8,
+                         "decode_tick_ms_median": statistics.median(tick8)},
+          "f32_int4_vs_dense_dequantized": {"requests": PAGED_F32_REQUESTS,
+                                            "tokens_equal": runs["int4_kernel"] == runs["dense_dequantized"],
+                                            "near_ties": near_ties},
+          "card": card})
+    check(mismatches == 0, f"f32 int4 weights: {mismatches} requests diverge from the dense "
+                           "dequantized model beyond the margin rule")
+    return counts
+
+
+def phase_serve_cli_wq(dev):
+    """cli.serve_continuous with DSML_WEIGHT_QUANT=int4 in its environment."""
+    from dsml_tpu_torch.cli import serve_continuous
+    from dsml_tpu_torch.ops import quantization as tq
+
+    tq.qmm_launches = 0
+    os.environ["DSML_WEIGHT_QUANT"] = "int4"
+    try:
+        out = serve_continuous.main(["--model", "small", "--paged_kv", "int4", "--prefill_chunk", "64",
+                                     "--requests", "16"])
+    finally:
+        del os.environ["DSML_WEIGHT_QUANT"]
+    emit({"phase": "serve_cli", "entry": "DSML_WEIGHT_QUANT=int4 python -m "
+          "dsml_tpu_torch.cli.serve_continuous", **out, "qmm_launches": tq.qmm_launches})
+    check(out["weight_quant"] == "int4" and tq.qmm_launches > 0 and tq.qmm_launches % 48 == 0
+          and out["free_pages"] == out["n_pages"] - 1,
+          f"serve_continuous with int4 weights: {tq.qmm_launches} qmm launches, result {out}")
+
+
+def phase_train_int8remat(tflash, dev, card):
+    """The train step of phase_train with remat="int8": 12 quantize_int8
+    launches per step, the step-0 loss equal to remat=False's, a falling
+    loss, step ms, tokens/s, MFU, peak memory of the three remat modes;
+    f32 gradients at batch 2 within 0.1 of remat=False's."""
+    from dsml_tpu_torch.models.common import transformer_train_flops
+    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.ops import quantization as tq
+
+    base = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
+    cfg = dataclasses.replace(base, remat="int8")
+    model = GPT2(cfg, device=dev).init(0)
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)), device=dev)
+    y = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)), device=dev)
+    with torch.no_grad():
+        plain = GPT2(base, device=dev).init(0)
+        loss_plain = plain.loss(x, y, attn_impl="flash").item()
+        del plain
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(x, y, attn_impl="flash")
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = [step() for _ in range(TRAIN_WARMUP)]
+    loss0 = losses[0].item()
+    torch.cuda.synchronize()
+    # the main path, counted
+    reset_counts(tflash)
+    tq.quantize_int8_launches = 0
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    counts = {"quantize_int8": tq.quantize_int8_launches, **train_counts(tflash)}
+    losses = torch.stack(losses).float().tolist()
+    flops = transformer_train_flops(cfg, TRAIN_B * TRAIN_S, TRAIN_S)
+    phase_train_trace(step, "int8_remat_train_step")
+
+    # peak memory of one loss + backward under each remat mode, same weights
+    del opt
+    model.zero_grad(set_to_none=True)
+    peak = {}
+    for mode in (False, True, "int8"):
+        model.config = dataclasses.replace(cfg, remat=mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        model.loss(x, y, attn_impl="flash").backward()
+        torch.cuda.synchronize()
+        peak[str(mode)] = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                           "above_resident_gb": (torch.cuda.max_memory_allocated() - resident) / 1e9}
+        model.zero_grad(set_to_none=True)
+    model.config = cfg
+    row = {"phase": "train_int8remat", "model": "gpt2-small", "dtype": "bfloat16", "remat": "int8",
+           "batch": TRAIN_B, "seq": TRAIN_S, "attn_impl": "flash", "xent_chunk": 0,
+           "optimizer": "AdamW(3e-4, weight_decay=0.01)", "steps": TRAIN_STEPS, "launches": counts,
+           "loss_step0": loss0, "loss_step0_remat_false": loss_plain, "step_ms": step_ms,
+           "tokens_per_s": TRAIN_B * TRAIN_S * 1e3 / step_ms, "model_flops_per_step": flops,
+           "mfu": flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+           "peak_memory_by_remat": peak, "losses": losses, "card": card}
+    del model
+    torch.cuda.empty_cache()
+    check(counts["quantize_int8"] == cfg.n_layer * TRAIN_STEPS,
+          f"int8 remat launched quantize_int8 {counts['quantize_int8']} times, expected "
+          f"{cfg.n_layer} per step")
+    check(counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == cfg.n_layer * TRAIN_STEPS
+          and counts["flash_fwd"] == 2 * cfg.n_layer * TRAIN_STEPS,
+          f"int8 remat launched {counts}: expected 24 forward (12 + the recompute) and 12 of each "
+          "backward kernel per step")
+    check(abs(loss0 - loss_plain) <= 1e-6 * abs(loss_plain),
+          f"step-0 loss {loss0} under int8 remat, {loss_plain} without remat")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"int8 remat loss not falling: {losses}")
+
+    # f32, batch 2: int8-remat gradients against remat=False's
+    grads = {}
+    for mode in (False, "int8"):
+        m32 = GPT2(dataclasses.replace(base, dtype="float32", remat=mode), device=dev).init(0)
+        m32.loss(x[:TRAIN_F32_B], y[:TRAIN_F32_B], attn_impl="flash").backward()
+        grads[mode] = {n: p.grad for n, p in m32.named_parameters()}
+        del m32
+    worst, worst_name = 0.0, None
+    for name, g in grads[False].items():
+        rel = (grads["int8"][name] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+        if rel >= worst:
+            worst, worst_name = rel, name
+    row.update({"f32_grads_max_err_over_max_abs": worst, "f32_grads_worst_tensor": worst_name,
+                "tol_f32_grads": TOL_INT8_REMAT_GRADS})
+    emit(row)
+    del grads
+    torch.cuda.empty_cache()
+    check(worst <= TOL_INT8_REMAT_GRADS,
+          f"f32 int8-remat gradients {worst} of max |g| off remat=False's in {worst_name}")
+    return counts
 
 
 def main() -> None:
@@ -957,8 +1406,12 @@ def main() -> None:
         phases = {"kernel": lambda: phase_kernel(tflash, dev),
                   "kernel_bwd": lambda: phase_kernel_bwd(tflash, dev),
                   "kernel_paged": lambda: phase_kernel_paged(dev),
+                  "kernel_qmm": lambda: phase_kernel_qmm(dev),
+                  "kernel_quant8": lambda: phase_kernel_quant8(dev),
                   "paged_slice": lambda: phase_paged_slice(dev, card),
-                  "serve_cli": lambda: phase_serve_cli(dev)}
+                  "wq_slice": lambda: phase_wq_slice(dev, card),
+                  "serve_cli": lambda: (phase_serve_cli(dev), phase_serve_cli_wq(dev)),
+                  "train_int8remat": lambda: phase_train_int8remat(tflash, dev, card)}
         for name in only:
             phases[name]()
         raise SystemExit(f"chip_smoke: ran only {only}; no result line")
@@ -966,6 +1419,8 @@ def main() -> None:
     main_err, timing = phase_kernel(tflash, dev)
     bwd_err, bwd_timing = phase_kernel_bwd(tflash, dev)
     paged_err, paged_timing = phase_kernel_paged(dev)
+    qmm_err, qmm_timing = phase_kernel_qmm(dev)
+    quant8_err, quant8_timing = phase_kernel_quant8(dev)
     launches, model, prompt = phase_slice(tflash, dev, card)
     phase_trace(model, prompt)
     del model
@@ -978,7 +1433,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     paged_launches, single_launches = phase_paged_slice(dev, card)
     torch.cuda.empty_cache()
+    wq_launches = phase_wq_slice(dev, card)
+    torch.cuda.empty_cache()
     phase_serve_cli(dev)
+    phase_serve_cli_wq(dev)
+    torch.cuda.empty_cache()
+    remat_launches = phase_train_int8remat(tflash, dev, card)
 
     bwd_source = "dsml_tpu_torch/ops/csrc/flash_bwd.cu"
     emit({"kernels": [
@@ -1001,6 +1461,18 @@ def main() -> None:
          "replaces": "dsml_tpu/ops/paged_attention.py:259",
          "launches": paged_launches["paged_attn_pipelined"], "max_abs_err": paged_err,
          **paged_timing["paged_attn_pipelined"]["decode"]},
+        # times at the decode tick's shape of wqkv (16 rows, int4, bf16 x; the
+        # other projections and the chunk are in the kernel_time line);
+        # launches from the wq slice's int4 drain
+        {"name": "qmm", "route": "cuda", "source": QMM_SOURCE,
+         "replaces": "dsml_tpu/ops/quantization.py:531", "launches": wq_launches["qmm"],
+         "max_abs_err": qmm_err, **{k: qmm_timing[k] for k in KERNEL_TIMES}},
+        # times at the train step's block input [8, 1024, 768] bf16; launches
+        # from the int8-remat train steps
+        {"name": "quantize_int8", "route": "cuda", "source": QUANT8_SOURCE,
+         "replaces": "dsml_tpu/ops/quantization.py:141",
+         "launches": remat_launches["quantize_int8"], "max_abs_err": quant8_err,
+         **{k: quant8_timing[k] for k in KERNEL_TIMES}},
     ]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,10 +10,18 @@ tokens/s. ``--paged_kv`` serves from a page pool (fp, int8 or int4 pages;
 on the card through the CUDA paged-attention kernels) and needs
 ``--prefill_chunk > 0``.
 
+Serving weights are quantized through the environment, as in the JAX
+package's example: with ``DSML_WEIGHT_QUANT=int8`` or ``int4`` the batcher
+(whose ``weight_quant`` defaults to ``"env"``) serves from block-quantized
+projections, on the card through the CUDA dequant-fused matmul; the static
+baseline runs the same quantized weights (the batcher's ``model``).
+
     python -m dsml_tpu_torch.cli.serve_continuous --device cpu --model tiny --requests 6 \\
         --paged_kv int4 --prefill_chunk 8
     python -m dsml_tpu_torch.cli.serve_continuous --model small --paged_kv int4 \\
         --prefill_chunk 64 --requests 16
+    DSML_WEIGHT_QUANT=int4 python -m dsml_tpu_torch.cli.serve_continuous --model small \\
+        --paged_kv int4 --prefill_chunk 64 --requests 16
 
 Runs on the CUDA card unless ``--device cpu``. ``--turbo``, ``--adaptive``
 and ``--family llama`` come with later slices and raise here.
@@ -123,7 +131,7 @@ def main(argv=None) -> dict:
             batch = np.zeros((len(group), width), np.int64)
             for row, g in enumerate(group):
                 batch[row, width - lengths[g]:] = prompts[g]  # left-pad
-            model.generate(batch, n_max, temperature=cfg.temperature, seed=cfg.seed).cpu()
+            srv.model.generate(batch, n_max, temperature=cfg.temperature, seed=cfg.seed).cpu()
 
     run_static()  # warm-up
     _sync(cfg.device)
@@ -148,6 +156,9 @@ def main(argv=None) -> dict:
              "group's longest request)", static_s, 100 * static_util)
     log.info("tokens/s: continuous %.1f vs static %.1f",
              total_tokens / cont_s, total_tokens / static_s)
+    if srv.weight_quant:
+        log.info("weights (%s): %d packed + %d scale bytes", srv.weight_quant,
+                 srv._wq_bytes["packed"], srv._wq_bytes["scales"])
     if paged:
         log.info("paged KV (%s): %d pages of %d rows, %d free after the drain",
                  cfg.paged_kv, srv.n_pages, cfg.page_size, srv.free_pages)
@@ -160,7 +171,8 @@ def main(argv=None) -> dict:
             "static_tokens_per_s": total_tokens / static_s, "lane_utilization": util,
             "static_lane_utilization": static_util, "steps": steps, "n_plain_ticks": n_plain,
             "n_prefill_dispatches": srv.n_prefill_dispatches - prefill0,
-            "paged_kv": cfg.paged_kv, "n_pages": srv.n_pages, "free_pages": srv.free_pages}
+            "paged_kv": cfg.paged_kv, "n_pages": srv.n_pages, "free_pages": srv.free_pages,
+            "weight_quant": srv.weight_quant}
 
 
 if __name__ == "__main__":

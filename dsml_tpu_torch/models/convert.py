@@ -6,6 +6,13 @@ modules name the same tensors by their dotted paths (``layers.0.attn.wqkv``),
 with the same shapes. Arrays cross as numpy, so this module needs neither
 package's model code: a test turns a JAX tree into numpy with
 ``jax.tree.map(np.asarray, params)`` and hands it over.
+
+Quantized serving weights cross too: a JAX per-channel leaf is already a
+``{"qw", "qs"}`` dict, and a JAX ``QuantizedWeight`` (recognised by its
+``qw``/``qs``/``scheme``/``block``/``shape`` attributes, so nothing of the
+JAX package is imported) becomes ``<path>.qw`` and ``<path>.qs`` entries,
+which a twin from ``models.common.quantize_weights_blocked`` loads: both
+packages can then serve from the same codes.
 """
 
 from __future__ import annotations
@@ -23,10 +30,16 @@ def _leaf_to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+def _is_quantized_weight(node) -> bool:
+    return all(hasattr(node, a) for a in ("qw", "qs", "scheme", "block", "shape"))
+
+
 def params_from_jax(tree, prefix: str = "") -> dict[str, torch.Tensor]:
     """Nested dicts/lists of arrays → ``{dotted path: CPU tensor}``, the
     keys and shapes of the port's ``state_dict()``. Pass the result to
     ``load_state_dict``, which copies onto the module's device and type."""
+    if _is_quantized_weight(tree):
+        tree = {"qw": tree.qw, "qs": tree.qs}
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):

@@ -7,8 +7,11 @@ card), then a loop of :meth:`GPT2.decode_step` over the dense KV cache, with
 :func:`sample_token_logits` picking each token. Training: :meth:`GPT2.loss`
 is the mean next-token cross-entropy over the block stack, with attention
 through the flash kernels (forward and backward) when asked, dense or
-chunked logits (``xent_chunk``) and optional rematerialisation (``remat``).
-The plain forward :meth:`GPT2.apply` is here too, for the parity tests.
+chunked logits (``xent_chunk``) and optional rematerialisation (``remat``:
+whole blocks, the FFN only, or ``"int8"``, which stashes each block's input
+as stochastically rounded int8 through the CUDA quantizer of
+``ops/quantization.py``). The plain forward :meth:`GPT2.apply` is here too,
+for the parity tests.
 
 The continuous batcher (``dsml_tpu_torch.serving``) drives the per-slot
 surfaces: over the dense cache (plain, or int8/int4 with ``kv_quant``)
@@ -21,6 +24,11 @@ with the hand-written CUDA paged-attention kernels on the card
 updated in place: the JAX package returns new ones and lets XLA donate the
 old buffers, which here would be a copy per step.
 
+Every serving surface also runs on a twin whose block projections are
+quantized (``models.common.quantize_weights_blocked``, the batcher's
+``weight_quant``): each projection goes through ``qmatmul``, which sends a
+``QuantizedWeight`` to the hand-written dequant-fused matmul kernel.
+
 Weights keep the JAX package's layouts (``wqkv [d, 3, d]``, ``w_in [d, d_ff]``
 used as ``x @ W``, q/k/v ``[batch, heads, seq, head_dim]``) and names: the
 module's ``state_dict()`` keys are the dotted paths of the JAX parameter
@@ -29,8 +37,8 @@ one onto the other. :meth:`GPT2.init` draws the same
 ``np.random.default_rng(seed)`` sequence as the JAX init, so both packages
 build identical weights from one seed.
 
-Tensor, pipeline and sequence parallelism, MoE, compressed (int8) remat and
-speculative decoding come with later slices.
+Tensor, pipeline and sequence parallelism, MoE and speculative decoding
+come with later slices.
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ from dsml_tpu_torch.models.common import qmatmul
 from dsml_tpu_torch.ops.attention import _NEG_INF, attention
 from dsml_tpu_torch.ops.flash import flash_attention
 from dsml_tpu_torch.ops.paged_attention import paged_attention, paged_attn_impl
-from dsml_tpu_torch.ops.quantization import quantize_kv_rows, unpack_int4
+from dsml_tpu_torch.ops.quantization import compressed_checkpoint, quantize_kv_rows, unpack_int4
 from dsml_tpu_torch.ops.xent import chunked_softmax_xent
 from dsml_tpu_torch.utils.platform import resolve_device
 
@@ -67,7 +75,8 @@ class GPT2Config:
     d_ff: int = 3072
     dtype: str = "float32"  # params/activations dtype: "float32" | "bfloat16"
     # rematerialisation in the backward: True recomputes each block
-    # (torch.utils.checkpoint), "mlp" only its FFN sub-block
+    # (torch.utils.checkpoint), "mlp" only its FFN sub-block, "int8" each
+    # block from its input stashed as int8 (ops.quantization.compressed_checkpoint)
     remat: bool | str = False
     # loss: stream the unembedding in chunks of this many vocab rows
     # (ops/xent.py) when vocab_size > xent_chunk; 0 = dense logits
@@ -80,13 +89,9 @@ class GPT2Config:
     def __post_init__(self):
         if self.dtype not in _DTYPES:
             raise ValueError(f"unknown dtype {self.dtype!r}; choose from {sorted(_DTYPES)}")
-        if self.remat == "int8":
-            raise NotImplementedError(
-                "compressed int8 remat (ops/quantization.py::compressed_checkpoint) comes "
-                "with the compressed-communication slice"
-            )
-        if self.remat not in (False, True, "mlp"):
-            raise ValueError(f"unknown remat mode {self.remat!r}; choose False, True or 'mlp'")
+        if self.remat not in (False, True, "int8", "mlp"):
+            raise ValueError(
+                f"unknown remat mode {self.remat!r}; choose False, True, 'int8', or 'mlp'")
         if self.n_experts:
             raise NotImplementedError(
                 "MoE layers (n_experts > 0) come with the model-parallel training slice"
@@ -317,13 +322,18 @@ class GPT2(nn.Module):
 
     def _blocks(self, tokens: torch.Tensor, attn_impl: str) -> torch.Tensor:
         """Embedding and the block stack → pre-final-norm hidden states
-        [b, s, d]; ``remat=True`` recomputes each block in the backward."""
+        [b, s, d]; ``remat=True`` recomputes each block in the backward,
+        ``remat="int8"`` recomputes it from its input stashed as int8."""
         attend = self._attend(attn_impl)
         h = self._embed(tokens)
-        whole = self.config.remat is True and torch.is_grad_enabled()
+        remat = self.config.remat if torch.is_grad_enabled() else False
+        if remat == "int8":
+            block = compressed_checkpoint(lambda layer, x: self._block(layer, x, attend))
         for layer in self.layers:
-            if whole:
+            if remat is True:
                 h = checkpoint(self._block, layer, h, attend, use_reentrant=False)
+            elif remat == "int8":
+                h = block(layer, h)
             else:
                 h = self._block(layer, h, attend)
         return h

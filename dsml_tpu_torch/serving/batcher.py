@@ -23,6 +23,12 @@ registered prefixes become copy-on-write table entries, and
 host or recompute) under pressure. On the card the paged attention runs the
 hand-written CUDA kernels (``ops/paged_attention.py``).
 
+``weight_quant`` ("int8"/"int4", or ``DSML_WEIGHT_QUANT`` by default)
+serves from a twin of the model whose block projections are block-quantized
+codes (``models.common.quantize_weights_blocked``); on the card every
+projection then runs the hand-written dequant-fused matmul kernel
+(``ops/quantization.py::quantized_matmul``).
+
 The sampler. ``jax.random`` has no torch twin, so the JAX package's sampled
 bits cannot be reproduced; its guarantee is kept instead: a request's
 sampled tokens depend only on (seed, key_rid or rid, step), never on the
@@ -33,23 +39,23 @@ so the CPU and the card draw the same noise.
 
 Left for later slices, each raising where a caller can reach it: the turbo
 and adaptive quanta and the speculative tick (item 5), tensor-parallel
-serving over a mesh (item 11), dequant-fused serving weights (item 4),
-serving from a checkpoint (item 9) and the fleet's handoff admission
-``inject`` (item 13). The observability hooks (spans, gauges, the memory
+serving over a mesh (item 11), serving from a checkpoint (item 9) and the
+fleet's handoff admission ``inject`` (item 13). The observability hooks (spans, gauges, the memory
 ledger) come with item 7.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 from collections import deque
 
 import numpy as np
 import torch
 
+from dsml_tpu_torch.models.common import quantize_weights_blocked
 from dsml_tpu_torch.models.gpt2 import sample_token_logits
+from dsml_tpu_torch.ops.quantization import QuantizedWeight, weight_quant_mode
 from dsml_tpu_torch.serving.paging import (
     PagePool,
     copy_page,
@@ -58,6 +64,7 @@ from dsml_tpu_torch.serving.paging import (
     plan_admission,
     prefill_prefix_into_pages,
 )
+from dsml_tpu_torch.utils.hash32 import M32, mix32, mul32
 
 __all__ = ["ContinuousBatcher", "QueueFull", "Request", "request_key", "request_uniform"]
 
@@ -95,30 +102,11 @@ def _bucket(n: int, buckets: tuple) -> int:
     raise ValueError(f"prompt length {n} exceeds the largest bucket {buckets[-1]}")
 
 
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x, c: int):
-    """Low 32 bits of ``x * c`` for x, c < 2**32, without int64 overflow
-    (x split in 16-bit halves). Works on Python ints and int64 tensors."""
-    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(x):
-    """murmur3's 32-bit finaliser: a bijection of [0, 2**32) that spreads
-    every input bit over the output."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    return x ^ (x >> 16)
-
-
 def request_key(seed: int, rid: int) -> int:
     """A request's 32-bit sampler key from (seed, rid)."""
     k = 0
-    for part in (seed & _M32, (seed >> 32) & _M32, rid & _M32, (rid >> 32) & _M32):
-        k = _mix32(k ^ part)
+    for part in (seed & M32, (seed >> 32) & M32, rid & M32, (rid >> 32) & M32):
+        k = mix32(k ^ part)
     return k
 
 
@@ -127,9 +115,9 @@ def request_uniform(keys: torch.Tensor, steps: torch.Tensor, vocab: int) -> torc
     sampler steps [B] (int64 tensors on one device): a counter-based hash
     of (key, step, token id), so each (request, step) draws its own noise
     whatever batch it rides in, and the CPU and the card draw the same."""
-    h = _mix32(keys ^ _mul32(steps + 1, 0x9E3779B9))
+    h = mix32(keys ^ mul32(steps + 1, 0x9E3779B9))
     ids = torch.arange(vocab, device=keys.device)
-    x = _mix32(_mix32(h[:, None] ^ _mul32(ids + 1, 0x632BE5AB)))
+    x = mix32(mix32(h[:, None] ^ mul32(ids + 1, 0x632BE5AB)))
     return ((x >> 8).float() + 0.5) * 2.0 ** -24
 
 
@@ -169,6 +157,13 @@ class ContinuousBatcher:
     ``preempt_policy`` "swap", "recompute" or "auto"). Requires
     ``prefill_chunk > 0``. Greedy tokens equal a dense batcher's at the
     same KV codec (``kv_quant``).
+
+    ``weight_quant`` — "env" (default: ``DSML_WEIGHT_QUANT``, off unless
+    set), "int8", "int4", or None/"off": the batcher serves from
+    ``quantize_weights_blocked(model, weight_quant)`` (``self.model``),
+    whose projections run the dequant-fused kernel. The caller's dense
+    model stays resident; ``_wq_bytes`` holds the twin's packed and scale
+    bytes.
     """
 
     def __init__(
@@ -206,18 +201,24 @@ class ContinuousBatcher:
                 "the speculative tick (speculative_*) " + _NOT_PORTED.format(5))
         if mesh is not None:
             raise NotImplementedError("tensor-parallel serving (mesh) " + _NOT_PORTED.format(11))
+        # dequant-fused serving weights: resolve the knob and quantize the
+        # projections before any cache or pool is built from the model
         if weight_quant == "env":
-            raw = os.environ.get("DSML_WEIGHT_QUANT", "").strip().lower()
-            weight_quant = {"int8": "int8", "8": "int8", "int4": "int4", "4": "int4"}.get(raw)
+            weight_quant = weight_quant_mode()
         if weight_quant in ("off", "none", "0", False):
             weight_quant = None
+        self._wq_bytes = {}
         if weight_quant is not None:
             if weight_quant not in ("int8", "int4"):
                 raise ValueError(
                     f"weight_quant must be 'int8', 'int4', or None, got {weight_quant!r}")
-            raise NotImplementedError(
-                f"weight_quant={weight_quant!r} (dequant-fused serving weights) "
-                + _NOT_PORTED.format(4))
+            model = quantize_weights_blocked(model, weight_quant)
+            leaves = [m for m in model.modules() if isinstance(m, QuantizedWeight)]
+            self._wq_bytes = {"packed": sum(q.qw.nbytes for q in leaves),
+                              "scales": sum(q.qs.nbytes for q in leaves)}
+            # the memory ledger's "weights_quant" source comes with the
+            # observability slice (ROADMAP.md queue 1, item 7)
+        self.weight_quant = weight_quant
         self.model = model
         self.device = model.device
         self.n_slots = n_slots

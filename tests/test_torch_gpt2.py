@@ -191,7 +191,9 @@ def test_qmatmul_plain_layouts_and_quantized_leaf_raises():
                                np.einsum("bsd,dke->bske", x, w3), **TOL)
     np.testing.assert_allclose(tcommon.qmatmul(torch.from_numpy(x), torch.from_numpy(w2)).numpy(),
                                x @ w2, **TOL)
-    with pytest.raises(NotImplementedError, match="weight_quant"):
+    # quantized leaves are modules now (ChannelInt8Weight, QuantizedWeight);
+    # a leaf of any other kind, such as the JAX package's raw dict, raises
+    with pytest.raises(TypeError, match="qmatmul takes"):
         tcommon.qmatmul(torch.from_numpy(x), {"qw": w2, "qs": w2})
 
 

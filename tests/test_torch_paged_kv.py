@@ -314,12 +314,13 @@ def test_constructor_and_submit_validation(setup, monkeypatch):
     cfg, model, _ = setup
     for kw, item in ((dict(turbo_factor=2), "5"), (dict(adaptive_quantum=4), "5"),
                      (dict(speculative_window=3), "5"), (dict(speculative_adaptive=True), "5"),
-                     (dict(mesh=object()), "11"), (dict(weight_quant="int8"), "4")):
+                     (dict(mesh=object()), "11")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             ContinuousBatcher(model, **kw)
+    # weight_quant (item 4) is ported: explicit or through the env knob
+    assert ContinuousBatcher(model, weight_quant="int8").weight_quant == "int8"
     monkeypatch.setenv("DSML_WEIGHT_QUANT", "int4")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ContinuousBatcher(model)
+    assert ContinuousBatcher(model).weight_quant == "int4"
     monkeypatch.setenv("DSML_WEIGHT_QUANT", "off")
     srv = ContinuousBatcher(model, n_pages=20, **PAGED)  # "off" serves full-precision weights
     with pytest.raises(ValueError, match="weight_quant must be"):
