@@ -14,8 +14,9 @@ before the path and read just after):
   tokens (the prefill's attention is the flash forward kernel);
 - training: train steps at batch 8 × 1024, ``GPT2.loss(attn_impl="flash")``
   with dense logits, ``backward()`` and AdamW(3e-4, weight_decay=0.01) —
-  the JAX bench's headline step — through the flash forward and both
-  backward kernels;
+  the JAX bench's headline step — through the flash forward and the two
+  tensor-core backward kernels (bf16); an f32 gradient check through the
+  two FMA backward kernels (f32);
 - continuous serving: ``ContinuousBatcher(paged_kv="int4")`` on 48
   requests through both paged-attention kernels;
 - quantized-weight serving: the same 48 requests with
@@ -29,18 +30,20 @@ non-zero exit and no result line. The line before the last is the card's
 name and power limit as ``nvidia-smi`` prints them; the last line is
 ``{"ok": true, "device": {...}}``.
 
-Phases: device, build; kernel, kernel_bwd, kernel_paged, kernel_qmm,
-kernel_quant8 (each kernel against its plain version, then a kernel_time
-line with its device time, bound, plain time and library yardstick); slice
-and trace (the generate run, its launches, logits and greedy tokens against
-the plain path, device-busy time); cli (``generate_text``); train and its
-trace; train_cli (``train_gpt2`` and the MNIST ``Trainer``); paged_slice;
-wq_slice (qmm launches = 48 per chunk or tick, tokens/s, TTFT, tick ms and
-idle share, the twin's bytes, f32 int4 greedy tokens against a dense model
-holding the same codes dequantized); serve_cli (``serve_continuous``, also
-with ``DSML_WEIGHT_QUANT=int4``); train_int8remat (12 quantizer launches per
-step, the step-0 loss equal to remat=False's, f32 gradients within 0.1,
-peak memory of the three remat modes); kernels (one line for the run).
+Phases: device, build, sass (HMMA instructions in the tensor-core backward
+kernels' SASS, no register spills at d = 64); kernel, kernel_bwd,
+kernel_paged, kernel_qmm, kernel_quant8 (each kernel against its plain
+version, then a kernel_time line with its device time, bound, plain time
+and library yardstick); slice and trace (the generate run, its launches,
+logits and greedy tokens against the plain path, device-busy time); cli
+(``generate_text``); train and its trace; train_cli (``train_gpt2`` and the
+MNIST ``Trainer``); paged_slice; wq_slice (qmm launches = 48 per chunk or
+tick, tokens/s, TTFT, tick ms and idle share, the twin's bytes, f32 int4
+greedy tokens against a dense model holding the same codes dequantized);
+serve_cli (``serve_continuous``, also with ``DSML_WEIGHT_QUANT=int4``);
+train_int8remat (12 quantizer launches per step, the step-0 loss equal to
+remat=False's, f32 gradients within 0.1, peak memory of the three remat
+modes); kernels (one line for the run).
 
 Float32 matmuls stay in full f32 (TF32 off, PyTorch's default, set here
 explicitly): the f32 phases compare two paths at f32 tolerances.
@@ -51,7 +54,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
+import shutil
 import statistics
+import subprocess
 import sys
 import time
 
@@ -151,9 +157,72 @@ def backward_bound_ms(bh, s_q, s_kv, d, dtype, causal, products, n_out):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+BWD_TC_SOURCE = "dsml_tpu_torch/ops/csrc/flash_bwd_tc.cu"
+BWD_FMA_SOURCE = "dsml_tpu_torch/ops/csrc/flash_bwd.cu"
+# the backward's kernels by route: bf16 on the tensor cores, f32 on FMAs
+BWD_KERNELS = {torch.bfloat16: ("flash_bwd_dq_tc", "flash_bwd_dkv_tc"),
+               torch.float32: ("flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def bwd_counts(tflash):
+    return {name: getattr(tflash, f"{name}_launches") for names in BWD_KERNELS.values()
+            for name in names}
+
+
+def ptxas_report(log):
+    """{function: {"registers", "stack", "spill_stores", "spill_loads"}}
+    from an ``-Xptxas -v`` report."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            fn = m.group(1)
+            out[fn] = {}
+        elif fn and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                    r"(\d+) bytes spill loads", line)):
+            out[fn].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            out[fn]["registers"] = int(m[1])
+    return out
+
+
+def phase_sass(build, reports):
+    """The tensor-core backward runs on the tensor cores: ``cuobjdump
+    -sass`` of the built flash_bwd_tc library shows HMMA instructions in
+    both kernels at d = 64 and 128, and ``-Xptxas -v`` reports no spills at
+    d = 64 (the train shape; spills at d = 128 are reported)."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                                                     "bin", "cuobjdump")
+    check(os.path.exists(tool), "cuobjdump not found on PATH or under CUDA_HOME: the SASS check "
+                                "of the tensor-core backward needs it")
+    res = subprocess.run([tool, "-sass", str(build._target("flash_bwd_tc"))], capture_output=True,
+                         text=True, check=False)
+    check(res.returncode == 0, f"cuobjdump -sass failed ({res.returncode}): {res.stderr[-2000:]}")
+    hmma = {name.split()[0]: body.count("HMMA")
+            for name, body in (chunk.split("\n", 1) for chunk in res.stdout.split("Function : ")[1:])}
+    ptxas = ptxas_report(reports["flash_bwd_tc"])
+    row = {"phase": "sass", "source": BWD_TC_SOURCE, "hmma": {}, "ptxas": {}}
+    for kernel in ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"):
+        for d in (64, 128):
+            key = f"{kernel}<{d}>"
+            found = [n for fn, n in hmma.items() if kernel in fn and f"ILi{d}E" in fn]
+            check(len(found) == 1 and found[0] > 0,
+                  f"{key}: HMMA instructions in its SASS {found} (functions: {sorted(hmma)})")
+            row["hmma"][key] = found[0]
+            props = [v for fn, v in ptxas.items() if kernel in fn and f"ILi{d}E" in fn]
+            check(len(props) == 1, f"{key}: no single -Xptxas -v entry: {sorted(ptxas)}")
+            row["ptxas"][key] = props[0]
+    emit(row)
+    for kernel in ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"):
+        props = row["ptxas"][f"{kernel}<64>"]
+        check(props.get("spill_stores") == 0 and props.get("spill_loads") == 0,
+              f"{kernel}<64> spills registers: {props}")
+
+
 def phase_kernel_bwd(tflash, dev):
-    """flash_bwd_dq and flash_bwd_dkv against _flash_bwd_reference, then
-    their times at the train step's shape."""
+    """The backward against _flash_bwd_reference: bf16 through the
+    tensor-core kernels, f32 through the FMA kernels (launch counts checked
+    per case); then each pair's times at the train step's shape in its
+    type."""
     gen = torch.Generator(device=dev).manual_seed(1)
     bh_train = TRAIN_B * H
 
@@ -169,12 +238,15 @@ def phase_kernel_bwd(tflash, dev):
         (bh_train, 700, 700, D, 0, True, True), (bh_train, 700, 700, D, 0, False, False),
         (bh_train, 256, 512, D, 256, True, True), (16, TRAIN_S, TRAIN_S, 128, 0, True, True),
     ]
-    main_err = None
+    main_err = {}
     for dtype in (torch.bfloat16, torch.float32):
+        kernels = BWD_KERNELS[dtype]
         for bh, s_q, s_kv, d, q_start, causal, glse in cases:
             args = inputs(bh, s_q, s_kv, d, dtype, q_start, causal, glse)
+            before = bwd_counts(tflash)
             got = tflash.flash_bwd(*args, causal, q_start, 0)
             torch.cuda.synchronize()
+            launched = {k: n - before[k] for k, n in bwd_counts(tflash).items()}
             want = tflash._flash_bwd_reference(*args, causal, q_start, 0)
             errs, rel = {}, 0.0
             for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -183,44 +255,51 @@ def phase_kernel_bwd(tflash, dev):
                 rel = max(rel, err / max(w.float().abs().max().item(), 1e-30))
             ok = (all(g.shape == a.shape and g.dtype == dtype for g, a in zip(got, args[:3]))
                   and all(bool(torch.isfinite(g).all()) for g in got) and rel <= TOL_BWD[dtype])
-            emit({"phase": "kernel_bwd", "kernels": ["flash_bwd_dq", "flash_bwd_dkv"],
+            emit({"phase": "kernel_bwd", "kernels": list(kernels), "launched": launched,
                   "dtype": str(dtype)[6:], "bh": bh, "s_q": s_q, "s_kv": s_kv, "d": d,
                   "q_start": q_start, "causal": causal, "g_lse": glse, "max_abs_err": errs,
                   "max_err_over_max_abs": rel, "tol": TOL_BWD[dtype], "ok": ok})
+            check(launched == {k: int(k in kernels) for k in launched},
+                  f"flash_bwd ({dtype}) launched {launched}, expected one launch of each of {kernels}")
             check(ok, f"flash_bwd disagrees with its plain version ({dtype}, s_q={s_q}, "
                       f"s_kv={s_kv}, d={d}, q_start={q_start}, causal={causal}, g_lse={glse})")
-            if (dtype, s_q, d, causal) == (torch.bfloat16, TRAIN_S, D, True):
-                main_err = errs
+            if (s_q, d, causal) == (TRAIN_S, D, True):
+                main_err[dtype] = errs
 
-    # times at the train step's shape: bf16 [96, 1024, 64], causal, no lse cotangent
-    q, k, v, out, lse, do, _ = inputs(bh_train, TRAIN_S, TRAIN_S, D, torch.bfloat16, 0, True, False)
-    reps = 10
-    per_kernel = device_kernel_ms(lambda: [tflash.flash_bwd(q, k, v, out, lse, do) for _ in range(reps)])
-    ms = {}
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        found = [t / reps for k_name, t in per_kernel.items() if f"{name}_kernel" in k_name]
-        check(len(found) == 1, f"the profiler trace shows no single {name} kernel: {sorted(per_kernel)}")
-        ms[name] = found[0]
-    wrapper_ms = cuda_ms(lambda: tflash.flash_bwd(q, k, v, out, lse, do))
-    plain_ms = cuda_ms(lambda: tflash._flash_bwd_reference(q, k, v, out, lse, do))
-    q4, k4, v4, do4 = (t.view(TRAIN_B, H, TRAIN_S, D).detach().requires_grad_() for t in (q, k, v, do))
+    # times at the train step's shape, [96, 1024, 64] causal, no lse
+    # cotangent: the tensor-core kernels in bf16, the FMA kernels in f32
+    timing, wrapper = {}, {}
+    for dtype, names in BWD_KERNELS.items():
+        q, k, v, out, lse, do, _ = inputs(bh_train, TRAIN_S, TRAIN_S, D, dtype, 0, True, False)
+        reps = 10
+        per_kernel = device_kernel_ms(lambda: [tflash.flash_bwd(q, k, v, out, lse, do) for _ in range(reps)])
+        ms = {}
+        for name in names:
+            found = [t / reps for k_name, t in per_kernel.items() if f"{name}_kernel<" in k_name]
+            check(len(found) == 1, f"the profiler trace shows no single {name} kernel: {sorted(per_kernel)}")
+            ms[name] = found[0]
+        wrapper[str(dtype)[6:]] = cuda_ms(lambda: tflash.flash_bwd(q, k, v, out, lse, do))
+        plain_ms = cuda_ms(lambda: tflash._flash_bwd_reference(q, k, v, out, lse, do))
+        q4, k4, v4, do4 = (t.view(TRAIN_B, H, TRAIN_S, D).detach().requires_grad_() for t in (q, k, v, do))
 
-    def sdpa(backward):
-        o = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-        if backward:
-            torch.autograd.grad(o, (q4, k4, v4), do4)
+        def sdpa(backward):
+            o = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+            if backward:
+                torch.autograd.grad(o, (q4, k4, v4), do4)
 
-    library_ms = cuda_ms(lambda: sdpa(True)) - cuda_ms(lambda: sdpa(False))
-    timing = {}
-    for name, products, n_out in (("flash_bwd_dq", 3, 1), ("flash_bwd_dkv", 4, 2)):
-        bound_ms, bound_by = backward_bound_ms(bh_train, TRAIN_S, TRAIN_S, D, torch.bfloat16,
-                                               True, products, n_out)
-        timing[name] = {"ms": ms[name], "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": library_ms}
-    emit({"phase": "kernel_time", "kernels": ["flash_bwd_dq", "flash_bwd_dkv"],
-          "shape": [bh_train, TRAIN_S, D], "dtype": "bfloat16", "causal": True,
-          "flash_bwd_ms": wrapper_ms, "plain_note": "plain_ms and library_ms are whole backwards "
-          "(dq, dk and dv); library_ms is SDPA forward+backward minus forward", **timing})
+        library_ms = cuda_ms(lambda: sdpa(True)) - cuda_ms(lambda: sdpa(False))
+        for name, products, n_out in zip(names, (3, 4), (1, 2)):
+            bound_ms, bound_by = backward_bound_ms(bh_train, TRAIN_S, TRAIN_S, D, dtype, True,
+                                                   products, n_out)
+            timing[name] = {"ms": ms[name], "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": library_ms}
+        del q, k, v, out, lse, do, q4, k4, v4, do4
+    emit({"phase": "kernel_time", "kernels": [n for names in BWD_KERNELS.values() for n in names],
+          "shape": [bh_train, TRAIN_S, D], "causal": True,
+          "dtype": {n: str(dt)[6:] for dt, names in BWD_KERNELS.items() for n in names},
+          "flash_bwd_ms": wrapper, "plain_note": "plain_ms and library_ms are whole backwards "
+          "(dq, dk and dv) in the kernels' type; library_ms is SDPA forward+backward minus "
+          "forward; flash_bwd_ms is the wrapper, delta included", **timing})
     return main_err, timing
 
 
@@ -420,12 +499,19 @@ def phase_trace(model, prompt):
 
 
 def train_counts(tflash):
-    return {"flash_fwd": tflash.flash_fwd_launches, "flash_bwd_dq": tflash.flash_bwd_dq_launches,
-            "flash_bwd_dkv": tflash.flash_bwd_dkv_launches}
+    return {"flash_fwd": tflash.flash_fwd_launches, **bwd_counts(tflash)}
 
 
 def reset_counts(tflash):
-    tflash.flash_fwd_launches = tflash.flash_bwd_dq_launches = tflash.flash_bwd_dkv_launches = 0
+    for name in train_counts(tflash):
+        setattr(tflash, f"{name}_launches", 0)
+
+
+def bf16_step_counts_ok(counts, n_fwd, n_bwd):
+    """A bf16 run: the forward n_fwd times, the tensor-core backward n_bwd
+    times of each kernel, the f32 FMA backward never."""
+    return counts == {"flash_fwd": n_fwd, "flash_bwd_dq_tc": n_bwd, "flash_bwd_dkv_tc": n_bwd,
+                      "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def phase_train(tflash, dev, card):
@@ -472,8 +558,9 @@ def phase_train(tflash, dev, card):
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "losses": losses, "card": card}
     want = cfg.n_layer * TRAIN_STEPS
-    check(all(n == want for n in counts.values()),
-          f"train steps launched {counts}, expected {want} of each ({cfg.n_layer} per step)")
+    check(bf16_step_counts_ok(counts, want, want),
+          f"train steps launched {counts}, expected {want} of the forward and of each "
+          f"tensor-core backward kernel ({cfg.n_layer} per step) and no FMA backward")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"train loss not finite and falling on a repeated batch: {losses}")
 
@@ -483,20 +570,27 @@ def phase_train(tflash, dev, card):
     grads = {}
     for impl in ("flash", "xla"):
         model32.zero_grad(set_to_none=True)
+        reset_counts(tflash)
         model32.loss(x[:2], y[:2], attn_impl=impl).backward()
         grads[impl] = {n: p.grad.detach().clone() for n, p in model32.named_parameters()}
+        if impl == "flash":
+            f32_counts = train_counts(tflash)
+    n = cfg.n_layer
+    check(f32_counts == {"flash_fwd": n, "flash_bwd_dq_tc": 0, "flash_bwd_dkv_tc": 0,
+                         "flash_bwd_dq": n, "flash_bwd_dkv": n},
+          f"the f32 flash backward launched {f32_counts}, expected {n} of each FMA kernel")
     worst, worst_name = 0.0, None
     for name, g in grads["xla"].items():
         rel = (grads["flash"][name] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
         if rel >= worst:
             worst, worst_name = rel, name
     row.update({"f32_grads_max_err_over_max_abs": worst, "f32_grads_worst_tensor": worst_name,
-                "tol_f32_grads": TOL_TRAIN_GRADS})
+                "tol_f32_grads": TOL_TRAIN_GRADS, "f32_launches": f32_counts})
     emit(row)
     check(worst <= TOL_TRAIN_GRADS,
           f"f32 gradients: flash kernels vs plain attention {worst} of max |g| in {worst_name}")
     del model32, grads
-    return counts, step
+    return counts, f32_counts, step
 
 
 def phase_train_trace(step, label="train_step"):
@@ -539,7 +633,7 @@ def phase_train_cli(tflash):
                            "--steps", "4", "--batch_size", "8", "--grad_accum", "1",
                            "--log_every", "1", "--warmup_steps", "1"])
     counts = train_counts(tflash)
-    ok_cli = all(n == 4 * 12 for n in counts.values()) and np.isfinite(out["last_loss"])
+    ok_cli = bf16_step_counts_ok(counts, 4 * 12, 4 * 12) and np.isfinite(out["last_loss"])
     data = load_mnist(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "mnist"))
     t0 = time.perf_counter()
     _, history, test_acc = Trainer(MLP(device="cuda"), TrainConfig(epochs=1)).train(data)
@@ -1350,10 +1444,10 @@ def phase_train_int8remat(tflash, dev, card):
     check(counts["quantize_int8"] == cfg.n_layer * TRAIN_STEPS,
           f"int8 remat launched quantize_int8 {counts['quantize_int8']} times, expected "
           f"{cfg.n_layer} per step")
-    check(counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == cfg.n_layer * TRAIN_STEPS
-          and counts["flash_fwd"] == 2 * cfg.n_layer * TRAIN_STEPS,
+    check(bf16_step_counts_ok({k: n for k, n in counts.items() if k != "quantize_int8"},
+                              2 * cfg.n_layer * TRAIN_STEPS, cfg.n_layer * TRAIN_STEPS),
           f"int8 remat launched {counts}: expected 24 forward (12 + the recompute) and 12 of each "
-          "backward kernel per step")
+          "tensor-core backward kernel per step, no FMA backward")
     check(abs(loss0 - loss_plain) <= 1e-6 * abs(loss_plain),
           f"step-0 loss {loss0} under int8 remat, {loss_plain} without remat")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"int8 remat loss not falling: {losses}")
@@ -1400,6 +1494,7 @@ def main() -> None:
           "ptxas": {name: [line.strip() for line in log.splitlines()
                            if "registers" in line or "spill" in line]
                     for name, log in reports.items()}})
+    phase_sass(_build, reports)
 
     only = sys.argv[1:]  # a debugging run of some phases: no result line
     if only:
@@ -1425,7 +1520,7 @@ def main() -> None:
     phase_trace(model, prompt)
     del model
     phase_cli(tflash)
-    train_launches, step = phase_train(tflash, dev, card)
+    train_launches, f32_launches, step = phase_train(tflash, dev, card)
     phase_train_trace(step)
     del step
     torch.cuda.empty_cache()
@@ -1440,17 +1535,25 @@ def main() -> None:
     torch.cuda.empty_cache()
     remat_launches = phase_train_int8remat(tflash, dev, card)
 
-    bwd_source = "dsml_tpu_torch/ops/csrc/flash_bwd.cu"
+    # the backward's two routes: bf16 (tensor cores) with launches from the
+    # bf16 train steps, f32 (FMAs) with launches from phase_train's f32
+    # gradient check; times at [96, 1024, 64] causal in each route's type
+    bwd_rows = []
+    for dtype, source, counts in ((torch.bfloat16, BWD_TC_SOURCE, train_launches),
+                                  (torch.float32, BWD_FMA_SOURCE, f32_launches)):
+        dq_name, dkv_name = BWD_KERNELS[dtype]
+        err = bwd_err[dtype]
+        bwd_rows += [
+            {"name": dq_name, "route": "cuda", "source": source, "replaces": "dsml_tpu/ops/flash.py:481",
+             "launches": counts[dq_name], "max_abs_err": err["dq"], **bwd_timing[dq_name]},
+            {"name": dkv_name, "route": "cuda", "source": source, "replaces": "dsml_tpu/ops/flash.py:526",
+             "launches": counts[dkv_name], "max_abs_err": max(err["dk"], err["dv"]),
+             **bwd_timing[dkv_name]}]
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": "dsml_tpu_torch/ops/csrc/flash_fwd.cu",
          "replaces": "dsml_tpu/ops/flash.py:198", "launches": launches,
          "max_abs_err": main_err, **timing},
-        {"name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
-         "replaces": "dsml_tpu/ops/flash.py:481", "launches": train_launches["flash_bwd_dq"],
-         "max_abs_err": bwd_err["dq"], **bwd_timing["flash_bwd_dq"]},
-        {"name": "flash_bwd_dkv", "route": "cuda", "source": bwd_source,
-         "replaces": "dsml_tpu/ops/flash.py:526", "launches": train_launches["flash_bwd_dkv"],
-         "max_abs_err": max(bwd_err["dk"], bwd_err["dv"]), **bwd_timing["flash_bwd_dkv"]},
+        *bwd_rows,
         # times at the decode tick's shape (the chunk's are in the kernel_time line);
         # launches from the paged slice's two drains, one per kernel
         {"name": "paged_attn", "route": "cuda", "source": PAGED_SOURCE,

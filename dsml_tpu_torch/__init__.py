@@ -5,8 +5,9 @@ work in PyTorch, slice by slice, with every Pallas TPU kernel on a ported
 path rewritten by hand for ``sm_90a``:
 
 - ``dsml_tpu_torch.ops``    — attention, the flash-attention forward and
-  backward kernels (``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd.cu``)
-  behind ``ops.flash``, the paged-attention kernels
+  backward kernels (``ops/csrc/flash_fwd.cu``; ``ops/csrc/flash_bwd_tc.cu``
+  for bf16 on the tensor cores, ``ops/csrc/flash_bwd.cu`` for f32) behind
+  ``ops.flash``, the paged-attention kernels
   (``ops/csrc/paged_attn.cu``) behind ``ops.paged_attention``, the KV-row
   codec (``ops.quantization``) and the chunked cross-entropy
   (``ops.xent``).

@@ -1,4 +1,7 @@
-// Flash-attention backward for Hopper (sm_90a): two kernels, dq and dk/dv.
+// Flash-attention backward for Hopper (sm_90a), f32 inputs: two kernels,
+// dq and dk/dv, on f32 FMAs (bf16 inputs take the tensor-core kernels of
+// flash_bwd_tc.cu; tensor cores have no full-f32 product, and TF32 keeps
+// about three decimal digits).
 //
 // Replaces dsml_tpu/ops/flash.py::_dq_kernel (:481) and ::_dkv_kernel
 // (:526), the Pallas TPU kernels behind the custom VJP of flash_attention /
@@ -13,15 +16,12 @@
 //   dv = Σ_q pᵀ do,  dk = d^-½ · Σ_q dsᵀ q   (flash_bwd_dkv_kernel)
 // The scale is applied to dq and dk once, at the end, as on the TPU.
 //
-// What bounds it. At GPT-2-small's training shape (bf16 [96, 1024, 64],
+// What bounds it. At GPT-2-small's training shape in f32 ([96, 1024, 64],
 // causal) the dq kernel does 3 products of 2·d operations per kept score
 // (q kᵀ, do vᵀ, ds k) and the dk/dv kernel 4 (q kᵀ, do vᵀ, pᵀ do, dsᵀ q):
-// 19 and 26 GFLOP against 64 and 77 MB of inputs and outputs, about 300
-// operations per byte, at the H100's bf16 ridge (~295), so the least time is
-// set by operations on the tensor cores. This first version does not reach
-// it: its products are f32 FMAs over tiles in shared memory (no tensor
-// cores), so shared-memory load issue and FMA issue bound it, as in
-// flash_fwd.cu.
+// 19 and 26 GFLOP, at the card's 67 TFLOP/s of f32 outside the tensor
+// cores, so operations set the least time. Here shared-memory load issue
+// and FMA issue bound it, as in flash_fwd.cu.
 //
 // Design. The TPU carries the dq accumulator across the kv axis of a
 // sequential grid, and the dk/dv accumulators across the q axis. Hopper runs
@@ -33,16 +33,14 @@
 // deterministic. The causal skip (pl.when on the TPU) becomes each loop's
 // bound: the dq block stops at the last kv tile that reaches its rows, the
 // dk/dv block starts at the first q tile that reaches its columns. Tiles
-// are stored in shared memory in f32 (converted on load from f32 or bf16)
-// with row strides padded by one float, so the 16 lanes that share a row
-// read 16 banks. At d = 128 the tiles take up to 165 KB, above the 48 KB
+// are stored in shared memory with row strides padded by one float, so the
+// 16 lanes that share a row read 16 banks. At d = 128 the tiles take up to 165 KB, above the 48 KB
 // static limit, so each launch raises the dynamic limit first. Ragged s_q
 // and s_kv are masked in the kernel: no padded copy is made.
 //
 // Interface: plain C, loaded with ctypes. Each launcher returns a
 // cudaError_t (0 on success), checked with cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -55,19 +53,14 @@ constexpr int NT = 256;  // threads per block: 16 row groups × 16 column lanes
 constexpr int LDP = BN + 1;  // padded row stride of a 64 × 64 score tile
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// rows r0 .. r0 + 63 of a [n, D] tensor into a [64, D + 1] f32 tile; rows
-// past n are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0, int n) {
+// rows r0 .. r0 + 63 of a [n, D] tensor into a [64, D + 1] tile; rows past
+// n are zero
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int r0, int n) {
   constexpr int LD = D + 1;
   for (int i = threadIdx.x; i < 64 * D; i += NT) {
     const int r = i / D, c = i % D;
-    dst[r * LD + c] = r0 + r < n ? to_f32(src[(size_t)(r0 + r) * D + c]) : 0.f;
+    dst[r * LD + c] = r0 + r < n ? src[(size_t)(r0 + r) * D + c] : 0.f;
   }
 }
 
@@ -151,12 +144,12 @@ constexpr size_t dkv_smem_bytes() {
 
 // One block per (batch·head = blockIdx.y, q tile). Thread (ty, tx) owns dq
 // rows ty*4 .. ty*4+3 and columns tx + 16j.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                    const float* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, const float* __restrict__ glse,
-                    T* __restrict__ dq, int s_q, int s_kv, int q_start, int k_start, int causal,
+                    float* __restrict__ dq, int s_q, int s_kv, int q_start, int k_start, int causal,
                     float scale) {
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
@@ -171,8 +164,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int bh = blockIdx.y;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const size_t q_base = (size_t)bh * s_q * D, kv_base = (size_t)bh * s_kv * D;
-  load_tile<T, D>(sq, q + q_base, q0, s_q);
-  load_tile<T, D>(sdo, dout + q_base, q0, s_q);
+  load_tile<D>(sq, q + q_base, q0, s_q);
+  load_tile<D>(sdo, dout + q_base, q0, s_q);
   float lse_r[4], dg_r[4];
   row_stats(lse, delta, glse, (size_t)bh * s_q, q0, s_q, lse_r, dg_r);
 
@@ -192,8 +185,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int t = 0; t < n_tiles; ++t) {
     const int kv0 = t * BN;
     __syncthreads();  // the q tiles are stored, and the last tile's readers are done
-    load_tile<T, D>(sk, k + kv_base, kv0, s_kv);
-    load_tile<T, D>(sv, v + kv_base, kv0, s_kv);
+    load_tile<D>(sk, k + kv_base, kv0, s_kv);
+    load_tile<D>(sv, v + kv_base, kv0, s_kv);
     __syncthreads();
     float p[4][4], ds[4][4];
     scores<D>(sq, sdo, sk, sv, lse_r, dg_r, q0, kv0, s_q, s_kv, q_start, k_start, causal,
@@ -222,18 +215,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const int row = q0 + ty * 4 + i;
     if (row >= s_q) continue;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) store(&dq[q_base + (size_t)row * D + tx + 16 * j], acc[i][j] * scale);
+    for (int j = 0; j < DC; ++j) dq[q_base + (size_t)row * D + tx + 16 * j] = acc[i][j] * scale;
   }
 }
 
 // One block per (batch·head = blockIdx.y, kv tile). Thread (ty, tx) owns dk
 // and dv rows ty*4 .. ty*4+3 (kv positions) and columns tx + 16j.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     const float* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, const float* __restrict__ glse,
-                     T* __restrict__ dk, T* __restrict__ dv, int s_q, int s_kv, int q_start,
+                     float* __restrict__ dk, float* __restrict__ dv, int s_q, int s_kv, int q_start,
                      int k_start, int causal, float scale) {
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
@@ -249,8 +242,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int bh = blockIdx.y;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const size_t q_base = (size_t)bh * s_q * D, kv_base = (size_t)bh * s_kv * D;
-  load_tile<T, D>(sk, k + kv_base, kv0, s_kv);
-  load_tile<T, D>(sv, v + kv_base, kv0, s_kv);
+  load_tile<D>(sk, k + kv_base, kv0, s_kv);
+  load_tile<D>(sv, v + kv_base, kv0, s_kv);
 
   const int n_tiles = (s_q + BM - 1) / BM;
   int t0 = 0;
@@ -269,8 +262,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int t = t0; t < n_tiles; ++t) {
     const int q0 = t * BM;
     __syncthreads();  // the kv tiles are stored, and the last tile's readers are done
-    load_tile<T, D>(sq, q + q_base, q0, s_q);
-    load_tile<T, D>(sdo, dout + q_base, q0, s_q);
+    load_tile<D>(sq, q + q_base, q0, s_q);
+    load_tile<D>(sdo, dout + q_base, q0, s_q);
     float lse_r[4], dg_r[4];
     row_stats(lse, delta, glse, (size_t)bh * s_q, q0, s_q, lse_r, dg_r);
     __syncthreads();
@@ -316,81 +309,76 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
       const size_t g = kv_base + (size_t)row * D + tx + 16 * j;
-      store(&dk[g], dk_acc[i][j] * scale);
-      store(&dv[g], dv_acc[i][j]);
+      dk[g] = dk_acc[i][j] * scale;
+      dv[g] = dv_acc[i][j];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, const float* glse, void* dq, int bh,
                       int s_q, int s_kv, int q_start, int k_start, int causal, float scale,
                       cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s_q + BM - 1) / BM, bh);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, glse, static_cast<T*>(dq), s_q, s_kv, q_start,
+  flash_bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, glse, static_cast<float*>(dq), s_q, s_kv, q_start,
       k_start, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, const float* glse, void* dk,
                        void* dv, int bh, int s_q, int s_kv, int q_start, int k_start, int causal,
                        float scale, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s_kv + BN - 1) / BN, bh);
-  flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, glse, static_cast<T*>(dk), static_cast<T*>(dv),
+  flash_bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, glse, static_cast<float*>(dk), static_cast<float*>(dv),
       s_q, s_kv, q_start, k_start, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, dout and dq [bh, s_q, d]; k, v, dk and dv [bh, s_kv, d], all contiguous
-// and of one type (f32, or bf16 when is_bf16); lse, delta and glse [bh, s_q]
-// f32, glse may be null (a zero cotangent). d is 64 or 128; scale is d^-½
-// as the caller rounds it.
+// q, dout and dq [bh, s_q, d]; k, v, dk and dv [bh, s_kv, d], all f32 and
+// contiguous; lse, delta and glse [bh, s_q] f32, glse may be null (a zero
+// cotangent). d is 64 or 128; scale is d^-½ as the caller rounds it.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, const void* glse, void* dq,
                             int bh, int s_q, int s_kv, int d, int q_start, int k_start,
-                            int causal, int is_bf16, float scale, void* stream) {
+                            int causal, float scale, void* stream) {
   const float *l = static_cast<const float*>(lse), *dl = static_cast<const float*>(delta),
               *g = static_cast<const float*>(glse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return is_bf16 ? launch_dq<__nv_bfloat16, 64>(q, k, v, dout, l, dl, g, dq, bh, s_q, s_kv, q_start, k_start, causal, scale, st)
-                   : launch_dq<float, 64>(q, k, v, dout, l, dl, g, dq, bh, s_q, s_kv, q_start, k_start, causal, scale, st);
+    return launch_dq<64>(q, k, v, dout, l, dl, g, dq, bh, s_q, s_kv, q_start, k_start, causal, scale, st);
   if (d == 128)
-    return is_bf16 ? launch_dq<__nv_bfloat16, 128>(q, k, v, dout, l, dl, g, dq, bh, s_q, s_kv, q_start, k_start, causal, scale, st)
-                   : launch_dq<float, 128>(q, k, v, dout, l, dl, g, dq, bh, s_q, s_kv, q_start, k_start, causal, scale, st);
+    return launch_dq<128>(q, k, v, dout, l, dl, g, dq, bh, s_q, s_kv, q_start, k_start, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, const void* glse, void* dk,
                              void* dv, int bh, int s_q, int s_kv, int d, int q_start,
-                             int k_start, int causal, int is_bf16, float scale, void* stream) {
+                             int k_start, int causal, float scale, void* stream) {
   const float *l = static_cast<const float*>(lse), *dl = static_cast<const float*>(delta),
               *g = static_cast<const float*>(glse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return is_bf16 ? launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, l, dl, g, dk, dv, bh, s_q, s_kv, q_start, k_start, causal, scale, st)
-                   : launch_dkv<float, 64>(q, k, v, dout, l, dl, g, dk, dv, bh, s_q, s_kv, q_start, k_start, causal, scale, st);
+    return launch_dkv<64>(q, k, v, dout, l, dl, g, dk, dv, bh, s_q, s_kv, q_start, k_start, causal, scale, st);
   if (d == 128)
-    return is_bf16 ? launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, l, dl, g, dk, dv, bh, s_q, s_kv, q_start, k_start, causal, scale, st)
-                   : launch_dkv<float, 128>(q, k, v, dout, l, dl, g, dk, dv, bh, s_q, s_kv, q_start, k_start, causal, scale, st);
+    return launch_dkv<128>(q, k, v, dout, l, dl, g, dk, dv, bh, s_q, s_kv, q_start, k_start, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

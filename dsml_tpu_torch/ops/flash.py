@@ -1,5 +1,6 @@
 """Flash attention, forward and backward: the hand-written CUDA kernels
-``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` behind the counterpart of
+``csrc/flash_fwd.cu``, ``csrc/flash_bwd_tc.cu`` and ``csrc/flash_bwd.cu``
+behind the counterpart of
 ``dsml_tpu/ops/flash.py``'s ``flash_attention`` / ``flash_attention_lse``
 and ``flash_block_grads``.
 
@@ -13,7 +14,10 @@ The backward is the TPU's two kernels: one block per (batch·head, q tile)
 accumulates dq over the kv tiles, one per (batch·head, kv tile) accumulates
 dk and dv over the q tiles, each recomputing p = exp(s - lse) from the lse
 the forward saved. Both ``out`` and ``lse`` of :func:`flash_attention_lse`
-are differentiable: the lse cotangent folds into ds.
+are differentiable: the lse cotangent folds into ds. The route is chosen by
+dtype (:func:`_bwd_route`): bf16 launches the tensor-core kernels of
+``flash_bwd_tc.cu``, f32 the FMA kernels of ``flash_bwd.cu`` (a
+tensor-core product rounds f32 to TF32), anything else raises.
 
 On CUDA tensors :func:`flash_fwd` and :func:`flash_bwd` launch their kernels
 or raise; on CPU tensors they run :func:`_flash_fwd_reference` and
@@ -43,8 +47,10 @@ _MAX_GRID_Y = 65535  # batch·heads is the kernel's grid y dimension
 # Launches of each CUDA kernel, counted where it launches. chip_smoke.py
 # zeroes them before driving the main path and reads them after.
 flash_fwd_launches = 0
-flash_bwd_dq_launches = 0
+flash_bwd_dq_launches = 0  # f32: flash_bwd.cu
 flash_bwd_dkv_launches = 0
+flash_bwd_dq_tc_launches = 0  # bf16: flash_bwd_tc.cu
+flash_bwd_dkv_tc_launches = 0
 
 
 @functools.cache
@@ -60,17 +66,18 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.load("flash_bwd")
-    lib.flash_bwd_dq.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-    )
-    lib.flash_bwd_dkv.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-    )
-    lib.flash_bwd_dq.restype = lib.flash_bwd_dkv.restype = ctypes.c_int
-    lib.flash_bwd_error_string.argtypes = [ctypes.c_int]
-    lib.flash_bwd_error_string.restype = ctypes.c_char_p
+def _bwd_lib(source: str) -> ctypes.CDLL:
+    """``csrc/flash_bwd.cu`` (f32) or ``csrc/flash_bwd_tc.cu`` (bf16): one
+    C interface, ``<source>_dq``, ``<source>_dkv`` and
+    ``<source>_error_string``."""
+    lib = _build.load(source)
+    dq, dkv = getattr(lib, f"{source}_dq"), getattr(lib, f"{source}_dkv")
+    dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    dq.restype = dkv.restype = ctypes.c_int
+    err = getattr(lib, f"{source}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
 
 
@@ -119,6 +126,27 @@ def _flash_bwd_reference(q, k, v, out, lse, do, g_lse=None, causal=True, q_start
     dk = (ds.transpose(-1, -2) @ qf) * scale
     dv = p.transpose(-1, -2) @ dof
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_route(dtype, head_dim: int) -> str:
+    """The backward kernels a CUDA call of :func:`flash_bwd` launches:
+    ``"flash_bwd_tc"`` (tensor cores) for bf16, ``"flash_bwd"`` (f32 FMAs)
+    for f32; any other type or head_dim raises."""
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"flash_bwd supports head_dim in {_HEAD_DIMS}, got {head_dim}")
+    if dtype == torch.bfloat16:
+        return "flash_bwd_tc"
+    if dtype == torch.float32:
+        return "flash_bwd"
+    raise ValueError(f"flash_bwd takes float32 or bfloat16, got {dtype}")
+
+
+def _check_aligned(name, **tensors) -> None:
+    """cp.async copies 16-byte rows: each tensor must start 16-byte aligned."""
+    for key, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} needs {key} 16-byte aligned, got data_ptr() % 16 = "
+                             f"{t.data_ptr() % 16}")
 
 
 def _check_kernel_inputs(q, k, v, name="flash_fwd") -> None:
@@ -174,8 +202,9 @@ def flash_bwd(q, k, v, out, lse, do, g_lse=None, causal=True, q_start=0, k_start
     """Gradients of one flash call: q/out/do [bh, s_q, d], k/v [bh, s_kv,
     d], lse and ``g_lse`` (the lse cotangent; ``None`` = zero) [bh, s_q] →
     ``(dq, dk, dv)`` in the inputs' types. CUDA tensors launch the dq and
-    the dk/dv kernels on the current stream (no synchronisation); CPU
-    tensors run the plain version."""
+    the dk/dv kernels of the dtype's route (:func:`_bwd_route`) on the
+    current stream (no synchronisation), or raise; bf16 tensors must start
+    16-byte aligned. CPU tensors run the plain version."""
     tensors = (q, k, v, out, lse, do) + (() if g_lse is None else (g_lse,))
     if all(t.device.type == "cpu" for t in tensors):
         return _flash_bwd_reference(q, k, v, out, lse, do, g_lse, causal, q_start, k_start)
@@ -187,29 +216,39 @@ def flash_bwd(q, k, v, out, lse, do, g_lse=None, causal=True, q_start=0, k_start
             f"flash_bwd expects out and do like q {tuple(q.shape)} {q.dtype} on {q.device}, "
             f"got {tuple(out.shape)} {out.dtype}, {tuple(do.shape)} {do.dtype}"
         )
+    route = _bwd_route(q.dtype, d)
     # delta = rowsum(do·out) stays outside the kernels, as in the JAX package
     delta = (do.float() * out.float()).sum(-1)
     lse = lse.float().contiguous()
     glse = None if g_lse is None else g_lse.float().contiguous()
     if lse.shape != (bh, s_q) or (glse is not None and glse.shape != (bh, s_q)):
         raise ValueError(f"flash_bwd expects lse and g_lse [{bh}, {s_q}], got {tuple(lse.shape)}")
-    out, do = out.contiguous(), do.contiguous()
+    do = do.contiguous()
+    if route == "flash_bwd_tc":
+        _check_aligned("flash_bwd", q=q, k=k, v=v, do=do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib = _bwd_lib()
-    common = (bh, s_q, k.shape[1], d, int(q_start), int(k_start), int(bool(causal)),
-              int(q.dtype == torch.bfloat16), d**-0.5,
+    lib = _bwd_lib(route)
+    common = (bh, s_q, k.shape[1], d, int(q_start), int(k_start), int(bool(causal)), d**-0.5,
               torch.cuda.current_stream(q.device).cuda_stream)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), None if glse is None else glse.data_ptr())
+    errors = getattr(lib, f"{route}_error_string")
+    err = getattr(lib, f"{route}_dq")(*ptrs, dq.data_ptr(), *common)
+    if err:
+        raise RuntimeError(f"{route}_dq launch failed: {errors(err).decode()}")
     global flash_bwd_dq_launches, flash_bwd_dkv_launches
-    err = lib.flash_bwd_dq(*ptrs, dq.data_ptr(), *common)
+    global flash_bwd_dq_tc_launches, flash_bwd_dkv_tc_launches
+    if route == "flash_bwd_tc":
+        flash_bwd_dq_tc_launches += 1
+    else:
+        flash_bwd_dq_launches += 1
+    err = getattr(lib, f"{route}_dkv")(*ptrs, dk.data_ptr(), dv.data_ptr(), *common)
     if err:
-        raise RuntimeError(f"flash_bwd_dq launch failed: {lib.flash_bwd_error_string(err).decode()}")
-    flash_bwd_dq_launches += 1
-    err = lib.flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), *common)
-    if err:
-        raise RuntimeError(f"flash_bwd_dkv launch failed: {lib.flash_bwd_error_string(err).decode()}")
-    flash_bwd_dkv_launches += 1
+        raise RuntimeError(f"{route}_dkv launch failed: {errors(err).decode()}")
+    if route == "flash_bwd_tc":
+        flash_bwd_dkv_tc_launches += 1
+    else:
+        flash_bwd_dkv_launches += 1
     return dq, dk, dv
 
 

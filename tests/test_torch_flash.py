@@ -81,17 +81,20 @@ def test_reference_keeps_bf16_and_f32_lse():
     assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
 
 
+def _launch_counts():
+    return tuple(getattr(tflash, f"flash_{name}_launches")
+                 for name in ("fwd", "bwd_dq", "bwd_dkv", "bwd_dq_tc", "bwd_dkv_tc"))
+
+
 def test_cpu_tensors_never_launch_and_backward_raises():
     """CPU tensors take the plain versions, forward and backward: no kernel
     launches. (Before the training slice the backward raised; it now runs
     and gives gradients of the inputs' shapes.)"""
-    before = (tflash.flash_fwd_launches, tflash.flash_bwd_dq_launches,
-              tflash.flash_bwd_dkv_launches)
+    before = _launch_counts()
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(64, 64, seed=6))
     out, lse = tflash.flash_attention_lse(q, k, v)
     (out.sum() + lse.sum()).backward()
-    assert (tflash.flash_fwd_launches, tflash.flash_bwd_dq_launches,
-            tflash.flash_bwd_dkv_launches) == before
+    assert _launch_counts() == before
     assert all(t.grad is not None and t.grad.shape == t.shape for t in (q, k, v))
     assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
 
@@ -107,6 +110,95 @@ def test_flash_bwd_on_meta_tensors_raises():
     lse = torch.empty(2, 64, device="meta")
     with pytest.raises(ValueError, match="flash_bwd needs q, k, v on one CUDA device"):
         tflash.flash_bwd(q, q, q, q, lse, q)
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "flash_bwd_tc"), (torch.bfloat16, 128, "flash_bwd_tc"),
+    (torch.float32, 64, "flash_bwd"), (torch.float32, 128, "flash_bwd"),
+])
+def test_backward_route_by_dtype(dtype, d, route):
+    """bf16 takes the tensor-core kernels, f32 the FMA kernels (a
+    tensor-core product would round f32 to TF32)."""
+    assert tflash._bwd_route(dtype, d) == route
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.float16, 64), (torch.float64, 64), (torch.int32, 64), (torch.bfloat16, 96),
+    (torch.float32, 32),
+])
+def test_backward_route_raises_on_other_types_and_widths(dtype, d):
+    with pytest.raises(ValueError, match="flash_bwd"):
+        tflash._bwd_route(dtype, d)
+
+
+def test_flash_bwd_bf16_meta_tensors_raise_without_a_kernel():
+    before = _launch_counts()
+    q = torch.empty(2, 64, 64, dtype=torch.bfloat16, device="meta")
+    lse = torch.empty(2, 64, device="meta")
+    with pytest.raises(ValueError, match="flash_bwd needs q, k, v on one CUDA device"):
+        tflash.flash_bwd(q, q, q, q, lse, q)
+    assert _launch_counts() == before
+    assert tflash._bwd_lib.cache_info().currsize == 0
+
+
+def test_misaligned_view_raises_without_a_kernel():
+    """cp.async copies 16-byte rows: a view one bf16 element into its
+    storage is refused by the wrapper's check, before any launch."""
+    base = torch.zeros(2 * 64 * 64 + 8, dtype=torch.bfloat16)
+    assert base.data_ptr() % 16 == 0  # PyTorch's CPU allocations are 64-byte aligned
+    misaligned = base[1:2 * 64 * 64 + 1].view(2, 64, 64)
+    assert misaligned.is_contiguous() and misaligned.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="flash_bwd needs do 16-byte aligned"):
+        tflash._check_aligned("flash_bwd", q=base[:2 * 64 * 64].view(2, 64, 64), do=misaligned)
+    tflash._check_aligned("flash_bwd", do=base[8:].view(2, 64, 64))  # 16 bytes in: aligned
+    assert tflash._bwd_lib.cache_info().currsize == 0
+
+
+def _tc_rounding_emulation(q, k, v, out, lse, do, g_lse, causal):
+    """The tensor-core kernels' rounding points in plain f32 torch: bf16
+    q, k, v and do; products summed in f32; p = exp2(s·d^-½·log2 e -
+    lse·log2 e) with masked scores at -1e30; p and ds rounded to bf16
+    before the second products (dv = pᵀ do, dq = ds k, dk = dsᵀ q); the
+    gradients rounded to bf16."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    log2e = 1.4426950408889634
+    x = (qf @ kf.transpose(-1, -2)) * (scale * log2e) - lse[..., None] * log2e
+    if causal:
+        x = x.masked_fill(tflash._causal_mask(q.shape[1], k.shape[1], 0, 0, q.device), -1e30)
+    p = torch.exp2(x)
+    delta = (dof * out.float()).sum(-1) - (0.0 if g_lse is None else g_lse)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    p16, ds16 = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dq = (ds16 @ kf) * scale
+    dk = (ds16.transpose(-1, -2) @ qf) * scale
+    dv = p16.transpose(-1, -2) @ dof
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+# chip_smoke.py's bf16 tolerance for the backward kernels against
+# _flash_bwd_reference, as a share of each tensor's largest |gradient|
+TOL_BWD_BF16 = 1e-2
+
+
+@pytest.mark.parametrize("s,causal,with_glse", [(1024, True, True), (700, True, True),
+                                                 (700, False, False)],
+                         ids=["s1024-causal-glse", "ragged700-causal-glse", "ragged700"])
+def test_tensor_core_rounding_fits_the_bf16_tolerance(s, causal, with_glse):
+    """The design's rounding (bf16 p and ds between the two products of
+    each gradient) stays within the chip's bf16 tolerance of the f32 plain
+    version, at [4, s, 64] from numpy-seeded bf16 inputs."""
+    rng = np.random.default_rng(s + causal)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((4, s, 64)).astype(np.float32))
+                   .to(torch.bfloat16) for _ in range(4))
+    g_lse = torch.from_numpy(rng.standard_normal((4, s)).astype(np.float32)) if with_glse else None
+    out, lse = tflash._flash_fwd_reference(q, k, v, causal)
+    want = tflash._flash_bwd_reference(q, k, v, out, lse, do, g_lse, causal)
+    got = _tc_rounding_emulation(q, k, v, out, lse, do, g_lse, causal)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= TOL_BWD_BF16 * w.float().abs().max().item(), err
 
 
 def _jax_grads(q, k, v, go, gl, causal, q_start):
