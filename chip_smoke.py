@@ -23,7 +23,12 @@ before the path and read just after):
   ``weight_quant="int4"``, every projection through the dequant-fused
   matmul kernel (qmm), and a 16-request int8 drain;
 - compressed-remat training: the train step with ``remat="int8"``, each
-  block's input stashed through the stochastic int8 quantizer kernel.
+  block's input stashed through the stochastic int8 quantizer kernel;
+- context-parallel training: two spawned ranks (gloo, one process each; on
+  one card they share it) train GPT-2-small over the cp = 2 flash ring
+  through ``make_hybrid_train_step`` under ``DSML_RING_FUSED=dma``: every
+  hop but the last is the fused ring-hop kernel (kernel 4), which stores
+  the resident K/V into the neighbour's CUDA-IPC-mapped receive slot.
 
 Each phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit and no result line. The line before the last is the card's
@@ -43,7 +48,14 @@ greedy tokens against a dense model holding the same codes dequantized);
 serve_cli (``serve_continuous``, also with ``DSML_WEIGHT_QUANT=int4``);
 train_int8remat (12 quantizer launches per step, the step-0 loss equal to
 remat=False's, f32 gradients within 0.1, peak memory of the three remat
-modes); kernels (one line for the run).
+modes); kernel_stream (kernel 4 against its plain version, its K/V copy
+bit-exact, its (out, lse) bit-identical to kernel 1's; times beside a
+two-call SDPA + copy yardstick); kernel_head_dim (head_dim 8, 32, 96
+through flash_fwd/flash_bwd); cp_slice (per rank: off, dma and sendahead
+losses bit-identical, 24 kernel-4 launches per forward, ring_pass values,
+f32 ring gradients against single-device flash, bf16 steps tracking the
+single-device step, identical replicas, step ms and peak memory);
+cp_cli (``train_gpt2 --cp 2``); kernels (one line for the run).
 
 Float32 matmuls stay in full f32 (TF32 off, PyTorch's default, set here
 explicitly): the f32 phases compare two paths at f32 tolerances.
@@ -1474,6 +1486,417 @@ def phase_train_int8remat(tflash, dev, card):
     return counts
 
 
+# ---- context parallelism: kernel 4 and the cp = 2 ring (port slice 6) -----------
+
+STREAM_SOURCE = "dsml_tpu_torch/ops/csrc/flash_stream.cu"
+# the cp = 2 ring's hop on GPT-2-small at 8 × 1024: q is a rank's 512 rows,
+# the resident K/V half 256 rows; rank 1's forward half at hop 0 (q and k
+# both start at global position 512, so SDPA's top-left causal mask is
+# the same mask)
+HOP_BH, HOP_SQ, HOP_SKV, HOP_START = B * H, TRAIN_S // 2, TRAIN_S // 4, TRAIN_S // 2
+CP_STEPS, CP_WARMUP = 5, 2
+CP_F32_B = 2
+# bf16 losses of the cp = 2 step against the single-device step: the ring
+# merges each layer's two halves in f32 and rounds once, the single-device
+# kernel rounds its one output; a few bf16 ulps of the block outputs move a
+# loss near 11 by about 1e-3 of itself (a dropped hop moves it by O(1))
+TOL_CP_BF16_LOSS = 1e-2
+
+
+def stream_bound_ms(q, k, causal, q_start, k_start):
+    """Least time of one kernel-4 call: q, k and v read once, out and the
+    f32 lse written once, the K/V copy written once; 2·d multiply-adds per
+    kept score in each of q·kᵀ and p·v."""
+    bh, s_q, d = q.shape
+    s_kv = k.shape[1]
+    elt = q.element_size()
+    nbytes = bh * (2 * s_q * d + 4 * s_kv * d) * elt + bh * s_q * 4
+    rows = q_start + np.arange(s_q) - k_start + 1
+    kept = np.clip(rows, 0, s_kv).sum() if causal else s_q * s_kv
+    return bound(nbytes, 4.0 * d * bh * float(kept), PEAK_FLOPS[q.dtype])
+
+
+def phase_kernel_stream(tflash, dev):
+    """Kernel 4 against _flash_stream_reference at the cp = 2 hop's shape
+    and around it: bf16 and f32, pred true and false, causal with offsets,
+    a ragged kv tail, head_dim 96 (padded to 128 for the math, the
+    unpadded K/V copied). out and lse within the flash tolerances, the
+    copied K/V bit-exact, out and lse bit-identical to kernel 1's on the
+    same inputs, one launch a call. Then its time at the hop shape."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = [  # (bh, s_q, s_kv, d, q_start, k_start, causal, pred)
+        (HOP_BH, HOP_SQ, HOP_SKV, D, HOP_START, HOP_START, True, True),
+        (HOP_BH, HOP_SQ, HOP_SKV, D, HOP_START, HOP_START, True, False),
+        (HOP_BH, HOP_SQ, HOP_SKV, D, 0, HOP_SKV, True, True),
+        (HOP_BH, HOP_SQ, HOP_SKV, D, HOP_START, 0, False, True),
+        (HOP_BH, 300, 200, D, 100, 0, True, True),
+        (16, 300, 150, 96, 0, 0, True, True),
+        (16, 256, 256, 128, 0, 0, True, True),
+    ]
+    main_err = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for bh, s_q, s_kv, d, q_start, k_start, causal, pred in cases:
+            q = torch.randn(bh, s_q, d, generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn(bh, s_kv, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+            k_dst, v_dst = torch.full_like(k, float("nan")), torch.full_like(v, float("nan"))
+            before = tflash.flash_stream_launches
+            out, lse = tflash.flash_stream(q, k, v, k_dst, v_dst, pred, causal, q_start, k_start)
+            torch.cuda.synchronize()
+            launched = tflash.flash_stream_launches - before
+            ref_k, ref_v = torch.empty_like(k), torch.empty_like(v)
+            ref_out, ref_lse = tflash._flash_stream_reference(q, k, v, ref_k, ref_v, pred, causal,
+                                                              q_start, k_start)
+            err_out = (out.float() - ref_out.float()).abs().max().item()
+            err_lse = (lse - ref_lse).abs().max().item()
+            copied = bool(torch.equal(k_dst, k) and torch.equal(v_dst, v))
+            if pred:
+                k1_out, k1_lse = tflash.flash_fwd(q, k, v, causal, q_start, k_start)
+                same_as_kernel1 = bool(torch.equal(out, k1_out) and torch.equal(lse, k1_lse))
+            else:
+                same_as_kernel1 = None
+            tol = TOL[dtype]
+            ok = (launched == 1 and copied and out.shape == q.shape and out.dtype == dtype
+                  and bool(torch.isfinite(out).all()) and err_out <= tol["out"]
+                  and err_lse <= tol["lse"] and same_as_kernel1 is not False)
+            emit({"phase": "kernel_stream", "kernel": "flash_stream", "dtype": str(dtype)[6:],
+                  "bh": bh, "s_q": s_q, "s_kv": s_kv, "d": d, "q_start": q_start,
+                  "k_start": k_start, "causal": causal, "pred": pred, "launched": launched,
+                  "max_abs_err_out": err_out, "max_abs_err_lse": err_lse, "tol_out": tol["out"],
+                  "tol_lse": tol["lse"], "kv_copy_bit_exact": copied,
+                  "bit_identical_to_flash_fwd": same_as_kernel1, "ok": ok})
+            check(ok, f"flash_stream disagrees with its plain version or kernel 1 ({dtype}, "
+                      f"bh={bh}, s_q={s_q}, s_kv={s_kv}, d={d}, q_start={q_start}, "
+                      f"k_start={k_start}, causal={causal}, pred={pred})")
+            if (dtype, s_q, s_kv, d, q_start, pred) == (torch.bfloat16, HOP_SQ, HOP_SKV, D,
+                                                        HOP_START, True):
+                main_err = err_out
+
+    # times at the hop's shape, bf16, causal at rank 1's offsets
+    q = torch.randn(HOP_BH, HOP_SQ, D, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(HOP_BH, HOP_SKV, D, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    k_dst, v_dst = torch.empty_like(k), torch.empty_like(v)
+    args = (True, HOP_START, HOP_START)
+    ms = cuda_ms(lambda: tflash.flash_stream(q, k, v, k_dst, v_dst, True, *args))
+    kernel1_ms = cuda_ms(lambda: tflash.flash_fwd(q, k, v, *args))
+    plain_ms = cuda_ms(lambda: tflash._flash_stream_reference(q, k, v, k_dst, v_dst, True, *args))
+    q4 = q.view(B, H, HOP_SQ, D)
+    k4, v4 = (t.view(B, H, HOP_SKV, D) for t in (k, v))
+
+    def yardstick():
+        F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        k_dst.copy_(k)
+        v_dst.copy_(v)
+
+    library_ms = cuda_ms(yardstick)
+    bound_ms, bound_by = stream_bound_ms(q, k, *args)
+    timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "library_ms": library_ms}
+    emit({"phase": "kernel_time", "kernel": "flash_stream", "shape": {"q": [HOP_BH, HOP_SQ, D],
+          "kv": [HOP_BH, HOP_SKV, D]}, "dtype": "bfloat16", "causal": True,
+          "q_start": HOP_START, "k_start": HOP_START, "flash_fwd_ms_same_inputs": kernel1_ms,
+          "library_note": "library_ms is a two-call yardstick: F.scaled_dot_product_attention "
+          "(is_causal, the same mask here) plus copy_ of K and V; no single PyTorch call "
+          "computes out, lse and the copy", **timing})
+    return main_err, timing
+
+
+def phase_kernel_head_dim(tflash, dev):
+    """flash_fwd and flash_bwd on CUDA tensors whose head_dim is neither 64
+    nor 128 (zero-padded to the kernels' width, the true d^-½ as scale):
+    against the plain versions, no ValueError."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (8, 32, 96):
+            q, k, v, do = (torch.randn(24, 200, d, generator=gen, device=dev).to(dtype)
+                           for _ in range(4))
+            out, lse = tflash.flash_fwd(q, k, v, True, 0, 0)
+            grads = tflash.flash_bwd(q, k, v, out, lse, do, None, True, 0, 0)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = tflash._flash_fwd_reference(q, k, v, True, 0, 0)
+            ref_grads = tflash._flash_bwd_reference(q, k, v, out, lse, do, None, True, 0, 0)
+            err_out = (out.float() - ref_out.float()).abs().max().item()
+            err_lse = (lse - ref_lse).abs().max().item()
+            rel = max((g.float() - w.float()).abs().max().item()
+                      / max(w.float().abs().max().item(), 1e-30) for g, w in zip(grads, ref_grads))
+            ok = (out.shape == q.shape and all(g.shape == q.shape for g in grads)
+                  and err_out <= TOL[dtype]["out"] and err_lse <= TOL[dtype]["lse"]
+                  and rel <= TOL_BWD[dtype])
+            emit({"phase": "kernel_head_dim", "dtype": str(dtype)[6:], "d": d,
+                  "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
+                  "bwd_max_err_over_max_abs": rel, "ok": ok})
+            check(ok, f"flash_fwd/flash_bwd at head_dim {d} ({dtype}) disagree with the plain "
+                      "versions")
+
+
+def cp_rank(rank, tmp):
+    """One rank of phase_cp_slice (spawned): GPT-2-small over a cp = 2 ring
+    on cuda:{rank % device_count}. Writes its results to tmp/rank{rank}.json;
+    a failure prints the rank's traceback (and a SIGTERM from the parent,
+    once the other rank failed, its stack) to stderr."""
+    import faulthandler
+    import signal
+    import traceback
+
+    faulthandler.register(signal.SIGTERM, all_threads=True, chain=True)
+    res = {"rank": rank}
+    try:
+        cp_rank_run(rank, tmp, res)
+    except BaseException:
+        print(f"chip_smoke: cp rank {rank} failed after {res.get('stage')}:\n"
+              f"{traceback.format_exc()}", file=sys.stderr, flush=True)
+        raise
+
+
+def cp_rank_run(rank, tmp, res):
+    def stage(name):
+        res["stage"] = name
+        print(f"chip_smoke: cp rank {rank}: {name}", file=sys.stderr, flush=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.ops import flash as tflash
+    from dsml_tpu_torch.parallel.hybrid import init_hybrid, make_hybrid_train_step
+    from dsml_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    mesh = build_mesh(MeshSpec(dp=1, cp=2), rank, 2, os.path.join(tmp, "rendezvous"))
+    dev, group = mesh.device, mesh.group("cp")
+    res["device"] = str(dev)
+    stage("gloo all_reduce of a CUDA tensor")
+    # gloo's all_reduce on CUDA tensors (the gradient sum)
+    probe = torch.full((1000,), float(rank + 1), device=dev)
+    dist.all_reduce(probe)
+    res["gloo_cuda_all_reduce_ok"] = bool((probe == 3.0).all())
+    rng = np.random.default_rng(2)
+    x_all = torch.as_tensor(rng.integers(0, 50257, (TRAIN_B, TRAIN_S)))
+    y_all = torch.as_tensor(rng.integers(0, 50257, (TRAIN_B, TRAIN_S)))
+    cols = slice(rank * TRAIN_S // 2, (rank + 1) * TRAIN_S // 2)
+    x, y = x_all[:, cols].to(dev), y_all[:, cols].to(dev)
+
+    cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
+    # (a) loss and backward under each schedule: dma's losses bit-identical
+    # to off's, kernel 4 launched n_layer × 2 directions × 1 hop per forward
+    model = GPT2(cfg, device=dev).init(0)
+    losses, grads, stream_counts = {}, {}, {}
+    for mode in ("off", "dma", "sendahead"):
+        stage(f"loss and backward under {mode}")
+        os.environ["DSML_RING_FUSED"] = mode
+        model.zero_grad(set_to_none=True)
+        tflash.flash_stream_launches = 0
+        loss = model.loss(x, y, attn_impl="ring2", sp_group=group)
+        stream_counts[mode] = tflash.flash_stream_launches
+        (loss / 2).backward()
+        losses[mode] = loss.detach()
+        grads[mode] = [p.grad.detach().clone() for p in model.parameters()]
+    res["schedule_losses"] = {m: float(v) for m, v in losses.items()}
+    res["dma_loss_bit_identical_to_off"] = bool(torch.equal(losses["dma"], losses["off"]))
+    res["sendahead_loss_bit_identical_to_off"] = bool(torch.equal(losses["sendahead"], losses["off"]))
+    res["schedule_grads_bit_identical"] = {m: all(torch.equal(a, b) for a, b in zip(grads[m], grads["off"]))
+                                           for m in ("dma", "sendahead")}
+    res["flash_stream_launches_per_forward"] = stream_counts
+    del grads
+    model.zero_grad(set_to_none=True)
+
+    # ring_pass of one forward payload (a K/V half) and the copy out of the
+    # slot, which is one device copy of the payload's bytes
+    stage("ring_pass")
+    gen = torch.Generator(device=dev).manual_seed(3)  # the same payload on both ranks
+    half = torch.randn(2, TRAIN_B, H, TRAIN_S // 4, D, generator=gen, device=dev).to(torch.bfloat16)
+    from dsml_tpu_torch.ops.collectives import ring_pass
+
+    for _ in range(3):
+        ring_pass((half[0], half[1]), group, +1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        ring_pass((half[0], half[1]), group, +1)
+    torch.cuda.synchronize()
+    res["ring_pass_ms"] = (time.perf_counter() - t0) * 1e3 / 20
+    res["ring_pass_bytes"] = 2 * half[0].numel() * half.element_size()
+    scratch = torch.empty_like(half)
+    res["copy_out_ms"] = cuda_ms(lambda: scratch.copy_(half))
+    got = ring_pass((half[0] + rank, half[1] - rank), group, +1)
+    res["ring_pass_values_ok"] = bool(torch.equal(got[0], half[0] + (1 - rank))
+                                      and torch.equal(got[1], half[1] - (1 - rank)))
+
+    # (b) f32, batch 2: the ring's loss and gradients against single-device
+    # flash on the full sequence (on rank 0)
+    stage("f32 ring loss and gradients")
+    os.environ["DSML_RING_FUSED"] = "dma"
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = GPT2(cfg32, device=dev).init(0)
+    loss32 = m32.loss(x[:CP_F32_B], y[:CP_F32_B], attn_impl="ring2", sp_group=group)
+    (loss32 / 2).backward()
+    flat = torch.cat([p.grad.reshape(-1) for p in m32.parameters()])
+    dist.all_reduce(flat)
+    ring_loss = loss32.detach().clone()
+    dist.all_reduce(ring_loss)
+    ring_loss /= 2
+    if rank == 0:
+        m32.zero_grad(set_to_none=True)
+        full = m32.loss(x_all[:CP_F32_B].to(dev), y_all[:CP_F32_B].to(dev), attn_impl="flash")
+        full.backward()
+        full = full.detach()
+        worst, worst_name, off = 0.0, None, 0
+        for name, p in m32.named_parameters():
+            g_ring = flat[off:off + p.numel()].view_as(p)
+            off += p.numel()
+            rel = (g_ring - p.grad).abs().max().item() / max(p.grad.abs().max().item(), 1e-30)
+            if rel >= worst:
+                worst, worst_name = rel, name
+        res["f32"] = {"ring_loss": float(ring_loss), "single_loss": float(full),
+                      "loss_rel_err": abs(float(ring_loss) - float(full)) / abs(float(full)),
+                      "grads_max_err_over_max_abs": worst, "grads_worst_tensor": worst_name}
+    del m32, flat
+    torch.cuda.empty_cache()
+
+    # (c) the main path: bf16 hybrid steps under dma, counted; rank 0 also
+    # runs the single-device flash step from the same weights and batch
+    stage("hybrid train steps")
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+    init_hybrid(model, opt, mesh, seed=0)
+    step = make_hybrid_train_step(model, opt, mesh)
+    cp_losses = [float(step(x_all, y_all)) for _ in range(CP_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tflash.flash_stream_launches = 0
+    launches0 = {"flash_fwd": tflash.flash_fwd_launches, "dq": tflash.flash_bwd_dq_tc_launches,
+                 "dkv": tflash.flash_bwd_dkv_tc_launches}
+    t0 = time.perf_counter()
+    cp_losses += [step(x_all, y_all) for _ in range(CP_STEPS)]
+    torch.cuda.synchronize()
+    res["step_ms"] = (time.perf_counter() - t0) * 1e3 / CP_STEPS
+    res["launches"] = {"flash_stream": tflash.flash_stream_launches,
+                       "flash_fwd": tflash.flash_fwd_launches - launches0["flash_fwd"],
+                       "flash_bwd_dq_tc": tflash.flash_bwd_dq_tc_launches - launches0["dq"],
+                       "flash_bwd_dkv_tc": tflash.flash_bwd_dkv_tc_launches - launches0["dkv"]}
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    res["cp_losses"] = [float(v) for v in cp_losses]
+    with torch.no_grad():
+        res["weights_checksum"] = float(sum(p.float().sum() for p in model.parameters()))
+    # where one step's time goes: rank 0's kernels from a profiler trace (one
+    # profiling process on the card), rank 1 steps alongside untraced
+    stage("traced step")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if rank == 0:
+        by_name = device_kernel_ms(lambda: step(x_all, y_all))
+        res["trace"] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                        "device_busy_ms": sum(by_name.values()) if by_name else None,
+                        "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])}
+    else:
+        step(x_all, y_all)
+        torch.cuda.synchronize()
+    # the step's gradient sum alone: gloo all_reduce of one flat bf16
+    # buffer of every parameter (through host memory)
+    flat = torch.zeros(sum(p.numel() for p in model.parameters()), dtype=torch.bfloat16,
+                       device=dev)
+    dist.all_reduce(flat)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        dist.all_reduce(flat)
+    torch.cuda.synchronize()
+    res["grad_all_reduce_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+    del opt, step, model, flat
+    torch.cuda.empty_cache()
+    if rank == 0:
+        stage("single-device train steps")
+        single = GPT2(cfg, device=dev).init(0)
+        sopt = torch.optim.AdamW(single.parameters(), lr=3e-4, weight_decay=0.01)
+        xs, ys = x_all.to(dev), y_all.to(dev)
+        single_losses = []
+        for _ in range(CP_WARMUP + CP_STEPS):
+            sopt.zero_grad(set_to_none=True)
+            loss = single.loss(xs, ys, attn_impl="flash")
+            loss.backward()
+            sopt.step()
+            single_losses.append(float(loss))
+        res["single_losses"] = single_losses
+        del single, sopt
+    stage("close")
+    mesh.close()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_cp_slice(card):
+    """GPT-2-small trained over a cp = 2 ring: two spawned ranks (on one
+    card they share it, time-sliced), the hop through kernel 4 into the
+    neighbour's CUDA-IPC-mapped slot. Checks per rank: gloo sums CUDA
+    tensors; dma's loss bit-identical to off's; kernel 4 launched
+    n_layer × 2 per forward; ring_pass moves the right values; f32 ring
+    loss and gradients within tolerance of single-device flash; three
+    bf16 steps (and more) tracking the single-device step; identical
+    replicas. Returns rank 0's launches on the counted steps."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cp_") as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(cp_rank, args=(tmp,), nprocs=2, join=True)
+        seconds = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    n_layer = 12
+    r0 = ranks[0]
+    for r in ranks:
+        emit({"phase": "cp_slice", "model": "gpt2-small", "dtype": "bfloat16", "cp": 2,
+              "global_batch": [TRAIN_B, TRAIN_S], "per_rank": [TRAIN_B, TRAIN_S // 2],
+              "optimizer": "AdamW(3e-4, weight_decay=0.01)", "fused": "dma", "steps": CP_STEPS,
+              "seconds_with_spawn": seconds, "card": card, **r})
+    for r in ranks:
+        rk = r["rank"]
+        check(r["gloo_cuda_all_reduce_ok"], f"rank {rk}: gloo all_reduce of a CUDA tensor")
+        check(r["dma_loss_bit_identical_to_off"] and r["sendahead_loss_bit_identical_to_off"],
+              f"rank {rk}: schedule losses differ: {r['schedule_losses']}")
+        check(r["flash_stream_launches_per_forward"] == {"off": 0, "dma": 2 * n_layer,
+                                                         "sendahead": 0},
+              f"rank {rk}: kernel 4 launches per forward {r['flash_stream_launches_per_forward']}, "
+              f"expected {2 * n_layer} under dma and none otherwise")
+        check(r["ring_pass_values_ok"], f"rank {rk}: ring_pass delivered the wrong values")
+        check(r["launches"]["flash_stream"] == 2 * n_layer * CP_STEPS,
+              f"rank {rk}: the counted steps launched kernel 4 {r['launches']['flash_stream']} "
+              f"times, expected {2 * n_layer * CP_STEPS}")
+        check(all(np.isfinite(r["cp_losses"])), f"rank {rk}: cp losses {r['cp_losses']}")
+    check(ranks[0]["cp_losses"] == ranks[1]["cp_losses"]
+          and ranks[0]["weights_checksum"] == ranks[1]["weights_checksum"],
+          "the two replicas diverged")
+    f32 = r0["f32"]
+    check(f32["loss_rel_err"] <= 1e-5 and f32["grads_max_err_over_max_abs"] <= TOL_TRAIN_GRADS,
+          f"f32 ring loss/gradients vs single-device flash: {f32}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r0["cp_losses"], r0["single_losses"]))
+    emit({"phase": "cp_slice_tracking", "cp_losses": r0["cp_losses"],
+          "single_losses": r0["single_losses"], "max_rel_diff": rel, "tol": TOL_CP_BF16_LOSS})
+    check(rel <= TOL_CP_BF16_LOSS and r0["cp_losses"][-1] < r0["cp_losses"][0],
+          f"cp = 2 bf16 steps do not track the single-device steps: {rel}")
+    return r0["launches"]
+
+
+def phase_cp_cli():
+    """``train_gpt2 --cp 2`` on GPT-2-small bf16 under DSML_RING_FUSED=dma:
+    two spawned ranks, a few steps, a finite loss."""
+    from dsml_tpu_torch.cli import train_gpt2
+
+    os.environ["DSML_RING_FUSED"] = "dma"
+    t0 = time.perf_counter()
+    out = train_gpt2.main(["--model", "small", "--cp", "2", "--dtype", "bfloat16", "--steps", "3",
+                           "--batch_size", "8", "--grad_accum", "1", "--log_every", "1",
+                           "--warmup_steps", "1"])
+    del os.environ["DSML_RING_FUSED"]
+    emit({"phase": "cp_cli", "entry": "python -m dsml_tpu_torch.cli.train_gpt2 --cp 2", **out,
+          "seconds_with_spawn": time.perf_counter() - t0})
+    check(np.isfinite(out["first_loss"]) and np.isfinite(out["last_loss"]),
+          f"the train_gpt2 --cp 2 entry point: {out}")
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: this smoke test needs the card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1493,7 +1916,10 @@ def main() -> None:
     emit({"phase": "build", "sources": sorted(reports), "seconds": time.perf_counter() - t0,
           "ptxas": {name: [line.strip() for line in log.splitlines()
                            if "registers" in line or "spill" in line]
-                    for name, log in reports.items()}})
+                    for name, log in reports.items()},
+          "spills": {name: {fn: props for fn, props in ptxas_report(log).items()
+                            if props.get("spill_stores") or props.get("spill_loads")}
+                     for name, log in reports.items()}})
     phase_sass(_build, reports)
 
     only = sys.argv[1:]  # a debugging run of some phases: no result line
@@ -1506,7 +1932,11 @@ def main() -> None:
                   "paged_slice": lambda: phase_paged_slice(dev, card),
                   "wq_slice": lambda: phase_wq_slice(dev, card),
                   "serve_cli": lambda: (phase_serve_cli(dev), phase_serve_cli_wq(dev)),
-                  "train_int8remat": lambda: phase_train_int8remat(tflash, dev, card)}
+                  "train_int8remat": lambda: phase_train_int8remat(tflash, dev, card),
+                  "kernel_stream": lambda: phase_kernel_stream(tflash, dev),
+                  "kernel_head_dim": lambda: phase_kernel_head_dim(tflash, dev),
+                  "cp_slice": lambda: phase_cp_slice(card),
+                  "cp_cli": phase_cp_cli}
         for name in only:
             phases[name]()
         raise SystemExit(f"chip_smoke: ran only {only}; no result line")
@@ -1516,6 +1946,8 @@ def main() -> None:
     paged_err, paged_timing = phase_kernel_paged(dev)
     qmm_err, qmm_timing = phase_kernel_qmm(dev)
     quant8_err, quant8_timing = phase_kernel_quant8(dev)
+    stream_err, stream_timing = phase_kernel_stream(tflash, dev)
+    phase_kernel_head_dim(tflash, dev)
     launches, model, prompt = phase_slice(tflash, dev, card)
     phase_trace(model, prompt)
     del model
@@ -1534,6 +1966,9 @@ def main() -> None:
     phase_serve_cli_wq(dev)
     torch.cuda.empty_cache()
     remat_launches = phase_train_int8remat(tflash, dev, card)
+    torch.cuda.empty_cache()
+    cp_launches = phase_cp_slice(card)
+    phase_cp_cli()
 
     # the backward's two routes: bf16 (tensor cores) with launches from the
     # bf16 train steps, f32 (FMAs) with launches from phase_train's f32
@@ -1576,6 +2011,12 @@ def main() -> None:
          "replaces": "dsml_tpu/ops/quantization.py:141",
          "launches": remat_launches["quantize_int8"], "max_abs_err": quant8_err,
          **{k: quant8_timing[k] for k in KERNEL_TIMES}},
+        # times at the cp = 2 hop's shape (q [96, 512, 64], K/V half [96, 256,
+        # 64], bf16; library_ms the two-call yardstick SDPA + copy_); launches
+        # from rank 0 of the cp = 2 slice's counted train steps
+        {"name": "flash_stream", "route": "cuda", "source": STREAM_SOURCE,
+         "replaces": "dsml_tpu/ops/flash.py:306", "launches": cp_launches["flash_stream"],
+         "max_abs_err": stream_err, **{k: stream_timing[k] for k in KERNEL_TIMES}},
     ]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

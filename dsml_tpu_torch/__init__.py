@@ -7,7 +7,9 @@ path rewritten by hand for ``sm_90a``:
 - ``dsml_tpu_torch.ops``    — attention, the flash-attention forward and
   backward kernels (``ops/csrc/flash_fwd.cu``; ``ops/csrc/flash_bwd_tc.cu``
   for bf16 on the tensor cores, ``ops/csrc/flash_bwd.cu`` for f32) behind
-  ``ops.flash``, the paged-attention kernels
+  ``ops.flash``, the fused ring hop (``ops/csrc/flash_stream.cu``) behind
+  the context-parallel ring (``ops.ring_attention``, ``ops.collectives``),
+  the paged-attention kernels
   (``ops/csrc/paged_attn.cu``) behind ``ops.paged_attention``, the KV-row
   codec (``ops.quantization``) and the chunked cross-entropy
   (``ops.xent``).
@@ -16,6 +18,8 @@ path rewritten by hand for ``sm_90a``:
   training (``loss``), and the MNIST MLP.
 - ``dsml_tpu_torch.serving`` — the continuous batcher over a dense or
   paged KV cache, and the page allocator.
+- ``dsml_tpu_torch.parallel`` — the process mesh over ``torch.distributed``,
+  the ring's CUDA IPC transport and the context-parallel train step.
 - ``dsml_tpu_torch.trainer`` — the single-device epoch trainer.
 - ``dsml_tpu_torch.utils``  — config, logging, device selection, data
   iterators, learning-rate schedules and metrics.
@@ -30,7 +34,7 @@ __version__ = "0.1.0"
 
 # Lazy subpackage access keeps torch-heavy modules out of the import path
 # until used.
-_SUBPACKAGES = ("ops", "models", "serving", "utils", "cli")
+_SUBPACKAGES = ("ops", "models", "parallel", "serving", "utils", "cli")
 
 
 def __getattr__(name):

@@ -1,5 +1,5 @@
-"""Train GPT-2 on byte tokens on one device — the single-device path of
-``examples/train_gpt2.py``.
+"""Train GPT-2 on byte tokens — the single-device and the context-parallel
+paths of ``examples/train_gpt2.py``.
 
 Tokens are the bytes of ``--data FILE`` or, without one, of a generated
 story corpus (simple grammatical sentences, so the loss measures sequence
@@ -13,16 +13,27 @@ tokens/s".
     python -m dsml_tpu_torch.cli.train_gpt2 --device cpu --model tiny --steps 3
     python -m dsml_tpu_torch.cli.train_gpt2 --model small --attn flash --dtype bfloat16 \\
         --steps 50 --grad_accum 1
+    python -m dsml_tpu_torch.cli.train_gpt2 --model small --cp 2 --dtype bfloat16 --steps 4
 
-Runs on the CUDA card unless ``--device cpu``. Pipeline, tensor, sequence
-and context parallelism, Llama, BPE, the prose corpus, checkpoints,
-profiles and adafactor come with later slices and raise here.
+``--cp N`` spawns N ranks (``torch.multiprocessing``), one process each,
+joined over gloo through a rendezvous file in a temporary directory; they
+run ``parallel.hybrid.make_hybrid_train_step`` with the sequence sharded
+over the context-parallel ring (``--attn ring2``, the default there). Rank
+r runs on ``cuda:{r % device_count}`` (logged per rank: with fewer cards
+than ranks, ranks share a card), or on the CPU with ``--device cpu``.
+Rank 0 logs the steps; a failing rank fails the run.
+
+Runs on the CUDA card unless ``--device cpu``. Pipeline, tensor, data and
+the other sequence parallelisms, Llama, BPE, the prose corpus,
+checkpoints, profiles and adafactor come with later slices and raise here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+import tempfile
 import time
 
 import numpy as np
@@ -50,9 +61,9 @@ class GPT2TrainConfig(Config):
     n_micro: int = field(2, help="pipeline microbatches per step (pp > 1)")
     dp: int = field(0, help="data-parallel size (0 = this device)")
     sp: int = field(1, help="sequence-parallel size (long-context slice)")
-    cp: int = field(1, help="context-parallel size (long-context slice)")
+    cp: int = field(1, help="context-parallel size: spawns this many ranks over the flash ring (ring2)")
     tp: int = field(1, help="tensor-parallel size (model-parallel slice)")
-    attn: str = field("", help="attention impl: flash | xla ('' = plain attention, what the JAX example runs on one device)")
+    attn: str = field("", help="attention impl: flash | xla | ring2 ('' = plain attention on one device, ring2 with --cp > 1, as the JAX example)")
     lr: float = field(3e-4, help="peak learning rate")
     optimizer: str = field("adamw", help="adamw (adafactor: a later slice)")
     clip_norm: float = field(1.0, help="global-norm gradient clip (0 = off)")
@@ -91,7 +102,11 @@ def _generated_stories(n_chars: int, seed: int) -> bytes:
 def _check_supported(cfg: GPT2TrainConfig) -> None:
     later = {
         "--pp/--tp > 1 (the model-parallel slice)": cfg.pp > 1 or cfg.tp > 1,
-        "--sp/--cp > 1 (the long-context slice)": cfg.sp > 1 or cfg.cp > 1,
+        "--sp > 1 (the rest of the long-context slice)": cfg.sp > 1,
+        f"--attn {cfg.attn} (the rest of the long-context slice)":
+            cfg.attn in ("ring", "ulysses", "ulysses_flash", "ring_flash"),
+        f"--attn {cfg.attn} with --cp > 1 (the JAX package routes it to the XLA ring, the rest "
+        "of the long-context slice)": cfg.cp > 1 and cfg.attn in ("flash", "xla"),
         "--dp > 1 (the data-parallel slice)": cfg.dp > 1,
         "--family llama (the Llama slice)": cfg.family == "llama",
         "--tokenizer bpe (a later slice, with utils/tokenizer.py)": cfg.tokenizer == "bpe",
@@ -109,8 +124,8 @@ def _check_supported(cfg: GPT2TrainConfig) -> None:
         raise SystemExit(f"unknown --tokenizer {cfg.tokenizer!r} (use '' or 'bpe')")
     if cfg.optimizer != "adamw":
         raise SystemExit(f"unknown --optimizer {cfg.optimizer!r} (adamw | adafactor)")
-    if cfg.attn not in ("", "flash", "xla"):
-        raise SystemExit(f"--attn {cfg.attn!r}: this port runs flash | xla on one device")
+    if cfg.attn not in ("", "flash", "xla", "ring2"):
+        raise SystemExit(f"--attn {cfg.attn!r}: this port runs flash | xla | ring2")
 
 
 @torch.no_grad()
@@ -155,18 +170,60 @@ def train_step(model, optimizer, lr: float, x: torch.Tensor, y: torch.Tensor,
 def main(argv=None) -> dict:
     cfg = GPT2TrainConfig.parse_args(argv)
     _check_supported(cfg)
+    if cfg.batch_size % cfg.grad_accum:
+        raise SystemExit(
+            f"batch_size={cfg.batch_size} must be divisible by grad_accum={cfg.grad_accum}"
+        )
+    if cfg.cp > 1:
+        return _spawn_cp(cfg)
+    return _train(cfg)
+
+
+def _spawn_cp(cfg: GPT2TrainConfig) -> dict:
+    """Run ``cfg.cp`` ranks of :func:`_cp_rank` and return rank 0's result;
+    a rank that raises fails the run."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="dsml_cp_") as tmp:
+        mp.spawn(_cp_rank, args=(cfg, tmp), nprocs=cfg.cp, join=True)
+        with open(os.path.join(tmp, "result.json")) as f:
+            return json.load(f)
+
+
+def _cp_rank(rank: int, cfg: GPT2TrainConfig, tmp: str) -> None:
+    import torch.distributed as dist
+
+    from dsml_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from dsml_tpu_torch.utils.logging import get_logger
+
+    # rank r on cuda:{r % device_count}: a placement, never a CPU fallback
+    device = "cpu" if torch.device(cfg.device).type == "cpu" else None
+    mesh = build_mesh(MeshSpec(dp=1, cp=cfg.cp), rank, cfg.cp, os.path.join(tmp, "rendezvous"),
+                      device)
+    get_logger("gpt2").info("cp rank %d of %d on %s", rank, cfg.cp, mesh.device)
+    try:
+        out = _train(cfg, mesh)
+        if rank == 0:
+            with open(os.path.join(tmp, "result.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        mesh.close()
+        dist.destroy_process_group()
+
+
+def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
+    """The training loop on one device, or as one rank of ``mesh`` (the
+    context-parallel step; rank 0 logs)."""
     from dsml_tpu_torch.models import model_by_family
     from dsml_tpu_torch.utils.data import carve_lm_eval_split, lm_window_batches, prefetch_batches
     from dsml_tpu_torch.utils.logging import get_logger
     from dsml_tpu_torch.utils.schedules import make_schedule
 
     log = get_logger("gpt2")
-    if cfg.batch_size % cfg.grad_accum:
-        raise SystemExit(
-            f"batch_size={cfg.batch_size} must be divisible by grad_accum={cfg.grad_accum}"
-        )
+    quiet = mesh is not None and mesh.rank != 0
+    device = cfg.device if mesh is None else mesh.device
     try:
-        model, model_cfg = model_by_family("gpt2", cfg.model, device=cfg.device, vocab_size=256)
+        model, model_cfg = model_by_family("gpt2", cfg.model, device=device, vocab_size=256)
     except ValueError as e:
         raise SystemExit(str(e))
     replace = {}
@@ -176,21 +233,22 @@ def main(argv=None) -> dict:
         replace["remat"] = True
     if replace:
         model_cfg = dataclasses.replace(model_cfg, **replace)
-        model = type(model)(model_cfg, device=cfg.device)
+        model = type(model)(model_cfg, device=device)
     model.init(cfg.seed)
     seq = cfg.seq_len or model_cfg.max_seq
-    attn_impl = cfg.attn or "xla"
 
     if cfg.data:
         if not os.path.exists(cfg.data):
             raise FileNotFoundError(f"--data {cfg.data!r} does not exist ('' = generated stories)")
         with open(cfg.data, "rb") as f:
             corpus = f.read()
-        log.info("training on %s (%d bytes)", cfg.data, len(corpus))
+        if not quiet:
+            log.info("training on %s (%d bytes)", cfg.data, len(corpus))
     else:
         need = cfg.steps * cfg.batch_size * (seq + 1) * 2
         corpus = _generated_stories(max(need, 1 << 20), cfg.seed)
-        log.info("no --data file; generated %d bytes of story corpus", len(corpus))
+        if not quiet:
+            log.info("no --data file; generated %d bytes of story corpus", len(corpus))
     tokens = np.frombuffer(corpus, np.uint8).astype(np.int32) % model_cfg.vocab_size
     eval_tokens = None
     if cfg.eval_every:
@@ -203,13 +261,36 @@ def main(argv=None) -> dict:
     # adamw(schedule)): adamw's default weight decay there is 1e-4
     schedule = make_schedule("cosine", cfg.lr, cfg.steps, cfg.warmup_steps)
     optimizer = torch.optim.AdamW(model.parameters(), lr=0.0, weight_decay=1e-4)
-    log.info("GPT-2 %s on %s: %.1fM params, %s, attn=%s, seq=%d, batch=%d x accum=%d",
-             cfg.model, model.device, model.n_params() / 1e6, model_cfg.dtype, attn_impl, seq,
-             cfg.batch_size, cfg.grad_accum)
+    if mesh is None:
+        attn_impl = cfg.attn or "xla"
+
+        def run_step(lr, x, y):
+            return train_step(model, optimizer, lr, x, y, cfg.grad_accum, cfg.clip_norm, attn_impl)
+
+        def eval_loss(x, y):
+            return model.loss(x, y, attn_impl=attn_impl)
+    else:
+        from dsml_tpu_torch.parallel.hybrid import (default_attn_impl, hybrid_eval_loss,
+                                                    make_hybrid_train_step)
+
+        attn_impl = cfg.attn or default_attn_impl(mesh)
+        hybrid_step = make_hybrid_train_step(model, optimizer, mesh, attn_impl=attn_impl,
+                                             grad_accum=cfg.grad_accum, clip_norm=cfg.clip_norm)
+
+        def run_step(lr, x, y):
+            return hybrid_step(x, y, lr)
+
+        def eval_loss(x, y):
+            return hybrid_eval_loss(model, mesh, attn_impl, x, y)
+    if not quiet:
+        log.info("GPT-2 %s on %s: %.1fM params, %s, attn=%s, seq=%d, batch=%d x accum=%d%s",
+                 cfg.model, model.device, model.n_params() / 1e6, model_cfg.dtype, attn_impl, seq,
+                 cfg.batch_size, cfg.grad_accum, "" if mesh is None else f", cp={cfg.cp}")
 
     def device_batch(x, y):
-        return (torch.as_tensor(x).to(model.device).long(),
-                torch.as_tensor(y).to(model.device).long())
+        # the cp step takes the global batch and moves only its own shard
+        dev = model.device if mesh is None else "cpu"
+        return torch.as_tensor(x).to(dev).long(), torch.as_tensor(y).to(dev).long()
 
     if eval_tokens is not None:
         eval_x, eval_y = device_batch(*next(lm_window_batches(eval_tokens, seq, cfg.batch_size,
@@ -220,19 +301,19 @@ def main(argv=None) -> dict:
     first_loss = loss = None
     for i in range(1, cfg.steps + 1):
         x, y = device_batch(*next(batches))
-        loss = train_step(model, optimizer, schedule(i - 1), x, y, cfg.grad_accum,
-                          cfg.clip_norm, attn_impl)
+        loss = run_step(schedule(i - 1), x, y)
         tokens_done += x.numel()
         if first_loss is None:
             first_loss = float(loss)
-        if i % cfg.log_every == 0 or i == cfg.steps:
+        if (i % cfg.log_every == 0 or i == cfg.steps) and not quiet:
             loss_f = float(loss)
             tps = tokens_done / max(time.monotonic() - t0, 1e-9)
             log.info("step %d: loss = %.4f, %.0f tokens/s", i, loss_f, tps)
         if eval_tokens is not None and (i % cfg.eval_every == 0 or i == cfg.steps):
             with torch.no_grad():
-                el = float(model.loss(eval_x, eval_y, attn_impl=attn_impl))
-            log.info("step %d: eval loss = %.4f, perplexity = %.2f", i, el, float(np.exp(el)))
+                el = float(eval_loss(eval_x, eval_y))
+            if not quiet:
+                log.info("step %d: eval loss = %.4f, perplexity = %.2f", i, el, float(np.exp(el)))
     return {"first_loss": first_loss, "last_loss": float(loss)}
 
 

@@ -37,8 +37,15 @@ one onto the other. :meth:`GPT2.init` draws the same
 ``np.random.default_rng(seed)`` sequence as the JAX init, so both packages
 build identical weights from one seed.
 
-Tensor, pipeline and sequence parallelism, MoE and speculative decoding
-come with later slices.
+Context parallelism: :meth:`GPT2.loss` and :meth:`GPT2.apply` take an
+``sp_group`` (a ``parallel.peer.RingGroup``) over which the sequence is
+sharded, as ``dsml_tpu``'s ``loss_spmd``/``apply_spmd`` take ``sp_axis``:
+each rank holds its contiguous shard of the tokens, positions start at the
+shard's origin, attention is the bidirectional flash ring
+(``attn_impl="ring2"``, ``ops/ring_attention.py``) and the loss is this
+rank's mean over its own rows (``parallel/hybrid.py`` reduces it over the
+group). Tensor and pipeline parallelism, the other sequence-parallel
+attentions, MoE and speculative decoding come with later slices.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from dsml_tpu_torch.ops.attention import _NEG_INF, attention
 from dsml_tpu_torch.ops.flash import flash_attention
 from dsml_tpu_torch.ops.paged_attention import paged_attention, paged_attn_impl
 from dsml_tpu_torch.ops.quantization import compressed_checkpoint, quantize_kv_rows, unpack_int4
+from dsml_tpu_torch.ops.ring_attention import ring_attention
 from dsml_tpu_torch.ops.xent import chunked_softmax_xent
 from dsml_tpu_torch.utils.platform import resolve_device
 
@@ -184,7 +192,9 @@ class GPT2(nn.Module):
     weights with :meth:`init` (or ``load_state_dict``): the constructor
     allocates them uninitialised on ``device`` (``None`` = the CUDA card)."""
 
-    _ATTN_IMPLS = ("flash", "xla")
+    _ATTN_IMPLS = ("flash", "xla", "ring2")
+    # the JAX package's other sequence-parallel attentions, not ported yet
+    _LATER_ATTN_IMPLS = ("ring", "ulysses", "ulysses_flash", "ring_flash")
 
     def __init__(self, config: GPT2Config | None = None, device=None):
         super().__init__()
@@ -301,13 +311,28 @@ class GPT2(nn.Module):
     def _unembed(self, h):
         return h @ self.wte.T  # tied to wte
 
-    def _attend(self, attn_impl: str):
-        if attn_impl not in self._ATTN_IMPLS:
+    def _attend(self, attn_impl: str, sp_group=None):
+        """The attention function for ``attn_impl``, routed as the JAX
+        ``_route_attention`` routes it: on a sharded sequence (``sp_group``
+        of more than one rank) only the ring sees the whole context, so
+        ``"ring2"`` is the ring and anything else raises; without one (or a
+        group of one), ``"ring2"`` degenerates to single-device flash."""
+        if attn_impl in self._LATER_ATTN_IMPLS:
             raise NotImplementedError(
-                f"attn_impl {attn_impl!r}: this port serves {self._ATTN_IMPLS}; the "
-                "sequence-parallel variants come with the long-context slice"
+                f"attn_impl {attn_impl!r} comes with the rest of the long-context slice "
+                f"(ROADMAP.md queue 1, item 12); this port serves {self._ATTN_IMPLS}"
             )
-        return flash_attention if attn_impl == "flash" else attention
+        if attn_impl not in self._ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {attn_impl!r}; choose from {self._ATTN_IMPLS}")
+        if sp_group is not None and sp_group.size > 1:
+            if attn_impl != "ring2":
+                raise NotImplementedError(
+                    f"attn_impl {attn_impl!r} on a sequence sharded over {sp_group.size} ranks: "
+                    "the port serves 'ring2' there; the XLA ring the JAX package routes other "
+                    "impls to comes with the rest of the long-context slice (ROADMAP.md queue 1, "
+                    "item 12)")
+            return lambda q, k, v, causal=True: ring_attention(q, k, v, sp_group, causal)
+        return attention if attn_impl == "xla" else flash_attention
 
     def _block(self, layer, h, attend):
         """One pre-LN block: attention residual, then the FFN residual (the
@@ -320,12 +345,14 @@ class GPT2(nn.Module):
             return checkpoint(self._ffn, layer, h, use_reentrant=False)
         return self._ffn(layer, h)
 
-    def _blocks(self, tokens: torch.Tensor, attn_impl: str) -> torch.Tensor:
+    def _blocks(self, tokens: torch.Tensor, attn_impl: str, sp_group=None) -> torch.Tensor:
         """Embedding and the block stack → pre-final-norm hidden states
         [b, s, d]; ``remat=True`` recomputes each block in the backward,
-        ``remat="int8"`` recomputes it from its input stashed as int8."""
-        attend = self._attend(attn_impl)
-        h = self._embed(tokens)
+        ``remat="int8"`` recomputes it from its input stashed as int8. With
+        ``sp_group``, ``tokens`` is this rank's contiguous shard of the
+        sequence and positions start at its origin."""
+        attend = self._attend(attn_impl, sp_group)
+        h = self._embed(tokens, 0 if sp_group is None else sp_group.rank * tokens.shape[1])
         remat = self.config.remat if torch.is_grad_enabled() else False
         if remat == "int8":
             block = compressed_checkpoint(lambda layer, x: self._block(layer, x, attend))
@@ -338,22 +365,26 @@ class GPT2(nn.Module):
                 h = self._block(layer, h, attend)
         return h
 
-    def apply(self, tokens: torch.Tensor, attn_impl: str = "xla") -> torch.Tensor:
+    def apply(self, tokens: torch.Tensor, attn_impl: str = "xla", sp_group=None) -> torch.Tensor:
         """Logits [b, s, vocab] of ``tokens`` [b, s] (causal). ``attn_impl``
-        is ``"xla"`` (plain attention) or ``"flash"`` (the flash kernels)."""
-        return self._unembed(self._final_norm(self._blocks(tokens, attn_impl)))
+        is ``"xla"`` (plain attention), ``"flash"`` (the flash kernels) or
+        ``"ring2"`` (the flash ring over ``sp_group``, whose rank holds
+        ``tokens`` as its shard of the sequence; flash without one)."""
+        return self._unembed(self._final_norm(self._blocks(tokens, attn_impl, sp_group)))
 
     forward = apply
 
     def loss(self, tokens: torch.Tensor, targets: torch.Tensor,
-             attn_impl: str = "xla") -> torch.Tensor:
+             attn_impl: str = "xla", sp_group=None) -> torch.Tensor:
         """Mean next-token cross-entropy of ``tokens`` [b, s] against
         ``targets`` [b, s] (the single-shard head of the JAX
         ``_head_loss_spmd``): the chunked loss of ``ops/xent.py`` when
         ``vocab_size > xent_chunk > 0``, else dense logits in the model's
-        type, cast to f32, then log-softmax."""
+        type, cast to f32, then log-softmax. With ``sp_group`` (the JAX
+        ``loss_spmd`` with ``sp_axis``) both are this rank's shard of the
+        sequence and the loss is the mean over this rank's rows."""
         cfg = self.config
-        h = self._final_norm(self._blocks(tokens, attn_impl))
+        h = self._final_norm(self._blocks(tokens, attn_impl, sp_group))
         if cfg.xent_chunk and cfg.vocab_size > cfg.xent_chunk:
             return chunked_softmax_xent(h, self.wte, targets, cfg.xent_chunk)
         logp = torch.log_softmax(self._unembed(h).float(), dim=-1)

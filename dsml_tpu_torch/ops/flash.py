@@ -19,9 +19,21 @@ dtype (:func:`_bwd_route`): bf16 launches the tensor-core kernels of
 ``flash_bwd_tc.cu``, f32 the FMA kernels of ``flash_bwd.cu`` (a
 tensor-core product rounds f32 to TF32), anything else raises.
 
-On CUDA tensors :func:`flash_fwd` and :func:`flash_bwd` launch their kernels
-or raise; on CPU tensors they run :func:`_flash_fwd_reference` and
-:func:`_flash_bwd_reference`, the plain PyTorch versions of the same
+The kernels are built for head_dim 64 and 128. Other widths up to 128 are
+zero-padded up to the next of the two before the launch, with the true
+``d ** -0.5`` as the kernels' scale, and the results sliced back: the padded
+columns add nothing to q·kᵀ and give zero outputs and zero gradients.
+
+:func:`flash_stream_hop` is one hop of the context-parallel ring under
+``DSML_RING_FUSED=dma`` (the counterpart of ``dsml_tpu/ops/flash.py``'s
+``flash_stream_hop``): ``csrc/flash_stream.cu`` computes kernel 1's block
+and, in the same kernel, copies the resident K/V into the ring neighbour's
+receive slot (``parallel/peer.py``).
+
+On CUDA tensors :func:`flash_fwd`, :func:`flash_bwd` and
+:func:`flash_stream` launch their kernels or raise; on CPU tensors they run
+:func:`_flash_fwd_reference`, :func:`_flash_bwd_reference` and
+:func:`_flash_stream_reference`, the plain PyTorch versions of the same
 functions, which the tests compare with the JAX kernels and
 ``chip_smoke.py`` compares with the CUDA kernels. There is no fallback from
 one to the other.
@@ -33,11 +45,14 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from dsml_tpu_torch.ops import _build
 from dsml_tpu_torch.ops.attention import _NEG_INF
+from dsml_tpu_torch.ops.collectives import ring_pass
 
-__all__ = ["flash_attention", "flash_attention_lse", "flash_block_grads", "flash_bwd", "flash_fwd"]
+__all__ = ["flash_attention", "flash_attention_lse", "flash_block_grads", "flash_bwd", "flash_fwd",
+           "flash_stream", "flash_stream_hop"]
 
 _MAX_FLOOR = -1e20  # running-max floor: a fully masked row gives exp(-1e30 + 1e20) = 0
 _HEAD_DIMS = (64, 128)
@@ -51,6 +66,7 @@ flash_bwd_dq_launches = 0  # f32: flash_bwd.cu
 flash_bwd_dkv_launches = 0
 flash_bwd_dq_tc_launches = 0  # bf16: flash_bwd_tc.cu
 flash_bwd_dkv_tc_launches = 0
+flash_stream_launches = 0  # kernel 4: flash_stream.cu
 
 
 @functools.cache
@@ -62,6 +78,19 @@ def _lib() -> ctypes.CDLL:
     lib.flash_fwd.restype = ctypes.c_int
     lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_fwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _stream_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_stream")
+    lib.flash_stream_fwd.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+    )
+    lib.flash_stream_fwd.restype = ctypes.c_int
+    lib.flash_stream_fwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_stream_fwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -89,13 +118,15 @@ def _causal_mask(s_q, s_kv, q_start, k_start, device):
     return q_pos[:, None] < k_pos[None, :]
 
 
-def _flash_fwd_reference(q, k, v, causal=True, q_start=0, k_start=0):
+def _flash_fwd_reference(q, k, v, causal=True, q_start=0, k_start=0, scale=None):
     """Plain PyTorch version of the kernel: the dense masked softmax in f32
     with the kernel's numeric edges (masked scores -1e30, row max floored
     at -1e20, denominator floored at 1e-30), so it returns the same
-    ``(out in q's dtype, lse f32)`` as the online softmax."""
+    ``(out in q's dtype, lse f32)`` as the online softmax. ``scale``
+    defaults to head_dim^-½ (the kernels take it as an argument)."""
     qf, kf, vf = q.float(), k.float(), v.float()
-    s = (qf @ kf.transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s = (qf @ kf.transpose(-1, -2)) * scale
     if causal:
         s = s.masked_fill(_causal_mask(q.shape[1], k.shape[1], q_start, k_start, q.device), _NEG_INF)
     m = s.amax(-1, keepdim=True).clamp_min(_MAX_FLOOR)
@@ -105,15 +136,16 @@ def _flash_fwd_reference(q, k, v, causal=True, q_start=0, k_start=0):
     return out.to(q.dtype), (m + torch.log(l_fin)).squeeze(-1)
 
 
-def _flash_bwd_reference(q, k, v, out, lse, do, g_lse=None, causal=True, q_start=0, k_start=0):
+def _flash_bwd_reference(q, k, v, out, lse, do, g_lse=None, causal=True, q_start=0, k_start=0,
+                         scale=None):
     """Plain PyTorch version of the backward kernels: the dense recompute
     of p = exp(s - lse) from the saved lse (masked scores -1e30), dp =
     do·vᵀ, ds = p·(dp - delta + g_lse) with delta = rowsum(do·out), then
     dq = scale·ds·k, dk = scale·dsᵀ·q, dv = pᵀ·do, in f32. Returns ``(dq in
     q's dtype, dk and dv in k's dtype)``; ``g_lse=None`` is a zero
-    cotangent."""
+    cotangent; ``scale`` defaults to head_dim^-½."""
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, out, do))
-    scale = q.shape[-1] ** -0.5
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     s = (qf @ kf.transpose(-1, -2)) * scale
     if causal:
         s = s.masked_fill(_causal_mask(q.shape[1], k.shape[1], q_start, k_start, q.device), _NEG_INF)
@@ -149,6 +181,20 @@ def _check_aligned(name, **tensors) -> None:
                              f"{t.data_ptr() % 16}")
 
 
+def _kernel_head_dim(d: int, name: str) -> int:
+    """The kernels' width for head_dim ``d``: 64 or 128, the next at or
+    above ``d``; above 128 raises."""
+    if not 0 < d <= _HEAD_DIMS[-1]:
+        raise ValueError(f"{name} supports head_dim up to {_HEAD_DIMS[-1]}, got {d}")
+    return next(w for w in _HEAD_DIMS if d <= w)
+
+
+def _pad_head_dim(t, width: int):
+    """``t`` [..., d] zero-padded to [..., width] (``t`` itself when d is
+    ``width``)."""
+    return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1])).contiguous()
+
+
 def _check_kernel_inputs(q, k, v, name="flash_fwd") -> None:
     if not (q.device == k.device == v.device) or q.device.type != "cuda":
         raise ValueError(
@@ -165,8 +211,7 @@ def _check_kernel_inputs(q, k, v, name="flash_fwd") -> None:
             f"{name} expects q [bh, s_q, d], k/v [bh, s_kv, d], got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if q.shape[2] not in _HEAD_DIMS:
-        raise ValueError(f"{name} supports head_dim in {_HEAD_DIMS}, got {q.shape[2]}")
+    _kernel_head_dim(q.shape[2], name)
     if q.shape[0] > _MAX_GRID_Y:
         raise ValueError(f"{name} supports batch*heads <= {_MAX_GRID_Y}, got {q.shape[0]}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -177,17 +222,20 @@ def flash_fwd(q, k, v, causal=True, q_start=0, k_start=0):
     """q [bh, s_q, d], k/v [bh, s_kv, d] → (out [bh, s_q, d] in q's dtype,
     lse [bh, s_q] f32). ``q_start``/``k_start`` are the global positions of
     the first q/k row. CUDA tensors launch the kernel on the current stream
-    (no synchronisation); CPU tensors run the plain version."""
+    (no synchronisation), head_dim zero-padded to 64 or 128; CPU tensors run
+    the plain version."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return _flash_fwd_reference(q, k, v, causal, q_start, k_start)
     _check_kernel_inputs(q, k, v)
     bh, s_q, d = q.shape
-    out = torch.empty_like(q)
+    width = _kernel_head_dim(d, "flash_fwd")
+    qp, kp, vp = (_pad_head_dim(t, width) for t in (q, k, v))
+    out = torch.empty_like(qp)
     lse = torch.empty(bh, s_q, dtype=torch.float32, device=q.device)
     lib = _lib()
     err = lib.flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        bh, s_q, k.shape[1], d, int(q_start), int(k_start), int(bool(causal)),
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        bh, s_q, k.shape[1], width, int(q_start), int(k_start), int(bool(causal)),
         int(q.dtype == torch.bfloat16), d**-0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -195,7 +243,7 @@ def flash_fwd(q, k, v, causal=True, q_start=0, k_start=0):
         raise RuntimeError(f"flash_fwd launch failed: {lib.flash_fwd_error_string(err).decode()}")
     global flash_fwd_launches
     flash_fwd_launches += 1
-    return out, lse
+    return (out if width == d else out[..., :d].contiguous()), lse
 
 
 def flash_bwd(q, k, v, out, lse, do, g_lse=None, causal=True, q_start=0, k_start=0):
@@ -204,7 +252,8 @@ def flash_bwd(q, k, v, out, lse, do, g_lse=None, causal=True, q_start=0, k_start
     ``(dq, dk, dv)`` in the inputs' types. CUDA tensors launch the dq and
     the dk/dv kernels of the dtype's route (:func:`_bwd_route`) on the
     current stream (no synchronisation), or raise; bf16 tensors must start
-    16-byte aligned. CPU tensors run the plain version."""
+    16-byte aligned. head_dim is zero-padded to 64 or 128 for the kernels
+    and the gradients sliced back. CPU tensors run the plain version."""
     tensors = (q, k, v, out, lse, do) + (() if g_lse is None else (g_lse,))
     if all(t.device.type == "cpu" for t in tensors):
         return _flash_bwd_reference(q, k, v, out, lse, do, g_lse, causal, q_start, k_start)
@@ -216,19 +265,21 @@ def flash_bwd(q, k, v, out, lse, do, g_lse=None, causal=True, q_start=0, k_start
             f"flash_bwd expects out and do like q {tuple(q.shape)} {q.dtype} on {q.device}, "
             f"got {tuple(out.shape)} {out.dtype}, {tuple(do.shape)} {do.dtype}"
         )
-    route = _bwd_route(q.dtype, d)
+    width = _kernel_head_dim(d, "flash_bwd")
+    route = _bwd_route(q.dtype, width)
     # delta = rowsum(do·out) stays outside the kernels, as in the JAX package
     delta = (do.float() * out.float()).sum(-1)
+    # zero columns: q·kᵀ, do·vᵀ and delta unchanged, zero gradient columns
+    q, k, v, do = (_pad_head_dim(t, width) for t in (q, k, v, do.contiguous()))
     lse = lse.float().contiguous()
     glse = None if g_lse is None else g_lse.float().contiguous()
     if lse.shape != (bh, s_q) or (glse is not None and glse.shape != (bh, s_q)):
         raise ValueError(f"flash_bwd expects lse and g_lse [{bh}, {s_q}], got {tuple(lse.shape)}")
-    do = do.contiguous()
     if route == "flash_bwd_tc":
         _check_aligned("flash_bwd", q=q, k=k, v=v, do=do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _bwd_lib(route)
-    common = (bh, s_q, k.shape[1], d, int(q_start), int(k_start), int(bool(causal)), d**-0.5,
+    common = (bh, s_q, k.shape[1], width, int(q_start), int(k_start), int(bool(causal)), d**-0.5,
               torch.cuda.current_stream(q.device).cuda_stream)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), None if glse is None else glse.data_ptr())
@@ -249,6 +300,8 @@ def flash_bwd(q, k, v, out, lse, do, g_lse=None, causal=True, q_start=0, k_start
         flash_bwd_dkv_tc_launches += 1
     else:
         flash_bwd_dkv_launches += 1
+    if width != d:
+        dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -319,3 +372,104 @@ def flash_block_grads(q, k, v, out, lse, do, g_lse=None, causal: bool = True,
     )
     return (dq.float().view(b, h, s_q, d), dk.float().view(b, h, s_kv, d),
             dv.float().view(b, h, s_kv, d))
+
+
+# ---- kernel 4: the fused ring hop --------------------------------------------
+
+
+def _flash_stream_reference(q, k, v, k_dst, v_dst, pred=True, causal=True, q_start=0, k_start=0):
+    """Plain PyTorch version of kernel 4: :func:`_flash_fwd_reference`, or
+    with ``pred`` false the hop-skip identity (out = 0, lse = -1e30), and,
+    with every ``pred``, ``k``/``v`` copied into ``k_dst``/``v_dst``.
+    Returns ``(out, lse)``."""
+    k_dst.copy_(k)
+    v_dst.copy_(v)
+    if pred:
+        return _flash_fwd_reference(q, k, v, causal, q_start, k_start)
+    return (torch.zeros_like(q),
+            torch.full(q.shape[:2], _NEG_INF, dtype=torch.float32, device=q.device))
+
+
+def _dst_pointer(dst, like, name: str) -> int:
+    """A kernel-4 destination: a tensor shaped like ``like`` on its device,
+    or a raw device pointer (the ring's peer-mapped slot)."""
+    if isinstance(dst, int):
+        ptr = dst
+    else:
+        if dst.shape != like.shape or dst.dtype != like.dtype or dst.device != like.device \
+                or not dst.is_contiguous():
+            raise ValueError(f"flash_stream needs {name} contiguous like {tuple(like.shape)} "
+                             f"{like.dtype} on {like.device}, got {tuple(dst.shape)} {dst.dtype} "
+                             f"on {dst.device}")
+        ptr = dst.data_ptr()
+    if ptr % 16:
+        raise ValueError(f"flash_stream needs {name} 16-byte aligned, got address % 16 = {ptr % 16}")
+    return ptr
+
+
+def flash_stream(q, k, v, k_dst, v_dst, pred=True, causal=True, q_start=0, k_start=0):
+    """Kernel 4: q [bh, s_q, d], k/v [bh, s_kv, d] → (out, lse) as
+    :func:`flash_fwd` (or the skip identity when ``pred`` is false), while
+    the same launch copies ``k``/``v`` into ``k_dst``/``v_dst`` (tensors
+    like ``k``, or 16-byte aligned device pointers of ``k.nbytes`` each).
+    CUDA tensors launch ``csrc/flash_stream.cu`` on the current stream (no
+    synchronisation), head_dim zero-padded to 64 or 128 for the math while
+    the UNPADDED k/v are what is copied; CPU tensors run
+    :func:`_flash_stream_reference`."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return _flash_stream_reference(q, k, v, k_dst, v_dst, pred, causal, q_start, k_start)
+    _check_kernel_inputs(q, k, v, "flash_stream")
+    _check_aligned("flash_stream", k=k, v=v)
+    k_ptr, v_ptr = _dst_pointer(k_dst, k, "k_dst"), _dst_pointer(v_dst, v, "v_dst")
+    bh, s_q, d = q.shape
+    width = _kernel_head_dim(d, "flash_stream")
+    qp, kp, vp = (_pad_head_dim(t, width) for t in (q, k, v))
+    out = torch.empty_like(qp)
+    lse = torch.empty(bh, s_q, dtype=torch.float32, device=q.device)
+    lib = _stream_lib()
+    err = lib.flash_stream_fwd(
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        bh, s_q, k.shape[1], width, int(q_start), int(k_start), int(bool(causal)),
+        int(q.dtype == torch.bfloat16), d**-0.5, int(bool(pred)),
+        k.data_ptr(), v.data_ptr(), k_ptr, v_ptr, k.numel() * k.element_size(),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(
+            f"flash_stream launch failed: {lib.flash_stream_fwd_error_string(err).decode()}")
+    global flash_stream_launches
+    flash_stream_launches += 1
+    return (out if width == d else out[..., :d].contiguous()), lse
+
+
+def flash_stream_hop(q, k, v, pred, ring, sign, causal=True, q_start=0, k_start=0):
+    """One FUSED ring-attention hop: flash attention of ``q`` [b, h, s_q, d]
+    against the resident ``k``/``v`` [b, h, s_kv, d] while that same K/V
+    streams to ``ring``'s neighbour in direction ``sign``. Returns ``(out,
+    lse, k_next, v_next)``: the attention pair for the merge and the next
+    hop's residents, received from the opposite neighbour. ``pred`` (a
+    bool: rank and hop are host ints) is the causal hop-skip predicate:
+    false gives the (0, -1e30) identity, and the bytes still move.
+
+    CUDA tensors: kernel 4 stores K/V straight into the neighbour's receive
+    slot (``ring``'s CUDA IPC transport), then the transport records the
+    event the neighbour waits on. CPU tensors: the plain version copies
+    into a send buffer that hops over gloo."""
+    b, h, s_q, d = q.shape
+    s_kv = k.shape[2]
+    q3 = q.reshape(b * h, s_q, d).contiguous()
+    k3 = k.reshape(b * h, s_kv, d).contiguous()
+    v3 = v.reshape(b * h, s_kv, d).contiguous()
+    if all(t.device.type == "cpu" for t in (q3, k3, v3)):
+        k_send, v_send = torch.empty_like(k3), torch.empty_like(v3)
+        out, lse = _flash_stream_reference(q3, k3, v3, k_send, v_send, pred, causal, q_start,
+                                           k_start)
+        k_next, v_next = ring_pass((k_send, v_send), ring, sign)
+    else:
+        ipc = ring.ipc()
+        k_ptr, v_ptr = ipc.send_begin(sign, (k3, v3))
+        out, lse = flash_stream(q3, k3, v3, k_ptr, v_ptr, pred, causal, q_start, k_start)
+        ipc.send_end(sign)
+        k_next, v_next = ipc.recv(sign, (k3, v3))
+    return (out.view(b, h, s_q, d), lse.view(b, h, s_q), k_next.view(b, h, s_kv, d),
+            v_next.view(b, h, s_kv, d))

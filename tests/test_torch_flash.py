@@ -270,14 +270,50 @@ def test_flash_block_grads_matches_jax():
 
 
 def test_build_is_lazy_and_a_failed_build_raises(monkeypatch, tmp_path):
-    assert {"flash_fwd", "flash_bwd"} <= set(_build.sources())
+    assert {"flash_fwd", "flash_bwd", "flash_stream", "peer_ipc"} <= set(_build.sources())
     # importing the ops built nothing
     assert tflash._lib.cache_info().currsize == tflash._bwd_lib.cache_info().currsize == 0
+    assert tflash._stream_lib.cache_info().currsize == 0
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build(["flash_fwd"])
+
+
+@pytest.mark.parametrize("d", [8, 32, 96])
+def test_head_dim_padding_math(d):
+    """What the CUDA wrappers do for a head_dim other than 64 or 128: zero
+    columns up to the kernels' width, the true d^-½ as scale, the result
+    sliced back. The padded forward and backward equal the unpadded ones,
+    and the padded columns come out zero."""
+    width = tflash._kernel_head_dim(d, "flash_fwd")
+    assert width == (64 if d <= 64 else 128)
+    rng = np.random.default_rng(d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((3, 40, d)).astype(np.float32))
+                   for _ in range(4))
+    out, lse = tflash._flash_fwd_reference(q, k, v, True, 8, 0)
+    qp, kp, vp, dop = (tflash._pad_head_dim(t, width) for t in (q, k, v, do))
+    assert qp.shape == (3, 40, width) and qp.is_contiguous()
+    out_p, lse_p = tflash._flash_fwd_reference(qp, kp, vp, True, 8, 0, scale=d**-0.5)
+    np.testing.assert_allclose(out_p[..., :d].numpy(), out.numpy(), **TOL)
+    np.testing.assert_allclose(lse_p.numpy(), lse.numpy(), **TOL)
+    assert not out_p[..., d:].any()
+    grads = tflash._flash_bwd_reference(q, k, v, out, lse, do, None, True, 8, 0)
+    grads_p = tflash._flash_bwd_reference(qp, kp, vp, tflash._pad_head_dim(out, width), lse, dop,
+                                          None, True, 8, 0, scale=d**-0.5)
+    for g, gp in zip(grads, grads_p):
+        np.testing.assert_allclose(gp[..., :d].numpy(), g.numpy(), **TOL)
+        assert not gp[..., d:].any()
+
+
+def test_kernel_head_dim_limits():
+    assert [tflash._kernel_head_dim(d, "f") for d in (1, 63, 64, 65, 127, 128)] == \
+        [64, 64, 64, 128, 128, 128]
+    for d in (0, 129, 256):
+        with pytest.raises(ValueError, match="head_dim up to 128"):
+            tflash._kernel_head_dim(d, "flash_fwd")
+    assert tflash._pad_head_dim(torch.zeros(2, 3, 64), 64).shape == (2, 3, 64)
 
 
 def _imported_modules(tree):
@@ -298,7 +334,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"ops/xent.py", "models/mlp.py", "trainer.py", "cli/train_gpt2.py", "utils/data.py",
             "utils/schedules.py", "utils/metrics.py", "ops/quantization.py",
             "ops/paged_attention.py", "serving/paging.py", "serving/batcher.py",
-            "cli/serve_continuous.py"} <= names
+            "cli/serve_continuous.py", "ops/ring_attention.py", "ops/collectives.py",
+            "parallel/mesh.py", "parallel/peer.py", "parallel/hybrid.py"} <= names
     bad = []
     for path in files:
         for mod in _imported_modules(ast.parse(path.read_text(), str(path))):
