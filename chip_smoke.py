@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch/CUDA port (``dsml_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py                      # every phase, then the result line
-    python3 chip_smoke.py kernel_qmm wq_slice  # only the named phases, no result line
+    python3 chip_smoke.py                         # every phase, then the result line
+    python3 chip_smoke.py sass kernel kernel_stream  # only the named phases, no result line
 
 Builds the port's CUDA kernels from ``dsml_tpu_torch/ops/csrc/`` with
 ``nvcc`` (one process per source, all at once), holds each against its
@@ -35,12 +35,15 @@ non-zero exit and no result line. The line before the last is the card's
 name and power limit as ``nvidia-smi`` prints them; the last line is
 ``{"ok": true, "device": {...}}``.
 
-Phases: device, build, sass (HMMA instructions in the tensor-core backward
-kernels' SASS, no register spills at d = 64); kernel, kernel_bwd,
-kernel_paged, kernel_qmm, kernel_quant8 (each kernel against its plain
-version, then a kernel_time line with its device time, bound, plain time
-and library yardstick); slice and trace (the generate run, its launches,
-logits and greedy tokens against the plain path, device-busy time); cli
+Phases: device, build (always); sass (HMMA instructions in the SASS of the
+tensor-core kernels: the backward's two and the bf16 instantiations of
+kernels 1 and 4, none in their f32 instantiations; no register spills in
+them at d = 64); kernel, kernel_bwd, kernel_paged, kernel_qmm,
+kernel_quant8 (each kernel against its plain version, then a kernel_time
+line with its device time, bound, plain time and library yardstick; kernel
+1 at the prefill and the train step's shapes, bf16 and f32); slice and
+trace (the generate run, its launches, logits and greedy tokens against the
+plain path, device-busy time); cli
 (``generate_text``); train and its trace; train_cli (``train_gpt2`` and the
 MNIST ``Trainer``); paged_slice; wq_slice (qmm launches = 48 per chunk or
 tick, tokens/s, TTFT, tick ms and idle share, the twin's bytes, f32 int4
@@ -64,6 +67,7 @@ explicitly): the f32 phases compare two paths at f32 tolerances.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -197,37 +201,61 @@ def ptxas_report(log):
     return out
 
 
+# the tensor-core kernels' SASS: {library: [(label, mangled-name prefix,
+# HMMA expected)]}, each at d = 64 and 128. The forward's two kernels route
+# bf16 to the tensor cores and f32 to FMAs (a tensor-core product rounds f32
+# to TF32), so their f32 instantiations must hold no HMMA.
+SASS_KERNELS = {
+    "flash_bwd_tc": [("flash_bwd_dq_tc_kernel<{d}>", "flash_bwd_dq_tc_kernelILi{d}E", True),
+                     ("flash_bwd_dkv_tc_kernel<{d}>", "flash_bwd_dkv_tc_kernelILi{d}E", True)],
+    "flash_fwd": [("flash_fwd_kernel<bf16, {d}>", "flash_fwd_kernelI13__nv_bfloat16Li{d}E", True),
+                  ("flash_fwd_kernel<float, {d}>", "flash_fwd_kernelIfLi{d}E", False)],
+    "flash_stream": [("flash_stream_fwd_kernel<bf16, {d}>",
+                      "flash_stream_fwd_kernelI13__nv_bfloat16Li{d}E", True),
+                     ("flash_stream_fwd_kernel<float, {d}>", "flash_stream_fwd_kernelIfLi{d}E",
+                      False)],
+}
+
+
 def phase_sass(build, reports):
-    """The tensor-core backward runs on the tensor cores: ``cuobjdump
-    -sass`` of the built flash_bwd_tc library shows HMMA instructions in
-    both kernels at d = 64 and 128, and ``-Xptxas -v`` reports no spills at
-    d = 64 (the train shape; spills at d = 128 are reported)."""
+    """The tensor-core kernels run on the tensor cores: ``cuobjdump -sass``
+    of each built library shows HMMA instructions in the backward's two
+    kernels and in the bf16 instantiations of the forward's two kernels
+    (kernel 1, kernel 4) at d = 64 and 128, and none in the forward's f32
+    instantiations; ``-Xptxas -v`` reports no spills in any tensor-core
+    kernel at d = 64 (the train and prefill shapes; d = 128 is reported)."""
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                                                      "bin", "cuobjdump")
     check(os.path.exists(tool), "cuobjdump not found on PATH or under CUDA_HOME: the SASS check "
-                                "of the tensor-core backward needs it")
-    res = subprocess.run([tool, "-sass", str(build._target("flash_bwd_tc"))], capture_output=True,
-                         text=True, check=False)
-    check(res.returncode == 0, f"cuobjdump -sass failed ({res.returncode}): {res.stderr[-2000:]}")
-    hmma = {name.split()[0]: body.count("HMMA")
-            for name, body in (chunk.split("\n", 1) for chunk in res.stdout.split("Function : ")[1:])}
-    ptxas = ptxas_report(reports["flash_bwd_tc"])
-    row = {"phase": "sass", "source": BWD_TC_SOURCE, "hmma": {}, "ptxas": {}}
-    for kernel in ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"):
-        for d in (64, 128):
-            key = f"{kernel}<{d}>"
-            found = [n for fn, n in hmma.items() if kernel in fn and f"ILi{d}E" in fn]
-            check(len(found) == 1 and found[0] > 0,
-                  f"{key}: HMMA instructions in its SASS {found} (functions: {sorted(hmma)})")
-            row["hmma"][key] = found[0]
-            props = [v for fn, v in ptxas.items() if kernel in fn and f"ILi{d}E" in fn]
-            check(len(props) == 1, f"{key}: no single -Xptxas -v entry: {sorted(ptxas)}")
-            row["ptxas"][key] = props[0]
+                                "of the tensor-core kernels needs it")
+    row = {"phase": "sass", "sources": {lib: f"dsml_tpu_torch/ops/csrc/{lib}.cu" for lib in SASS_KERNELS},
+           "hmma": {}, "ptxas": {}}
+    for lib, kernels in SASS_KERNELS.items():
+        res = subprocess.run([tool, "-sass", str(build._target(lib))], capture_output=True,
+                             text=True, check=False)
+        check(res.returncode == 0, f"cuobjdump -sass {lib} failed ({res.returncode}): "
+                                   f"{res.stderr[-2000:]}")
+        hmma = {name.split()[0]: body.count("HMMA") for name, body in
+                (chunk.split("\n", 1) for chunk in res.stdout.split("Function : ")[1:])}
+        ptxas = ptxas_report(reports[lib])
+        for label, prefix, tensor_cores in kernels:
+            for d in (64, 128):
+                key, pattern = label.format(d=d), prefix.format(d=d)
+                found = [n for fn, n in hmma.items() if pattern in fn]
+                check(len(found) == 1 and (found[0] > 0) == tensor_cores,
+                      f"{key}: HMMA instructions in its SASS {found}, expected "
+                      f"{'some' if tensor_cores else 'none'} (functions: {sorted(hmma)})")
+                row["hmma"][key] = found[0]
+                props = [v for fn, v in ptxas.items() if pattern in fn]
+                check(len(props) == 1, f"{key}: no single -Xptxas -v entry: {sorted(ptxas)}")
+                row["ptxas"][key] = props[0]
     emit(row)
-    for kernel in ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"):
-        props = row["ptxas"][f"{kernel}<64>"]
-        check(props.get("spill_stores") == 0 and props.get("spill_loads") == 0,
-              f"{kernel}<64> spills registers: {props}")
+    for kernels in SASS_KERNELS.values():
+        for label, _, tensor_cores in kernels:
+            props = row["ptxas"][label.format(d=64)]
+            check(not tensor_cores or (props.get("spill_stores") == 0
+                                       and props.get("spill_loads") == 0),
+                  f"{label.format(d=64)} spills registers: {props}")
 
 
 def phase_kernel_bwd(tflash, dev):
@@ -279,19 +307,16 @@ def phase_kernel_bwd(tflash, dev):
                 main_err[dtype] = errs
 
     # times at the train step's shape, [96, 1024, 64] causal, no lse
-    # cotangent: the tensor-core kernels in bf16, the FMA kernels in f32
+    # cotangent: the tensor-core kernels in bf16, the FMA kernels in f32;
+    # profiler device time, as the forward's
     timing, wrapper = {}, {}
     for dtype, names in BWD_KERNELS.items():
         q, k, v, out, lse, do, _ = inputs(bh_train, TRAIN_S, TRAIN_S, D, dtype, 0, True, False)
-        reps = 10
-        per_kernel = device_kernel_ms(lambda: [tflash.flash_bwd(q, k, v, out, lse, do) for _ in range(reps)])
-        ms = {}
-        for name in names:
-            found = [t / reps for k_name, t in per_kernel.items() if f"{name}_kernel<" in k_name]
-            check(len(found) == 1, f"the profiler trace shows no single {name} kernel: {sorted(per_kernel)}")
-            ms[name] = found[0]
-        wrapper[str(dtype)[6:]] = cuda_ms(lambda: tflash.flash_bwd(q, k, v, out, lse, do))
-        plain_ms = cuda_ms(lambda: tflash._flash_bwd_reference(q, k, v, out, lse, do))
+        call = functools.partial(tflash.flash_bwd, q, k, v, out, lse, do)
+        ms = {name: device_ms(call, reps=10, pattern=f"{name}_kernel<") for name in names}
+        wrapper[str(dtype)[6:]] = {"device_ms": device_ms(call, reps=10), "call_ms": cuda_ms(call)}
+        plain_ms = device_ms(functools.partial(tflash._flash_bwd_reference, q, k, v, out, lse, do),
+                             reps=10)
         q4, k4, v4, do4 = (t.view(TRAIN_B, H, TRAIN_S, D).detach().requires_grad_() for t in (q, k, v, do))
 
         def sdpa(backward):
@@ -299,7 +324,8 @@ def phase_kernel_bwd(tflash, dev):
             if backward:
                 torch.autograd.grad(o, (q4, k4, v4), do4)
 
-        library_ms = cuda_ms(lambda: sdpa(True)) - cuda_ms(lambda: sdpa(False))
+        library_ms = (device_ms(functools.partial(sdpa, True), reps=10)
+                      - device_ms(functools.partial(sdpa, False), reps=10))
         for name, products, n_out in zip(names, (3, 4), (1, 2)):
             bound_ms, bound_by = backward_bound_ms(bh_train, TRAIN_S, TRAIN_S, D, dtype, True,
                                                    products, n_out)
@@ -309,13 +335,18 @@ def phase_kernel_bwd(tflash, dev):
     emit({"phase": "kernel_time", "kernels": [n for names in BWD_KERNELS.values() for n in names],
           "shape": [bh_train, TRAIN_S, D], "causal": True,
           "dtype": {n: str(dt)[6:] for dt, names in BWD_KERNELS.items() for n in names},
-          "flash_bwd_ms": wrapper, "plain_note": "plain_ms and library_ms are whole backwards "
-          "(dq, dk and dv) in the kernels' type; library_ms is SDPA forward+backward minus "
-          "forward; flash_bwd_ms is the wrapper, delta included", **timing})
+          "flash_bwd": wrapper, "plain_note": "profiler device times; plain_ms and library_ms "
+          "are whole backwards (dq, dk and dv) in the kernels' type; library_ms is SDPA "
+          "forward+backward minus forward; flash_bwd is the wrapper, delta included (device_ms), "
+          "and CUDA events around one call (call_ms)", **timing})
     return main_err, timing
 
 
 def phase_kernel(tflash, dev):
+    """Kernel 1 against _flash_fwd_reference: bf16 (the tensor-core body)
+    and f32 (the FMA body), causal and not, ragged 700, offsets, d = 64
+    and 128, the prefill and the train step's shapes; then its times at
+    those two shapes in both types, beside SDPA and the bound."""
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def qkv(bh, s_q, s_kv, d, dtype):
@@ -323,7 +354,7 @@ def phase_kernel(tflash, dev):
                 for s in (s_q, s_kv, s_kv)]
 
     cases = [(S, S, 0, True), (S, S, 0, False), (700, 700, 0, True), (700, 700, 0, False),
-             (256, 512, 256, True)]
+             (256, 512, 256, True), (TRAIN_S, TRAIN_S, 0, True)]
     main_err = None
     for dtype in (torch.bfloat16, torch.float32):
         for s_q, s_kv, q_start, causal in cases:
@@ -347,18 +378,29 @@ def phase_kernel(tflash, dev):
                 if (dtype, s_q, d, causal) == (torch.bfloat16, S, D, True):
                     main_err = err_out
 
-    # times at the prefill's shape: bf16 [b·h, 512, 64], causal
-    q, k, v = qkv(B * H, S, S, D, torch.bfloat16)
-    q4, k4, v4 = (t.view(B, H, S, D) for t in (q, k, v))
-    ms = cuda_ms(lambda: tflash.flash_fwd(q, k, v, True))
-    plain_ms = cuda_ms(lambda: tflash._flash_fwd_reference(q, k, v, True))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
-    bound_ms, bound_by = attention_bound_ms(B * H, S, S, D, torch.bfloat16, True)
-    timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-              "bound_ms": bound_ms, "bound_by": bound_by}
-    emit({"phase": "kernel_time", "kernel": "flash_fwd", "shape": [B * H, S, D],
-          "dtype": "bfloat16", "causal": True, **timing})
-    return main_err, timing
+    # times at the prefill's shape [b·h, 512, 64] and the train step's
+    # [b·h, 1024, 64], causal: bf16 (the tensor-core body) and f32 (the FMA body)
+    timings = {}
+    for s_len in (S, TRAIN_S):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = qkv(B * H, s_len, s_len, D, dtype)
+            q4, k4, v4 = (t.view(B, H, s_len, D) for t in (q, k, v))
+            kernel = functools.partial(tflash.flash_fwd, q, k, v, True)
+            plain = functools.partial(tflash._flash_fwd_reference, q, k, v, True)
+            library = functools.partial(F.scaled_dot_product_attention, q4, k4, v4, is_causal=True)
+            bound_ms, bound_by = attention_bound_ms(B * H, s_len, s_len, D, dtype, True)
+            timings[s_len, dtype] = {
+                "ms": device_ms(kernel, pattern="flash_fwd_kernel<"),
+                "plain_ms": device_ms(plain), "library_ms": device_ms(library),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+            emit({"phase": "kernel_time", "kernel": "flash_fwd", "shape": [B * H, s_len, D],
+                  "dtype": str(dtype)[6:], "causal": True, **timings[s_len, dtype],
+                  "call_ms": {"flash_fwd": cuda_ms(kernel), "plain": cuda_ms(plain),
+                              "library": cuda_ms(library)},
+                  "note": "ms, plain_ms and library_ms are profiler device time per call; call_ms "
+                  "are CUDA events around one call, host time between launches included"})
+            del q, k, v, q4, k4, v4
+    return main_err, timings[S, torch.bfloat16]
 
 
 def greedy_trace(model, prompt, n, forced=None):
@@ -459,21 +501,27 @@ def phase_slice(tflash, dev, card):
     return launches, model, prompt
 
 
-def device_kernel_ms(fn) -> dict[str, float]:
-    """{kernel name: device ms} of the kernels ``fn`` launches, summed from
-    a ``torch.profiler`` trace; empty where the trace holds no device
-    events. Names are cut to 80 characters, which sums the instances of one
-    template (PyTorch's elementwise kernels) under one name."""
+def device_events(fn) -> list[tuple[str, float]]:
+    """(name cut to 80 characters, device ms) of each kernel, memset and
+    copy ``fn`` launches, from a ``torch.profiler`` trace; empty where the
+    trace holds no device events."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return [(e.name[:80], e.time_range.elapsed_us() / 1e3) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_kernel_ms(fn) -> dict[str, float]:
+    """{kernel name: device ms} of the kernels ``fn`` launches, summed from
+    a ``torch.profiler`` trace; empty where the trace holds no device
+    events. Names are cut to 80 characters, which sums the instances of one
+    template (PyTorch's elementwise kernels) under one name."""
     by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name[:80]
-            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for name, ms in device_events(fn):
+        by_name[name] = by_name.get(name, 0.0) + ms
     return by_name
 
 
@@ -484,6 +532,31 @@ def device_busy_ms(fn):
     by_name = device_kernel_ms(fn)
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
     return (sum(by_name.values()) if by_name else None), top
+
+
+def device_ms(fn, reps: int = 20, pattern: str | None = None) -> float:
+    """Device ms per call of ``fn`` from a profiler trace of ``reps`` calls
+    after one warm-up: every kernel, memset and copy the calls launch, or
+    only the launches of the one kernel whose name holds ``pattern``.
+    Unlike ``cuda_ms`` it leaves out the host's time between launches,
+    which exceeds the device time of a ~0.02 ms kernel behind a Python
+    wrapper. The card's traces sometimes miss events (none at all, or
+    part of a run of calls): a trace counts only when it holds ``reps``
+    launches of the kernel, or a whole multiple of ``reps`` events, and is
+    taken again otherwise, up to 3 times."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        events = device_events(lambda: [fn() for _ in range(reps)])
+        if pattern is not None:
+            events = [(name, ms) for name, ms in events if pattern in name]
+            complete = len(events) == reps and len({name for name, _ in events}) == 1
+        else:
+            complete = bool(events) and len(events) % reps == 0
+        if complete:
+            return sum(ms for _, ms in events) / reps
+    check(False, f"3 profiler traces of {reps} calls held no complete set of device events "
+                 f"({len(events)} events{'' if pattern is None else ' named ' + pattern})")
 
 
 def phase_trace(model, prompt):
@@ -1522,7 +1595,8 @@ def phase_kernel_stream(tflash, dev):
     a ragged kv tail, head_dim 96 (padded to 128 for the math, the
     unpadded K/V copied). out and lse within the flash tolerances, the
     copied K/V bit-exact, out and lse bit-identical to kernel 1's on the
-    same inputs, one launch a call. Then its time at the hop shape."""
+    same inputs, one launch a call. Then its times at the hop shape, bf16
+    and f32."""
     gen = torch.Generator(device=dev).manual_seed(6)
     cases = [  # (bh, s_q, s_kv, d, q_start, k_start, causal, pred)
         (HOP_BH, HOP_SQ, HOP_SKV, D, HOP_START, HOP_START, True, True),
@@ -1571,34 +1645,43 @@ def phase_kernel_stream(tflash, dev):
                                                         HOP_START, True):
                 main_err = err_out
 
-    # times at the hop's shape, bf16, causal at rank 1's offsets
-    q = torch.randn(HOP_BH, HOP_SQ, D, generator=gen, device=dev).to(torch.bfloat16)
-    k, v = (torch.randn(HOP_BH, HOP_SKV, D, generator=gen, device=dev).to(torch.bfloat16)
-            for _ in range(2))
-    k_dst, v_dst = torch.empty_like(k), torch.empty_like(v)
+    # times at the hop's shape, causal at rank 1's offsets: bf16 (the
+    # tensor-core body) and f32 (the FMA body)
     args = (True, HOP_START, HOP_START)
-    ms = cuda_ms(lambda: tflash.flash_stream(q, k, v, k_dst, v_dst, True, *args))
-    kernel1_ms = cuda_ms(lambda: tflash.flash_fwd(q, k, v, *args))
-    plain_ms = cuda_ms(lambda: tflash._flash_stream_reference(q, k, v, k_dst, v_dst, True, *args))
-    q4 = q.view(B, H, HOP_SQ, D)
-    k4, v4 = (t.view(B, H, HOP_SKV, D) for t in (k, v))
+    timings = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(HOP_BH, HOP_SQ, D, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(HOP_BH, HOP_SKV, D, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        k_dst, v_dst = torch.empty_like(k), torch.empty_like(v)
+        kernel = functools.partial(tflash.flash_stream, q, k, v, k_dst, v_dst, True, *args)
+        kernel1 = functools.partial(tflash.flash_fwd, q, k, v, *args)
+        plain = functools.partial(tflash._flash_stream_reference, q, k, v, k_dst, v_dst, True, *args)
+        q4 = q.view(B, H, HOP_SQ, D)
+        k4, v4 = (t.view(B, H, HOP_SKV, D) for t in (k, v))
 
-    def yardstick():
-        F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-        k_dst.copy_(k)
-        v_dst.copy_(v)
+        def yardstick():
+            F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+            k_dst.copy_(k)
+            v_dst.copy_(v)
 
-    library_ms = cuda_ms(yardstick)
-    bound_ms, bound_by = stream_bound_ms(q, k, *args)
-    timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-              "library_ms": library_ms}
-    emit({"phase": "kernel_time", "kernel": "flash_stream", "shape": {"q": [HOP_BH, HOP_SQ, D],
-          "kv": [HOP_BH, HOP_SKV, D]}, "dtype": "bfloat16", "causal": True,
-          "q_start": HOP_START, "k_start": HOP_START, "flash_fwd_ms_same_inputs": kernel1_ms,
-          "library_note": "library_ms is a two-call yardstick: F.scaled_dot_product_attention "
-          "(is_causal, the same mask here) plus copy_ of K and V; no single PyTorch call "
-          "computes out, lse and the copy", **timing})
-    return main_err, timing
+        bound_ms, bound_by = stream_bound_ms(q, k, *args)
+        timings[dtype] = {"ms": device_ms(kernel, pattern="flash_stream_fwd_kernel<"),
+                          "plain_ms": device_ms(plain), "bound_ms": bound_ms,
+                          "bound_by": bound_by, "library_ms": device_ms(yardstick)}
+        emit({"phase": "kernel_time", "kernel": "flash_stream",
+              "shape": {"q": [HOP_BH, HOP_SQ, D], "kv": [HOP_BH, HOP_SKV, D]},
+              "dtype": str(dtype)[6:], "causal": True, "q_start": HOP_START,
+              "k_start": HOP_START,
+              "flash_fwd_ms_same_inputs": device_ms(kernel1, pattern="flash_fwd_kernel<"),
+              "library_note": "library_ms is a two-call yardstick: F.scaled_dot_product_attention "
+              "(is_causal, the same mask here) plus copy_ of K and V; no single PyTorch call "
+              "computes out, lse and the copy", **timings[dtype],
+              "call_ms": {"flash_stream": cuda_ms(kernel), "flash_fwd": cuda_ms(kernel1),
+                          "plain": cuda_ms(plain), "library": cuda_ms(yardstick)},
+              "note": "ms, plain_ms, library_ms and flash_fwd_ms_same_inputs are profiler device "
+              "time per call; call_ms are CUDA events around one call, host time included"})
+    return main_err, timings[torch.bfloat16]
 
 
 def phase_kernel_head_dim(tflash, dev):
@@ -1920,15 +2003,17 @@ def main() -> None:
           "spills": {name: {fn: props for fn, props in ptxas_report(log).items()
                             if props.get("spill_stores") or props.get("spill_loads")}
                      for name, log in reports.items()}})
-    phase_sass(_build, reports)
 
     only = sys.argv[1:]  # a debugging run of some phases: no result line
     if only:
-        phases = {"kernel": lambda: phase_kernel(tflash, dev),
+        phases = {"sass": lambda: phase_sass(_build, reports),
+                  "kernel": lambda: phase_kernel(tflash, dev),
                   "kernel_bwd": lambda: phase_kernel_bwd(tflash, dev),
                   "kernel_paged": lambda: phase_kernel_paged(dev),
                   "kernel_qmm": lambda: phase_kernel_qmm(dev),
                   "kernel_quant8": lambda: phase_kernel_quant8(dev),
+                  "slice": lambda: phase_trace(*phase_slice(tflash, dev, card)[1:]),
+                  "train": lambda: phase_train_trace(phase_train(tflash, dev, card)[2]),
                   "paged_slice": lambda: phase_paged_slice(dev, card),
                   "wq_slice": lambda: phase_wq_slice(dev, card),
                   "serve_cli": lambda: (phase_serve_cli(dev), phase_serve_cli_wq(dev)),
@@ -1941,6 +2026,7 @@ def main() -> None:
             phases[name]()
         raise SystemExit(f"chip_smoke: ran only {only}; no result line")
 
+    phase_sass(_build, reports)
     main_err, timing = phase_kernel(tflash, dev)
     bwd_err, bwd_timing = phase_kernel_bwd(tflash, dev)
     paged_err, paged_timing = phase_kernel_paged(dev)

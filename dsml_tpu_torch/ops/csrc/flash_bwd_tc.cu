@@ -59,100 +59,34 @@
 // Interface: plain C, loaded with ctypes. Each launcher returns a
 // cudaError_t (0 on success), checked with cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "mma_bf16.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using mma_bf16::bf16;
+using mma_bf16::cp_async4;
+using mma_bf16::cp_async_commit;
+using mma_bf16::cp_async_wait_0;
+using mma_bf16::ldsm_x4;
+using mma_bf16::ldsm_x4_t;
+using mma_bf16::load_tile;
+using mma_bf16::mma;
+using mma_bf16::tile_elems;
+using mma_bf16::to_a_frag;
 
-constexpr int BM = 64;        // rows a block owns: q rows (dq) or kv rows (dk/dv)
-constexpr int BN = 64;        // rows of each streamed tile
-constexpr int NT = 128;       // 4 warps, each owning 16 of the block's BM rows
-constexpr int PAD = 8;        // bf16 of padding per shared row
-constexpr int QC = 32;        // q columns per pass over sᵀ and dpᵀ in the dk/dv kernel
+constexpr int BM = mma_bf16::ROWS;  // rows a block owns: q rows (dq) or kv rows (dk/dv)
+constexpr int BN = mma_bf16::ROWS;  // rows of each streamed tile
+constexpr int NT = mma_bf16::NT;    // 4 warps, each owning 16 of the block's BM rows
+constexpr int PAD = mma_bf16::PAD;  // bf16 of padding per shared row
+constexpr int QC = 32;              // q columns per pass over sᵀ and dpᵀ in the dk/dv kernel
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-
-template <int D>
-__host__ __device__ constexpr int tile_elems() { return BN * (D + PAD); }
 
 // Blocks an SM runs at once, given to ptxas as the register budget: 3 at
 // d = 64 (168 registers a thread, with no spills), 2 at d = 128, where
 // shared memory holds no more.
 template <int D>
 __host__ __device__ constexpr int min_blocks() { return D == 64 ? 3 : 2; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes global -> shared; when !valid nothing is read and the
-// destination is zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_0() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-// four 8×8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c += a b on the tensor cores: a 16×16 (row), b 16×8 (col), c 16×8 f32
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 -> one register of two bf16, lo in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The m16n8 accumulators c[2j] and c[2j+1] (16 rows × 16 columns) as the
-// m16k16 A fragment of the next product, in bf16.
-__device__ __forceinline__ void to_a_frag(uint32_t (&a)[4], const float (&c0)[4], const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// rows r0 .. r0 + 63 of a [n, D] bf16 tensor into a [64][D + PAD] shared
-// tile by cp.async; rows past n are zero-filled
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, int r0, int n) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-#pragma unroll
-  for (int j = 0; j < BN * CPR / NT; ++j) {
-    const int i = threadIdx.x + j * NT;
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const bool valid = r0 + r < n;
-    cp_async16(dst + r * (D + PAD) + c, src + (size_t)(valid ? r0 + r : 0) * D + c, valid);
-  }
-}
 
 // lse, delta and g_lse of q rows q0 .. q0 + 63 into st[0..63], st[64..127]
 // and st[128..191] by cp.async; rows past s_q read 0, and so does a null glse
@@ -234,9 +168,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // per-lane ldmatrix offsets: A from a [row][k] tile, B from an [n][k]
   // tile, B (.trans) from a [k][n] tile
-  const int a_off = (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-  const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
-  const int bt_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8;
+  const int a_off = mma_bf16::a_offset<LD>(warp, lane);
+  const int b_off = mma_bf16::b_offset<LD>(lane);
+  const int bt_off = mma_bf16::bt_offset<LD>(lane);
 
   float acc[D / 8][4];
 #pragma unroll
@@ -367,9 +301,9 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int h = 0; h < 2; ++h) krow[h] = kv0 + warp * 16 + g + 8 * h;
 
-  const int a_off = (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-  const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
-  const int bt_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8;
+  const int a_off = mma_bf16::a_offset<LD>(warp, lane);
+  const int b_off = mma_bf16::b_offset<LD>(lane);
+  const int bt_off = mma_bf16::bt_offset<LD>(lane);
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll

@@ -1,8 +1,11 @@
 // The flash-attention forward's block body, shared by flash_fwd.cu (kernel 1)
-// and flash_stream.cu (kernel 4, the fused ring hop). Both kernels inline the
-// same function at the same tile sizes and grid, so a ring hop computed by
-// kernel 4 gives the same bits as kernel 1 on the same inputs: the fused and
-// the unfused ring schedules merge identical (out, lse) pairs.
+// and flash_stream.cu (kernel 4, the fused ring hop), routed by type: bf16
+// runs the tensor-core body of flash_fwd_tc.cuh (128 threads), f32 the FMA
+// body below (256 threads; a tensor-core product would round f32 to TF32,
+// about three decimal digits). Both kernels inline the same function at
+// the same tile sizes and grid, so a ring hop computed by kernel 4 gives the
+// same bits as kernel 1 on the same inputs: the fused and the unfused ring
+// schedules merge identical (out, lse) pairs.
 //
 // What one block computes: out = softmax(q kᵀ · scale + mask) v with an
 // online softmax in f32, and lse = m + log(l), for the 64-row q tile q0 of
@@ -19,17 +22,18 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
+
+#include "flash_fwd_tc.cuh"
 
 namespace flash_tile {
 
-constexpr int BM = 64;   // q rows per block
+constexpr int BM = 64;   // q rows per block, in both bodies
 constexpr int BN = 64;   // kv columns per tile
-constexpr int NT = 256;  // threads per block: 16 row groups × 16 column lanes
+constexpr int NT = 256;  // threads per block of the FMA body: 16 row groups × 16 column lanes
 constexpr float NEG_INF = -1e30f;
 constexpr float MAX_FLOOR = -1e20f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
@@ -46,6 +50,8 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
+static_assert(BM == flash_fwd_tc::BM, "both bodies tile q by BM rows: one grid for both");
+
 template <int D>
 constexpr __host__ __device__ size_t smem_bytes() {
   return sizeof(float) * (size_t)(BM * (D + 1) + 2 * BN * (D + 1) + BM * (BN + 1));
@@ -55,16 +61,17 @@ constexpr __host__ __device__ size_t smem_bytes() {
 // tiles see the most kv tiles under a causal mask)
 __device__ __forceinline__ int tile_q0() { return (gridDim.x - 1 - blockIdx.x) * BM; }
 
-// Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty*4 .. ty*4+3 of the q
-// tile, score columns tx + 16j of each kv tile, and output columns tx + 16j.
-// smem holds smem_bytes<D>() bytes. Every multiply-add is an explicit fmaf,
-// so the compiler contracts the same operations in both kernels.
-template <typename T, int D>
-__device__ __forceinline__ void tile(const T* __restrict__ q, const T* __restrict__ k,
-                                     const T* __restrict__ v, T* __restrict__ out,
-                                     float* __restrict__ lse, int s_q, int s_kv, int q_start,
-                                     int k_start, int causal, float scale, int q0, int bh,
-                                     float* smem) {
+// The FMA body (f32). Thread (ty, tx) = (tid / 16, tid % 16) owns rows
+// ty*4 .. ty*4+3 of the q tile, score columns tx + 16j of each kv tile, and
+// output columns tx + 16j. smem holds smem_bytes<D>() bytes. Every
+// multiply-add is an explicit fmaf, so the compiler contracts the same
+// operations in both kernels.
+template <int D>
+__device__ __forceinline__ void fma_tile(const float* __restrict__ q, const float* __restrict__ k,
+                                         const float* __restrict__ v, float* __restrict__ out,
+                                         float* __restrict__ lse, int s_q, int s_kv, int q_start,
+                                         int k_start, int causal, float scale, int q0, int bh,
+                                         float* smem) {
   constexpr int LD = D + 1;   // padded row stride of the q, k and v tiles
   constexpr int LDP = BN + 1; // padded row stride of the probability tile
   constexpr int DC = D / 16;  // output columns per thread
@@ -79,7 +86,7 @@ __device__ __forceinline__ void tile(const T* __restrict__ q, const T* __restric
 
   for (int i = tid; i < BM * D; i += NT) {
     const int r = i / D, c = i % D;
-    sq[r * LD + c] = q0 + r < s_q ? to_f32(q[q_base + (size_t)(q0 + r) * D + c]) : 0.f;
+    sq[r * LD + c] = q0 + r < s_q ? q[q_base + (size_t)(q0 + r) * D + c] : 0.f;
   }
 
   int n_tiles = (s_kv + BN - 1) / BN;
@@ -105,8 +112,8 @@ __device__ __forceinline__ void tile(const T* __restrict__ q, const T* __restric
       const int r = i / D, c = i % D;
       const bool in = kv0 + r < s_kv;
       const size_t g = kv_base + (size_t)(kv0 + r) * D + c;
-      sk[r * LD + c] = in ? to_f32(k[g]) : 0.f;
-      sv[r * LD + c] = in ? to_f32(v[g]) : 0.f;
+      sk[r * LD + c] = in ? k[g] : 0.f;
+      sv[r * LD + c] = in ? v[g] : 0.f;
     }
     __syncthreads();
 
@@ -176,10 +183,32 @@ __device__ __forceinline__ void tile(const T* __restrict__ q, const T* __restric
     if (row >= s_q) continue;
     const float l_fin = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < DC; ++j)
-      store(&out[q_base + (size_t)row * D + tx + 16 * j], acc[i][j] / l_fin);
+    for (int j = 0; j < DC; ++j) out[q_base + (size_t)row * D + tx + 16 * j] = acc[i][j] / l_fin;
     if (tx == 0) lse[(size_t)bh * s_q + row] = m[i] + logf(l_fin);
   }
+}
+
+// The route by type: threads per block, dynamic shared memory and body.
+template <typename T>
+constexpr __host__ __device__ int block_threads() {
+  return std::is_same_v<T, float> ? NT : flash_fwd_tc::NT;
+}
+template <typename T, int D>
+constexpr __host__ __device__ size_t block_smem() {
+  return std::is_same_v<T, float> ? smem_bytes<D>() : flash_fwd_tc::smem_bytes<D>();
+}
+template <typename T, int D>
+__device__ __forceinline__ void block(const T* __restrict__ q, const T* __restrict__ k,
+                                      const T* __restrict__ v, T* __restrict__ out,
+                                      float* __restrict__ lse, int s_q, int s_kv, int q_start,
+                                      int k_start, int causal, float scale, int q0, int bh,
+                                      unsigned char* smem) {
+  if constexpr (std::is_same_v<T, float>)
+    fma_tile<D>(q, k, v, out, lse, s_q, s_kv, q_start, k_start, causal, scale, q0, bh,
+                reinterpret_cast<float*>(smem));
+  else
+    flash_fwd_tc::tile<D>(q, k, v, out, lse, s_q, s_kv, q_start, k_start, causal, scale, q0, bh,
+                          smem);
 }
 
 }  // namespace flash_tile

@@ -8,7 +8,10 @@ The kernel never materialises the [seq, seq] score matrix: one thread block
 walks the kv tiles of one (batch·head, q tile) with an online softmax and
 emits the per-row logsumexp beside the output. Masks compare GLOBAL
 positions (``q_start``/``k_start``), so a caller can run any (q block,
-kv block) pair, and any length runs without padding.
+kv block) pair, and any length runs without padding. The forward's block
+body is routed by dtype inside the kernel: bf16 runs on the tensor cores
+(``csrc/flash_fwd_tc.cuh``, whose ``cp.async`` copies need 16-byte aligned
+q, k and v), f32 on FMAs (``csrc/flash_fwd_tile.cuh``).
 
 The backward is the TPU's two kernels: one block per (batch·head, q tile)
 accumulates dq over the kv tiles, one per (batch·head, kv tile) accumulates
@@ -218,18 +221,28 @@ def _check_kernel_inputs(q, k, v, name="flash_fwd") -> None:
         raise ValueError(f"{name} needs contiguous q, k, v")
 
 
+def _fwd_operands(q, k, v, name):
+    """The forward kernels' operands: q, k and v checked, zero-padded to
+    the kernels' head_dim ``width`` and, for the bf16 tensor-core body,
+    checked 16-byte aligned. Returns ``(qp, kp, vp, width)``."""
+    _check_kernel_inputs(q, k, v, name)
+    width = _kernel_head_dim(q.shape[2], name)
+    qp, kp, vp = (_pad_head_dim(t, width) for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        _check_aligned(name, q=qp, k=kp, v=vp)
+    return qp, kp, vp, width
+
+
 def flash_fwd(q, k, v, causal=True, q_start=0, k_start=0):
     """q [bh, s_q, d], k/v [bh, s_kv, d] → (out [bh, s_q, d] in q's dtype,
     lse [bh, s_q] f32). ``q_start``/``k_start`` are the global positions of
     the first q/k row. CUDA tensors launch the kernel on the current stream
-    (no synchronisation), head_dim zero-padded to 64 or 128; CPU tensors run
-    the plain version."""
+    (no synchronisation), head_dim zero-padded to 64 or 128, or raise; bf16
+    tensors must start 16-byte aligned. CPU tensors run the plain version."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return _flash_fwd_reference(q, k, v, causal, q_start, k_start)
-    _check_kernel_inputs(q, k, v)
+    qp, kp, vp, width = _fwd_operands(q, k, v, "flash_fwd")
     bh, s_q, d = q.shape
-    width = _kernel_head_dim(d, "flash_fwd")
-    qp, kp, vp = (_pad_head_dim(t, width) for t in (q, k, v))
     out = torch.empty_like(qp)
     lse = torch.empty(bh, s_q, dtype=torch.float32, device=q.device)
     lib = _lib()
@@ -414,16 +427,15 @@ def flash_stream(q, k, v, k_dst, v_dst, pred=True, causal=True, q_start=0, k_sta
     like ``k``, or 16-byte aligned device pointers of ``k.nbytes`` each).
     CUDA tensors launch ``csrc/flash_stream.cu`` on the current stream (no
     synchronisation), head_dim zero-padded to 64 or 128 for the math while
-    the UNPADDED k/v are what is copied; CPU tensors run
-    :func:`_flash_stream_reference`."""
+    the UNPADDED k/v are what is copied, or raise; bf16 q, k and v, and in
+    either type k, v and the destinations, must start 16-byte aligned. CPU
+    tensors run :func:`_flash_stream_reference`."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return _flash_stream_reference(q, k, v, k_dst, v_dst, pred, causal, q_start, k_start)
-    _check_kernel_inputs(q, k, v, "flash_stream")
+    qp, kp, vp, width = _fwd_operands(q, k, v, "flash_stream")
     _check_aligned("flash_stream", k=k, v=v)
     k_ptr, v_ptr = _dst_pointer(k_dst, k, "k_dst"), _dst_pointer(v_dst, v, "v_dst")
     bh, s_q, d = q.shape
-    width = _kernel_head_dim(d, "flash_stream")
-    qp, kp, vp = (_pad_head_dim(t, width) for t in (q, k, v))
     out = torch.empty_like(qp)
     lse = torch.empty(bh, s_q, dtype=torch.float32, device=q.device)
     lib = _stream_lib()

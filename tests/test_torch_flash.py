@@ -201,6 +201,96 @@ def test_tensor_core_rounding_fits_the_bf16_tolerance(s, causal, with_glse):
         assert err <= TOL_BWD_BF16 * w.float().abs().max().item(), err
 
 
+def _tc_fwd_rounding_emulation(q, k, v, causal, q_start=0, k_start=0):
+    """The tensor-core forward body's rounding points in plain f32 torch:
+    bf16 q, k and v; q·kᵀ summed in f32; per 64-key tile, the running max
+    m of the scaled scores (masked scores -1e30, m from -1e20), p =
+    exp2(s·d^-½·log2 e - m·log2 e), the rescale exp2((m_old - m)·log2 e)
+    of l and of the accumulator, p rounded to bf16 before p·v (summed in
+    f32); out = acc / max(l, 1e-30) rounded to bf16, lse = m + log(l) in
+    natural-log units."""
+    f32 = torch.float32
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    log2e = torch.tensor(1.4426950408889634, dtype=f32)
+    scale = torch.tensor(q.shape[-1] ** -0.5, dtype=f32)
+    sl2 = scale * log2e
+    s = qf @ kf.transpose(-1, -2)
+    if causal:
+        s = s.masked_fill(tflash._causal_mask(q.shape[1], k.shape[1], q_start, k_start, q.device),
+                          -1e30)
+    m = torch.full(q.shape[:2], -1e20, dtype=f32)
+    l = torch.zeros(q.shape[:2], dtype=f32)
+    acc = torch.zeros(qf.shape, dtype=f32)
+    for kv0 in range(0, k.shape[1], 64):
+        st = s[..., kv0:kv0 + 64]
+        m_new = torch.maximum(m, st.amax(-1) * scale)
+        corr = torch.exp2((m - m_new) * log2e)
+        p = torch.exp2(st * sl2 - (m_new * log2e)[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + p.to(torch.bfloat16).float() @ vf[:, kv0:kv0 + 64]
+        m = m_new
+    l_fin = l.clamp_min(1e-30)
+    return (acc / l_fin[..., None]).to(torch.bfloat16), m + torch.log(l_fin)
+
+
+# chip_smoke.py's bf16 tolerance for the forward kernel against
+# _flash_fwd_reference: out is bf16 (one ulp at |out| < 4 is <= 1/64), lse f32
+TOL_FWD_BF16 = {"out": 2e-2, "lse": 1e-3}
+
+
+@pytest.mark.parametrize("s,q_start,k_start", [(1024, 0, 0), (700, 0, 0), (700, 300, 0),
+                                               (700, 0, 1)],
+                         ids=["s1024-causal", "ragged700-causal", "ragged700-offsets",
+                              "ragged700-masked-row"])
+def test_tensor_core_forward_rounding_fits_the_bf16_tolerance(s, q_start, k_start):
+    """The tensor-core forward's rounding (bf16 p between the products, the
+    exp2 with the folded scale, the per-tile rescale) stays within the
+    chip's bf16 tolerance of the f32 plain version and of the JAX kernel
+    (interpret mode), at [4, s, 64] causal from numpy-seeded bf16 inputs.
+    With k_start = 1 the first row sees no key: out 0, lse -1e20."""
+    rng = np.random.default_rng(s + q_start + k_start)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4, s, 64)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    got_out, got_lse = _tc_fwd_rounding_emulation(q, k, v, True, q_start, k_start)
+    want_out, want_lse = tflash._flash_fwd_reference(q, k, v, True, q_start, k_start)
+    out_j, lse_j = jax_flash_attention_lse(
+        *(jnp.asarray(t.float().numpy()[None]) for t in (q, k, v)), True, q_start, k_start,
+        block_q=128, block_k=128, interpret=True)
+    assert got_out.dtype == want_out.dtype == torch.bfloat16 and got_out.shape == q.shape
+    for name, got, want in (("out", got_out.float(), want_out.float()), ("lse", got_lse, want_lse),
+                            ("out", got_out.float(), torch.from_numpy(np.array(out_j)[0])),
+                            ("lse", got_lse, torch.from_numpy(np.array(lse_j)[0]))):
+        assert bool(torch.isfinite(got).all())
+        err = (got - want).abs().max().item()
+        assert err <= TOL_FWD_BF16[name], (name, err)
+    if k_start > q_start:
+        assert torch.all(got_out[:, 0] == 0)
+        np.testing.assert_allclose(got_lse[:, 0].numpy(), -1e20, rtol=1e-6)
+
+
+def test_flash_fwd_misaligned_view_raises_without_a_kernel(monkeypatch):
+    """cp.async copies 16-byte rows: the forward's operands (kernel 1 and
+    kernel 4) refuse a bf16 view one element into its storage, before any
+    build or launch; f32 (the FMA body) and padded widths (a fresh copy)
+    pass."""
+    monkeypatch.setattr(tflash, "_check_kernel_inputs", lambda *args: None)
+    before = _launch_counts() + (tflash.flash_stream_launches,)
+    base = torch.zeros(2 * 64 * 64 + 8, dtype=torch.bfloat16)
+    aligned = base[:2 * 64 * 64].view(2, 64, 64)
+    misaligned = base[1:2 * 64 * 64 + 1].view(2, 64, 64)
+    for name in ("flash_fwd", "flash_stream"):
+        with pytest.raises(ValueError, match=f"{name} needs k 16-byte aligned"):
+            tflash._fwd_operands(aligned, misaligned, aligned, name)
+    tflash._fwd_operands(aligned, aligned, aligned, "flash_fwd")
+    tflash._fwd_operands(misaligned.float(), aligned.float(), aligned.float(), "flash_fwd")
+    narrow = base[1:2 * 64 * 48 + 1].view(2, 64, 48)  # padded to 64: a fresh, aligned copy
+    qp, _, _, width = tflash._fwd_operands(narrow, narrow, narrow, "flash_fwd")
+    assert width == 64 and qp.data_ptr() % 16 == 0
+    assert _launch_counts() + (tflash.flash_stream_launches,) == before
+    assert tflash._lib.cache_info().currsize == 0
+    assert tflash._stream_lib.cache_info().currsize == 0
+
+
 def _jax_grads(q, k, v, go, gl, causal, q_start):
     """jax.grad of sum(out·go) + sum(lse·gl) through the Pallas kernels in
     interpret mode (64 × 64 blocks)."""
