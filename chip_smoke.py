@@ -38,7 +38,11 @@ name and power limit as ``nvidia-smi`` prints them; the last line is
 Phases: device, build (always); sass (HMMA instructions in the SASS of the
 tensor-core kernels: the backward's two and the bf16 instantiations of
 kernels 1 and 4, none in their f32 instantiations; no register spills in
-them at d = 64); kernel, kernel_bwd, kernel_paged, kernel_qmm,
+them at d = 64; HMMA in the paged kernels' tensor-core instantiations,
+none in their register-regime ones, no spills in any); kernel, kernel_bwd,
+kernel_paged (also at the split plan's edges, each case twice for
+identical bits), paged_time (the paged kernels' times alone, which a parent
+tree runs too), kernel_qmm,
 kernel_quant8 (each kernel against its plain version, then a kernel_time
 line with its device time, bound, plain time and library yardstick; kernel
 1 at the prefill and the train step's shapes, bf16 and f32); slice and
@@ -217,13 +221,59 @@ SASS_KERNELS = {
 }
 
 
+# The paged kernels' instantiations, by their mangled names: kernel, Q (f or
+# bf16), P (the fp pool's type, written as a substitution when it is Q's
+# class type; a = int8, h = uint8), head dim, codec, rows of a row tile
+PAGED_MANGLED = re.compile(r"(paged_attn(?:_pipelined)?_kernel)I(f|13__nv_bfloat16)(f|a|h|S\d*_)"
+                           r"Li(\d+)ELi(\d)ELi(\d+)E")
+
+
+def paged_sass(tool, build, report):
+    """Both paged kernels in every instantiation: HMMA instructions in the
+    tensor-core regime's (bf16 q, 64-row tiles), none in the register
+    regime's, and no spills in any. Returns ({label: {hmma, registers,
+    spills}} of each, [the faults found])."""
+    res = subprocess.run([tool, "-sass", str(build._target("paged_attn"))], capture_output=True,
+                         text=True, check=False)
+    check(res.returncode == 0, f"cuobjdump -sass paged_attn failed ({res.returncode}): "
+                               f"{res.stderr[-2000:]}")
+    ptxas = ptxas_report(report)
+    out, faults = {}, []
+    for chunk in res.stdout.split("Function : ")[1:]:
+        name, body = chunk.split("\n", 1)
+        m = PAGED_MANGLED.search(name)
+        if not m:
+            continue
+        kern, q, _, hd, codec, rows = m.groups()
+        label = (f"{kern}<{'bf16' if q != 'f' else 'f32'} q, {('fp', 'int8', 'int4')[int(codec)]}, "
+                 f"hd {hd}, {rows} rows>")
+        props = [v for fn, v in ptxas.items() if fn == name.split()[0]]
+        check(len(props) == 1, f"{label}: no single -Xptxas -v entry")
+        hmma = body.count("HMMA")
+        out[label] = {"hmma": hmma, "registers": props[0].get("registers"),
+                      "spill_stores": props[0].get("spill_stores"),
+                      "spill_loads": props[0].get("spill_loads")}
+        if (hmma > 0) != (rows == "64"):
+            faults.append(f"{label}: {hmma} HMMA instructions, expected "
+                          f"{'some' if rows == '64' else 'none'}")
+        if props[0].get("spill_stores") or props[0].get("spill_loads"):
+            faults.append(f"{label} spills registers: {props[0]}")
+    # per kernel: f32 q in 1- and 4-row tiles, bf16 q in 1-, 4- and 64-row
+    # tiles, for 3 codecs and 2 head dims
+    if len(out) != 2 * 5 * 3 * 2:
+        faults.append(f"{len(out)} paged instantiations in the SASS, expected 60: {sorted(out)}")
+    return out, faults
+
+
 def phase_sass(build, reports):
     """The tensor-core kernels run on the tensor cores: ``cuobjdump -sass``
     of each built library shows HMMA instructions in the backward's two
     kernels and in the bf16 instantiations of the forward's two kernels
     (kernel 1, kernel 4) at d = 64 and 128, and none in the forward's f32
     instantiations; ``-Xptxas -v`` reports no spills in any tensor-core
-    kernel at d = 64 (the train and prefill shapes; d = 128 is reported)."""
+    kernel at d = 64 (the train and prefill shapes; d = 128 is reported).
+    The paged kernels (``paged_sass``): HMMA in the tensor-core regime's
+    instantiations, none in the register regime's, no spills in any."""
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                                                      "bin", "cuobjdump")
     check(os.path.exists(tool), "cuobjdump not found on PATH or under CUDA_HOME: the SASS check "
@@ -249,7 +299,10 @@ def phase_sass(build, reports):
                 props = [v for fn, v in ptxas.items() if pattern in fn]
                 check(len(props) == 1, f"{key}: no single -Xptxas -v entry: {sorted(ptxas)}")
                 row["ptxas"][key] = props[0]
+    row["sources"]["paged_attn"] = PAGED_SOURCE
+    row["paged_attn"], paged_faults = paged_sass(tool, build, reports["paged_attn"])
     emit(row)
+    check(not paged_faults, "; ".join(paged_faults))
     for kernels in SASS_KERNELS.values():
         for label, _, tensor_cores in kernels:
             props = row["ptxas"][label.format(d=64)]
@@ -807,88 +860,30 @@ def bf16_ulp(x):
 
 
 def paged_kernel_ms(tpa, args, reps=20):
-    """{kernel name: device ms per call} of both paged kernels, from a
-    profiler trace of ``reps`` calls each."""
+    """{kernel name: device ms per call} of both paged kernels (each call is
+    one launch: the split merge runs in the same kernel), from profiler
+    traces of ``reps`` calls each, and {kernel name + "_call": ms} of
+    everything a call launches on the card (the wrapper's copies
+    included)."""
     out = {}
     for name, pipeline in (("paged_attn", False), ("paged_attn_pipelined", True)):
-        by_name = device_kernel_ms(
-            lambda: [tpa.paged_attention(*args, pipeline=pipeline) for _ in range(reps)])
-        found = [t / reps for k, t in by_name.items() if f"::{name}_kernel<" in k]
-        check(len(found) == 1, f"the profiler trace shows no single {name} kernel: {sorted(by_name)}")
-        out[name] = found[0]
+        def call():
+            return tpa.paged_attention(*args, pipeline=pipeline)
+        out[name] = device_ms(call, reps, pattern=f"::{name}_kernel<")
+        out[f"{name}_call"] = device_ms(call, reps)
     return out
 
 
-def phase_kernel_paged(dev):
-    """Both paged kernels against _paged_attention_reference at GPT-2-small's
-    shapes (decode, a 256-row chunk, a verify window, GQA at hd 128) for
-    every codec, and against each other bit for bit; then their times at
-    the main path's decode and chunk shapes."""
+def paged_time(dev, cases):
+    """The paged kernels' times at the main path's decode and chunk shapes
+    (bf16 q, int4 pages) and the fp bf16 decode beside SDPA over the already
+    gathered view. Uses only ``paged_attention`` and its plain version, so
+    a parent tree runs it too (``python3 chip_smoke.py paged_time``)."""
     from dsml_tpu_torch.ops import paged_attention as tpa
-
-    rng = np.random.default_rng(3)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    n_pt = 1024 // PAGE
-    depths = rng.integers(1, 1024, PAGED_SLOTS)
-    decode_pos = (depths - 1)[:, None].copy()
-    decode_pos[[3, 11]] = -1  # dead slots
-    verify_start = rng.integers(0, 1020, PAGED_SLOTS)
-    shapes = {  # name: (b, hq, hkv, hd, positions [b, C])
-        "decode": (PAGED_SLOTS, H, H, D, decode_pos),
-        "chunk": (1, H, H, D, (512 + np.arange(PAGED_CHUNK))[None, :]),
-        "verify": (PAGED_SLOTS, H, H, D, verify_start[:, None] + np.arange(4)[None, :]),
-        "gqa": (8, 32, 8, 128, (rng.integers(1, 1024, 8) - 1)[:, None]),
-    }
-    codecs = [(torch.float32, None), (torch.bfloat16, None), (torch.float32, "int8"),
-              (torch.bfloat16, "int8"), (torch.float32, "int4"), (torch.bfloat16, "int4")]
-    main_err, timed = None, {}
-    for shape, (b, hq, hkv, hd, positions) in shapes.items():
-        for q_dtype, mode in codecs:
-            args = paged_case(dev, rng, gen, b, hq, hkv, hd, n_pt, positions, q_dtype, mode)
-            single = tpa.paged_attention(*args, mode, pipeline=False)
-            piped = tpa.paged_attention(*args, mode, pipeline=True)
-            torch.cuda.synchronize()
-            ref = tpa._paged_attention_reference(*args, mode)
-            errs = [(o.float() - ref.float()).abs() for o in (single, piped)]
-            if q_dtype == torch.float32:
-                ok_tol = all(bool((e <= TOL_PAGED_F32).all()) for e in errs)
-            else:
-                ulp = torch.maximum(bf16_ulp(single.float()), bf16_ulp(ref.float()))
-                ok_tol = all(bool((e <= ulp + TOL_PAGED_F32).all()) for e in errs)
-            bit_equal = bool(torch.equal(single, piped))
-            dead = positions.max(1) < 0
-            ok = (ok_tol and bit_equal and single.shape == args[0].shape
-                  and single.dtype == q_dtype and bool(torch.isfinite(single).all())
-                  and (not dead.any() or bool((single[torch.as_tensor(dead, device=dev)] == 0).all())))
-            err = max(e.max().item() for e in errs)
-            emit({"phase": "kernel_paged", "kernels": ["paged_attn", "paged_attn_pipelined"],
-                  "case": shape, "q_dtype": str(q_dtype)[6:], "codec": mode or "fp",
-                  "b": b, "hq": hq, "hkv": hkv, "hd": hd, "c": int(positions.shape[1]),
-                  "max_abs_err": err, "tol": "1e-4" if q_dtype == torch.float32
-                  else "one bf16 ulp + 1e-4", "bit_identical": bit_equal, "ok": ok})
-            check(ok, f"paged kernels disagree with the plain version or each other ({shape}, "
-                      f"{q_dtype}, {mode}): max abs err {err}, bit identical {bit_equal}")
-            if (q_dtype, mode) == (torch.bfloat16, "int4") and shape in ("decode", "chunk"):
-                timed[shape] = (args, mode)
-                if shape == "decode":
-                    main_err = err
-            if (q_dtype, mode, shape) == (torch.bfloat16, None, "decode"):
-                timed["decode_fp"] = (args, mode)
-
-    # smem as the kernel carves it, against the Python accounting
-    lib = tpa._lib()
-    for hd in (64, 128):
-        for mode, kind in ((None, 0), ("int8", 1), ("int4", 2)):
-            for fp in (4, 2):
-                for pipe in (False, True):
-                    want = tpa.paged_smem_bytes(hd, mode, pipe, fp)
-                    got = lib.paged_attn_smem_bytes(hd, kind, fp, int(pipe))
-                    check(got == want, f"paged_smem_bytes({hd}, {mode}, {pipe}, {fp}) = {want}, "
-                                       f"the kernel carves {got}")
 
     timing = {}
     for shape in ("decode", "chunk"):
-        args, mode = timed[shape]
+        args, mode = cases[shape]
         call = (*args, mode)
         per_kernel = paged_kernel_ms(tpa, call)
         plain_ms = cuda_ms(lambda: tpa._paged_attention_reference(*call))
@@ -896,19 +891,19 @@ def phase_kernel_paged(dev):
         for name in ("paged_attn", "paged_attn_pipelined"):
             pipe = name == "paged_attn_pipelined"
             timing.setdefault(name, {})[shape] = {
-                "ms": per_kernel[name],
+                "ms": per_kernel[name], "call_device_ms": per_kernel[f"{name}_call"],
                 "wrapper_ms": cuda_ms(lambda: tpa.paged_attention(*call, pipeline=pipe)),
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None}
     # the library yardstick for fp pages: SDPA over the already gathered
     # dense view (the gather excluded; no PyTorch call reads a page table)
-    (q, pool, table, positions), _ = timed["decode_fp"]
+    (q, pool, table, positions), _ = cases["decode_fp"]
     b, hq, c, hd = q.shape
     kd, vd = (pool[key][table.long()].permute(0, 2, 1, 3, 4).reshape(b, hq, -1, hd)
               for key in ("k", "v"))
     mask = torch.arange(kd.shape[2], device=dev)[None, None, None, :] \
         <= positions.long()[:, None, :, None]
-    sdpa_fp_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask))
+    sdpa_fp_ms = device_ms(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask))
     fp_kernel_ms = paged_kernel_ms(tpa, (q, pool, table, positions, None))
     emit({"phase": "kernel_time", "kernels": ["paged_attn", "paged_attn_pipelined"],
           "decode_shape": {"slots": PAGED_SLOTS, "hq": H, "hd": D, "page": PAGE,
@@ -918,7 +913,135 @@ def phase_kernel_paged(dev):
           "fp_bf16_decode": {"kernel_ms": fp_kernel_ms,
                              "sdpa_over_gathered_view_ms": sdpa_fp_ms,
                              "note": "SDPA excludes the gather; no PyTorch call reads a page table"}})
-    return main_err, timing
+    return timing
+
+
+def paged_shapes(rng):
+    """The kernel_paged shapes: {name: (b, hq, hkv, hd, positions [b, C])}."""
+    n_pt = 1024 // PAGE
+    depths = rng.integers(1, 1024, PAGED_SLOTS)
+    decode_pos = (depths - 1)[:, None].copy()
+    decode_pos[[3, 11]] = -1  # dead slots
+    verify_start = rng.integers(0, 1020, PAGED_SLOTS)
+    return n_pt, {
+        "decode": (PAGED_SLOTS, H, H, D, decode_pos),
+        "chunk": (1, H, H, D, (512 + np.arange(PAGED_CHUNK))[None, :]),
+        "verify": (PAGED_SLOTS, H, H, D, verify_start[:, None] + np.arange(4)[None, :]),
+        "gqa": (8, 32, 8, 128, (rng.integers(1, 1024, 8) - 1)[:, None]),
+    }
+
+
+PAGED_CODECS = [(torch.float32, None), (torch.bfloat16, None), (torch.float32, "int8"),
+                (torch.bfloat16, "int8"), (torch.float32, "int4"), (torch.bfloat16, "int4")]
+# the split plan's edges, as decode depths (keys) of 16 slots: one key, a
+# unit's edge (15, 16, 17), a split's edge (128 keys, 129), the next one
+# (256, 257), the deepest (1023, 1024), a dead slot
+SPLIT_EDGE_DEPTHS = [1, 15, 16, 17, 127, 128, 129, 255, 256, 257, 511, 512, 1023, 1024, 0, 640]
+
+
+def paged_check(dev, tpa, shape, args, mode, q_dtype, positions):
+    """One case: both kernels against the plain version at the stated
+    tolerance, bit for bit against each other and against a second call,
+    dead slots zero. Returns the largest error."""
+    single = tpa.paged_attention(*args, mode, pipeline=False)
+    piped = tpa.paged_attention(*args, mode, pipeline=True)
+    again = (tpa.paged_attention(*args, mode, pipeline=False),
+             tpa.paged_attention(*args, mode, pipeline=True))
+    torch.cuda.synchronize()
+    ref = tpa._paged_attention_reference(*args, mode)
+    errs = [(o.float() - ref.float()).abs() for o in (single, piped)]
+    if q_dtype == torch.float32:
+        ok_tol = all(bool((e <= TOL_PAGED_F32).all()) for e in errs)
+    else:
+        ulp = torch.maximum(bf16_ulp(single.float()), bf16_ulp(ref.float()))
+        ok_tol = all(bool((e <= ulp + TOL_PAGED_F32).all()) for e in errs)
+    bit_equal = bool(torch.equal(single, piped))
+    repeat_equal = bool(torch.equal(single, again[0]) and torch.equal(piped, again[1]))
+    dead = positions.max(1) < 0
+    ok = (ok_tol and bit_equal and repeat_equal and single.shape == args[0].shape
+          and single.dtype == q_dtype and bool(torch.isfinite(single).all())
+          and (not dead.any() or bool((single[torch.as_tensor(dead, device=dev)] == 0).all())))
+    err = max(e.max().item() for e in errs)
+    b, hq = args[0].shape[:2]
+    emit({"phase": "kernel_paged", "kernels": ["paged_attn", "paged_attn_pipelined"],
+          "case": shape, "q_dtype": str(q_dtype)[6:], "codec": mode or "fp",
+          "b": b, "hq": hq, "hkv": args[1]["k"].shape[1], "hd": args[0].shape[-1],
+          "c": int(positions.shape[1]), "max_abs_err": err,
+          "tol": "1e-4" if q_dtype == torch.float32 else "one bf16 ulp + 1e-4",
+          "bit_identical": bit_equal, "repeat_identical": repeat_equal, "ok": ok})
+    check(ok, f"paged kernels disagree with the plain version, each other or themselves ({shape}, "
+              f"{q_dtype}, {mode}): max abs err {err}, bit identical {bit_equal}, "
+              f"repeat identical {repeat_equal}")
+    return err
+
+
+def phase_kernel_paged(dev):
+    """Both paged kernels against _paged_attention_reference at GPT-2-small's
+    shapes (decode, a 256-row chunk, a verify window, GQA at hd 128) and at
+    the split plan's edges for every codec, against each other and a
+    second call bit for bit; the shared memory and scratch accounting
+    against the kernel's; then their times (paged_time)."""
+    from dsml_tpu_torch.ops import paged_attention as tpa
+
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n_pt, shapes = paged_shapes(rng)
+    main_err, timed = None, {}
+    for shape, (b, hq, hkv, hd, positions) in shapes.items():
+        for q_dtype, mode in PAGED_CODECS:
+            args = paged_case(dev, rng, gen, b, hq, hkv, hd, n_pt, positions, q_dtype, mode)
+            err = paged_check(dev, tpa, shape, args, mode, q_dtype, positions)
+            if (q_dtype, mode) == (torch.bfloat16, "int4") and shape in ("decode", "chunk"):
+                timed[shape] = (args, mode)
+                if shape == "decode":
+                    main_err = err
+            if (q_dtype, mode, shape) == (torch.bfloat16, None, "decode"):
+                timed["decode_fp"] = (args, mode)
+    # the split edges at the decode shape, and the chunk at a split edge
+    edge_pos = (np.asarray(SPLIT_EDGE_DEPTHS) - 1)[:, None]
+    edges = {"split_edges": (PAGED_SLOTS, H, H, D, edge_pos),
+             "chunk_edge": (1, H, H, D, (128 - 64 + np.arange(65))[None, :])}
+    for shape, (b, hq, hkv, hd, positions) in edges.items():
+        for q_dtype, mode in PAGED_CODECS:
+            args = paged_case(dev, rng, gen, b, hq, hkv, hd, n_pt, positions, q_dtype, mode)
+            paged_check(dev, tpa, shape, args, mode, q_dtype, positions)
+
+    # smem as the kernel carves it, against the Python accounting
+    lib = tpa._lib()
+    for hd in (64, 128):
+        for mode, kind in ((None, 0), ("int8", 1), ("int4", 2)):
+            for fp in (4, 2):
+                for pipe in (False, True):
+                    for tc in ((False, True) if fp == 2 or mode else (False,)):
+                        want = tpa.paged_smem_bytes(hd, mode, pipe, fp, tensor_cores=tc)
+                        got = lib.paged_attn_smem_bytes(hd, kind, fp, int(pipe), int(tc))
+                        check(got == want, f"paged_smem_bytes({hd}, {mode}, {pipe}, {fp}, {tc}) = "
+                                           f"{want}, the kernel carves {got}")
+    for b, hkv, g, hd, n_keys in ((16, 12, 1, 64, 1024), (1, 12, 256, 64, 1024),
+                                  (16, 12, 4, 64, 1024), (8, 8, 4, 128, 1024), (3, 2, 17, 128, 200)):
+        for q_dtype in (torch.float32, torch.bfloat16):
+            want = tpa.paged_scratch_bytes(b, hkv, g, hd, n_keys, q_dtype)
+            got = tuple(lib.paged_attn_scratch_bytes(b, hkv, g, hd, n_keys,
+                                                     int(q_dtype == torch.bfloat16), counters)
+                        for counters in (1, 0))
+            check(got == want, f"paged_scratch_bytes({b}, {hkv}, {g}, {hd}, {n_keys}, {q_dtype}) "
+                               f"= {want}, the kernel needs {got}")
+
+    return main_err, paged_time(dev, timed)
+
+
+def phase_paged_time(dev):
+    """paged_time alone, on the kernel_paged inputs of the timed shapes."""
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n_pt, shapes = paged_shapes(rng)
+    cases = {}
+    for name, (shape, q_dtype, mode) in {"decode": ("decode", torch.bfloat16, "int4"),
+                                         "chunk": ("chunk", torch.bfloat16, "int4"),
+                                         "decode_fp": ("decode", torch.bfloat16, None)}.items():
+        b, hq, hkv, hd, positions = shapes[shape]
+        cases[name] = (paged_case(dev, rng, gen, b, hq, hkv, hd, n_pt, positions, q_dtype, mode), mode)
+    paged_time(dev, cases)
 
 
 def paged_counts(tpa):
@@ -2010,6 +2133,7 @@ def main() -> None:
                   "kernel": lambda: phase_kernel(tflash, dev),
                   "kernel_bwd": lambda: phase_kernel_bwd(tflash, dev),
                   "kernel_paged": lambda: phase_kernel_paged(dev),
+                  "paged_time": lambda: phase_paged_time(dev),
                   "kernel_qmm": lambda: phase_kernel_qmm(dev),
                   "kernel_quant8": lambda: phase_kernel_quant8(dev),
                   "slice": lambda: phase_trace(*phase_slice(tflash, dev, card)[1:]),

@@ -28,6 +28,7 @@ from dsml_tpu.ops.quantization import quantize_kv_rows as jax_quantize_kv_rows
 from dsml_tpu_torch.models import gpt2 as tgpt2
 from dsml_tpu_torch.models.convert import params_from_jax
 from dsml_tpu_torch.ops import paged_attention as tpa
+from dsml_tpu_torch.ops.quantization import quantize_kv_rows, unpack_int4
 
 # the JAX suite's tolerance for the kernel against its dense oracle
 # (tests/test_paged_attention.py): f32 on both sides, another summation order
@@ -181,14 +182,171 @@ def test_routing_knobs(monkeypatch):
 
 
 def test_smem_is_fixed_by_the_tiles_not_the_page():
-    # 16 query rows, 16-key units: the int4 hd-64 pipelined footprint is
-    # 2 stages × (2·16·32 B + 2·16·4 B) + f32 tiles (16·65 + 2·16·65 + 16·17
-    # + 32) · 4 B + 16 positions · 4 B
-    assert tpa.paged_smem_bytes(64, "int4") == 2 * (1024 + 128) + 4 * (1040 + 2080 + 272 + 32) + 64
+    # register regime, int4 at hd 64: a 2-stage ring per warp of one 16-key
+    # unit (2·16·32 B of K and V rows + 2·16·4 B of scales) for 4 warps,
+    # then the warps' f32 partials (4 warps × 4 rows × (64 + 2) floats)
+    assert tpa.paged_smem_bytes(64, "int4") == 4 * 2 * (1024 + 128) + 4 * 4 * 4 * 66
+    assert tpa.paged_smem_bytes(64, "int4", pipeline=False) == 4 * 4 * 4 * 66
+    # tensor-core regime, int4 at hd 64: a 2-stage ring of 64 keys' raw rows
+    # and scales, bf16 q/K/V tiles of 64 × (64 + 8), the 64 keys' scales
+    assert tpa.paged_smem_bytes(64, "int4", tensor_cores=True) == \
+        2 * (2 * 64 * 32 + 2 * 64 * 4) + 2 * 3 * 64 * 72 + 2 * 64 * 4
     assert tpa.paged_smem_bytes(64, "int4", pipeline=False) < tpa.paged_smem_bytes(64, "int4")
     assert tpa.paged_smem_bytes(128, None, fp_itemsize=4) > tpa.paged_smem_bytes(128, None, fp_itemsize=2)
-    assert max(tpa.paged_smem_bytes(hd, m) for hd in (64, 128) for m in (None, "int8", "int4")) \
-        < 227 * 1024
+    assert max(tpa.paged_smem_bytes(hd, m, tensor_cores=tc) for hd in (64, 128)
+               for m in (None, "int8", "int4") for tc in (False, True)) < 227 * 1024
+
+
+# ---------------------------------------------------------------------------
+# the kernels' split plan and merge (split-K over the key axis)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("max_pos,n_keys,keys_per_split", [
+    (-1, 1024, 128), (0, 1024, 128), (14, 1024, 128), (15, 1024, 128), (16, 1024, 128),
+    (127, 1024, 128), (128, 1024, 128), (255, 1024, 128), (256, 1024, 128), (1022, 1024, 128),
+    (1023, 1024, 128), (5000, 1024, 128), (199, 200, 128), (63, 64, 16)])
+def test_split_plan_covers_every_live_unit_once(max_pos, n_keys, keys_per_split):
+    """The plan's count of splits, contiguous splits of at most k keys that
+    start on multiples of k, and every live 16-key unit in exactly one
+    split; an all-dead tile gets an empty plan."""
+    plan = tpa.split_plan(max_pos, n_keys, keys_per_split)
+    live_end = min(max_pos + 1, n_keys) if max_pos >= 0 else 0
+    assert len(plan) == -(-live_end // keys_per_split)
+    assert [k0 for k0, _ in plan] == list(range(0, live_end, keys_per_split))
+    assert all(0 < k1 - k0 <= keys_per_split for k0, k1 in plan)
+    assert (plan[-1][1] if plan else 0) == live_end
+    keys = [k for k0, k1 in plan for k in range(k0, k1)]
+    assert keys == list(range(live_end))  # no key lost or repeated
+    units = [u for k0, k1 in plan for u in sorted({k // 16 for k in range(k0, k1)})]
+    assert units == list(range(-(-live_end // 16)))
+    if max_pos < 0:
+        assert plan == []
+
+
+def test_tile_rows_and_scratch_bytes():
+    assert tpa.tile_rows(torch.float32, 1) == tpa.tile_rows(torch.bfloat16, 1) == 1
+    assert tpa.tile_rows(torch.bfloat16, 16) == tpa.tile_rows(torch.float32, 256) == 4
+    assert tpa.tile_rows(torch.bfloat16, 17) == tpa.tile_rows(torch.bfloat16, 256) == 64
+    # decode: 16 slots × 12 heads, one 1-row tile, 8 splits of 128 keys:
+    # 192 counters, 192·8 records of 64 + 4 floats
+    assert tpa.paged_scratch_bytes(16, 12, 1, 64, 1024, torch.bfloat16) == (768, 4 * 192 * 8 * 68)
+    # a 256-row bf16 chunk: 4 tiles of 64 rows; in f32, 64 tiles of 4
+    assert tpa.paged_scratch_bytes(1, 12, 256, 64, 1024, torch.bfloat16) == \
+        (4 * 48, 4 * 12 * 4 * 8 * 64 * 68)
+    assert tpa.paged_scratch_bytes(1, 12, 256, 64, 1024, torch.float32) == \
+        (4 * 768, 4 * 12 * 64 * 8 * 4 * 68)
+    assert tpa.paged_scratch_bytes(1, 1, 5, 128, 200, torch.float32) == (8, 4 * 2 * 2 * 4 * 132)
+
+
+# depths (keys) of the split-edge slots: one key, a unit's edge, a split's
+# edge and the next split's, the deepest, a dead slot
+_EDGE_DEPTHS = [1, 15, 16, 17, 127, 128, 129, 256, 257, 1023, 1024, 0]
+
+
+def _split_case(rng, case, mode):
+    """(q, pools, table, positions, rows) of one split-reference case; the
+    page size of each case is its own (16 or 64)."""
+    if case.startswith("edges"):
+        page = int(case.rsplit("_", 1)[1])
+        b, hq, hkv, hd, c = len(_EDGE_DEPTHS), 2, 2, 64, 1
+        positions = (np.asarray(_EDGE_DEPTHS) - 1)[:, None].astype(np.int32)
+        rows = None
+    elif case == "gqa_dead":
+        page, b, hq, hkv, hd, c = 16, 4, 8, 2, 128, 1
+        positions = np.asarray([[300], [-1], [128], [0]], np.int32)
+        rows = None
+    elif case == "verify":
+        page, b, hq, hkv, hd, c = 16, 3, 4, 2, 64, 4
+        positions = (np.asarray([125, 0, 700])[:, None] + np.arange(4)[None, :]).astype(np.int32)
+        rows = None
+    else:  # a 256-row chunk at 512, in the register regime's or the tensor cores' tiles
+        page, b, hq, hkv, hd, c = 16, 1, 2, 2, 64, 256
+        positions = (512 + np.arange(256))[None, :].astype(np.int32)
+        rows = 64 if case == "chunk_tc_tiles" else None
+    n_pt = 1024 // page
+    live = [0 if p.max() < 0 else int(p.max()) // page + 1 for p in positions]
+    n_pages = 1 + sum(live)
+    table = np.zeros((b, n_pt), np.int32)
+    perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
+    at = 0
+    for i, n in enumerate(live):
+        table[i, :n] = perm[at:at + n]
+        at += n
+    k = rng.standard_normal((n_pages, hkv, page, hd)).astype(np.float32)
+    v = rng.standard_normal((n_pages, hkv, page, hd)).astype(np.float32)
+    if mode is None:
+        layer = {"k": k, "v": v}
+    else:
+        (kq, ks), (vq, vs) = jax_quantize_kv_rows(jnp.asarray(k), mode), \
+            jax_quantize_kv_rows(jnp.asarray(v), mode)
+        layer = {"k": np.asarray(kq), "k_s": np.asarray(ks), "v": np.asarray(vq), "v_s": np.asarray(vs)}
+    pools = ({key: jnp.asarray(a) for key, a in layer.items()},
+             {key: torch.from_numpy(a.copy()) for key, a in layer.items()})
+    q = rng.standard_normal((b, hq, c, hd)).astype(np.float32)
+    return q, pools, table, positions, rows
+
+
+@pytest.mark.parametrize("case", ["edges_16", "edges_64", "gqa_dead", "verify", "chunk",
+                                  "chunk_tc_tiles"])
+@pytest.mark.parametrize("mode", [None, "int8", "int4"])
+def test_split_reference_matches_jax(mode, case):
+    """The kernels' split plan and merge (the plain model
+    ``_paged_attention_split_reference``) against the JAX kernel
+    (``interpret=True, pipeline=False``) at the file's tolerance: decode at
+    the split edges with pages of 16 and 64, GQA at hd 128 with a dead
+    slot, a verify window, and a 256-row chunk in the register regime's
+    4-row tiles and the tensor cores' 64-row tiles."""
+    rng = np.random.default_rng(11)
+    q, (jlayer, tlayer), table, positions, rows = _split_case(rng, case, mode)
+    want = np.asarray(jpa.paged_attention(
+        jnp.asarray(q), jlayer, jnp.asarray(table), jnp.asarray(positions), mode,
+        interpret=True, pipeline=False))
+    got = tpa._paged_attention_split_reference(
+        torch.from_numpy(q), tlayer, torch.from_numpy(table), torch.from_numpy(positions), mode,
+        rows=rows)
+    assert got.shape == q.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    dead = positions.max(1) < 0
+    assert (got[torch.from_numpy(dead)] == 0).all()
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at each |x| (2^-7 of its binade)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "int4"])
+def test_two_term_bf16_p_holds_the_pv_tolerance(mode):
+    """The tensor-core regime's p·v: p (value scale folded in) as p_hi =
+    bf16(p) plus p_lo = bf16(p - p_hi) against bf16-exact v, each product
+    summed in f32, against f32 p·v at the chunk shape (256 rows at 512,
+    768 keys, hd 64) and its value range: within one bf16 ulp of the
+    output + 1e-4, the tolerance the card holds the kernel to — and closer
+    than a single bf16 p."""
+    rng = np.random.default_rng(12)
+    rows, n_keys, hd = 256, 768, 64
+    pos = 512 + np.arange(rows)
+    s = torch.from_numpy(rng.standard_normal((rows, hd)).astype(np.float32)) @ \
+        torch.from_numpy(rng.standard_normal((hd, n_keys)).astype(np.float32)) * hd ** -0.5
+    s = s.masked_fill(torch.arange(n_keys)[None, :] > torch.from_numpy(pos)[:, None], -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l_fin = p.sum(-1, keepdim=True)
+    v = torch.from_numpy(rng.standard_normal((n_keys, hd)).astype(np.float32))
+    if mode:
+        vq, vs = (t[0, 0] for t in quantize_kv_rows(v[None, None], mode))
+        v = (unpack_int4(vq) if mode == "int4" else vq).float()
+        p = p * vs.reshape(1, n_keys)
+    else:
+        v = v.bfloat16().float()
+    want = (p.double() @ v.double()) / l_fin.double()
+    p_hi = p.bfloat16().float()
+    p_lo = (p - p_hi).bfloat16().float()
+    got = (p_hi @ v + p_lo @ v) / l_fin
+    single = (p_hi @ v) / l_fin
+    err = (got.double() - want).abs()
+    assert bool((err <= _bf16_ulp(want) + 1e-4).all())
+    assert err.max().item() < 1e-5
+    assert err.max().item() < (single.double() - want).abs().max().item() / 10
 
 
 # ---------------------------------------------------------------------------
