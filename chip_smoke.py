@@ -39,13 +39,18 @@ Phases: device, build (always); sass (HMMA instructions in the SASS of the
 tensor-core kernels: the backward's two and the bf16 instantiations of
 kernels 1 and 4, none in their f32 instantiations; no register spills in
 them at d = 64; HMMA in the paged kernels' tensor-core instantiations,
-none in their register-regime ones, no spills in any); kernel, kernel_bwd,
+none in their register-regime ones, no spills in any; HMMA in qmm's bf16-x
+instantiations, none in its f32-x ones, no spills in any); kernel, kernel_bwd,
 kernel_paged (also at the split plan's edges, each case twice for
 identical bits), paged_time (the paged kernels' times alone, which a parent
-tree runs too), kernel_qmm,
-kernel_quant8 (each kernel against its plain version, then a kernel_time
-line with its device time, bound, plain time and library yardstick; kernel
-1 at the prefill and the train step's shapes, bf16 and f32); slice and
+tree runs too), kernel_qmm (both regimes: rows 16, 256, 7, 1, 17, 300; a
+kb = 40 weight; bf16 x the wrapper pads; the integer-exact case in f32 and
+bf16 x; each case twice for identical bits), qmm_time (qmm's times alone,
+which a parent tree runs too), kernel_quant8 (each kernel against its
+plain version, then a kernel_time line with its device time, bound, plain
+time and library yardstick; kernel 1 at the prefill and the train step's
+shapes, bf16 and f32; kernel 8's bound from the operations its function
+defines per element, its IEEE division read from its SASS); slice and
 trace (the generate run, its launches, logits and greedy tokens against the
 plain path, device-busy time); cli
 (``generate_text``); train and its trace; train_cli (``train_gpt2`` and the
@@ -265,6 +270,44 @@ def paged_sass(tool, build, report):
     return out, faults
 
 
+# qmm's instantiations: x (f or bf16), int4, rows of a tile
+QMM_MANGLED = re.compile(r"qmm_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)E")
+
+
+def qmm_sass(tool, build, report):
+    """qmm in every instantiation: HMMA instructions in the bf16-x ones (the
+    decode and chunk regimes, both codecs), none in the f32-x FMA body's,
+    and no spills in any. Returns ({label: {hmma, registers, spills}},
+    [the faults found])."""
+    res = subprocess.run([tool, "-sass", str(build._target("qmm"))], capture_output=True, text=True,
+                         check=False)
+    check(res.returncode == 0, f"cuobjdump -sass qmm failed ({res.returncode}): {res.stderr[-2000:]}")
+    ptxas = ptxas_report(report)
+    out, faults = {}, []
+    for chunk in res.stdout.split("Function : ")[1:]:
+        name, body = chunk.split("\n", 1)
+        m = QMM_MANGLED.search(name)
+        if not m:
+            continue
+        x, int4, rows = m.groups()
+        bf16 = x != "f"
+        label = f"qmm_kernel<{'bf16' if bf16 else 'f32'} x, {'int4' if int4 == '1' else 'int8'}, {rows} rows>"
+        props = [v for fn, v in ptxas.items() if fn == name.split()[0]]
+        check(len(props) == 1, f"{label}: no single -Xptxas -v entry")
+        hmma = body.count("HMMA")
+        out[label] = {"hmma": hmma, "registers": props[0].get("registers"),
+                      "spill_stores": props[0].get("spill_stores"),
+                      "spill_loads": props[0].get("spill_loads")}
+        if (hmma > 0) != bf16:
+            faults.append(f"{label}: {hmma} HMMA instructions, expected {'some' if bf16 else 'none'}")
+        if props[0].get("spill_stores") or props[0].get("spill_loads"):
+            faults.append(f"{label} spills registers: {props[0]}")
+    # bf16 x: 2 codecs × the decode and chunk regimes; f32 x: 2 codecs
+    if len(out) != 6:
+        faults.append(f"{len(out)} qmm instantiations in the SASS, expected 6: {sorted(out)}")
+    return out, faults
+
+
 def phase_sass(build, reports):
     """The tensor-core kernels run on the tensor cores: ``cuobjdump -sass``
     of each built library shows HMMA instructions in the backward's two
@@ -273,7 +316,9 @@ def phase_sass(build, reports):
     instantiations; ``-Xptxas -v`` reports no spills in any tensor-core
     kernel at d = 64 (the train and prefill shapes; d = 128 is reported).
     The paged kernels (``paged_sass``): HMMA in the tensor-core regime's
-    instantiations, none in the register regime's, no spills in any."""
+    instantiations, none in the register regime's, no spills in any. qmm
+    (``qmm_sass``): HMMA in the bf16-x instantiations, none in the f32-x
+    ones, no spills in any."""
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                                                      "bin", "cuobjdump")
     check(os.path.exists(tool), "cuobjdump not found on PATH or under CUDA_HOME: the SASS check "
@@ -301,8 +346,10 @@ def phase_sass(build, reports):
                 row["ptxas"][key] = props[0]
     row["sources"]["paged_attn"] = PAGED_SOURCE
     row["paged_attn"], paged_faults = paged_sass(tool, build, reports["paged_attn"])
+    row["sources"]["qmm"] = QMM_SOURCE
+    row["qmm"], qmm_faults = qmm_sass(tool, build, reports["qmm"])
     emit(row)
-    check(not paged_faults, "; ".join(paged_faults))
+    check(not paged_faults + qmm_faults, "; ".join(paged_faults + qmm_faults))
     for kernels in SASS_KERNELS.values():
         for label, _, tensor_cores in kernels:
             props = row["ptxas"][label.format(d=64)]
@@ -1252,7 +1299,8 @@ QUANT8_SOURCE = "dsml_tpu_torch/ops/csrc/quantize_int8.cu"
 # GPT-2-small's four block projections: (contraction d, trailing shape)
 PROJECTIONS = {"wqkv": (768, (3, 768)), "wo": (768, (768,)), "w_in": (768, (3072,)),
                "w_out": (3072, (768,))}
-QMM_ROWS = {"decode": PAGED_SLOTS, "chunk": PAGED_CHUNK, "ragged": 7}
+QMM_ROWS = {"decode": PAGED_SLOTS, "chunk": PAGED_CHUNK, "ragged": 7, "one": 1, "decode_plus_one": 17,
+            "ragged_chunks": 300}
 # qmm against its plain version: both sum in f32 from the same inputs, in
 # another order; relative to the largest |output| (the JAX suite's bound
 # for its fused matmul, tests/test_quantization.py)
@@ -1295,41 +1343,66 @@ def qmm_bound_ms(x, qwt):
 
 def phase_kernel_qmm(dev):
     """quantized_matmul's kernel against _qmm_reference at GPT-2-small's four
-    projections (wqkv in its 3-D form) × rows {16, 256, 7} × {int8, int4} ×
-    x {f32, bf16}; the integer-exact case bit for bit; then times at the
-    decode and chunk shapes with bounds, the plain version and bf16
-    ``torch.matmul`` against the dense weight (the same product without
-    the codec), which the port never calls."""
+    projections (wqkv in its 3-D form) and a kb = 40 weight (d = 200, block
+    40: kb % 16 == 8, ragged n = 130) × rows {16, 256, 7, 1, 17, 300} (both
+    regimes, ragged both ways) × {int8, int4} × x {f32, bf16}, each case
+    called twice for identical bits; the integer-exact case in f32 and bf16
+    x bit for bit against ``x @ w`` and the plain version."""
     from dsml_tpu_torch.ops import quantization as tq
 
     gen = torch.Generator(device=dev).manual_seed(5)
     weights = {name: torch.randn(d, *rest, generator=gen, device=dev) * 0.02
                for name, (d, rest) in PROJECTIONS.items()}
-    qweights = {(name, scheme): tq.quantize_weight_blocks(w, scheme)
-                for name, w in weights.items() for scheme in ("int8", "int4")}
+    weights["kb40"] = torch.randn(200, 130, generator=gen, device=dev) * 0.02
     main_err = 0.0
-    for (name, scheme), qwt in qweights.items():
-        worst, cases = 0.0, 0
-        for rows in QMM_ROWS.values():
-            for dtype in (torch.float32, torch.bfloat16):
-                x = torch.randn(rows, qwt.shape[0], generator=gen, device=dev).to(dtype)
-                got = tq.quantized_matmul(x, qwt)
-                torch.cuda.synchronize()
-                ref = tq._qmm_reference(x, qwt)
-                err = (got - ref).abs().max().item()
-                rel = err / max(ref.abs().max().item(), 1e-30)
-                check(got.shape == ref.shape and bool(torch.isfinite(got).all()) and rel <= TOL_QMM,
-                      f"qmm disagrees with its plain version ({name}, {scheme}, rows {rows}, {dtype}): "
-                      f"max abs err {err}, {rel} of max |ref|")
-                worst, cases = max(worst, rel), cases + 1
-                if (scheme, dtype, rows) == ("int4", torch.bfloat16, QMM_ROWS["decode"]):
-                    main_err = max(main_err, err)
-        emit({"phase": "kernel_qmm", "kernel": "qmm", "projection": name, "scheme": scheme,
-              "weight_shape": list(qwt.shape), "kb": qwt.block, "nb": qwt.qs.shape[0],
-              "rows": list(QMM_ROWS.values()), "x_dtypes": ["float32", "bfloat16"], "cases": cases,
-              "max_err_over_max_abs": worst, "tol": TOL_QMM, "ok": True})
+    for name, w in weights.items():
+        for scheme in ("int8", "int4"):
+            qwt = tq.quantize_weight_blocks(w, scheme, 40 if name == "kb40" else None)
+            worst, cases, identical = 0.0, 0, True
+            for rows in QMM_ROWS.values():
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn(rows, qwt.shape[0], generator=gen, device=dev).to(dtype)
+                    got = tq.quantized_matmul(x, qwt)
+                    again = tq.quantized_matmul(x, qwt)
+                    torch.cuda.synchronize()
+                    ref = tq._qmm_reference(x, qwt)
+                    err = (got - ref).abs().max().item()
+                    rel = err / max(ref.abs().max().item(), 1e-30)
+                    same = bool(torch.equal(got, again))
+                    check(got.shape == ref.shape and bool(torch.isfinite(got).all()) and rel <= TOL_QMM
+                          and same,
+                          f"qmm disagrees with its plain version ({name}, {scheme}, rows {rows}, {dtype}): "
+                          f"max abs err {err}, {rel} of max |ref|; a second call identical: {same}")
+                    worst, cases, identical = max(worst, rel), cases + 1, identical and same
+                    if name != "kb40" and (scheme, dtype, rows) == ("int4", torch.bfloat16,
+                                                                    QMM_ROWS["decode"]):
+                        main_err = max(main_err, err)
+            emit({"phase": "kernel_qmm", "kernel": "qmm", "projection": name, "scheme": scheme,
+                  "weight_shape": list(qwt.shape), "kb": qwt.block, "nb": qwt.qs.shape[0],
+                  "rows": list(QMM_ROWS.values()), "x_dtypes": ["float32", "bfloat16"], "cases": cases,
+                  "max_err_over_max_abs": worst, "tol": TOL_QMM, "second_call_identical": identical,
+                  "ok": True})
 
-    # the integer-exact case (tests/test_quantization.py): scales of 1, small-integer x
+    # bf16 x that the wrapper pads for the tensor-core body: d % 4 != 0 (d =
+    # 201), and a view 2 bytes off an 8-byte boundary
+    w = torch.randn(201, 96, generator=gen, device=dev) * 0.02
+    buf = torch.randn(16 * 768 + 1, generator=gen, device=dev).to(torch.bfloat16)
+    padded = {"odd_d": (torch.randn(16, 201, generator=gen, device=dev).to(torch.bfloat16), w),
+              "misaligned": (buf[1:].view(16, 768), weights["wo"])}
+    for case, (x, w) in padded.items():
+        for scheme in ("int8", "int4"):
+            qwt = tq.quantize_weight_blocks(w, scheme)
+            got, again = tq.quantized_matmul(x, qwt), tq.quantized_matmul(x, qwt)
+            ref = tq._qmm_reference(x, qwt)
+            rel = (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+            emit({"phase": "kernel_qmm", "case": case, "scheme": scheme, "x_shape": list(x.shape),
+                  "x_offset_bytes": x.data_ptr() % 16, "max_err_over_max_abs": rel,
+                  "second_call_identical": bool(torch.equal(got, again))})
+            check(rel <= TOL_QMM and bool(torch.equal(got, again)),
+                  f"qmm on padded bf16 x ({case}, {scheme}): {rel} of max |ref|")
+
+    # the integer-exact case (tests/test_quantization.py): scales of 1, integer
+    # x in [-8, 8] (exact in bf16 too)
     rng = np.random.default_rng(1)
     x = torch.as_tensor(rng.integers(-8, 9, (5, 96)), dtype=torch.float32, device=dev)
     exact = {}
@@ -1337,20 +1410,41 @@ def phase_kernel_qmm(dev):
         w = torch.as_tensor(rng.integers(-qmax, qmax + 1, (96, 160)), dtype=torch.float32, device=dev)
         w[0::32] = qmax
         qwt = tq.quantize_weight_blocks(w, scheme, 32)
-        got = tq.quantized_matmul(x, qwt)
-        exact[scheme] = bool(torch.equal(got, x @ w)) and bool(torch.equal(got, tq._qmm_reference(x, qwt)))
+        for dtype in (torch.float32, torch.bfloat16):
+            got = tq.quantized_matmul(x.to(dtype), qwt)
+            exact[f"{scheme}_{str(dtype)[6:]}"] = (
+                bool(torch.equal(got, x @ w)) and bool(torch.equal(got, tq._qmm_reference(x.to(dtype), qwt)))
+                and bool(torch.equal(got, tq.quantized_matmul(x.to(dtype), qwt))))
     emit({"phase": "kernel_qmm", "case": "integer_exact", "shape": [5, 96, 160], "block": 32,
           "torch_equal": exact})
     check(all(exact.values()), f"qmm is not exact on the integer case: {exact}")
+    return main_err
 
-    # times: every projection at the decode and chunk shapes, bf16 x, both codecs
+
+def qmm_time(dev):
+    """Every projection's qmm time at the decode and chunk shapes, bf16 x,
+    both codecs, with bounds, the plain version and bf16 ``torch.matmul``
+    against the dense weight (the same product without the codec), which
+    the port never calls. Uses only ``quantized_matmul``, its plain version
+    and ``torch.matmul``, so a parent tree runs it too (``python3
+    chip_smoke.py qmm_time``)."""
+    from dsml_tpu_torch.ops import quantization as tq
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    weights = {name: torch.randn(d, *rest, generator=gen, device=dev) * 0.02
+               for name, (d, rest) in PROJECTIONS.items()}
+    qweights = {(name, scheme): tq.quantize_weight_blocks(w, scheme)
+                for name, w in weights.items() for scheme in ("int8", "int4")}
     reps, timing, configs = 20, {}, []
     for shape in ("decode", "chunk"):
         for (name, scheme), qwt in qweights.items():
             x = torch.randn(QMM_ROWS[shape], qwt.shape[0], generator=gen, device=dev).to(torch.bfloat16)
             configs.append((shape, name, scheme, qwt, x))
-    ms = kernel_event_ms(lambda: [tq.quantized_matmul(x, qwt) for *_, qwt, x in configs
-                                  for _ in range(reps)], "qmm_kernel<")
+    for _ in range(2):  # the profiler sometimes loses events: one retake
+        ms = kernel_event_ms(lambda: [tq.quantized_matmul(x, qwt) for *_, qwt, x in configs
+                                      for _ in range(reps)], "qmm_kernel<")
+        if len(ms) == reps * len(configs):
+            break
     check(len(ms) == reps * len(configs), f"the trace shows {len(ms)} qmm launches, "
                                           f"expected {reps * len(configs)}")
     for i, (shape, name, scheme, qwt, x) in enumerate(configs):
@@ -1375,17 +1469,103 @@ def phase_kernel_qmm(dev):
                      "without the codec (no PyTorch call takes this codec); ms and library_ms "
                      "are profiler device times, *_wrapper_ms and plain_ms CUDA events around "
                      "one call"})
-    return main_err, timing["int4"]["decode"]["wqkv"]
+    return timing["int4"]["decode"]["wqkv"]
 
 
-def quant8_bound_ms(x):
-    """Least time of one quantize_int8: x read once in its type, the int8
-    codes and f32 scales of every 512-element block written once; 7
-    operations per element (abs, max, two divisions, add, floor, clip —
-    the hash's integer operations not counted) at the f32 rate."""
+# Instruction rates of one H100 SM per clock, by pipe (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0): 4
+# schedulers issue one warp instruction each (128 lanes); f32 add, multiply
+# and fma 128; 32-bit integer multiply-add (which shares the fma pipe) 64;
+# logic, shift, compare and min/max 64; conversions other than 8/16 → 32-bit
+# integer, and MUFU, 16. An opcode may load two pipes (IMAD: "fma" and
+# "imad"); pipes kept apart where the guide does not say they share keep
+# the bound a lower one.
+LANES_PER_CLOCK = 128
+PIPES = {"fma": (128, {"FFMA", "FADD", "FMUL", "IMAD"}),
+         "imad": (64, {"IMAD"}),
+         "alu": (64, {"LOP3", "SHF", "FMNMX", "I2FP", "FCHK"}),
+         "conv": (16, {"FRND", "F2I"}),
+         "mufu": (16, {"MUFU"})}
+# The operations quantize_int8's function defines per element, as (what,
+# count, opcode), the two IEEE divisions apart: a bf16 element's widening,
+# its share of the 511 maxima of its block's absmax (|x| is an operand
+# modifier), the counter hash (the index multiply-add (lo + 1)·0x9E3779B9,
+# the xors with the key and with hi(g), two mix32 of 3 shifts, 3 xors and
+# 2 multiplies each, the key's own mix32 shared by a thread's 4 elements,
+# bits >> 8), u's conversion and scaling, the add, floor, the clamp and the
+# conversion to int8. Left out: index, address and bounds arithmetic,
+# loads, stores, shuffles and barriers.
+QUANT8_OPS = [("bf16 -> f32 (a 16-bit shift)", 1, "SHF"),
+              ("absmax: max of |x| (511 per 512 elements)", 511 / 512, "FMNMX"),
+              ("hash: (lo + 1) * 0x9E3779B9", 1, "IMAD"),
+              ("hash: xor with the key and with hi(g)", 2, "LOP3"),
+              ("hash: two mix32, shifts", 6, "SHF"), ("hash: two mix32, xors", 6, "LOP3"),
+              ("hash: two mix32, multiplies", 4, "IMAD"),
+              ("the key's mix32 over 4 elements, shifts", 3 / 4, "SHF"),
+              ("the key's mix32 over 4 elements, xors", 3 / 4, "LOP3"),
+              ("the key's mix32 over 4 elements, multiplies", 2 / 4, "IMAD"),
+              ("bits >> 8", 1, "SHF"), ("u: u32 -> f32", 1, "I2FP"), ("u: * 2^-24", 1, "FMUL"),
+              ("x / scale + u: the add", 1, "FADD"), ("floor", 1, "FRND"),
+              ("clamp to [-127, 127]", 2, "FMNMX"), ("f32 -> int8", 1, "F2I")]
+DIVISION_OPS = ("FFMA", "MUFU", "FCHK")  # the only opcodes of an IEEE division's fast path
+
+
+def quant8_division(tool, build):
+    """The average IEEE division of quantize_int8_kernel<bf16> in its SASS:
+    every FFMA, MUFU and FCHK up to the first EXIT (no other operation of the
+    kernel uses them; the slow path's subroutine lies after the EXIT), over
+    its FCHKs, one a division → {opcode: instructions a division}."""
+    res = subprocess.run([tool, "-sass", str(build._target("quantize_int8"))], capture_output=True,
+                         text=True, check=False)
+    check(res.returncode == 0, f"cuobjdump -sass quantize_int8 failed ({res.returncode}): {res.stderr[-2000:]}")
+    bodies = [body for name, body in (chunk.split("\n", 1) for chunk in res.stdout.split("Function : ")[1:])
+              if "quantize_int8_kernelI13__nv_bfloat16" in name]
+    check(len(bodies) == 1, f"{len(bodies)} bf16 quantize_int8 kernels in the SASS")
+    ops = dict.fromkeys(DIVISION_OPS, 0)
+    for line in bodies[0].splitlines():
+        m = re.search(r"/\*[0-9a-f]{4,5}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and m.group(1) == "EXIT":
+            break
+        if m and m.group(1) in ops:
+            ops[m.group(1)] += 1
+    check(ops["FCHK"] > 0, "no FCHK (IEEE division) in quantize_int8's SASS")
+    return {op: n / ops["FCHK"] for op, n in ops.items()}
+
+
+def quant8_operations(division):
+    """Per element, by opcode: ``QUANT8_OPS`` and the divisions, x / scale
+    and 1/512 of absmax / 127, each ``division``'s instructions."""
+    ops: dict[str, float] = {}
+    for _, n, op in QUANT8_OPS:
+        ops[op] = ops.get(op, 0) + n
+    for op, n in division.items():
+        ops[op] = ops.get(op, 0) + n * (1 + 1 / 512)
+    return ops
+
+
+def quant8_bound_ms(x, ops, sm_clock_hz, sms):
+    """Least time of one quantize_int8: the larger of the bytes (x read once
+    in its type, the int8 codes and f32 scales of every 512-element block
+    written once) over the memory rate and the function's operations per
+    element (``quant8_operations``) over the card's issue rate and each
+    pipe's own (``PIPES``), ``sms`` SMs at ``sm_clock_hz`` → (ms, "bytes" |
+    "operations", SM cycles per element by pipe)."""
     rows = -(-x.numel() // 512)
     nbytes = x.numel() * x.element_size() + rows * 512 + rows * 4
-    return bound(nbytes, 7.0 * x.numel(), PEAK_FLOPS[torch.float32])
+    cycles = {"issue": sum(ops.values()) / LANES_PER_CLOCK}
+    for pipe, (rate, names) in PIPES.items():
+        cycles[pipe] = sum(n for op, n in ops.items() if op in names) / rate
+    worst = max(cycles, key=cycles.get)
+    t_ops = cycles[worst] * x.numel() / (sms * sm_clock_hz) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes", cycles) if t_bytes >= t_ops else (t_ops, "operations", cycles)
+
+
+def sm_clock_max_hz():
+    out = subprocess.run(["nvidia-smi", f"--id={torch.cuda.current_device()}", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True, check=True,
+                         timeout=60)
+    return float(out.stdout.strip()) * 1e6
 
 
 def phase_kernel_quant8(dev):
@@ -1440,12 +1620,24 @@ def phase_kernel_quant8(dev):
     ms = kernel_event_ms(lambda: [tq.quantize_int8(x, seed) for _ in range(reps)],
                          "quantize_int8_kernel<")
     check(len(ms) == reps, f"the trace shows {len(ms)} quantize_int8 launches, expected {reps}")
-    bound_ms, bound_by = quant8_bound_ms(x)
+    from dsml_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                                                     "bin", "cuobjdump")
+    division = quant8_division(tool, _build)
+    ops = quant8_operations(division)
+    clock = sm_clock_max_hz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bound_ms, bound_by, cycles = quant8_bound_ms(x, ops, clock, sms)
     timing = {"ms": statistics.median(ms), "wrapper_ms": cuda_ms(lambda: tq.quantize_int8(x, seed)),
               "plain_ms": cuda_ms(lambda: tq._quantize_int8_reference(x, seed)),
               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    bytes_ms = (x.numel() * x.element_size() + x.numel() + x.numel() // 512 * 4) / PEAK_BYTES_PER_S * 1e3
     emit({"phase": "kernel_time", "kernel": "quantize_int8", "shape": [TRAIN_B, TRAIN_S, 768],
-          "dtype": "bfloat16", **timing,
+          "dtype": "bfloat16", **timing, "bytes_bound_ms": bytes_ms,
+          "operations_per_element": sum(ops.values()), "by_opcode": ops,
+          "division_from_sass": division, "sm_cycles_per_element_by_pipe": cycles,
+          "sm_clock_max_hz": clock, "sms": sms,
           "library": "none: no single PyTorch call quantizes with stochastic rounding"})
     return diff, timing
 
@@ -2135,6 +2327,7 @@ def main() -> None:
                   "kernel_paged": lambda: phase_kernel_paged(dev),
                   "paged_time": lambda: phase_paged_time(dev),
                   "kernel_qmm": lambda: phase_kernel_qmm(dev),
+                  "qmm_time": lambda: qmm_time(dev),
                   "kernel_quant8": lambda: phase_kernel_quant8(dev),
                   "slice": lambda: phase_trace(*phase_slice(tflash, dev, card)[1:]),
                   "train": lambda: phase_train_trace(phase_train(tflash, dev, card)[2]),
@@ -2154,7 +2347,8 @@ def main() -> None:
     main_err, timing = phase_kernel(tflash, dev)
     bwd_err, bwd_timing = phase_kernel_bwd(tflash, dev)
     paged_err, paged_timing = phase_kernel_paged(dev)
-    qmm_err, qmm_timing = phase_kernel_qmm(dev)
+    qmm_err = phase_kernel_qmm(dev)
+    qmm_timing = qmm_time(dev)
     quant8_err, quant8_timing = phase_kernel_quant8(dev)
     stream_err, stream_timing = phase_kernel_stream(tflash, dev)
     phase_kernel_head_dim(tflash, dev)

@@ -17,11 +17,12 @@ in its high nibble and channel j + hd/2 in its low nibble, each offset by
 **Serving weights.** :func:`quantize_weight_blocks` turns a matmul weight
 (contracting on its first axis) into int8 or int4 codes with one f32 scale
 per (k-block, output channel), and :func:`quantized_matmul` multiplies by
-it without ever expanding the weight: the kernel unpacks the codes in
-shared memory and folds each block's scale in after that block's integer
-dot. The int4 layout is NOT the KV codec's: within each k-block the two ROW
-halves pack along the contraction axis (byte row r of block b holds row
-b·kb + r in its high nibble and row b·kb + kb/2 + r in its low nibble).
+it without ever expanding the weight: the kernel unpacks the codes to
+bf16 in registers for the tensor cores (bf16 x) and folds each block's
+scale in after that block's integer dot. The int4 layout is NOT the KV
+codec's: within each k-block the two ROW halves pack along the
+contraction axis (byte row r of block b holds row b·kb + r in its high
+nibble and row b·kb + kb/2 + r in its low nibble).
 
 **Activations.** :func:`quantize_int8` is blockwise absmax int8 over
 512-element blocks with stochastic rounding ``floor(x/scale + u)``. The TPU
@@ -88,7 +89,7 @@ quantize_int8_launches = 0
 def _lib(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
     if name == "qmm":
-        lib.qmm.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        lib.qmm.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     else:
         lib.quantize_int8.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
@@ -348,8 +349,41 @@ def _qmm_reference(x: torch.Tensor, qwt: QuantizedWeight) -> torch.Tensor:
     return acc[:, :math.prod(qwt.shape[1:])]
 
 
-_QMM_ROWS = 16  # the kernel's row tile (csrc/qmm.cu BM)
+# The kernel's tiling (csrc/qmm.cu). bf16 x: 128 channels a block, 16 rows
+# (the decode regime, m <= 16) or 64 (the chunk regime), K cut into units of
+# 32 k and split over the blocks of a cluster (at most 8) where the tiles
+# alone leave the card's SMs idle. f32 x: 16 rows × 32 channels, no
+# split.
+_QMM_TILE_N = 128
+_QMM_DECODE_ROWS = 16
+_QMM_CHUNK_ROWS = 64
+_QMM_FMA_ROWS = 16
+_QMM_UNIT_ROWS = {"int4": 16, "int8": 32}  # code rows of a unit (32 k)
+_QMM_MIN_UNITS = 2  # a split's fewest units
+_QMM_MAX_SPLITS = 8  # a portable cluster
+_QMM_BLOCKS_PER_SM = 2
 _MAX_GRID_Y = 65535
+
+
+def _qmm_plan(m: int, n: int, kb: int, nb: int, scheme: str, x_dtype, sms: int) -> tuple[int, int]:
+    """(rows of a tile, K splits) of one kernel launch on a card of ``sms``
+    SMs. bf16 x: the decode regime (16 rows) for m <= 16, else the chunk
+    regime (64); the splits bring the (row tile, 128-channel tile) grid up
+    to at most two blocks an SM, each split keeping 2 units or more, at
+    most 8. f32 x: 16 rows, one split."""
+    if x_dtype != torch.bfloat16:
+        return _QMM_FMA_ROWS, 1
+    rows = _QMM_DECODE_ROWS if m <= _QMM_DECODE_ROWS else _QMM_CHUNK_ROWS
+    units = nb * -(-(kb // 2 if scheme == "int4" else kb) // _QMM_UNIT_ROWS[scheme])
+    tiles = -(-n // _QMM_TILE_N) * -(-m // rows)
+    splits = min(_QMM_BLOCKS_PER_SM * sms // tiles, units // _QMM_MIN_UNITS, _QMM_MAX_SPLITS)
+    return rows, max(splits, 1)
+
+
+def _qmm_max_rows(x_dtype) -> int:
+    """The most rows one launch takes: its row tiles fill at most the grid's y."""
+    rows = _QMM_FMA_ROWS if x_dtype != torch.bfloat16 else _QMM_CHUNK_ROWS
+    return _MAX_GRID_Y * rows
 
 
 def _check_qmm_inputs(x, qwt: QuantizedWeight) -> None:
@@ -377,8 +411,9 @@ def _check_qmm_inputs(x, qwt: QuantizedWeight) -> None:
     for name, t in (("qw", qw), ("qs", qs)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"quantized_matmul needs a contiguous, 16-byte aligned {name}")
-    if -(-x.shape[0] // _QMM_ROWS) > _MAX_GRID_Y:
-        raise ValueError(f"quantized_matmul supports <= {_MAX_GRID_Y * _QMM_ROWS} rows, got {x.shape[0]}")
+    if x.shape[0] > _qmm_max_rows(x.dtype):
+        raise ValueError(f"quantized_matmul supports <= {_qmm_max_rows(x.dtype)} rows of {x.dtype} x, "
+                         f"got {x.shape[0]}")
 
 
 def quantized_matmul(x: torch.Tensor, qwt: QuantizedWeight) -> torch.Tensor:
@@ -398,9 +433,15 @@ def quantized_matmul(x: torch.Tensor, qwt: QuantizedWeight) -> torch.Tensor:
     n = math.prod(qwt.shape[1:])
     out = torch.empty(m, n, dtype=torch.float32, device=x.device)
     if m:
+        if x.dtype == torch.bfloat16 and (d % 4 or x.data_ptr() % 8):
+            # the tensor-core body reads x 4 elements at a time: pad its rows (zeros)
+            x = F.pad(x, (0, -d % 4)) if d % 4 else x.clone()
+            d = x.shape[1]
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        _, splits = _qmm_plan(m, n, qwt.block, nb, qwt.scheme, x.dtype, sms)
         _launch("qmm", x.data_ptr(), qwt.qw.data_ptr(), qwt.qs.data_ptr(), out.data_ptr(),
                 m, d, n, n_p, qwt.block, nb, int(x.dtype == torch.bfloat16),
-                int(qwt.scheme == "int4"), torch.cuda.current_stream(x.device).cuda_stream)
+                int(qwt.scheme == "int4"), splits, torch.cuda.current_stream(x.device).cuda_stream)
         global qmm_launches
         qmm_launches += 1
     return out

@@ -161,6 +161,147 @@ def test_wrappers_never_fall_back_off_the_cpu():
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core kernel's arithmetic (csrc/qmm.cu), emulated on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _bf16_halves(words: np.ndarray) -> torch.Tensor:
+    """uint32 words → their two bf16 halves [..., 2] (low half first)."""
+    halves = np.stack([words & 0xFFFF, words >> 16], axis=-1).astype(np.uint16)
+    return torch.from_numpy(halves.view(np.int16)).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("scheme", ["int8", "int4"])
+def test_kernel_code_to_bf16_matches_block_codes(scheme):
+    """The kernel's code → bf16 conversions, emulated on bit patterns, give
+    ``_block_codes`` for every byte value. int4: a prmt puts byte e of the
+    lower row's word in byte 0 and of the upper row's in byte 2; a mask and
+    an or make bf16(128 + v) of the high (``t >> 4``) and the low nibbles;
+    one bf16 subtract of 136 gives v − 8. int8: ``c + 128`` in the mantissa
+    of 2^23 minus 2^23 + 128, in f32, then to bf16."""
+    rng = np.random.default_rng(4)
+    vals = np.arange(256, dtype=np.uint32)
+    lo, hi = vals.reshape(16, 16), rng.permutation(vals).reshape(16, 16)  # two code rows, every byte
+    if scheme == "int4":
+        qw = np.concatenate([lo, hi]).astype(np.uint8)  # byte rows 0..15 and 16..31 of one block
+        tw = tq.QuantizedWeight(torch.from_numpy(qw), torch.ones(1, 16), "int4", 64, (64, 16), torch.float32)
+        garbage = rng.integers(0, 256, lo.shape).astype(np.uint32)
+        t = lo | garbage << 8 | hi << 16 | garbage << 24  # __byte_perm(lo, hi, e | (4 + e) << 8)
+        off = torch.tensor(136.0, dtype=torch.bfloat16)
+        high = _bf16_halves(((t >> 4) & 0x000F000F) | 0x43004300) - off
+        low = _bf16_halves((t & 0x000F000F) | 0x43004300) - off
+        codes = tq._block_codes(tw, 0)  # rows 0..31 high nibbles, 32..63 low nibbles
+        for got, rows in ((high, slice(0, 32)), (low, slice(32, 64))):
+            want = codes[rows].reshape(2, 16, 16).permute(1, 2, 0)  # (row r, row 16 + r) pairs
+            assert torch.equal(got.float(), want)
+    else:
+        qw = np.concatenate([lo, hi]).astype(np.uint8).view(np.int8)
+        tw = tq.QuantizedWeight(torch.from_numpy(qw), torch.ones(1, 16), "int8", 32, (32, 16), torch.float32)
+        bits = (0x4B000000 | (np.concatenate([lo, hi]) ^ 0x80)).astype(np.uint32)
+        f = bits.view(np.float32) - np.float32(8388736.0)
+        got = torch.from_numpy(f).to(torch.bfloat16).float()
+        assert torch.equal(got, tq._block_codes(tw, 0))
+
+
+H100_SMS = 132  # the H100 SXM's SMs
+
+
+def _kernel_sum_order(x: np.ndarray, tw) -> np.ndarray:
+    """The tensor-core kernel's summation order in f32 numpy: K in units of
+    32 k, two mma steps of 16 k (int4: 16 code rows, a high-nibble and a
+    low-nibble step, the x runs at b·kb + r0 and b·kb + kb/2 + r0; int8: 32
+    code rows, 16 a step), every mma a dot of 16 exact products; each split
+    (``_qmm_plan``'s, contiguous units) folds a k-block's scales into its
+    accumulator after the block's last unit and at its own end; the
+    splits' sums add up in split order."""
+    m, d = x.shape
+    kb, (nb, n_p) = tw.block, tw.qs.shape
+    n = int(np.prod(tw.shape[1:]))
+    int4 = tw.scheme == "int4"
+    rows_pb, ur = (kb // 2, 16) if int4 else (kb, 32)
+    upb = -(-rows_pb // ur)
+    units = nb * upb
+    _, splits = tq._qmm_plan(m, n, kb, nb, tw.scheme, torch.bfloat16, H100_SMS)
+    qw, qs = tw.qw.numpy().astype(np.int32), tw.qs.numpy()
+    xp = np.zeros((m, nb * kb + 32), np.float32)
+    xp[:, :d] = x
+    out = None
+    for s in range(splits):
+        lo, hi = s * units // splits, (s + 1) * units // splits
+        acc = np.zeros((m, n_p), np.float32)
+        part = np.zeros((m, n_p), np.float32)
+        for u in range(lo, hi):
+            b, r0 = u // upb, u % upb * ur
+            rows = np.arange(r0, r0 + ur)
+            live = rows < rows_pb
+            raw = np.zeros((ur, n_p), np.int32)
+            raw[live] = qw[b * rows_pb + rows[live]]
+            if int4:
+                steps = [(b * kb + rows, (raw >> 4) - 8, live), (b * kb + rows_pb + rows, (raw & 0xF) - 8, live)]
+            else:
+                steps = [(b * kb + rows[h:h + 16], raw[h:h + 16], live[h:h + 16]) for h in (0, 16)]
+            for cols, codes, ok in steps:
+                xs = np.where(ok, xp[:, cols], np.float32(0))
+                part = part + xs @ codes.astype(np.float32)
+            if r0 + ur >= rows_pb or u + 1 == hi:
+                acc = acc + part * qs[b]
+                part[:] = 0
+        out = acc if out is None else out + acc
+    return out[:, :n]
+
+
+@pytest.mark.parametrize("m", [1, 16])
+@pytest.mark.parametrize("scheme", ["int8", "int4"])
+@pytest.mark.parametrize("d,n,block", [(768, 768, None), (3072, 768, None), (200, 130, 40)],
+                         ids=["d768", "d3072", "kb40"])
+def test_kernel_sum_order_matches_jax_kernel(d, n, block, scheme, m):
+    """The tensor-core kernel's order of summation (K units, splits, the
+    ordered merge), emulated in f32 on bf16-exact x, against the JAX Pallas
+    kernel in interpret mode at GPT-2-small's widths and at kb = 40 (kb % 16
+    == 8: a unit reads nothing of the next block), within the suite's
+    1e-5 of the largest output."""
+    rng = np.random.default_rng(d + m)
+    w = (rng.standard_normal((d, n)) * 0.02).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(torch.bfloat16).float().numpy()
+    jw, tw = _both(w, scheme, block)
+    got = _kernel_sum_order(x, tw)
+    want = np.asarray(jq.quantized_matmul(jnp.asarray(x), jw))
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert got.shape == want.shape and err <= QMM_REL_TOL, err
+
+
+GPT2_PROJECTIONS = {"wqkv": (768, 2304), "wo": (768, 768), "w_in": (768, 3072), "w_out": (3072, 768)}
+
+
+@pytest.mark.parametrize("m", [1, 7, 16, 17, 256, 300])
+@pytest.mark.parametrize("scheme", ["int8", "int4"])
+@pytest.mark.parametrize("proj", sorted(GPT2_PROJECTIONS))
+def test_qmm_plan_fits_the_kernel(proj, scheme, m):
+    """The launch plan: 16-row tiles (the decode regime) up to 16 rows, 64
+    above; 1 to 8 K splits (a portable cluster), each at least 2 units,
+    and no more than two blocks per SM of the card (the H100 SXM's 132, and
+    a card of 114)."""
+    d, n = GPT2_PROJECTIONS[proj]
+    tw = tq.quantize_weight_blocks(torch.zeros(d, n), scheme)
+    nb = tw.qs.shape[0]
+    units = nb * -(-tw.block // 32)  # units of 32 k
+    for sms in (H100_SMS, 114):
+        rows, splits = tq._qmm_plan(m, n, tw.block, nb, scheme, torch.bfloat16, sms)
+        assert rows == (16 if m <= 16 else 64)
+        tiles = -(-n // 128) * -(-m // rows)
+        assert 1 <= splits <= 8 and units // splits >= 2
+        assert tiles * splits <= 2 * sms or splits == 1
+        assert tq._qmm_plan(m, n, tw.block, nb, scheme, torch.float32, sms) == (16, 1)
+
+
+def test_qmm_row_limit_follows_the_tiling():
+    """The wrapper's row limit is the grid's 65535 row tiles of the regime's
+    rows: 64 for bf16 x (the chunk regime), 16 for f32 x."""
+    assert tq._qmm_max_rows(torch.bfloat16) == 65535 * 64
+    assert tq._qmm_max_rows(torch.float32) == 65535 * 16
+
+
+# ---------------------------------------------------------------------------
 # twins, qmatmul and the model
 # ---------------------------------------------------------------------------
 
