@@ -28,7 +28,11 @@ before the path and read just after):
   one card they share it) train GPT-2-small over the cp = 2 flash ring
   through ``make_hybrid_train_step`` under ``DSML_RING_FUSED=dma``: every
   hop but the last is the fused ring-hop kernel (kernel 4), which stores
-  the resident K/V into the neighbour's CUDA-IPC-mapped receive slot.
+  the resident K/V into the neighbour's CUDA-IPC-mapped receive slot;
+- data-parallel training: two spawned ranks train GPT-2-small at dp = 2
+  through ``make_dp_train_step`` (global batch 8 × 1024, ring sync in
+  4 MiB buckets over the CUDA IPC transport), the flash kernels 1–3 on
+  every rank; before it, the all-reduce family on its own.
 
 Each phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit and no result line. The line before the last is the card's
@@ -67,7 +71,15 @@ through flash_fwd/flash_bwd); cp_slice (per rank: off, dma and sendahead
 losses bit-identical, 24 kernel-4 launches per forward, ring_pass values,
 f32 ring gradients against single-device flash, bf16 steps tracking the
 single-device step, identical replicas, step ms and peak memory);
-cp_cli (``train_gpt2 --cp 2``); kernels (one line for the run).
+cp_cli (``train_gpt2 --cp 2``); allreduce (ring, ring2 and naive through
+the IPC ring bit-identical to a + b and xla through gloo within one ulp,
+at 4 KiB, 4 MiB, 64 MiB and GPT-2-small's gradient in f32 and bf16, with times,
+wire bytes, bounds and routes; int8 SUM, MIN, MAX, PROD); dp_slice (per
+rank: 12 launches of kernels 1-3 a step, ring / ring2 / naive losses
+bit-identical, identical replicas, f32 dp gradients against single-device
+flash, bf16 steps tracking the single-device steps, step and sync ms,
+buckets, peak memory and IPC slot bytes, a traced step); dp_cli
+(``train_gpt2 --dp 2``); kernels (one line for the run).
 
 Float32 matmuls stay in full f32 (TF32 off, PyTorch's default, set here
 explicitly): the f32 phases compare two paths at f32 tolerances.
@@ -2027,11 +2039,10 @@ def phase_kernel_head_dim(tflash, dev):
                       "versions")
 
 
-def cp_rank(rank, tmp):
-    """One rank of phase_cp_slice (spawned): GPT-2-small over a cp = 2 ring
-    on cuda:{rank % device_count}. Writes its results to tmp/rank{rank}.json;
-    a failure prints the rank's traceback (and a SIGTERM from the parent,
-    once the other rank failed, its stack) to stderr."""
+def rank_main(run, kind, rank, tmp):
+    """One spawned rank: ``run(rank, tmp, res, stage)`` with the rank's traceback
+    on stderr when it fails (torch's spawn reports only one rank's), and
+    its stack on the parent's SIGTERM once the other rank failed."""
     import faulthandler
     import signal
     import traceback
@@ -2039,18 +2050,43 @@ def cp_rank(rank, tmp):
     faulthandler.register(signal.SIGTERM, all_threads=True, chain=True)
     res = {"rank": rank}
     try:
-        cp_rank_run(rank, tmp, res)
+        run(rank, tmp, res, lambda name: stage_note(kind, rank, res, name))
     except BaseException:
-        print(f"chip_smoke: cp rank {rank} failed after {res.get('stage')}:\n"
+        print(f"chip_smoke: {kind} rank {rank} failed after {res.get('stage')}:\n"
               f"{traceback.format_exc()}", file=sys.stderr, flush=True)
         raise
 
 
-def cp_rank_run(rank, tmp, res):
-    def stage(name):
-        res["stage"] = name
-        print(f"chip_smoke: cp rank {rank}: {name}", file=sys.stderr, flush=True)
+def stage_note(kind, rank, res, name):
+    res["stage"] = name
+    print(f"chip_smoke: {kind} rank {rank}: {name}", file=sys.stderr, flush=True)
 
+
+def spawn_ranks(fn, kind):
+    """Run ``fn`` on two spawned ranks (one card: they share it) and return
+    each rank's JSON and the seconds the spawn took."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{kind}_") as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(fn, args=(tmp,), nprocs=2, join=True)
+        seconds = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return ranks, seconds
+
+
+def cp_rank(rank, tmp):
+    """One rank of phase_cp_slice (spawned): GPT-2-small over a cp = 2 ring
+    on cuda:{rank % device_count}. Writes its results to tmp/rank{rank}.json."""
+    rank_main(cp_rank_run, "cp", rank, tmp)
+
+
+def cp_rank_run(rank, tmp, res, stage):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import torch.distributed as dist
@@ -2231,18 +2267,7 @@ def phase_cp_slice(card):
     loss and gradients within tolerance of single-device flash; three
     bf16 steps (and more) tracking the single-device step; identical
     replicas. Returns rank 0's launches on the counted steps."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cp_") as tmp:
-        t0 = time.perf_counter()
-        mp.spawn(cp_rank, args=(tmp,), nprocs=2, join=True)
-        seconds = time.perf_counter() - t0
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+    ranks, seconds = spawn_ranks(cp_rank, "cp")
     n_layer = 12
     r0 = ranks[0]
     for r in ranks:
@@ -2295,6 +2320,376 @@ def phase_cp_cli():
           f"the train_gpt2 --cp 2 entry point: {out}")
 
 
+# ---- data parallelism: the all-reduce family and the dp train step ------------------------
+
+ALLREDUCE_ALGS = ("ring", "ring2", "naive", "xla")
+ALLREDUCE_REPS, ALLREDUCE_WARMUP = 10, 2
+DP_WARMUP, DP_STEPS = 1, 3  # the first step grows the IPC slots
+DP_BUCKET_MB = 4.0
+DP_F32_B = 2  # global rows of the f32 gradient check (one a rank)
+
+
+def gpt2_small_n_params() -> int:
+    """Elements of GPT-2-small's gradient (vocab 50257), from its shapes."""
+    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+
+    return GPT2(GPT2Config.small(), device="meta").n_params()
+
+
+def allreduce_schedule_bytes(alg, n_elems, itemsize, n=2):
+    """Device-memory bytes one all-reduce of ``n_elems`` moves on one card
+    holding all ``n`` ranks, as the schedule moves them. A scatter-reduce
+    hop of a segment: written into the peer's slot (read + write), copied
+    out of the slot (read + write), combined (two reads, one write): 7
+    segment passes; an all-gather hop: 6 (the store in place of the
+    combine). ring/ring2: (n - 1) hops of each kind per rank; naive: n - 1
+    hops of the whole payload, each 6 passes, then the reduce (n reads,
+    one write). The copy into the padded buffer is not counted."""
+    k = 2 if alg == "ring2" else 1
+    padded = -(-n_elems // (k * n)) * (k * n)
+    if alg in ("ring", "ring2"):
+        per_rank = (n - 1) * 13 * (padded // n)
+    elif alg == "naive":
+        per_rank = (n - 1) * 6 * n_elems + (n + 1) * n_elems
+    else:
+        return None  # gloo: through host memory, not an HBM schedule
+    return n * per_rank * itemsize
+
+
+def collective_times(fn, pg, reps=ALLREDUCE_REPS, warmup=ALLREDUCE_WARMUP):
+    """Host ms of each of ``reps`` calls of ``fn`` after ``warmup``, every
+    call started together on both ranks (barrier) and ended by a device
+    synchronize: the time a caller waits for one collective."""
+    import torch.distributed as dist
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        dist.barrier(group=pg)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def allreduce_rank(rank, tmp):
+    rank_main(allreduce_rank_run, "allreduce", rank, tmp)
+
+
+def allreduce_rank_run(rank, tmp, res, stage):
+    import torch.distributed as dist
+
+    from dsml_tpu_torch.ops import collectives as C
+    from dsml_tpu_torch.parallel.mesh import data_mesh
+
+    mesh = data_mesh(2, rank, os.path.join(tmp, "rendezvous"))
+    dev, group = mesh.device, mesh.group("dp")
+    res["device"] = str(dev)
+
+    def ipc_hops():
+        return sum(group.ipc().sent.values())
+
+    n_grad = gpt2_small_n_params()
+    res["rows"] = []
+    for dtype in (torch.float32, torch.bfloat16):
+        size = torch.tensor([], dtype=dtype).element_size()
+        # 4 KiB: the latency floor; then the bucket size, a large payload, one buffer
+        for label, n_elems in (("4KiB", (4 << 10) // size), ("4MiB", (4 << 20) // size),
+                               ("64MiB", (64 << 20) // size), ("gpt2_small_grad", n_grad)):
+            stage(f"{label} {dtype}")
+            # both ranks draw both inputs: each checks the sum itself
+            ins = [torch.randn(n_elems, generator=torch.Generator(device=dev).manual_seed(r),
+                               device=dev).to(dtype) for r in range(2)]
+            want = ins[0] + ins[1]
+            x = ins[rank]
+            outs = {}
+            for alg in ALLREDUCE_ALGS:
+                times = collective_times(lambda: C.all_reduce(x, group, C.ReduceOp.SUM, alg), group.pg)
+                before = ipc_hops()
+                outs[alg] = C.all_reduce(x, group, C.ReduceOp.SUM, alg)
+                route = "ipc" if ipc_hops() > before else "gloo"
+                # naive: one hop of the whole payload; xla: gloo's own schedule, not counted
+                wire = {"naive": n_elems * size, "xla": None}.get(
+                    alg, C.ring_wire_bytes(n_elems, 2, size, alg == "ring2"))
+                sched = allreduce_schedule_bytes(alg, n_elems, size)
+                res["rows"].append({
+                    "algorithm": alg, "route": route, "payload": label, "dtype": str(dtype)[6:],
+                    "bytes": n_elems * size, "median_ms": statistics.median(times),
+                    "min_ms": min(times), "max_ms": max(times), "calls": len(times),
+                    "wire_bytes_per_rank": wire,
+                    "schedule_bound_ms": None if sched is None else sched / PEAK_BYTES_PER_S * 1e3,
+                    # each rank's input read once and its output written once
+                    "function_bound_ms": 2 * 2 * n_elems * size / PEAK_BYTES_PER_S * 1e3,
+                    "bit_identical_to_a_plus_b": bool(torch.equal(outs[alg], want)),
+                    "max_abs_err": (outs[alg].float() - want.float()).abs().max().item()})
+            # gloo within one ulp of a + b in its type (8 significant bits in
+            # bf16, 24 in f32)
+            _, exp = torch.frexp(want.float())
+            ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32),
+                              exp - (8 if dtype == torch.bfloat16 else 24))
+            res["rows"][-1]["within_one_ulp"] = bool(
+                ((outs["xla"].float() - want.float()).abs() <= ulp).all())
+            del ins, want, x, outs
+            torch.cuda.empty_cache()
+    res["ipc_slot_bytes"] = 4 * group.ipc().capacity  # 2 directions x 2 parities
+    stage("int8 cases")
+    res["int8"] = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a, b = (torch.randint(-3, 4, (1001,), generator=gen, device=dev, dtype=torch.int8)
+            for _ in range(2))
+    x = (a, b)[rank]
+    wants = {"SUM": (a.int() + b.int()).to(torch.int8), "PROD": (a.int() * b.int()).to(torch.int8),
+             "MIN": torch.minimum(a, b), "MAX": torch.maximum(a, b)}
+    for op, want in wants.items():
+        for alg in ("ring", "ring2", "naive"):
+            got = C.all_reduce(x, group, C.ReduceOp[op], alg)
+            res["int8"][f"{alg}/{op}"] = bool(got.dtype == torch.int8 and torch.equal(got, want))
+    stage("close")
+    mesh.close()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_allreduce(card):
+    """The all-reduce family on two spawned ranks sharing the card: ring,
+    ring2 and naive through the CUDA IPC ring, xla through gloo (host
+    memory), at 4 KiB, 4 MiB, 64 MiB and GPT-2-small's whole gradient, f32
+    and bf16. Checks: the IPC results bit-identical to each other and to
+    a + b (n = 2: addition commutes), gloo within one ulp, the routes,
+    and int8 SUM, MIN, MAX and PROD through every IPC algorithm."""
+    ranks, seconds = spawn_ranks(allreduce_rank, "allreduce")
+    # one line per payload and type: every algorithm, rank 0's row with rank
+    # 1's times beside it
+    lines = {}
+    for row0, row1 in zip(ranks[0]["rows"], ranks[1]["rows"]):
+        line = lines.setdefault((row0["payload"], row0["dtype"]), {
+            "phase": "allreduce", "payload": row0["payload"], "dtype": row0["dtype"],
+            "bytes": row0["bytes"], "ranks": 2, "same_card": True, "card": card})
+        line[row0["algorithm"]] = {
+            **{k: v for k, v in row0.items() if k not in ("algorithm", "payload", "dtype", "bytes")},
+            "rank1": {k: row1[k] for k in ("median_ms", "min_ms", "max_ms", "route",
+                                           "bit_identical_to_a_plus_b")}}
+    for line in lines.values():
+        emit(line)
+    emit({"phase": "allreduce_ranks", "devices": [r["device"] for r in ranks],
+          "ipc_slot_bytes": [r["ipc_slot_bytes"] for r in ranks],
+          "int8": [r["int8"] for r in ranks], "seconds_with_spawn": seconds})
+    for r in ranks:
+        rk = r["rank"]
+        for row in r["rows"]:
+            what = f"rank {rk}: {row['algorithm']} {row['payload']} {row['dtype']}"
+            if row["algorithm"] == "xla":
+                check(row["route"] == "gloo", f"{what} took route {row['route']}")
+                check(row["within_one_ulp"], f"{what}: gloo beyond one ulp of a + b")
+            else:
+                check(row["route"] == "ipc", f"{what} did not go through the IPC ring")
+                check(row["bit_identical_to_a_plus_b"], f"{what} differs from a + b")
+        check(all(r["int8"].values()), f"rank {rk}: int8 cases {r['int8']}")
+
+
+def dp_rank(rank, tmp):
+    rank_main(dp_rank_run, "dp", rank, tmp)
+
+
+def dp_rank_run(rank, tmp, res, stage):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.ops import flash as tflash
+    from dsml_tpu_torch.ops.collectives import ReduceOp
+    from dsml_tpu_torch.parallel.bucketing import bucketed_all_reduce, plan_buckets
+    from dsml_tpu_torch.parallel.dp import make_dp_train_step, named_params
+    from dsml_tpu_torch.parallel.mesh import data_mesh
+
+    mesh = data_mesh(2, rank, os.path.join(tmp, "rendezvous"))
+    dev, group = mesh.device, mesh.group("dp")
+    res["device"] = str(dev)
+    rng = np.random.default_rng(2)
+    x_all = torch.as_tensor(rng.integers(0, 50257, (TRAIN_B, TRAIN_S)))
+    y_all = torch.as_tensor(rng.integers(0, 50257, (TRAIN_B, TRAIN_S)))
+    cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
+    model = GPT2(cfg, device=dev).init(0)
+    init_state = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def flash_loss(m):
+        return lambda x, y: m.loss(x, y, attn_impl="flash")
+
+    # (a) the main path: bf16 dp steps under each algorithm from the same
+    # weights; ring's steps counted, timed and traced
+    losses = {}
+    for alg in ("ring", "ring2", "naive"):
+        stage(f"dp steps under {alg}")
+        model.load_state_dict(init_state)
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+        step = make_dp_train_step(model, opt, mesh, alg, bucket_size_mb=DP_BUCKET_MB,
+                                  loss_fn=flash_loss(model))
+        out = [step(x_all, y_all) for _ in range(DP_WARMUP)]
+        torch.cuda.synchronize()
+        if alg == "ring":
+            dist.barrier()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts(tflash)
+            t0 = time.perf_counter()
+            out += [step(x_all, y_all) for _ in range(DP_STEPS)]
+            torch.cuda.synchronize()
+            res["step_ms"] = (time.perf_counter() - t0) * 1e3 / DP_STEPS
+            res["launches"] = train_counts(tflash)
+            res["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            res["ipc_slot_bytes"] = 4 * group.ipc().capacity  # outside PyTorch's allocator
+            named = named_params(model, opt)
+            res["bucket_count"] = plan_buckets(dict(named), DP_BUCKET_MB).n_buckets
+            res["grad_bytes"] = sum(p.numel() * p.element_size() for _, p in named)
+            with torch.no_grad():
+                res["weights_checksum"] = float(sum(p.float().sum() for p in model.parameters()))
+            stage("traced step")
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            if rank == 0:
+                by_name = device_kernel_ms(lambda: step(x_all, y_all))
+                res["trace"] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                                "device_busy_ms": sum(by_name.values()) if by_name else None,
+                                "top_kernels_ms": dict(sorted(by_name.items(),
+                                                              key=lambda kv: -kv[1])[:8])}
+            else:
+                step(x_all, y_all)
+                torch.cuda.synchronize()
+            stage("the sync alone")
+            grads = [p.grad for _, p in named]
+            sync = {}
+            for name, alg_, mb in (("ring_4MiB", "ring", DP_BUCKET_MB), ("ring_one_buffer", "ring", None),
+                                   ("gloo_one_buffer", "xla", None)):
+                times = collective_times(
+                    lambda: bucketed_all_reduce(grads, group, ReduceOp.AVG, alg_, mb), group.pg,
+                    reps=5, warmup=1)
+                sync[name] = {"median_ms": statistics.median(times), "min_ms": min(times),
+                              "max_ms": max(times)}
+            res["sync_ms"] = sync
+            res["ipc_slot_bytes_after_sync"] = 4 * group.ipc().capacity
+            del grads
+        else:
+            out += [step(x_all, y_all) for _ in range(DP_STEPS)]
+        losses[alg] = [float(v) for v in out]
+        del opt, step
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+    res["losses"] = losses
+    del model
+    torch.cuda.empty_cache()
+
+    # (b) f32: one dp step's synced gradients (SGD at lr 0 leaves them in
+    # p.grad and the weights as they were), held on rank 0 against the
+    # single-device flash gradients of the same global rows
+    stage("f32 dp gradients")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = GPT2(cfg32, device=dev).init(0)
+    sgd = torch.optim.SGD(m32.parameters(), lr=0.0)
+    step32 = make_dp_train_step(m32, sgd, mesh, "ring", bucket_size_mb=DP_BUCKET_MB,
+                                loss_fn=flash_loss(m32))
+    dp_loss32 = float(step32(x_all[:DP_F32_B], y_all[:DP_F32_B]))
+    dp_grads = {n: p.grad.detach().clone() for n, p in m32.named_parameters()}
+    stage("close")
+    mesh.close()
+    dist.destroy_process_group()
+    if rank == 0:
+        stage("single-device f32 gradients")
+        m32.zero_grad(set_to_none=True)
+        full = m32.loss(x_all[:DP_F32_B].to(dev), y_all[:DP_F32_B].to(dev), attn_impl="flash")
+        full.backward()
+        full = full.detach()
+        worst, worst_name = 0.0, None
+        for name, p in m32.named_parameters():
+            rel = (dp_grads[name] - p.grad).abs().max().item() / max(p.grad.abs().max().item(), 1e-30)
+            if rel >= worst:
+                worst, worst_name = rel, name
+        res["f32"] = {"dp_loss": dp_loss32, "single_loss": float(full),
+                      "loss_rel_err": abs(dp_loss32 - float(full)) / abs(float(full)),
+                      "grads_max_err_over_max_abs": worst, "grads_worst_tensor": worst_name}
+        del m32, dp_grads
+        torch.cuda.empty_cache()
+        stage("single-device bf16 steps")
+        single = GPT2(cfg, device=dev)
+        single.load_state_dict(init_state)
+        sopt = torch.optim.AdamW(single.parameters(), lr=3e-4, weight_decay=0.01)
+        xs, ys = x_all.to(dev), y_all.to(dev)
+        single_losses = []
+        for _ in range(DP_WARMUP + DP_STEPS):
+            sopt.zero_grad(set_to_none=True)
+            loss = single.loss(xs, ys, attn_impl="flash")
+            loss.backward()
+            sopt.step()
+            single_losses.append(float(loss.detach()))
+        res["single_losses"] = single_losses
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_dp_slice(card):
+    """GPT-2-small bf16 trained data-parallel at dp = 2 (global batch 8 ×
+    1024, 4 × 1024 a rank, flash attention, AdamW(3e-4, weight_decay=0.01))
+    by ``make_dp_train_step`` with the ring and 4 MiB buckets, two spawned
+    ranks sharing the card, the gradients through the CUDA IPC ring.
+    Checks: kernels 1-3 launched n_layer times each per rank per step;
+    ring, ring2 and naive losses bit-identical; identical replicas; an f32
+    step's gradients within TOL_TRAIN_GRADS of single-device flash; the bf16
+    steps tracking the single-device steps within TOL_CP_BF16_LOSS."""
+    ranks, seconds = spawn_ranks(dp_rank, "dp")
+    n_layer = 12
+    r0 = ranks[0]
+    busy = r0["trace"]["device_busy_ms"]
+    # both ranks run the same kernels on the one card: twice rank 0's traced
+    # busy time over the untraced step (the traced wall carries the profiler)
+    r0["trace"]["card_busy_share"] = None if busy is None else 2 * busy / r0["step_ms"]
+    for r in ranks:
+        emit({"phase": "dp_slice", "model": "gpt2-small", "dtype": "bfloat16", "dp": 2,
+              "global_batch": [TRAIN_B, TRAIN_S], "per_rank": [TRAIN_B // 2, TRAIN_S],
+              "optimizer": "AdamW(3e-4, weight_decay=0.01)", "algorithm": "ring",
+              "bucket_mb": DP_BUCKET_MB, "steps": DP_STEPS, "warmup": DP_WARMUP,
+              "seconds_with_spawn": seconds, "card": card, **r})
+    for r in ranks:
+        rk = r["rank"]
+        check(bf16_step_counts_ok(r["launches"], n_layer * DP_STEPS, n_layer * DP_STEPS),
+              f"rank {rk}: flash launches over {DP_STEPS} dp steps: {r['launches']}")
+        ls = r["losses"]
+        check(ls["ring"] == ls["ring2"] == ls["naive"],
+              f"rank {rk}: ring / ring2 / naive losses differ: {ls}")
+        check(all(np.isfinite(ls["ring"])), f"rank {rk}: dp losses {ls['ring']}")
+    check(ranks[0]["losses"] == ranks[1]["losses"]
+          and ranks[0]["weights_checksum"] == ranks[1]["weights_checksum"],
+          "the two replicas diverged")
+    f32 = r0["f32"]
+    check(f32["loss_rel_err"] <= 1e-5 and f32["grads_max_err_over_max_abs"] <= TOL_TRAIN_GRADS,
+          f"f32 dp gradients vs single-device flash: {f32}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"]["ring"], r0["single_losses"]))
+    emit({"phase": "dp_slice_tracking", "dp_losses": r0["losses"]["ring"],
+          "single_losses": r0["single_losses"], "max_rel_diff": rel, "tol": TOL_CP_BF16_LOSS})
+    check(rel <= TOL_CP_BF16_LOSS and r0["losses"]["ring"][-1] < r0["losses"]["ring"][0],
+          f"dp = 2 bf16 steps do not track the single-device steps: {rel}")
+    return r0["launches"]
+
+
+def phase_dp_cli():
+    """``train_gpt2 --dp 2`` on GPT-2-small bf16 with flash attention: two
+    spawned ranks, the JAX example's sync (the process group's all_reduce),
+    a few steps, a finite loss."""
+    from dsml_tpu_torch.cli import train_gpt2
+
+    t0 = time.perf_counter()
+    out = train_gpt2.main(["--model", "small", "--dp", "2", "--dtype", "bfloat16", "--attn", "flash",
+                           "--steps", "3", "--batch_size", "8", "--grad_accum", "1",
+                           "--log_every", "1", "--warmup_steps", "1"])
+    emit({"phase": "dp_cli", "entry": "python -m dsml_tpu_torch.cli.train_gpt2 --dp 2", **out,
+          "seconds_with_spawn": time.perf_counter() - t0})
+    check(np.isfinite(out["first_loss"]) and np.isfinite(out["last_loss"]),
+          f"the train_gpt2 --dp 2 entry point: {out}")
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: this smoke test needs the card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2338,7 +2733,10 @@ def main() -> None:
                   "kernel_stream": lambda: phase_kernel_stream(tflash, dev),
                   "kernel_head_dim": lambda: phase_kernel_head_dim(tflash, dev),
                   "cp_slice": lambda: phase_cp_slice(card),
-                  "cp_cli": phase_cp_cli}
+                  "cp_cli": phase_cp_cli,
+                  "allreduce": lambda: phase_allreduce(card),
+                  "dp_slice": lambda: phase_dp_slice(card),
+                  "dp_cli": phase_dp_cli}
         for name in only:
             phases[name]()
         raise SystemExit(f"chip_smoke: ran only {only}; no result line")
@@ -2373,6 +2771,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     cp_launches = phase_cp_slice(card)
     phase_cp_cli()
+    torch.cuda.empty_cache()
+    phase_allreduce(card)
+    phase_dp_slice(card)
+    phase_dp_cli()
 
     # the backward's two routes: bf16 (tensor cores) with launches from the
     # bf16 train steps, f32 (FMAs) with launches from phase_train's f32

@@ -8,7 +8,8 @@ path rewritten by hand for ``sm_90a``:
   backward kernels (``ops/csrc/flash_fwd.cu``; ``ops/csrc/flash_bwd_tc.cu``
   for bf16 on the tensor cores, ``ops/csrc/flash_bwd.cu`` for f32) behind
   ``ops.flash``, the fused ring hop (``ops/csrc/flash_stream.cu``) behind
-  the context-parallel ring (``ops.ring_attention``, ``ops.collectives``),
+  the context-parallel ring (``ops.ring_attention``), the ring collectives
+  and the all-reduce family (``ops.collectives``),
   the paged-attention kernels
   (``ops/csrc/paged_attn.cu``) behind ``ops.paged_attention``, the KV-row
   codec (``ops.quantization``) and the chunked cross-entropy
@@ -19,8 +20,10 @@ path rewritten by hand for ``sm_90a``:
 - ``dsml_tpu_torch.serving`` — the continuous batcher over a dense or
   paged KV cache, and the page allocator.
 - ``dsml_tpu_torch.parallel`` — the process mesh over ``torch.distributed``,
-  the ring's CUDA IPC transport and the context-parallel train step.
-- ``dsml_tpu_torch.trainer`` — the single-device epoch trainer.
+  the ring's CUDA IPC transport, gradient bucketing, the data-parallel
+  train step and the hybrid (data- or context-parallel) train step.
+- ``dsml_tpu_torch.trainer`` — the epoch trainer, on one device or as a
+  rank of a data-parallel mesh.
 - ``dsml_tpu_torch.utils``  — config, logging, device selection, data
   iterators, learning-rate schedules and metrics.
 - ``dsml_tpu_torch.cli``    — entry points (``cli.generate_text``,

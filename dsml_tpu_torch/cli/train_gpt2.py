@@ -1,5 +1,5 @@
-"""Train GPT-2 on byte tokens — the single-device and the context-parallel
-paths of ``examples/train_gpt2.py``.
+"""Train GPT-2 on byte tokens — the single-device, the data-parallel and
+the context-parallel paths of ``examples/train_gpt2.py``.
 
 Tokens are the bytes of ``--data FILE`` or, without one, of a generated
 story corpus (simple grammatical sentences, so the loss measures sequence
@@ -14,18 +14,24 @@ tokens/s".
     python -m dsml_tpu_torch.cli.train_gpt2 --model small --attn flash --dtype bfloat16 \\
         --steps 50 --grad_accum 1
     python -m dsml_tpu_torch.cli.train_gpt2 --model small --cp 2 --dtype bfloat16 --steps 4
+    python -m dsml_tpu_torch.cli.train_gpt2 --model small --dp 2 --attn flash --dtype bfloat16 \\
+        --steps 4 --grad_accum 1
 
-``--cp N`` spawns N ranks (``torch.multiprocessing``), one process each,
-joined over gloo through a rendezvous file in a temporary directory; they
-run ``parallel.hybrid.make_hybrid_train_step`` with the sequence sharded
-over the context-parallel ring (``--attn ring2``, the default there). Rank
-r runs on ``cuda:{r % device_count}`` (logged per rank: with fewer cards
-than ranks, ranks share a card), or on the CPU with ``--device cpu``.
-Rank 0 logs the steps; a failing rank fails the run.
+``--dp N`` or ``--cp N`` spawns N ranks (``torch.multiprocessing``), one
+process each, joined over gloo through a rendezvous file in a temporary
+directory; they run ``parallel.hybrid.make_hybrid_train_step``: with
+``--dp`` each rank trains on its rows of the global batch and the
+gradients are averaged through the process group's own ``all_reduce``
+(``dp_sync="xla"``, as the JAX example); with ``--cp`` the sequence is
+sharded over the context-parallel ring (``--attn ring2``, the default
+there). Rank r runs on ``cuda:{r % device_count}`` (logged per rank: with
+fewer cards than ranks, ranks share a card), or on the CPU with
+``--device cpu``. Rank 0 logs the steps; a failing rank fails the run.
 
-Runs on the CUDA card unless ``--device cpu``. Pipeline, tensor, data and
-the other sequence parallelisms, Llama, BPE, the prose corpus,
-checkpoints, profiles and adafactor come with later slices and raise here.
+Runs on the CUDA card unless ``--device cpu``. Pipeline, tensor and the
+other sequence parallelisms, dp composed with cp, Llama, BPE, the prose
+corpus, checkpoints, profiles and adafactor come with later slices and
+raise here.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ class GPT2TrainConfig(Config):
     pp: int = field(1, help="pipeline-parallel stages (model-parallel slice)")
     schedule: str = field("gpipe", help="pipeline schedule (pp > 1)")
     n_micro: int = field(2, help="pipeline microbatches per step (pp > 1)")
-    dp: int = field(0, help="data-parallel size (0 = this device)")
+    dp: int = field(0, help="data-parallel size: spawns this many ranks (0 or 1 = this device)")
     sp: int = field(1, help="sequence-parallel size (long-context slice)")
     cp: int = field(1, help="context-parallel size: spawns this many ranks over the flash ring (ring2)")
     tp: int = field(1, help="tensor-parallel size (model-parallel slice)")
@@ -107,7 +113,8 @@ def _check_supported(cfg: GPT2TrainConfig) -> None:
             cfg.attn in ("ring", "ulysses", "ulysses_flash", "ring_flash"),
         f"--attn {cfg.attn} with --cp > 1 (the JAX package routes it to the XLA ring, the rest "
         "of the long-context slice)": cfg.cp > 1 and cfg.attn in ("flash", "xla"),
-        "--dp > 1 (the data-parallel slice)": cfg.dp > 1,
+        "--dp > 1 with --cp > 1 (dp composed with cp, the rest of the long-context slice)":
+            cfg.dp > 1 and cfg.cp > 1,
         "--family llama (the Llama slice)": cfg.family == "llama",
         "--tokenizer bpe (a later slice, with utils/tokenizer.py)": cfg.tokenizer == "bpe",
         "--data prose (a later slice: the corpus reads the JAX package's docstrings)": cfg.data == "prose",
@@ -170,27 +177,29 @@ def train_step(model, optimizer, lr: float, x: torch.Tensor, y: torch.Tensor,
 def main(argv=None) -> dict:
     cfg = GPT2TrainConfig.parse_args(argv)
     _check_supported(cfg)
-    if cfg.batch_size % cfg.grad_accum:
+    dp = max(cfg.dp, 1)
+    if cfg.batch_size % (cfg.grad_accum * dp):
         raise SystemExit(
-            f"batch_size={cfg.batch_size} must be divisible by grad_accum={cfg.grad_accum}"
+            f"batch_size={cfg.batch_size} must be divisible by grad_accum*dp="
+            f"{cfg.grad_accum * dp}"
         )
-    if cfg.cp > 1:
-        return _spawn_cp(cfg)
+    if dp > 1 or cfg.cp > 1:
+        return _spawn(cfg)
     return _train(cfg)
 
 
-def _spawn_cp(cfg: GPT2TrainConfig) -> dict:
-    """Run ``cfg.cp`` ranks of :func:`_cp_rank` and return rank 0's result;
-    a rank that raises fails the run."""
+def _spawn(cfg: GPT2TrainConfig) -> dict:
+    """Run the ``--dp`` or ``--cp`` ranks of :func:`_rank` and return rank
+    0's result; a rank that raises fails the run."""
     import torch.multiprocessing as mp
 
-    with tempfile.TemporaryDirectory(prefix="dsml_cp_") as tmp:
-        mp.spawn(_cp_rank, args=(cfg, tmp), nprocs=cfg.cp, join=True)
+    with tempfile.TemporaryDirectory(prefix="dsml_ranks_") as tmp:
+        mp.spawn(_rank, args=(cfg, tmp), nprocs=max(cfg.dp, 1) * cfg.cp, join=True)
         with open(os.path.join(tmp, "result.json")) as f:
             return json.load(f)
 
 
-def _cp_rank(rank: int, cfg: GPT2TrainConfig, tmp: str) -> None:
+def _rank(rank: int, cfg: GPT2TrainConfig, tmp: str) -> None:
     import torch.distributed as dist
 
     from dsml_tpu_torch.parallel.mesh import MeshSpec, build_mesh
@@ -198,9 +207,11 @@ def _cp_rank(rank: int, cfg: GPT2TrainConfig, tmp: str) -> None:
 
     # rank r on cuda:{r % device_count}: a placement, never a CPU fallback
     device = "cpu" if torch.device(cfg.device).type == "cpu" else None
-    mesh = build_mesh(MeshSpec(dp=1, cp=cfg.cp), rank, cfg.cp, os.path.join(tmp, "rendezvous"),
-                      device)
-    get_logger("gpt2").info("cp rank %d of %d on %s", rank, cfg.cp, mesh.device)
+    spec = MeshSpec(dp=max(cfg.dp, 1), cp=cfg.cp)
+    world = spec.dp * spec.cp
+    mesh = build_mesh(spec, rank, world, os.path.join(tmp, "rendezvous"), device)
+    get_logger("gpt2").info("%s rank %d of %d on %s", "cp" if cfg.cp > 1 else "dp", rank, world,
+                            mesh.device)
     try:
         out = _train(cfg, mesh)
         if rank == 0:
@@ -213,7 +224,7 @@ def _cp_rank(rank: int, cfg: GPT2TrainConfig, tmp: str) -> None:
 
 def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
     """The training loop on one device, or as one rank of ``mesh`` (the
-    context-parallel step; rank 0 logs)."""
+    hybrid step on a dp or a cp mesh; rank 0 logs)."""
     from dsml_tpu_torch.models import model_by_family
     from dsml_tpu_torch.utils.data import carve_lm_eval_split, lm_window_batches, prefetch_batches
     from dsml_tpu_torch.utils.logging import get_logger
@@ -285,10 +296,11 @@ def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
     if not quiet:
         log.info("GPT-2 %s on %s: %.1fM params, %s, attn=%s, seq=%d, batch=%d x accum=%d%s",
                  cfg.model, model.device, model.n_params() / 1e6, model_cfg.dtype, attn_impl, seq,
-                 cfg.batch_size, cfg.grad_accum, "" if mesh is None else f", cp={cfg.cp}")
+                 cfg.batch_size, cfg.grad_accum,
+                 "" if mesh is None else f", dp={mesh.shape['dp']}, cp={mesh.shape['cp']}")
 
     def device_batch(x, y):
-        # the cp step takes the global batch and moves only its own shard
+        # the hybrid step takes the global batch and moves only its own share
         dev = model.device if mesh is None else "cpu"
         return torch.as_tensor(x).to(dev).long(), torch.as_tensor(y).to(dev).long()
 

@@ -1,23 +1,83 @@
 """Ring collectives over ``torch.distributed`` — the counterpart of
-``dsml_tpu/ops/collectives.py``'s ring neighbourhood: :func:`ring_perm_tables`
-and :func:`ring_pass`, the one rotate step that ring attention
-(``ops/ring_attention.py``) moves its K/V halves and gradient accumulators
-through.
+``dsml_tpu/ops/collectives.py``.
 
-A group is a :class:`~dsml_tpu_torch.parallel.peer.RingGroup`. CPU tensors
-hop over gloo point-to-point; CUDA tensors through the group's CUDA IPC
-transport (``parallel/peer.py``). The route is chosen by the tensors'
-device, and a payload that mixes devices raises. The all-reduce family of
-the JAX module comes with the data-parallel slice (ROADMAP.md queue 1,
-item 6).
+- :func:`ring_pass` (and :func:`ring_pass_start`) is the one rotate step
+  every schedule here moves its payloads through, and so does ring
+  attention (``ops/ring_attention.py``).
+- :func:`ring_all_reduce` / :func:`ring2_all_reduce` run the 2(n−1)-step
+  ring schedule (scatter-reduce, then all-gather) of
+  ``_ring_all_reduce_impl``, one or two directions; :func:`naive_all_reduce`
+  gathers over n−1 ring passes and reduces; :func:`all_reduce` dispatches,
+  ``"xla"`` being the process group's own ``all_reduce``.
+- :func:`reduce_scatter`, :func:`flat_reduce_scatter`, :func:`all_gather`
+  and :func:`flat_all_gather` are the ring's two halves on their own, so
+  the schedule has one definition.
+
+A group is a :class:`~dsml_tpu_torch.parallel.peer.RingGroup` where the
+JAX code takes an ``axis_name``. CPU tensors hop over gloo point-to-point;
+CUDA tensors through the group's CUDA IPC transport (``parallel/peer.py``).
+The route is chosen by the tensors' device, and a payload that mixes
+devices raises: a ring algorithm never reaches gloo with a CUDA tensor.
+``"xla"`` is gloo for both (on a one-card host gloo moves CUDA tensors
+through host memory; an NCCL route waits for a host with several cards).
+
+The combine order is the JAX ring's, so ring results equal the JAX
+package's bit for bit: the same segment indices, ``combine(resident,
+received)``, integers accumulated in ``promote_types(dtype, int32)``,
+floats (bf16 included) in their own type.
 """
 
 from __future__ import annotations
 
+import enum
+import functools
+import json
+import os
+
 import torch
 import torch.distributed as dist
 
-__all__ = ["ring_perm_tables", "ring_pass", "ring_pass_start"]
+__all__ = [
+    "ReduceOp",
+    "ring_perm_tables",
+    "ring_pass",
+    "ring_pass_start",
+    "ring_all_reduce",
+    "ring2_all_reduce",
+    "naive_all_reduce",
+    "all_reduce",
+    "auto_all_reduce_algorithm",
+    "reduce_scatter",
+    "flat_reduce_scatter",
+    "flat_all_gather",
+    "all_gather",
+    "ring_wire_bytes",
+]
+
+
+class ReduceOp(enum.IntEnum):
+    """Reduction operator, with the JAX package's values (the wire enum
+    ``gpu_sim.ReduceOp``)."""
+
+    SUM = 0
+    PROD = 1
+    MIN = 2
+    MAX = 3
+    AVG = 4
+
+    @property
+    def combine(self):
+        """``combine(resident, received, out=resident)``."""
+        return _COMBINE[self]
+
+
+_COMBINE = {
+    ReduceOp.SUM: torch.add,
+    ReduceOp.AVG: torch.add,
+    ReduceOp.PROD: torch.mul,
+    ReduceOp.MIN: torch.minimum,
+    ReduceOp.MAX: torch.maximum,
+}
 
 _TAG_CPU = {+1: 1, -1: 2}  # gloo tags of a CPU payload, per direction
 
@@ -113,3 +173,300 @@ def ring_pass(x, group, sign: int = +1):
     """One rotate step of the ring schedule (:func:`ring_pass_start`,
     waited for at once): the counterpart of the JAX ``ring_pass``."""
     return ring_pass_start(x, group, sign, overlap=False).wait()
+
+
+# ---------------------------------------------------------------------------
+# The ring schedule and the collectives built on it
+# ---------------------------------------------------------------------------
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Integers accumulate in ``promote_types(dtype, int32)`` (a uint8 SUM
+    wraps only on the final cast back); floats in their own type."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return dtype
+    return torch.promote_types(dtype, torch.int32)
+
+
+def _avg(total: torch.Tensor, n: int) -> torch.Tensor:
+    """AVG's finish: ``total`` times the f32 reciprocal of ``n`` (an
+    integer total in f32). XLA compiles the JAX ring's ``/ n`` to that
+    multiply, so at n = 3 a true division would differ in the last bit;
+    PyTorch on CUDA multiplies by the reciprocal too."""
+    return total * (1.0 / n)
+
+
+def _hops(chunks, signs, group):
+    """One ring step: every direction's hop issued back to back, then each
+    waited for (its values are final on return)."""
+    started = [ring_pass_start(c, group, s, overlap=False) for c, s in zip(chunks, signs)]
+    return [p.wait() for p in started]
+
+
+def _scatter_reduce(bufs, signs, group, combine, shift: int) -> None:
+    """The scatter-reduce half in place: ``bufs[i]`` is ``[n, seg]`` running
+    in direction ``signs[i]``. Step t sends segment (rank − s·(t+shift))
+    and combines the received one into segment (rank − s·(t+1+shift)), so
+    after n − 1 steps segment (rank − s·(n−1+shift)) holds the reduction of
+    every rank's: rank + s for the all-reduce (``shift`` 0), the rank's own
+    for :func:`reduce_scatter` (``shift`` 1)."""
+    n, rank = group.size, group.rank
+    for step in range(n - 1):
+        recvs = _hops([b[(rank - s * (step + shift)) % n] for b, s in zip(bufs, signs)],
+                      signs, group)
+        for b, s, r in zip(bufs, signs, recvs):
+            resident = b[(rank - s * (step + 1 + shift)) % n]
+            combine(resident, r, out=resident)
+
+
+def _gather(bufs, signs, group, shift: int) -> None:
+    """The all-gather half in place: step t passes on segment
+    (rank − s·(t−1+shift)) and stores the received one at (rank −
+    s·(t+shift)); the rank starts from the segment the scatter-reduce left
+    it (``shift`` 0) or its own (``shift`` 1)."""
+    n, rank = group.size, group.rank
+    for step in range(n - 1):
+        recvs = _hops([b[(rank - s * (step - 1 + shift)) % n] for b, s in zip(bufs, signs)],
+                      signs, group)
+        for b, s, r in zip(bufs, signs, recvs):
+            b[(rank - s * (step + shift)) % n].copy_(r)
+
+
+def _ring_all_reduce_impl(x: torch.Tensor, group, op: ReduceOp, signs: tuple) -> torch.Tensor:
+    """The ring schedule over ``len(signs)`` directions (``dsml_tpu/ops/
+    collectives.py::_ring_all_reduce_impl``): the flat payload, in the
+    accumulation type, zero-padded to a multiple of ``k·n`` and split into
+    ``k`` parts, each part running scatter-reduce then all-gather in its
+    own direction. AVG scales the finished sum by 1/n (:func:`_avg`); the
+    result is cast back to ``x``'s type (an integer AVG truncates toward
+    zero there)."""
+    op = ReduceOp(op)
+    n = group.size
+    if n == 1:
+        return x
+    size = x.numel()
+    k = len(signs)
+    padded = -(-size // (k * n)) * (k * n)
+    flat = torch.zeros(padded, dtype=_acc_dtype(x.dtype), device=x.device)
+    flat[:size].copy_(x.reshape(-1))
+    part = padded // k
+    bufs = [flat[i * part:(i + 1) * part].view(n, part // n) for i in range(k)]
+    _scatter_reduce(bufs, signs, group, op.combine, shift=0)
+    _gather(bufs, signs, group, shift=0)
+    out = flat[:size]
+    if op == ReduceOp.AVG:
+        out = _avg(out, n)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def ring_all_reduce(x: torch.Tensor, group, op: ReduceOp = ReduceOp.SUM) -> torch.Tensor:
+    """Ring all-reduce of ``x`` (same shape on every rank of ``group``):
+    the reference's forward 2(n−1)-step schedule over :func:`ring_pass`."""
+    return _ring_all_reduce_impl(x, group, op, (+1,))
+
+
+def ring2_all_reduce(x: torch.Tensor, group, op: ReduceOp = ReduceOp.SUM) -> torch.Tensor:
+    """Bidirectional ring all-reduce: two half-payloads run the schedule in
+    opposite directions, each step's two hops issued back to back."""
+    return _ring_all_reduce_impl(x, group, op, (+1, -1))
+
+
+_REDUCE = {
+    ReduceOp.SUM: lambda t: t.sum(0),
+    ReduceOp.AVG: lambda t: t.sum(0),
+    ReduceOp.PROD: lambda t: t.prod(0),
+    ReduceOp.MIN: lambda t: t.amin(0),
+    ReduceOp.MAX: lambda t: t.amax(0),
+}
+
+
+def naive_all_reduce(x: torch.Tensor, group, op: ReduceOp = ReduceOp.SUM) -> torch.Tensor:
+    """Gather everything, then reduce (the reference's ``NaiveAllReduce``):
+    every rank's ``x`` over n − 1 ring passes, reduced over ranks in the
+    accumulation type. Each rank receives n − 1 whole payloads where the
+    ring receives ~2 in segments, in n − 1 hops where the ring takes
+    2(n − 1)."""
+    op = ReduceOp(op)
+    n = group.size
+    if n == 1:
+        return x
+    gathered = all_gather(x.to(_acc_dtype(x.dtype)), group, tiled=False)
+    out = _REDUCE[op](gathered)
+    if op == ReduceOp.AVG:
+        out = _avg(out, n)
+    return out.to(x.dtype)
+
+
+def ring_wire_bytes(n_elems: int, n_ranks: int, itemsize: int = 4,
+                    bidirectional: bool = False) -> int:
+    """Per-rank wire bytes of one full-precision ring all-reduce: 2(n−1)
+    hops × one segment of the (padded) payload, at ``itemsize`` bytes an
+    element; the bidirectional ring moves the same volume."""
+    if n_ranks <= 1:
+        return 0
+    k = 2 if bidirectional else 1
+    quantum = k * n_ranks
+    padded = -(-n_elems // quantum) * quantum
+    return 2 * (n_ranks - 1) * (padded // n_ranks) * itemsize
+
+
+@functools.lru_cache(maxsize=8)
+def _measured_alpha_beta(path: str) -> tuple[float, float] | None:
+    """(α ms/round, β ms/byte) solved from a calibrated collective profile
+    (``DSML_COLLECTIVE_PROFILE``): the measured ring and naive p50 at one
+    (payload, rank count) give two equations,
+
+        naive = α + (n−1)·S·β          (one round, n−1 shards received)
+        ring  = 2(n−1)·α + 2·S·β       (2(n−1) rounds, ~2S bytes)
+
+    None (→ the analytic default) when the profile is missing a constant,
+    is malformed, or solves to α or β ≤ 0."""
+    try:
+        with open(path) as f:
+            constants = json.load(f)["constants"]
+
+        def med(name: str) -> float:
+            entry = constants[name]
+            return float(entry["median"] if "median" in entry else entry["fresh"])
+
+        naive_ms = med("allreduce_naive_p50_ms")
+        ring_ms = med("allreduce_ring_p50_ms")
+        payload_b = med("allreduce_payload_mb") * (1 << 20)
+        n = int(med("allreduce_devices"))
+    except (OSError, ValueError, KeyError, TypeError):
+        return None
+    denom = payload_b * (2 * (n - 1) ** 2 - 2)
+    if n < 2 or denom <= 0:
+        return None
+    beta = (2 * (n - 1) * naive_ms - ring_ms) / denom
+    alpha = naive_ms - (n - 1) * payload_b * beta
+    if alpha <= 0 or beta <= 0:
+        return None
+    return alpha, beta
+
+
+def auto_all_reduce_algorithm(nbytes: int, n_devices: int, latency_bytes: int = 32768) -> str:
+    """Ring or naive by payload, on the alpha-beta model: naive costs
+    α + (n−1)·S·β, the ring 2(n−1)·α + ~2S·β, so naive wins below the
+    crossover ``latency_bytes·(2n−3)/(n−3)`` (always at n ≤ 3).
+    ``DSML_COLLECTIVE_PROFILE=<path>`` replaces the prior α/β by measured
+    ones (:func:`_measured_alpha_beta`); a bad profile keeps the prior."""
+    if n_devices <= 3:
+        return "naive"
+    profile = os.environ.get("DSML_COLLECTIVE_PROFILE")
+    if profile:
+        ab = _measured_alpha_beta(profile)
+        if ab is not None:
+            alpha, beta = ab
+            naive_ms = alpha + (n_devices - 1) * nbytes * beta
+            ring_ms = 2 * (n_devices - 1) * alpha + 2 * nbytes * beta
+            return "naive" if naive_ms <= ring_ms else "ring"
+    crossover = latency_bytes * (2 * n_devices - 3) / (n_devices - 3)
+    return "naive" if nbytes <= crossover else "ring"
+
+
+_PG_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.AVG: dist.ReduceOp.SUM,
+           ReduceOp.MIN: dist.ReduceOp.MIN, ReduceOp.MAX: dist.ReduceOp.MAX}
+
+
+def all_reduce(x: torch.Tensor, group, op: ReduceOp = ReduceOp.SUM,
+               algorithm: str = "xla") -> torch.Tensor:
+    """All-reduce with a selectable algorithm, returning a new tensor:
+
+    - ``xla``   — the process group's own ``all_reduce`` (gloo; AVG is its
+      SUM divided by n, PROD takes the ring, as the JAX package's);
+    - ``ring``  — the explicit 2(n−1)-step ring;
+    - ``ring2`` — the bidirectional ring;
+    - ``naive`` — gather + reduce;
+    - ``auto``  — ring or naive by payload (:func:`auto_all_reduce_algorithm`).
+    """
+    op = ReduceOp(op)
+    if algorithm == "auto":
+        algorithm = auto_all_reduce_algorithm(x.numel() * x.element_size(), group.size)
+    if algorithm == "ring":
+        return ring_all_reduce(x, group, op)
+    if algorithm == "ring2":
+        return ring2_all_reduce(x, group, op)
+    if algorithm == "naive":
+        return naive_all_reduce(x, group, op)
+    if algorithm != "xla":
+        raise ValueError(f"unknown all-reduce algorithm {algorithm!r}")
+    if op == ReduceOp.PROD:
+        return ring_all_reduce(x, group, op)
+    if group.size == 1:
+        return x
+    out = x.clone()
+    dist.all_reduce(out, _PG_OPS[op], group=group.pg)
+    if op == ReduceOp.AVG:
+        out = _avg(out, group.size).to(x.dtype)
+    return out
+
+
+def _identity_pad_value(op: ReduceOp, dtype: torch.dtype):
+    """The reduction identity of ``op`` on ``dtype``: what padding holds so
+    pad lanes cannot perturb real lanes."""
+    op = ReduceOp(op)
+    if op == ReduceOp.PROD:
+        return 1
+    if op in (ReduceOp.MIN, ReduceOp.MAX):
+        if dtype.is_floating_point:
+            hi, lo = float("inf"), float("-inf")
+        else:
+            info = torch.iinfo(dtype)
+            hi, lo = info.max, info.min
+        return hi if op == ReduceOp.MIN else lo
+    return 0
+
+
+def reduce_scatter(x: torch.Tensor, group, op: ReduceOp = ReduceOp.SUM) -> torch.Tensor:
+    """Reduce across ranks, leaving rank i with shard i along axis 0: the
+    ring's scatter-reduce half, shifted one segment so each rank ends on
+    its own (every :class:`ReduceOp`; AVG scales by 1/n)."""
+    op = ReduceOp(op)
+    n = group.size
+    if x.shape[0] % n:
+        raise ValueError(f"reduce_scatter: leading dim {x.shape[0]} not divisible by axis size {n}")
+    if n == 1:
+        return x
+    buf = x.to(_acc_dtype(x.dtype), copy=True).reshape(n, -1)
+    _scatter_reduce([buf], (+1,), group, op.combine, shift=1)
+    out = buf[group.rank]
+    if op == ReduceOp.AVG:
+        out = _avg(out, n)
+    return out.reshape(x.shape[0] // n, *x.shape[1:]).to(x.dtype)
+
+
+def flat_reduce_scatter(flat: torch.Tensor, group, op: ReduceOp = ReduceOp.SUM):
+    """Reduce-scatter a flat vector: rank i keeps contiguous segment i of the
+    reduction. Returns ``(shard, padded_size)``; the vector is padded with
+    ``op``'s identity to a multiple of the group size."""
+    op = ReduceOp(op)
+    n = group.size
+    size = flat.shape[0]
+    padded = -(-size // n) * n
+    if padded != size:
+        pad = torch.full((padded - size,), _identity_pad_value(op, flat.dtype),
+                         dtype=flat.dtype, device=flat.device)
+        flat = torch.cat([flat, pad])
+    shard = reduce_scatter(flat.reshape(n, padded // n), group, op)
+    return shard.reshape(-1), padded
+
+
+def flat_all_gather(shard: torch.Tensor, group, size: int) -> torch.Tensor:
+    """Inverse of :func:`flat_reduce_scatter`'s layout: every rank's flat
+    segment in rank order, the padding dropped."""
+    return all_gather(shard, group).reshape(-1)[:size]
+
+
+def all_gather(x: torch.Tensor, group, axis: int = 0, tiled: bool = True) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis`` in rank order (``tiled``:
+    concatenated; else stacked on a new axis): the ring's all-gather half
+    over n − 1 passes."""
+    n = group.size
+    stacked = x.new_empty((n, *x.shape))
+    stacked[group.rank].copy_(x)
+    if n > 1:
+        _gather([stacked.view(n, -1)], (+1,), group, shift=1)
+    if tiled:
+        return torch.cat(list(stacked.unbind(0)), dim=axis)
+    return stacked.movedim(0, axis)

@@ -1,2 +1,4 @@
 """Parallel training of the port: the process mesh (``mesh``), the ring
-transport (``peer``) and the context-parallel train step (``hybrid``)."""
+transport (``peer``), gradient bucketing (``bucketing``), the data-parallel
+train step (``dp``) and the hybrid train step on dp or cp meshes
+(``hybrid``)."""

@@ -7,11 +7,13 @@ groups: :func:`build_mesh` joins the processes over gloo (rendezvous through
 a ``file://`` path, so nothing depends on a network port) and gives each
 sized axis a :class:`~dsml_tpu_torch.parallel.peer.RingGroup`.
 
-Only the context-parallel ring is served so far: ``cp`` with dp = 1. Every
-other axis above 1 raises and names the ROADMAP item that brings it. NCCL
-comes with data parallelism (item 6); gloo carries the control messages
-and the gradient sum here, and the ring's CUDA payloads go through the
-ring's own CUDA IPC transport (``parallel/peer.py``).
+Two meshes are served so far: the data-parallel ring (``dp`` with every
+other axis 1; :func:`data_mesh`) and the context-parallel ring (``cp``
+with dp = 1). Every other sized axis, and dp composed with cp, raises and
+names the ROADMAP item that brings it. gloo carries the control messages
+(and the ``"xla"`` sync); the rings' CUDA payloads go through the ring's
+own CUDA IPC transport (``parallel/peer.py``). An NCCL route waits for a
+host with several cards: two NCCL ranks cannot share one card.
 """
 
 from __future__ import annotations
@@ -27,12 +29,13 @@ from dsml_tpu_torch.parallel.peer import TIMEOUT_S, RingGroup
 from dsml_tpu_torch.utils.config import Config, field
 from dsml_tpu_torch.utils.platform import resolve_device
 
-__all__ = ["AXES", "Mesh", "MeshSpec", "build_mesh"]
+__all__ = ["AXES", "Mesh", "MeshSpec", "build_mesh", "data_mesh"]
 
 AXES = ("pp", "dp", "fsdp", "sp", "cp", "tp")
 _NOT_PORTED = "comes with a later slice of the port (ROADMAP.md queue 1, item {})"
-# the item of ROADMAP.md queue 1 that serves each axis other than cp
-_AXIS_ITEMS = {"pp": 11, "dp": 6, "fsdp": 11, "sp": 12, "tp": 11}
+# the item of ROADMAP.md queue 1 that serves each axis other than dp and cp
+_AXIS_ITEMS = {"pp": 11, "fsdp": 11, "sp": 12, "tp": 11}
+_RING_AXES = ("dp", "cp")  # the axes a mesh may size, one at a time
 
 
 @dataclasses.dataclass
@@ -76,7 +79,7 @@ class MeshSpec(Config):
 @dataclasses.dataclass
 class Mesh:
     """The resolved spec, this process's rank and device, and one
-    :class:`RingGroup` per sized axis (only ``cp`` so far)."""
+    :class:`RingGroup` per sized axis (``dp`` or ``cp``)."""
 
     spec: MeshSpec
     rank: int
@@ -112,6 +115,9 @@ def build_mesh(spec: MeshSpec, rank: int, world_size: int, init_file: str,
         if getattr(spec, axis) > 1:
             raise NotImplementedError(
                 f"mesh axis {axis}={getattr(spec, axis)} " + _NOT_PORTED.format(item))
+    if spec.dp > 1 and spec.cp > 1:
+        raise NotImplementedError(
+            f"mesh axis dp={spec.dp} composed with cp={spec.cp} " + _NOT_PORTED.format(12))
     dev = resolve_device(device)
     if dev.type == "cuda":
         if dev.index is None:
@@ -122,8 +128,16 @@ def build_mesh(spec: MeshSpec, rank: int, world_size: int, init_file: str,
                                 world_size=world_size,
                                 timeout=datetime.timedelta(seconds=TIMEOUT_S))
     groups = {}
-    if spec.cp > 1:
-        # cp is the only sized axis: its ring is the whole world, in rank order
-        groups["cp"] = RingGroup(dist.group.WORLD, range(world_size), rank, dev,
-                                 os.path.dirname(os.path.abspath(init_file)))
+    for axis in _RING_AXES:
+        if getattr(spec, axis) > 1:
+            # the only sized axis: its ring is the whole world, in rank order
+            groups[axis] = RingGroup(dist.group.WORLD, range(world_size), rank, dev,
+                                     os.path.dirname(os.path.abspath(init_file)))
     return Mesh(spec, rank, dev, groups)
+
+
+def data_mesh(n: int, rank: int, init_file: str, device=None) -> Mesh:
+    """A pure data-parallel mesh of ``n`` processes (this one is ``rank``):
+    the rank-process counterpart of ``dsml_tpu.parallel.mesh.data_mesh``.
+    Each of the ``n`` processes calls it with the same ``init_file``."""
+    return build_mesh(MeshSpec(dp=n), rank, n, init_file, device)

@@ -425,7 +425,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "utils/schedules.py", "utils/metrics.py", "ops/quantization.py",
             "ops/paged_attention.py", "serving/paging.py", "serving/batcher.py",
             "cli/serve_continuous.py", "ops/ring_attention.py", "ops/collectives.py",
-            "parallel/mesh.py", "parallel/peer.py", "parallel/hybrid.py"} <= names
+            "parallel/mesh.py", "parallel/peer.py", "parallel/hybrid.py",
+            "parallel/bucketing.py", "parallel/dp.py"} <= names
     bad = []
     for path in files:
         for mod in _imported_modules(ast.parse(path.read_text(), str(path))):

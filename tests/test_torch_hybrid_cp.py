@@ -195,12 +195,13 @@ def test_default_attn_impl_matches_jax(devices8):
 
 
 @pytest.mark.parametrize("spec,world,axis", [
-    (MeshSpec(dp=2), 2, "dp"), (MeshSpec(tp=2), 2, "tp"), (MeshSpec(pp=2), 2, "pp"),
+    (MeshSpec(dp=2, cp=2), 4, "dp"), (MeshSpec(tp=2), 2, "tp"), (MeshSpec(pp=2), 2, "pp"),
     (MeshSpec(fsdp=2, cp=2), 4, "fsdp"), (MeshSpec(sp=2), 2, "sp"),
 ])
 def test_build_mesh_raises_for_unported_axes(spec, world, axis, tmp_path):
-    """Only cp is served: any other sized axis raises (naming its ROADMAP
-    item) before any process group is joined."""
+    """Only dp and cp are served, one at a time: any other sized axis, and
+    dp composed with cp, raises (naming its ROADMAP item) before any
+    process group is joined."""
     with pytest.raises(NotImplementedError, match=f"mesh axis {axis}=2 .*ROADMAP.md queue 1"):
         build_mesh(spec, 0, world, str(tmp_path / "rendezvous"), "cpu")
     assert not dist.is_initialized()
@@ -222,7 +223,7 @@ def test_hybrid_step_raises_for_unported_options():
     model = tgpt2.GPT2(tgpt2.GPT2Config.tiny(), device="cpu")
     opt = torch.optim.Adam(model.parameters())
     for kw, item in (({"schedule": "1f1b"}, 11), ({"n_microbatches": 2}, 11),
-                     ({"dp_sync": "ring"}, 6)):
+                     ({"dp_sync": "q8"}, 10)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             thybrid.make_hybrid_train_step(model, opt, mesh, **kw)
 

@@ -329,7 +329,8 @@ def test_trainer_epochs_match_jax_trainer(optimizer, schedule, warmup):
 
 def test_trainer_raises_for_unported_options():
     data = tdata.synthetic_classification(100, 4, 2)
-    for kw, match in (({"algorithm": "ring"}, "data-parallel"), ({"dp": 2}, "data-parallel"),
+    for kw, match in (({"algorithm": "q8_ring"}, "compressed-communication.*item 10"),
+                      ({"algorithm": "quant"}, "compressed-communication.*item 10"),
                       ({"error_feedback": True}, "compressed-communication"),
                       ({"checkpoint_dir": "ck"}, "checkpointing"),
                       ({"lr_schedule": "plateau"}, "plateau")):
@@ -363,7 +364,8 @@ def test_train_gpt2_cli_runs_and_logs():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--pp", "2"], ["--tp", "2"], ["--sp", "2"], ["--cp", "2", "--attn", "flash"], ["--family", "llama"],
+    ["--pp", "2"], ["--tp", "2"], ["--sp", "2"], ["--cp", "2", "--attn", "flash"], ["--dp", "2", "--cp", "2"],
+    ["--family", "llama"],
     ["--tokenizer", "bpe"], ["--data", "prose"], ["--checkpoint_dir", "ck"],
     ["--profile_dir", "prof"], ["--optimizer", "adafactor"],
 ])
