@@ -32,7 +32,12 @@ before the path and read just after):
 - data-parallel training: two spawned ranks train GPT-2-small at dp = 2
   through ``make_dp_train_step`` (global batch 8 × 1024, ring sync in
   4 MiB buckets over the CUDA IPC transport), the flash kernels 1–3 on
-  every rank; before it, the all-reduce family on its own.
+  every rank; before it, the all-reduce family on its own;
+- compressed gradient communication: the same dp = 2 step under the q8
+  sync (the stochastic int8 quantizer kernel on every float bucket, then
+  an int8 gather over the IPC ring), q8_ring2 and q8_ring2 with error
+  feedback, and the MNIST ``Trainer`` at dp = 2 full-precision and
+  compressed; before it, the quantized all-reduces on their own.
 
 Each phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit and no result line. The line before the last is the card's
@@ -74,12 +79,20 @@ single-device step, identical replicas, step ms and peak memory);
 cp_cli (``train_gpt2 --cp 2``); allreduce (ring, ring2 and naive through
 the IPC ring bit-identical to a + b and xla through gloo within one ulp,
 at 4 KiB, 4 MiB, 64 MiB and GPT-2-small's gradient in f32 and bf16, with times,
-wire bytes, bounds and routes; int8 SUM, MIN, MAX, PROD); dp_slice (per
-rank: 12 launches of kernels 1-3 a step, ring / ring2 / naive losses
+wire bytes, bounds and routes; int8 SUM, MIN, MAX, PROD); quant_allreduce
+(q8, q8_ring, q8_ring2, q4_ring, q4_ring2 and a deterministic q8_ring
+beside the ring, bf16 SUM at 4 MiB, 64 MiB and GPT-2-small's gradient:
+times, wire bytes beside the ring's, kernel-8 launches per call, error
+against the exact sum, both ranks bit-identical, the IPC route); dp_slice
+(per rank: 12 launches of kernels 1-3 a step, ring / ring2 / naive losses
 bit-identical, identical replicas, f32 dp gradients against single-device
 flash, bf16 steps tracking the single-device steps, step and sync ms,
-buckets, peak memory and IPC slot bytes, a traced step); dp_cli
-(``train_gpt2 --dp 2``); kernels (one line for the run).
+buckets, peak memory and IPC slot bytes, a traced step; then q8, q8_ring2
+and q8_ring2 with error feedback from the same weights: kernel 8 once per
+float bucket a q8 step, step and sync ms, wire bytes, losses within 0.06
+of the ring's, identical replicas; the MNIST Trainer under ring and
+q8_ring2 with error feedback); dp_cli (``train_gpt2 --dp 2``); kernels
+(one line for the run; kernel 8's entry counts both of its paths).
 
 Float32 matmuls stay in full f32 (TF32 off, PyTorch's default, set here
 explicitly): the f32 phases compare two paths at f32 tolerances.
@@ -1308,6 +1321,7 @@ def phase_serve_cli(dev):
 
 QMM_SOURCE = "dsml_tpu_torch/ops/csrc/qmm.cu"
 QUANT8_SOURCE = "dsml_tpu_torch/ops/csrc/quantize_int8.cu"
+Q8_BUCKET_ELEMS = (4 << 20) // 2  # the q8 sync's 4 MiB bf16 bucket
 # GPT-2-small's four block projections: (contraction d, trailing shape)
 PROJECTIONS = {"wqkv": (768, (3, 768)), "wo": (768, (768,)), "w_in": (768, (3072,)),
                "w_out": (3072, (768,))}
@@ -1323,17 +1337,23 @@ TRAIN_F32_B = 2
 TOL_INT8_REMAT_GRADS = 0.1  # the JAX suite's bound for int8 remat (tests/test_gpt2.py)
 
 
-def kernel_event_ms(fn, pattern) -> list[float]:
+def kernel_event_ms(fn, pattern, expect: int) -> list[float]:
     """Device ms of each launch of the kernels whose name holds
-    ``pattern`` while ``fn`` runs, in launch order, from a profiler trace."""
+    ``pattern`` while ``fn`` runs, in launch order, from a profiler trace.
+    The card's traces sometimes lose an event: a trace counts only when it
+    holds the ``expect`` launches ``fn`` makes, and is taken again
+    otherwise, up to 3 times; the run fails after that."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3) for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA and pattern in e.name)
-    return [ms for _, ms in events]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA and pattern in e.name)
+        if len(events) == expect:
+            return [ms for _, ms in events]
+    check(False, f"3 profiler traces showed {len(events)} {pattern} launches, expected {expect}")
 
 
 def bound(nbytes, ops, peak_ops):
@@ -1452,13 +1472,8 @@ def qmm_time(dev):
         for (name, scheme), qwt in qweights.items():
             x = torch.randn(QMM_ROWS[shape], qwt.shape[0], generator=gen, device=dev).to(torch.bfloat16)
             configs.append((shape, name, scheme, qwt, x))
-    for _ in range(2):  # the profiler sometimes loses events: one retake
-        ms = kernel_event_ms(lambda: [tq.quantized_matmul(x, qwt) for *_, qwt, x in configs
-                                      for _ in range(reps)], "qmm_kernel<")
-        if len(ms) == reps * len(configs):
-            break
-    check(len(ms) == reps * len(configs), f"the trace shows {len(ms)} qmm launches, "
-                                          f"expected {reps * len(configs)}")
+    ms = kernel_event_ms(lambda: [tq.quantized_matmul(x, qwt) for *_, qwt, x in configs
+                                  for _ in range(reps)], "qmm_kernel<", reps * len(configs))
     for i, (shape, name, scheme, qwt, x) in enumerate(configs):
         dense = weights[name].reshape(qwt.shape[0], -1).to(torch.bfloat16)
         bound_ms, bound_by = qmm_bound_ms(x, qwt)
@@ -1583,20 +1598,28 @@ def sm_clock_max_hz():
 def phase_kernel_quant8(dev):
     """quantize_int8's kernel against _quantize_int8_reference bit for bit
     (values and scales) at the train step's block input [8, 1024, 768] in
-    bf16 and f32, a ragged 1000-element and a 777-element tensor (the
-    padding path), every element within one scale, unbiased over 200
-    seeds; then its time with the bound and the plain version."""
+    bf16 and f32, at the q8 sync's 4 MiB bf16 bucket (2,097,152 elements,
+    seeded as ``compressed_all_reduce`` seeds it), a ragged 1000-element
+    and a 777-element tensor (the padding path), every element within one
+    scale, unbiased over 200 seeds; then its time with the bound and the
+    plain version at the block input and at the bucket."""
     from dsml_tpu_torch.ops import quantization as tq
+    from dsml_tpu_torch.parallel.bucketing import _q8_bucket_seed
 
     gen = torch.Generator(device=dev).manual_seed(6)
     cases = {"block_input_bf16": ((TRAIN_B, TRAIN_S, 768), torch.bfloat16),
              "block_input_f32": ((TRAIN_B, TRAIN_S, 768), torch.float32),
+             "q8_bucket_bf16": ((Q8_BUCKET_ELEMS,), torch.bfloat16),
              "ragged_1000": ((1000,), torch.float32), "padded_777": ((777,), torch.float32),
              "padded_777_bf16": ((777,), torch.bfloat16)}
-    main = None
+    main = bucket = None
     for name, (shape, dtype) in cases.items():
         x = (torch.randn(*shape, generator=gen, device=dev) * 3).to(dtype)
-        seed = tq._leaf_seed(x)  # on the device, as on the main path
+        if name == "q8_bucket_bf16":
+            # rank 0's seed of bucket 0 in the q8 sync, on the device
+            seed = tq._wrap_i32(tq._seed_base(_q8_bucket_seed(x, 0), dev))
+        else:
+            seed = tq._leaf_seed(x)  # on the device, as on the main path
         qt = tq.quantize_int8(x, seed)
         torch.cuda.synchronize()
         ref_q, ref_s = tq._quantize_int8_reference(x, seed)
@@ -1613,6 +1636,8 @@ def phase_kernel_quant8(dev):
                                 f"torch.equal {equal}, within one scale {within}")
         if name == "block_input_bf16":
             main = (x, seed, diff)
+        elif name == "q8_bucket_bf16":
+            bucket = (x, seed)
     # unbiased over 200 seeds: the suite's constant 0.303 row (absmax 0.303,
     # so every y is exactly 127), and a row with one 1.0 that puts the 0.303
     # entries between quanta (y = 38.48), where the rounding is random
@@ -1627,11 +1652,6 @@ def phase_kernel_quant8(dev):
           "mean_abs_err_over_scale": bias, "limit": 0.2})
     check(max(bias) < 0.2, f"quantize_int8 rounding is biased: {bias} of a scale")
 
-    x, seed, diff = main
-    reps = 20
-    ms = kernel_event_ms(lambda: [tq.quantize_int8(x, seed) for _ in range(reps)],
-                         "quantize_int8_kernel<")
-    check(len(ms) == reps, f"the trace shows {len(ms)} quantize_int8 launches, expected {reps}")
     from dsml_tpu_torch.ops import _build
 
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -1640,18 +1660,24 @@ def phase_kernel_quant8(dev):
     ops = quant8_operations(division)
     clock = sm_clock_max_hz()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    bound_ms, bound_by, cycles = quant8_bound_ms(x, ops, clock, sms)
-    timing = {"ms": statistics.median(ms), "wrapper_ms": cuda_ms(lambda: tq.quantize_int8(x, seed)),
-              "plain_ms": cuda_ms(lambda: tq._quantize_int8_reference(x, seed)),
-              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    bytes_ms = (x.numel() * x.element_size() + x.numel() + x.numel() // 512 * 4) / PEAK_BYTES_PER_S * 1e3
-    emit({"phase": "kernel_time", "kernel": "quantize_int8", "shape": [TRAIN_B, TRAIN_S, 768],
-          "dtype": "bfloat16", **timing, "bytes_bound_ms": bytes_ms,
-          "operations_per_element": sum(ops.values()), "by_opcode": ops,
-          "division_from_sass": division, "sm_cycles_per_element_by_pipe": cycles,
-          "sm_clock_max_hz": clock, "sms": sms,
-          "library": "none: no single PyTorch call quantizes with stochastic rounding"})
-    return diff, timing
+    reps = 20
+    timings = {}
+    for label, (x, seed) in (("train_block_input", main[:2]), ("q8_bucket", bucket)):
+        ms = kernel_event_ms(lambda: [tq.quantize_int8(x, seed) for _ in range(reps)],
+                             "quantize_int8_kernel<", reps)
+        bound_ms, bound_by, cycles = quant8_bound_ms(x, ops, clock, sms)
+        timing = {"ms": statistics.median(ms), "wrapper_ms": cuda_ms(lambda: tq.quantize_int8(x, seed)),
+                  "plain_ms": cuda_ms(lambda: tq._quantize_int8_reference(x, seed)),
+                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        bytes_ms = (x.numel() * x.element_size() + x.numel() + x.numel() // 512 * 4) / PEAK_BYTES_PER_S * 1e3
+        emit({"phase": "kernel_time", "kernel": "quantize_int8", "case": label,
+              "shape": list(x.shape), "dtype": "bfloat16", **timing, "bytes_bound_ms": bytes_ms,
+              "operations_per_element": sum(ops.values()), "by_opcode": ops,
+              "division_from_sass": division, "sm_cycles_per_element_by_pipe": cycles,
+              "sm_clock_max_hz": clock, "sms": sms,
+              "library": "none: no single PyTorch call quantizes with stochastic rounding"})
+        timings[label] = timing
+    return main[2], timings["train_block_input"]
 
 
 def wq_counts(tq, tpa):
@@ -2224,17 +2250,23 @@ def cp_rank_run(rank, tmp, res, stage):
     else:
         step(x_all, y_all)
         torch.cuda.synchronize()
-    # the step's gradient sum alone: gloo all_reduce of one flat bf16
-    # buffer of every parameter (through host memory)
+    # the step's gradient sum alone: the ring all-reduce of one flat bf16
+    # buffer of every parameter (the IPC transport), and beside it gloo's
+    # all_reduce of the same buffer (through host memory), which the step
+    # took before
+    from dsml_tpu_torch.ops.collectives import ReduceOp, all_reduce
+
     flat = torch.zeros(sum(p.numel() for p in model.parameters()), dtype=torch.bfloat16,
                        device=dev)
-    dist.all_reduce(flat)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        dist.all_reduce(flat)
-    torch.cuda.synchronize()
-    res["grad_all_reduce_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+    for name, fn in (("grad_all_reduce_ms", lambda: all_reduce(flat, group, ReduceOp.SUM, "ring")),
+                     ("grad_all_reduce_gloo_ms", lambda: dist.all_reduce(flat))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        res[name] = (time.perf_counter() - t0) * 1e3 / 3
     del opt, step, model, flat
     torch.cuda.empty_cache()
     if rank == 0:
@@ -2327,6 +2359,10 @@ ALLREDUCE_REPS, ALLREDUCE_WARMUP = 10, 2
 DP_WARMUP, DP_STEPS = 1, 3  # the first step grows the IPC slots
 DP_BUCKET_MB = 4.0
 DP_F32_B = 2  # global rows of the f32 gradient check (one a rank)
+# the compressed syncs of the dp step: (algorithm, error feedback)
+DP_QUANT = (("q8", False), ("q8_ring2", False), ("q8_ring2", True))
+# tests/test_bucketing.py::test_dp_step_quant_ring_matches_xla_trajectory
+DP_QUANT_DEV = 0.06
 
 
 def gpt2_small_n_params() -> int:
@@ -2491,6 +2527,136 @@ def phase_allreduce(card):
         check(all(r["int8"].values()), f"rank {rk}: int8 cases {r['int8']}")
 
 
+QUANT_ALGS = ("q8", "q8_ring", "q8_ring2", "q4_ring", "q4_ring2")
+QUANT_PAYLOADS = (("4MiB", Q8_BUCKET_ELEMS), ("64MiB", (64 << 20) // 2))  # bf16 elements
+
+
+def quant_wire_bytes(alg, n_elems, n=2):
+    """Per-rank wire bytes of one quantized all-reduce (the JAX package's
+    formulas), or the full-precision bf16 ring's."""
+    from dsml_tpu_torch.ops import collectives as C
+    from dsml_tpu_torch.ops import quantization as tq
+    from dsml_tpu_torch.parallel.bucketing import QUANT_RING_ALGORITHMS
+
+    if alg == "ring":
+        return C.ring_wire_bytes(n_elems, n, 2)
+    if alg == "q8":
+        return tq.compressed_gather_wire_bytes(n_elems, n)
+    scheme, bidir = QUANT_RING_ALGORITHMS[alg.removesuffix("_deterministic")]
+    return tq.quantized_ring_wire_bytes(n_elems, n, scheme, bidir)
+
+
+def quant_allreduce_rank(rank, tmp):
+    rank_main(quant_allreduce_rank_run, "quant_allreduce", rank, tmp)
+
+
+def quant_allreduce_rank_run(rank, tmp, res, stage):
+    import hashlib
+
+    import torch.distributed as dist
+
+    from dsml_tpu_torch.ops import collectives as C
+    from dsml_tpu_torch.ops import quantization as tq
+    from dsml_tpu_torch.parallel.bucketing import QUANT_RING_ALGORITHMS, _q8_bucket_seed
+    from dsml_tpu_torch.parallel.mesh import data_mesh
+
+    mesh = data_mesh(2, rank, os.path.join(tmp, "rendezvous"))
+    dev, group = mesh.device, mesh.group("dp")
+    res["device"] = str(dev)
+
+    def ipc_hops():
+        return sum(group.ipc().sent.values())
+
+    def caller(alg, x, seed):
+        """SUM of x over the pair by ``alg``: the function the sync calls."""
+        if alg == "ring":
+            return lambda: C.all_reduce(x, group, C.ReduceOp.SUM, "ring")
+        if alg == "q8":
+            return lambda: tq.compressed_all_reduce(x, group, seed, mean=False)
+        scheme, bidir = QUANT_RING_ALGORITHMS[alg.removesuffix("_deterministic")]
+        stochastic = not alg.endswith("_deterministic")
+        return lambda: tq.quantized_ring_all_reduce(x, group, scheme, bidir, mean=False,
+                                                    stochastic=stochastic, seed=seed)
+
+    res["rows"] = []
+    for label, n_elems in (*QUANT_PAYLOADS, ("gpt2_small_grad", gpt2_small_n_params())):
+        stage(f"{label} bf16")
+        # both ranks draw both inputs: each holds the result against the exact sum
+        ins = [torch.randn(n_elems, generator=torch.Generator(device=dev).manual_seed(r),
+                           device=dev).to(torch.bfloat16) for r in range(2)]
+        exact = ins[0].float() + ins[1].float()
+        x = ins[rank]
+        seed = _q8_bucket_seed(x, 0)  # the bucket seed the sync passes, on the device
+        # per-hop error <= one quantum of the partial sums (absmax <= n·max|x|),
+        # n - 1 hops and the gather's quantization: the JAX suite's mean bound
+        # times n for the sum
+        amax = max(float(t.float().abs().max()) for t in ins)
+        for alg in ("ring", *QUANT_ALGS, "q8_ring_deterministic"):
+            fn = caller(alg, x, seed)
+            times = collective_times(fn, group.pg)
+            before = ipc_hops()
+            tq.quantize_int8_launches = 0
+            out = fn()
+            torch.cuda.synchronize()
+            launches = tq.quantize_int8_launches
+            route = "ipc" if ipc_hops() > before else "gloo"
+            err = float((out.float() - exact).abs().max())
+            qmax = 127 if alg.startswith("q8") else 7 if alg.startswith("q4") else None
+            res["rows"].append({
+                "algorithm": alg, "route": route, "payload": label, "dtype": "bfloat16",
+                "elements": n_elems, "median_ms": statistics.median(times), "min_ms": min(times),
+                "max_ms": max(times), "calls": len(times), "quantize_int8_launches_per_call": launches,
+                "wire_bytes_per_rank": quant_wire_bytes(alg, n_elems),
+                "ring_wire_bytes_per_rank": quant_wire_bytes("ring", n_elems),
+                "max_abs_err": err, "max_err_over_max_abs_sum": err / float(exact.abs().max()),
+                "err_bound": None if qmax is None else 2 * 2 * amax / qmax,
+                "sha256": hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()})
+        del ins, exact, x, out
+        torch.cuda.empty_cache()
+    res["ipc_slot_bytes"] = 4 * group.ipc().capacity
+    stage("close")
+    mesh.close()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_quant_allreduce(card):
+    """The compressed all-reduces on two spawned ranks sharing the card,
+    bf16 SUM at 4 MiB, 64 MiB and GPT-2-small's whole gradient passed
+    straight to the function: the q8 gather (kernel 8, then the int8 values
+    and scales over the IPC ring), the stochastic int8/int4 ring family and
+    the deterministic q8_ring, beside the full-precision ring. Checks per
+    rank: every algorithm on the IPC route; one kernel-8 launch per q8 call
+    and none otherwise; each result within the JAX suite's error bound of
+    the exact f32 sum; both ranks' results bit-identical."""
+    ranks, seconds = spawn_ranks(quant_allreduce_rank, "quant_allreduce")
+    lines = {}
+    for row0, row1 in zip(ranks[0]["rows"], ranks[1]["rows"]):
+        line = lines.setdefault(row0["payload"], {
+            "phase": "quant_allreduce", "payload": row0["payload"], "dtype": "bfloat16",
+            "op": "SUM", "elements": row0["elements"], "ranks": 2, "same_card": True, "card": card})
+        line[row0["algorithm"]] = {
+            **{k: v for k, v in row0.items() if k not in ("algorithm", "payload", "dtype", "elements",
+                                                          "sha256")},
+            "ranks_bit_identical": row0["sha256"] == row1["sha256"],
+            "rank1": {k: row1[k] for k in ("median_ms", "min_ms", "max_ms", "route")}}
+    for line in lines.values():
+        emit(line)
+    emit({"phase": "quant_allreduce_ranks", "devices": [r["device"] for r in ranks],
+          "ipc_slot_bytes": [r["ipc_slot_bytes"] for r in ranks], "seconds_with_spawn": seconds})
+    for row0, row1 in zip(ranks[0]["rows"], ranks[1]["rows"]):
+        what = f"{row0['algorithm']} {row0['payload']}"
+        for rk, row in enumerate((row0, row1)):
+            check(row["route"] == "ipc", f"rank {rk}: {what} did not go through the IPC ring")
+            check(row["quantize_int8_launches_per_call"] == (row["algorithm"] == "q8"),
+                  f"rank {rk}: {what} launched kernel 8 {row['quantize_int8_launches_per_call']} times")
+            if row["err_bound"] is not None:
+                check(row["max_abs_err"] < row["err_bound"],
+                      f"rank {rk}: {what} error {row['max_abs_err']} over {row['err_bound']}")
+        check(row0["sha256"] == row1["sha256"], f"{what}: the two ranks' results differ")
+
+
 def dp_rank(rank, tmp):
     rank_main(dp_rank_run, "dp", rank, tmp)
 
@@ -2502,6 +2668,7 @@ def dp_rank_run(rank, tmp, res, stage):
 
     from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
     from dsml_tpu_torch.ops import flash as tflash
+    from dsml_tpu_torch.ops import quantization as tq
     from dsml_tpu_torch.ops.collectives import ReduceOp
     from dsml_tpu_torch.parallel.bucketing import bucketed_all_reduce, plan_buckets
     from dsml_tpu_torch.parallel.dp import make_dp_train_step, named_params
@@ -2580,8 +2747,67 @@ def dp_rank_run(rank, tmp, res, stage):
         model.zero_grad(set_to_none=True)
         torch.cuda.empty_cache()
     res["losses"] = losses
+
+    # (a2) the compressed syncs from the same weights and batches: q8 (kernel
+    # 8 quantizes every float bucket), q8_ring2, q8_ring2 with error feedback
+    quant = {}
+    for alg, ef in DP_QUANT:
+        name = alg + ("_ef" if ef else "")
+        stage(f"dp steps under {name}")
+        model.load_state_dict(init_state)
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+        step = make_dp_train_step(model, opt, mesh, alg, bucket_size_mb=DP_BUCKET_MB,
+                                  error_feedback=ef, loss_fn=flash_loss(model))
+        out = [step(x_all, y_all) for _ in range(DP_WARMUP)]
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts(tflash)
+        tq.quantize_int8_launches = 0
+        t0 = time.perf_counter()
+        out += [step(x_all, y_all) for _ in range(DP_STEPS)]
+        torch.cuda.synchronize()
+        row = {"step_ms": (time.perf_counter() - t0) * 1e3 / DP_STEPS,
+               "launches": {**train_counts(tflash), "quantize_int8": tq.quantize_int8_launches},
+               "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "ipc_slot_bytes": 4 * group.ipc().capacity,
+               "wire_bytes_per_rank": step.quant_wire_bytes, "losses": [float(v) for v in out]}
+        with torch.no_grad():
+            row["weights_checksum"] = float(sum(p.float().sum() for p in model.parameters()))
+        stage(f"the {name} sync alone")
+        grads = [p.grad for _, p in named_params(model, opt)]
+        times = collective_times(
+            lambda: bucketed_all_reduce(grads, group, ReduceOp.AVG, alg, DP_BUCKET_MB,
+                                        error_feedback=step.error_feedback), group.pg,
+            reps=5, warmup=1)
+        row["sync_ms"] = {"median_ms": statistics.median(times), "min_ms": min(times),
+                          "max_ms": max(times)}
+        quant[name] = row
+        del opt, step, grads
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+    res["quant"] = quant
     del model
     torch.cuda.empty_cache()
+
+    # (a3) the reference repo's own workload: the MNIST MLP Trainer, one
+    # epoch at dp = 2, full precision and compressed with error feedback
+    stage("MNIST trainer")
+    from dsml_tpu_torch.models import MLP
+    from dsml_tpu_torch.trainer import TrainConfig, Trainer
+    from dsml_tpu_torch.utils.data import load_mnist
+
+    data = load_mnist(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "mnist"))
+    res["mnist"] = {}
+    for alg, ef in (("ring", False), ("q8_ring2", True)):
+        dist.barrier()
+        t0 = time.perf_counter()
+        _, history, test_acc = Trainer(MLP(device=dev), TrainConfig(epochs=1, dp=2, algorithm=alg,
+                                                                    error_feedback=ef),
+                                       mesh=mesh).train(data)
+        res["mnist"][alg + ("_ef" if ef else "")] = {
+            "seconds": time.perf_counter() - t0, "avg_loss": history[0]["avg_loss"],
+            "test_accuracy": test_acc, "n_train": data.n_train}
 
     # (b) f32: one dp step's synced gradients (SGD at lr 0 leaves them in
     # p.grad and the weights as they were), held on rank 0 against the
@@ -2671,7 +2897,37 @@ def phase_dp_slice(card):
           "single_losses": r0["single_losses"], "max_rel_diff": rel, "tol": TOL_CP_BF16_LOSS})
     check(rel <= TOL_CP_BF16_LOSS and r0["losses"]["ring"][-1] < r0["losses"]["ring"][0],
           f"dp = 2 bf16 steps do not track the single-device steps: {rel}")
-    return r0["launches"]
+    # the compressed syncs: kernel 8 once per float bucket per q8 step, kernels
+    # 1-3 12 times a step, identical replicas, losses within the JAX suite's
+    # quantized bar of the ring's
+    ring = r0["losses"]["ring"]
+    for name, row in r0["quant"].items():
+        drift = max(abs(a - b) / max(abs(b), 1e-2) for a, b in zip(row["losses"], ring))
+        emit({"phase": "dp_slice_quant", "algorithm": name, "bucket_mb": DP_BUCKET_MB,
+              "float_buckets": r0["bucket_count"], "max_dev_from_ring": drift, "tol": DP_QUANT_DEV,
+              "card": card, "ring_losses": ring,
+              "ranks": [{"rank": r["rank"], **r["quant"][name]} for r in ranks]})
+        for r in ranks:
+            q = r["quant"][name]
+            counts = {k: v for k, v in q["launches"].items() if k != "quantize_int8"}
+            check(bf16_step_counts_ok(counts, n_layer * DP_STEPS, n_layer * DP_STEPS),
+                  f"rank {r['rank']}: {name} flash launches {counts}")
+            want = r["bucket_count"] * DP_STEPS if name == "q8" else 0
+            check(q["launches"]["quantize_int8"] == want,
+                  f"rank {r['rank']}: {name} launched kernel 8 {q['launches']['quantize_int8']} "
+                  f"times in {DP_STEPS} steps, expected {want}")
+            check(all(np.isfinite(q["losses"])), f"rank {r['rank']}: {name} losses {q['losses']}")
+        check(ranks[0]["quant"][name]["losses"] == ranks[1]["quant"][name]["losses"]
+              and ranks[0]["quant"][name]["weights_checksum"] == ranks[1]["quant"][name]["weights_checksum"],
+              f"{name}: the two replicas diverged")
+        check(drift < DP_QUANT_DEV, f"{name}: dp losses off the ring's by {drift}")
+    emit({"phase": "dp_slice_mnist", "trainer": "MLP, 1 epoch, global batch 64, dp = 2",
+          "card": card, "ranks": [{"rank": r["rank"], **r["mnist"]} for r in ranks]})
+    for r in ranks:
+        for name, m in r["mnist"].items():
+            check(np.isfinite(m["avg_loss"]) and m["test_accuracy"] > 0.5,
+                  f"rank {r['rank']}: the MNIST trainer under {name}: {m}")
+    return r0["launches"], r0["quant"]["q8"]["launches"]["quantize_int8"]
 
 
 def phase_dp_cli():
@@ -2735,6 +2991,7 @@ def main() -> None:
                   "cp_slice": lambda: phase_cp_slice(card),
                   "cp_cli": phase_cp_cli,
                   "allreduce": lambda: phase_allreduce(card),
+                  "quant_allreduce": lambda: phase_quant_allreduce(card),
                   "dp_slice": lambda: phase_dp_slice(card),
                   "dp_cli": phase_dp_cli}
         for name in only:
@@ -2773,7 +3030,8 @@ def main() -> None:
     phase_cp_cli()
     torch.cuda.empty_cache()
     phase_allreduce(card)
-    phase_dp_slice(card)
+    phase_quant_allreduce(card)
+    _, q8_launches = phase_dp_slice(card)
     phase_dp_cli()
 
     # the backward's two routes: bf16 (tensor cores) with launches from the
@@ -2811,12 +3069,16 @@ def main() -> None:
         {"name": "qmm", "route": "cuda", "source": QMM_SOURCE,
          "replaces": "dsml_tpu/ops/quantization.py:531", "launches": wq_launches["qmm"],
          "max_abs_err": qmm_err, **{k: qmm_timing[k] for k in KERNEL_TIMES}},
-        # times at the train step's block input [8, 1024, 768] bf16; launches
-        # from the int8-remat train steps
+        # times at the train step's block input [8, 1024, 768] bf16 (the q8
+        # bucket's are in its kernel_time line); kernel 8 runs on two paths:
+        # launches from the int8-remat train steps and from rank 0's q8 dp
+        # steps, each counted from 0 around its path
         {"name": "quantize_int8", "route": "cuda", "source": QUANT8_SOURCE,
          "replaces": "dsml_tpu/ops/quantization.py:141",
-         "launches": remat_launches["quantize_int8"], "max_abs_err": quant8_err,
-         **{k: quant8_timing[k] for k in KERNEL_TIMES}},
+         "launches": remat_launches["quantize_int8"] + q8_launches,
+         "launches_by_path": {"train_int8remat": remat_launches["quantize_int8"],
+                              "dp_slice_q8": q8_launches},
+         "max_abs_err": quant8_err, **{k: quant8_timing[k] for k in KERNEL_TIMES}},
         # times at the cp = 2 hop's shape (q [96, 512, 64], K/V half [96, 256,
         # 64], bf16; library_ms the two-call yardstick SDPA + copy_); launches
         # from rank 0 of the cp = 2 slice's counted train steps

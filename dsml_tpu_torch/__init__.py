@@ -11,17 +11,20 @@ path rewritten by hand for ``sm_90a``:
   the context-parallel ring (``ops.ring_attention``), the ring collectives
   and the all-reduce family (``ops.collectives``),
   the paged-attention kernels
-  (``ops/csrc/paged_attn.cu``) behind ``ops.paged_attention``, the KV-row
-  codec (``ops.quantization``) and the chunked cross-entropy
-  (``ops.xent``).
+  (``ops/csrc/paged_attn.cu``) behind ``ops.paged_attention``, the
+  quantization codecs, the dequant-fused matmul (``ops/csrc/qmm.cu``), the
+  int8 quantizer (``ops/csrc/quantize_int8.cu``) and the compressed
+  gradient collectives (``ops.quantization``), and the chunked
+  cross-entropy (``ops.xent``).
 - ``dsml_tpu_torch.models`` — GPT-2 serving (prefill, KV-cache decode,
   sampling, ``generate``, the per-slot dense and paged surfaces) and
   training (``loss``), and the MNIST MLP.
 - ``dsml_tpu_torch.serving`` — the continuous batcher over a dense or
   paged KV cache, and the page allocator.
 - ``dsml_tpu_torch.parallel`` — the process mesh over ``torch.distributed``,
-  the ring's CUDA IPC transport, gradient bucketing, the data-parallel
-  train step and the hybrid (data- or context-parallel) train step.
+  the ring's CUDA IPC transport, gradient bucketing (full precision or
+  compressed, with error feedback), the data-parallel train step and the
+  hybrid (data- or context-parallel) train step.
 - ``dsml_tpu_torch.trainer`` — the epoch trainer, on one device or as a
   rank of a data-parallel mesh.
 - ``dsml_tpu_torch.utils``  — config, logging, device selection, data

@@ -374,7 +374,9 @@ def all_reduce(x: torch.Tensor, group, op: ReduceOp = ReduceOp.SUM,
     """All-reduce with a selectable algorithm, returning a new tensor:
 
     - ``xla``   — the process group's own ``all_reduce`` (gloo; AVG is its
-      SUM divided by n, PROD takes the ring, as the JAX package's);
+      SUM times 1/n and, as ``lax.pmean``, float32 for an integer input;
+      bf16 and f16 reduce in f32 and round once, as ``lax.psum`` does; PROD
+      takes the ring, as the JAX package's);
     - ``ring``  — the explicit 2(n−1)-step ring;
     - ``ring2`` — the bidirectional ring;
     - ``naive`` — gather + reduce;
@@ -393,13 +395,22 @@ def all_reduce(x: torch.Tensor, group, op: ReduceOp = ReduceOp.SUM,
         raise ValueError(f"unknown all-reduce algorithm {algorithm!r}")
     if op == ReduceOp.PROD:
         return ring_all_reduce(x, group, op)
-    if group.size == 1:
-        return x
-    out = x.clone()
-    dist.all_reduce(out, _PG_OPS[op], group=group.pg)
-    if op == ReduceOp.AVG:
-        out = _avg(out, group.size).to(x.dtype)
-    return out
+    # gloo sums a bf16 or f16 tensor in its own type, rounding every partial
+    # sum; the JAX package's psum rounds once
+    low = x.dtype in (torch.bfloat16, torch.float16)
+    out = x.float() if low else x
+    if group.size > 1:
+        out = out.clone() if out is x else out
+        dist.all_reduce(out, _PG_OPS[op], group=group.pg)
+    if low:
+        out = out.to(x.dtype)
+    if op != ReduceOp.AVG:
+        return out
+    # lax.pmean: the sum times the f32 reciprocal of n, in f32 for a bf16 or
+    # f16 sum (then rounded again) and for an integer one (float32 out, at
+    # n = 1 too)
+    mean = _avg(out.float() if low or not out.is_floating_point() else out, group.size)
+    return mean.to(x.dtype) if low else mean
 
 
 def _identity_pad_value(op: ReduceOp, dtype: torch.dtype):

@@ -38,8 +38,21 @@ their kernels or raise; on CPU tensors they run the plain versions
 dequantize-then-dot fallback and no shared-memory budget guard: each
 kernel's shared memory is fixed by its own tiles.
 
-The collective codecs of the JAX module (``compressed_all_reduce``, the
-quantized ring schedules) come with the data-parallel slice.
+**Compressed gradient communication.** :func:`quantized_ring_all_reduce`
+runs the 2(n−1)-hop ring of ``ops/collectives.py`` with every hop's chunk
+block-quantized to int8 or packed int4 (one f32 scale per block);
+:func:`quantized_flat_reduce_scatter` is its scatter-reduce half alone;
+:func:`compressed_all_reduce` quantizes the whole payload once with
+:func:`quantize_int8` (kernel 8 on CUDA tensors) and all-gathers it.
+Their hops move through ``ops.collectives.ring_pass``: gloo for CPU
+tensors, the CUDA IPC transport for CUDA tensors. Under deterministic
+rounding the ring, the reduce-scatter and :func:`quantize_roundtrip` equal
+the JAX package's bit for bit. Two points of XLA's CPU arithmetic are
+copied for that: a division by a constant is a multiply by its f32
+reciprocal (the scale is ``absmax · f32(1/qmax)``), and ``a + q·s`` is
+one fused multiply-add (:func:`_fma`). The stochastic paths draw their
+noise from :func:`_noise_bits` where JAX draws it from ``jax.random``, so
+they agree with it in distribution, not in bits.
 """
 
 from __future__ import annotations
@@ -55,13 +68,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from dsml_tpu_torch.ops import _build
+from dsml_tpu_torch.ops.collectives import _avg, _hops, ring_pass
 from dsml_tpu_torch.utils.hash32 import M32, mix32, mul32
 
 __all__ = [
     "QuantScheme",
     "QuantizedTensor",
     "QuantizedWeight",
+    "compressed_all_reduce",
     "compressed_checkpoint",
+    "compressed_gather_wire_bytes",
     "default_qblock",
     "dequantize_int8",
     "dequantize_kv_rows",
@@ -69,10 +85,15 @@ __all__ = [
     "get_scheme",
     "kv_row_bytes",
     "pack_int4",
+    "quant_algorithm_for",
     "quantize_int8",
     "quantize_kv_rows",
+    "quantize_roundtrip",
     "quantize_weight_blocks",
+    "quantized_flat_reduce_scatter",
     "quantized_matmul",
+    "quantized_ring_all_reduce",
+    "quantized_ring_wire_bytes",
     "unpack_int4",
     "weight_quant_mode",
 ]
@@ -192,6 +213,12 @@ class QuantScheme:
     qmax: int
     block: int
 
+    @property
+    def wire_bytes_per_block(self) -> int:
+        """Bytes one quantized block takes on the wire: its packed values
+        and its f32 scale."""
+        return self.block * self.bits // 8 + 4
+
 
 def default_qblock() -> int:
     """Elements per scale block: 512, overridable with ``DSML_QBLOCK``.
@@ -217,6 +244,52 @@ def get_scheme(name, block: int | None = None) -> QuantScheme:
     if block <= 0 or block % 2:
         raise ValueError(f"quant block must be positive and even, got {block}")
     return QuantScheme(name, bits, qmax, block)
+
+
+_ALGO_FOR_SCHEME = {
+    ("int8", "ring"): "q8_ring",
+    ("int8", "ring2"): "q8_ring2",
+    ("int4", "ring"): "q4_ring",
+    ("int4", "ring2"): "q4_ring2",
+}
+_DEFAULT_QUANT = "int8:ring2"
+
+
+def _dtype_name(dtype) -> str:
+    """The JAX name of a dtype (``"float32"``, ``"bfloat16"``, ...): a
+    string as it is, a torch dtype without its ``torch.`` prefix."""
+    return dtype if isinstance(dtype, str) else str(dtype).removeprefix("torch.")
+
+
+def quant_algorithm_for(dtype) -> str:
+    """The ``DSML_QUANT`` knob: the quantized sync a gradient of ``dtype``
+    (a torch dtype or its JAX name) takes under ``algorithm="quant"``.
+
+    ``SCHEME[:ALGO]`` for every float dtype, or a per-dtype comma list
+    ``float32=int8:ring2,bfloat16=int4:ring2`` keyed by the JAX dtype
+    name (an unlisted dtype takes the ``default=`` entry, else the
+    built-in ``int8:ring2``). SCHEME is int8, int4 or none; ALGO ring or
+    ring2 (default ring2). ``none`` syncs that dtype at full precision
+    (``"ring"``/``"ring2"``). A malformed value falls back to the default
+    rather than failing a training step."""
+    key = _dtype_name(dtype)
+    raw = os.environ.get("DSML_QUANT", "").strip() or _DEFAULT_QUANT
+    if "=" in raw:
+        table = {}
+        for item in raw.split(","):
+            if "=" in item:
+                k, _, v = item.partition("=")
+                table[k.strip()] = v.strip()
+        chosen = table.get(key, table.get("default"))
+    else:
+        chosen = raw
+    scheme, _, algo = (chosen or _DEFAULT_QUANT).partition(":")
+    scheme, algo = scheme.strip(), (algo.strip() or "ring2")
+    if scheme == "none":
+        return algo if algo in ("ring", "ring2") else "ring"
+    if scheme not in _SCHEME_TABLE or algo not in ("ring", "ring2"):
+        scheme, _, algo = _DEFAULT_QUANT.partition(":")
+    return _ALGO_FOR_SCHEME[(scheme, algo)]
 
 
 def weight_quant_mode() -> str | None:
@@ -543,12 +616,17 @@ def dequantize_int8(qt: QuantizedTensor) -> torch.Tensor:
     return flat.reshape(qt.shape).to(qt.dtype)
 
 
+def _wrap_i32(t: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor reduced modulo 2**32 into int32, as int32
+    arithmetic wraps."""
+    return (((t & M32) ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
 def _leaf_seed(x: torch.Tensor) -> torch.Tensor:
     """The JAX package's per-leaf seed: the sum of the int32 bitcasts of
     ``x`` in f32, wrapping in int32 — an int32 tensor on ``x``'s device
     (``torch.sum`` of int32 gives int64; the wrap is explicit)."""
-    s = x.float().view(torch.int32).sum()
-    return (((s & M32) ^ 0x80000000) - 0x80000000).to(torch.int32)
+    return _wrap_i32(x.float().view(torch.int32).sum())
 
 
 def _param_list(params) -> list:
@@ -622,3 +700,252 @@ def compressed_checkpoint(fn, seed=None):
         return _CompressedCheckpoint.apply(fn, params, seed, len(xs), *xs, *_param_list(params))
 
     return wrapped
+
+
+# ---------------------------------------------------------------------------
+# compressed gradient communication: the quantized ring schedules and the
+# int8 gather
+# ---------------------------------------------------------------------------
+
+
+def _block_quant(blocks: torch.Tensor, scheme: QuantScheme, seed=None):
+    """Blockwise absmax quantization of f32 ``[rows, block]`` → (int8
+    values, f32 scales ``[rows, 1]``). ``seed=None`` rounds to nearest,
+    half to even (the error-feedback pairing: the residual accounts the
+    committed rounding exactly); an int32 seed tensor rounds
+    ``floor(y + u)`` with ``u`` from :func:`_noise_bits` over the element
+    index, unbiased. The scale multiplies by the f32 reciprocal of qmax,
+    as XLA compiles the JAX package's ``/ qmax``; ``blocks / scales`` is a
+    true division on both sides."""
+    amax = blocks.abs().amax(dim=-1, keepdim=True)
+    scales = torch.clamp_min(amax * (1.0 / scheme.qmax), 1e-12)
+    y = blocks / scales
+    if seed is None:
+        q = torch.round(y)
+    else:
+        idx = torch.arange(blocks.numel(), device=blocks.device).reshape(blocks.shape)
+        q = torch.floor(y + (_noise_bits(seed, idx) >> 8).float() * 2.0 ** -24)
+    return torch.clamp(q, -scheme.qmax, scheme.qmax).to(torch.int8), scales
+
+
+def _to_wire(q: torch.Tensor, scheme: QuantScheme) -> torch.Tensor:
+    return pack_int4(q) if scheme.bits == 4 else q
+
+
+def _from_wire(w: torch.Tensor, scheme: QuantScheme) -> torch.Tensor:
+    return unpack_int4(w) if scheme.bits == 4 else w
+
+
+def _fma(acc: torch.Tensor, q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """``acc + q·scales`` (f32 ``acc`` flat, int ``q`` ``[rows, block]``)
+    rounded once to f32, as XLA on the CPU fuses the JAX package's
+    dequantize-and-add into one multiply-add. In f64 the product is exact
+    (an int8 times an f32 needs at most 31 significant bits of the 53);
+    the f64 sum then rounds to f32 like the fused operation unless it
+    lands exactly on an f32 rounding midpoint, which the bitwise tests
+    against the JAX package would show."""
+    prod = (q.double() * scales.double()).reshape(-1)[:acc.numel()]
+    return (acc.double() + prod).float()
+
+
+def _padded(flat: torch.Tensor, quantum: int) -> torch.Tensor:
+    """``flat`` as f32, zero-padded to a multiple of ``quantum``: a new
+    tensor, which the caller may write."""
+    size = flat.numel()
+    out = torch.zeros(-(-size // quantum) * quantum, dtype=torch.float32, device=flat.device)
+    out[:size].copy_(flat.reshape(-1))
+    return out
+
+
+def quantize_roundtrip(flat: torch.Tensor, scheme="int8") -> torch.Tensor:
+    """``dequantize(quantize(flat))`` under deterministic rounding: the
+    local compression a rank commits when it first ships ``flat``, flat
+    f32. The error-feedback residual is ``flat −`` this
+    (:func:`_roundtrip_residual`)."""
+    sch = get_scheme(scheme)
+    size = flat.numel()
+    q, scales = _block_quant(_padded(flat, sch.block).view(-1, sch.block), sch)
+    return (q.float() * scales).reshape(-1)[:size]
+
+
+def _roundtrip_residual(flat: torch.Tensor, scheme="int8") -> torch.Tensor:
+    """``flat − quantize_roundtrip(flat)`` rounded once (:func:`_fma` with
+    the codes negated), as XLA fuses the JAX package's subtraction into
+    the dequantization."""
+    sch = get_scheme(scheme)
+    q, scales = _block_quant(_padded(flat, sch.block).view(-1, sch.block), sch)
+    return _fma(flat.float().reshape(-1), -q, scales)
+
+
+def quantized_ring_wire_bytes(n_elems: int, n_ranks: int, scheme="int8",
+                              bidirectional: bool = False) -> int:
+    """Per-rank wire bytes of one quantized ring all-reduce: 2(n−1) hops,
+    each one padded segment's packed values and f32 block scales, per
+    direction."""
+    sch = get_scheme(scheme)
+    if n_ranks <= 1:
+        return 0
+    k = 2 if bidirectional else 1
+    quantum = k * n_ranks * sch.block
+    padded = -(-n_elems // quantum) * quantum
+    blocks_per_seg = padded // (k * n_ranks) // sch.block
+    return k * 2 * (n_ranks - 1) * blocks_per_seg * sch.wire_bytes_per_block
+
+
+def compressed_gather_wire_bytes(n_elems: int, n_ranks: int) -> int:
+    """Per-rank wire bytes of :func:`compressed_all_reduce`: every rank
+    receives the other n−1 ranks' int8 values and f32 block scales."""
+    if n_ranks <= 1:
+        return 0
+    blocks = -(-n_elems // _BLOCK)
+    return (n_ranks - 1) * (blocks * _BLOCK + blocks * 4)
+
+
+def _dither_seed(blocks: torch.Tensor, base: torch.Tensor, rank: int, salt: int) -> torch.Tensor:
+    """The stochastic-rounding seed of one hop's chunk, in int32
+    arithmetic: the sum of the chunk's int32 bitcasts (it changes with the
+    data every step) + ``base`` (the caller's seed · 1_000_003) + rank ·
+    7919 + the hop's salt, so no two ranks or hops share a dither. One
+    definition for both ring schedules."""
+    return _wrap_i32(blocks.view(torch.int32).sum() + base + rank * 7919 + salt)
+
+
+def _quant_chunk_wire(blocks, scheme: QuantScheme, stochastic: bool, base, rank: int, salt: int):
+    """f32 ``[rows, block]`` → (wire values, f32 scales): the one
+    quantize-for-the-wire step every hop of both ring schedules takes."""
+    seed = _dither_seed(blocks, base, rank, salt) if stochastic else None
+    q, scales = _block_quant(blocks, scheme, seed)
+    return _to_wire(q, scheme), scales
+
+
+def _seed_base(seed, device) -> torch.Tensor:
+    """``seed · 1_000_003`` as an int64 tensor on ``device`` (wrapped to
+    int32 with the terms it is added to)."""
+    return _seed_tensor(seed, device).long() * 1_000_003
+
+
+def quantized_ring_all_reduce(x: torch.Tensor, group, scheme="int8", bidirectional: bool = False,
+                              mean: bool = True, stochastic: bool = True, seed=0) -> torch.Tensor:
+    """Block-quantized ring all-reduce (SUM, or AVG with ``mean``) of
+    ``x`` over ``group``: the 2(n−1)-hop schedule of ``ops.collectives``
+    with the quantization inside it. Each scatter-reduce hop quantizes its
+    outgoing chunk to ``scheme`` (int8, or int4 packed two to a byte; one
+    f32 scale per block), ships the (values, scales) pair as one
+    ``ring_pass``, and the receiver dequantizes and accumulates in f32; the
+    next hop re-quantizes the partial sum. In the all-gather half the
+    owner quantizes its reduced segment once and the hops forward those
+    wire bytes untouched, so every rank (the owner too) holds the same
+    dequantization: the result is bit-identical across ranks.
+    ``bidirectional`` runs two halves in opposite directions (ring2),
+    each step's two hops issued together.
+
+    ``stochastic`` dithers each hop's rounding with a seed from the
+    chunk's own bits, ``seed`` (an int or an int32 device tensor), the
+    rank and the hop; ``stochastic=False`` rounds to nearest, the error-
+    feedback pairing, and equals the JAX package bit for bit. The payload
+    is zero-padded to a multiple of directions·n·block, so hops stay
+    block-aligned; pad lanes quantize to exactly 0 and are sliced off.
+    Returns a tensor of ``x``'s shape and type."""
+    sch = get_scheme(scheme)
+    if not x.is_floating_point():
+        raise ValueError(f"quantized ring all-reduce needs a float input, got {x.dtype}")
+    n, rank = group.size, group.rank
+    if n == 1:
+        return x
+    signs = (+1, -1) if bidirectional else (+1,)
+    k = len(signs)
+    size = x.numel()
+    flat = _padded(x, k * n * sch.block)
+    part = flat.numel() // k
+    bufs = [flat[d * part:(d + 1) * part].view(n, part // n) for d in range(k)]
+    rows = part // n // sch.block
+    base = _seed_base(seed, x.device)
+
+    def q_chunk(chunk, salt):
+        return _quant_chunk_wire(chunk.view(rows, sch.block), sch, stochastic, base, rank, salt)
+
+    # scatter-reduce: quantize, ship, dequantize-accumulate, per hop
+    for step in range(n - 1):
+        sent = [q_chunk(b[(rank - s * step) % n], 2 * step + (s < 0)) for b, s in zip(bufs, signs)]
+        for b, s, (wire, sc) in zip(bufs, signs, _hops(sent, signs, group)):
+            resident = b[(rank - s * (step + 1)) % n]
+            resident.copy_(_fma(resident, _from_wire(wire, sch), sc))
+    # all-gather: the owner's wire bytes, forwarded untouched
+    carries = []
+    for b, s in zip(bufs, signs):
+        own = (rank + s) % n
+        carries.append(q_chunk(b[own], 1_000 + (s < 0)))
+        b[own].copy_(_dequant_wire(*carries[-1], sch))
+    for step in range(n - 1):
+        carries = _hops(carries, signs, group)
+        for b, s, carry in zip(bufs, signs, carries):
+            b[(rank - s * step) % n].copy_(_dequant_wire(*carry, sch))
+    out = flat[:size]
+    if mean:
+        out = _avg(out, n)
+    return out.view(x.shape).to(x.dtype)
+
+
+def _dequant_wire(wire, scales, scheme: QuantScheme) -> torch.Tensor:
+    """Inverse of :func:`_quant_chunk_wire`, flat f32."""
+    return (_from_wire(wire, scheme).float() * scales).reshape(-1)
+
+
+def quantized_flat_reduce_scatter(flat: torch.Tensor, group, scheme="int8", mean: bool = True,
+                                  stochastic: bool = True, seed=0):
+    """Quantized ring reduce-scatter of a flat vector: the scatter-reduce
+    half of :func:`quantized_ring_all_reduce` alone, with
+    ``ops.collectives.flat_reduce_scatter``'s layout. Rank i keeps
+    contiguous segment i of the (mean) reduction, f32; returns ``(shard,
+    padded)``, ``padded`` the length rounded up to a multiple of the group
+    size (not of the block: each hop's chunk is zero-padded to whole
+    blocks on its own, so the shard length is the full-precision path's).
+    Virtual rank r − 1 runs the forward schedule, so ownership lands on
+    segment r."""
+    sch = get_scheme(scheme)
+    if not flat.is_floating_point():
+        raise ValueError(f"quantized reduce-scatter needs a float input, got {flat.dtype}")
+    n, rank = group.size, group.rank
+    x = _padded(flat, n)
+    padded = x.numel()
+    if n == 1:
+        return x, padded
+    seg = padded // n
+    rows = -(-seg // sch.block)
+    buf = x.view(n, seg)
+    base = _seed_base(seed, flat.device)
+    vr = (rank - 1) % n
+    for step in range(n - 1):
+        chunk = _padded(buf[(vr - step) % n], rows * sch.block).view(rows, sch.block)
+        wire, sc = ring_pass(_quant_chunk_wire(chunk, sch, stochastic, base, rank, step), group)
+        resident = buf[(vr - step - 1) % n]
+        resident.copy_(_fma(resident, _from_wire(wire, sch), sc))
+    shard = buf[rank]
+    return (_avg(shard, n) if mean else shard.clone()), padded
+
+
+def compressed_all_reduce(x: torch.Tensor, group, seed=0, mean: bool = True) -> torch.Tensor:
+    """8-bit all-reduce: :func:`quantize_int8` on this rank (kernel 8 on a
+    CUDA tensor), every rank's int8 values and scales gathered over n − 1
+    ring passes (the pair as one payload), then dequantized and summed in
+    f32, times 1/n for the mean, cast back to ``x``'s type. The rounding
+    seed is ``seed · 1_000_003 + rank`` in int32 arithmetic, a device
+    tensor (no host sync), so the ranks' noise differs; the result is
+    unbiased and the same on every rank."""
+    n, rank = group.size, group.rank
+    if n == 1:
+        return x
+    rank_seed = _wrap_i32(_seed_base(seed, x.device) + rank)
+    qt = quantize_int8(x.contiguous(), rank_seed)
+    vals = qt.values.new_empty((n, *qt.values.shape))
+    scales = qt.scales.new_empty((n, *qt.scales.shape))
+    vals[rank].copy_(qt.values)
+    scales[rank].copy_(qt.scales)
+    for step in range(n - 1):
+        got_v, got_s = ring_pass([vals[(rank - step) % n], scales[(rank - step) % n]], group)
+        vals[(rank - step - 1) % n].copy_(got_v)
+        scales[(rank - step - 1) % n].copy_(got_s)
+    total = (vals.float() * scales).sum(0).reshape(-1)[:qt.size].view(qt.shape)
+    if mean:
+        total = _avg(total, n)
+    return total.to(x.dtype)

@@ -14,14 +14,21 @@ running ``step(x, y, lr=None) -> loss``:
    (``"xla"``: one flat buffer through the process group's own
    ``all_reduce``; ``"ring"``/``"ring2"``/``"naive"``/``"auto"``: per-bucket
    collectives over ``ops.collectives``, CUDA payloads on the ring's CUDA
-   IPC transport), and the loss is averaged by the same algorithm, so an
-   explicit algorithm on CUDA tensors never touches gloo (a gloo op on a
-   CUDA scalar would sync the host every step);
+   IPC transport; ``"q8"``: each float bucket quantized by kernel 8 and
+   gathered; ``"q8_ring"``/``"q8_ring2"``/``"q4_ring"``/``"q4_ring2"``:
+   int8/int4 inside the ring; ``"quant"``: the scheme per dtype from
+   ``DSML_QUANT``), and the loss is averaged by the same algorithm, or by
+   the full-precision ``"ring"`` under a quantized one, so an explicit
+   algorithm on CUDA tensors never touches gloo (a gloo op on a CUDA
+   scalar would sync the host every step);
 4. the optimizer runs on every rank on identical gradients, so the
    replicas stay identical.
 
-The quantized algorithms and ``error_feedback`` come with the
-compressed-communication slice (ROADMAP.md queue 1, item 10) and raise.
+``error_feedback=True`` (the quantized ring family and ``"quant"``) keeps
+this rank's f32 residuals in the step (``step.error_feedback``, one per
+trainable parameter in ``named_params`` order): each sync runs on
+``grads + residual`` with deterministic rounding and leaves the new
+residual there.
 """
 
 from __future__ import annotations
@@ -32,9 +39,10 @@ import torch
 
 from dsml_tpu_torch.ops.collectives import ReduceOp, all_reduce
 from dsml_tpu_torch.models.common import count_correct
-from dsml_tpu_torch.parallel.bucketing import (_NOT_PORTED, bucketed_all_reduce,
-                                               default_bucket_mb, is_quantized_algorithm,
-                                               tree_order)
+from dsml_tpu_torch.parallel.bucketing import (bucketed_all_reduce, default_bucket_mb,
+                                               init_error_feedback, is_quantized_algorithm,
+                                               plan_buckets, plan_quant_wire_bytes,
+                                               supports_error_feedback, tree_order)
 
 __all__ = ["make_dp_train_step", "make_eval_step", "named_params", "rank_rows"]
 
@@ -75,13 +83,21 @@ def make_dp_train_step(model, optimizer, mesh=None, algorithm: str = "xla", axis
     ``DSML_BUCKET_MB`` default (4 MiB), a number = that many MiB per
     bucket, ``None`` = one flat buffer. ``lr`` sets every group's learning
     rate before the update. Returns the mean loss over the global batch (a
-    device scalar, identical on every rank)."""
-    if error_feedback:
-        raise NotImplementedError("error_feedback " + _NOT_PORTED)
-    if is_quantized_algorithm(algorithm):
-        raise NotImplementedError(f"algorithm={algorithm!r} " + _NOT_PORTED)
-    if algorithm not in ("xla", "ring", "ring2", "naive", "auto"):
+    device scalar, identical on every rank).
+
+    ``error_feedback=True`` needs a ring-family algorithm or ``"quant"``
+    (else ``ValueError``, as in the JAX package); the residuals start at
+    zero and live in ``step.error_feedback`` (readable and settable, e.g.
+    to restore them from a checkpoint). ``step.quant_wire_bytes`` is the
+    plan's per-rank wire bytes a sync by scheme
+    (``bucketing.plan_quant_wire_bytes``; empty for a full-precision
+    algorithm or without a group)."""
+    if algorithm not in ("xla", "ring", "ring2", "naive", "auto") and \
+            not is_quantized_algorithm(algorithm):
         raise ValueError(f"unknown gradient sync algorithm {algorithm!r}")
+    if error_feedback and not supports_error_feedback(algorithm):
+        raise ValueError(f"error_feedback=True requires a quantized ring algorithm "
+                         f"(q8_ring/q8_ring2/q4_ring/q4_ring2/quant), got {algorithm!r}")
     if bucket_size_mb == "auto":
         bucket_size_mb = default_bucket_mb()
     if algorithm == "xla":
@@ -90,6 +106,8 @@ def make_dp_train_step(model, optimizer, mesh=None, algorithm: str = "xla", axis
     loss_fn = loss_fn or model.loss
     params = [p for _, p in named_params(model, optimizer)]
     device = params[0].device
+    # the loss mean is exact: a quantized name is no all_reduce algorithm
+    loss_algorithm = "ring" if is_quantized_algorithm(algorithm) else algorithm
 
     def step(x, y, lr: float | None = None):
         x = rank_rows(x, group).to(device)
@@ -100,8 +118,13 @@ def make_dp_train_step(model, optimizer, mesh=None, algorithm: str = "xla", axis
         loss = loss.detach()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         if group is not None:
-            grads = bucketed_all_reduce(grads, group, ReduceOp.AVG, algorithm, bucket_size_mb)
-            loss = all_reduce(loss, group, ReduceOp.AVG, algorithm)
+            if error_feedback:
+                grads, step.error_feedback = bucketed_all_reduce(
+                    grads, group, ReduceOp.AVG, algorithm, bucket_size_mb,
+                    error_feedback=step.error_feedback)
+            else:
+                grads = bucketed_all_reduce(grads, group, ReduceOp.AVG, algorithm, bucket_size_mb)
+            loss = all_reduce(loss, group, ReduceOp.AVG, loss_algorithm)
         for p, g in zip(params, grads):
             p.grad = g
         if lr is not None:
@@ -110,6 +133,11 @@ def make_dp_train_step(model, optimizer, mesh=None, algorithm: str = "xla", axis
         optimizer.step()
         return loss
 
+    step.error_feedback = init_error_feedback(params) if error_feedback else None
+    step.quant_wire_bytes = {}
+    if group is not None and is_quantized_algorithm(algorithm):
+        plan = plan_buckets(params, bucket_size_mb if bucket_size_mb is not None else float("inf"))
+        step.quant_wire_bytes = plan_quant_wire_bytes(plan, group.size, algorithm)
     return step
 
 

@@ -13,14 +13,16 @@ rank is one process running :func:`make_hybrid_train_step`'s ``step``:
    attention, the rank's own cross-entropy) is scaled by 1/cp and
    differentiated, so the ring attention's backward carries every rank's
    cotangents of this rank's K/V home; the gradients are then summed over
-   the cp group (gloo ``all_reduce`` of one flat buffer; gloo takes CUDA
-   tensors), the global mean loss likewise;
+   the cp group (one flat buffer through the ring all-reduce: gloo for
+   CPU tensors, the CUDA IPC transport for CUDA tensors), the global mean
+   loss likewise;
 3. on dp, the microbatch gradients of the rank's rows are summed and
    divided by ``grad_accum``, then averaged over the dp group once per
    step: ``dp_sync="xla"`` through the process group's own ``all_reduce``
-   of one flat buffer, any explicit algorithm through
-   ``parallel.bucketing.bucketed_all_reduce`` (the JAX step's explicit
-   sync, ``dsml_tpu/parallel/hybrid.py:281-345``);
+   of one flat buffer, any explicit algorithm, the quantized ones
+   included, through ``parallel.bucketing.bucketed_all_reduce`` (the JAX
+   step's explicit sync, ``dsml_tpu/parallel/hybrid.py:281-345``), so
+   quantization noise enters once per step, not once per microbatch;
 4. clip by global norm (optax's rule) and the optimizer run on every rank
    on identical gradients, so the replicas stay identical.
 
@@ -32,11 +34,9 @@ in the JAX package.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from dsml_tpu_torch.ops.collectives import ReduceOp, all_reduce
-from dsml_tpu_torch.parallel.bucketing import (_NOT_PORTED as _QUANT_NOT_PORTED,
-                                               bucketed_all_reduce, default_bucket_mb,
+from dsml_tpu_torch.parallel.bucketing import (bucketed_all_reduce, default_bucket_mb,
                                                is_quantized_algorithm)
 from dsml_tpu_torch.parallel.dp import named_params, rank_rows
 from dsml_tpu_torch.parallel.mesh import _NOT_PORTED, Mesh
@@ -105,9 +105,12 @@ def make_hybrid_train_step(model, optimizer, mesh: Mesh, attn_impl: str | None =
     whose gradients are summed and divided by ``grad_accum`` (as the JAX
     step). ``dp_sync`` picks the dp gradient sync: ``"xla"``, the process
     group's own ``all_reduce``, or an explicit algorithm (``"ring"``,
-    ``"ring2"``, ``"naive"``, ``"auto"``) through
-    ``bucketed_all_reduce`` with ``bucket_size_mb`` (``"auto"`` = the
-    ``DSML_BUCKET_MB`` default, ``None`` = one buffer), once per step.
+    ``"ring2"``, ``"naive"``, ``"auto"``, or a quantized one: ``"q8"``,
+    ``"q8_ring"``, ``"q8_ring2"``, ``"q4_ring"``, ``"q4_ring2"``,
+    ``"quant"``) through ``bucketed_all_reduce`` with ``bucket_size_mb``
+    (``"auto"`` = the ``DSML_BUCKET_MB`` default, ``None`` = one buffer),
+    once per step. Error feedback is the dp step's option
+    (``parallel.dp.make_dp_train_step``), as in the JAX package.
     ``clip_norm > 0`` clips the synced gradients by global norm (the JAX
     example's ``optax.chain`` puts the clip in the optimizer); ``lr`` sets
     every group's learning rate before the update. Returns the global mean
@@ -119,8 +122,8 @@ def make_hybrid_train_step(model, optimizer, mesh: Mesh, attn_impl: str | None =
         if busy:
             raise ValueError(f"dp_sync={dp_sync!r} requires a dp-only mesh; got {busy} — "
                              "use dp_sync='xla' on multi-axis meshes")
-        if is_quantized_algorithm(dp_sync):
-            raise NotImplementedError(f"dp_sync={dp_sync!r} " + _QUANT_NOT_PORTED)
+    # the loss mean is exact: a quantized name is no all_reduce algorithm
+    loss_sync = "ring" if is_quantized_algorithm(dp_sync) else dp_sync
     mb = default_bucket_mb() if bucket_size_mb == "auto" else bucket_size_mb
     seq_group, dp_group = _seq_group(mesh), mesh.group("dp")
     if attn_impl is None:
@@ -146,18 +149,18 @@ def make_hybrid_train_step(model, optimizer, mesh: Mesh, attn_impl: str | None =
             loss += micro_loss.detach().float()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         if seq_group is not None:
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            dist.all_reduce(flat, group=seq_group.pg)
+            flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), seq_group,
+                              ReduceOp.SUM, "ring")
             torch._foreach_copy_(grads, [part.view_as(g) for part, g in zip(
                 flat.split([g.numel() for g in grads]), grads)])
-            dist.all_reduce(loss, group=seq_group.pg)
+            loss = all_reduce(loss, seq_group, ReduceOp.SUM, "ring")
         if grad_accum > 1:
             torch._foreach_div_(grads, grad_accum)
         loss = loss / (n_seq * grad_accum)
         if dp_group is not None:
             grads = bucketed_all_reduce(grads, dp_group, ReduceOp.AVG, dp_sync,
                                         None if dp_sync == "xla" else mb)
-            loss = all_reduce(loss, dp_group, ReduceOp.AVG, dp_sync)
+            loss = all_reduce(loss, dp_group, ReduceOp.AVG, loss_sync)
         for p, g in zip(params, grads):
             p.grad = g
         if clip_norm > 0:

@@ -17,11 +17,16 @@ dp > 1 (``parallel.mesh.data_mesh``, one process a rank), every rank runs
 the loop on its rows of the same global batches, syncing with
 ``cfg.algorithm``; eval counts are summed over the ranks, and rank 0 logs.
 
-Not ported yet, and raising: the quantized algorithms and
-``error_feedback`` (the compressed-communication slice),
-``checkpoint_dir``/``resume`` (the checkpointing slice) and the
-``plateau`` schedule. The observability hooks (sentinels, hang watch,
-flight recorder, memory ledger) come with the observability slice.
+``cfg.algorithm`` takes every sync of the dp step, the quantized ones
+(``q8``, the ``q8_ring``/``q4_ring`` family, ``quant``) included;
+``cfg.error_feedback`` keeps each rank's compression residuals in the step
+(zero at the start; they ride no checkpoint until checkpointing is
+ported).
+
+Not ported yet, and raising: ``checkpoint_dir``/``resume`` (the
+checkpointing slice) and the ``plateau`` schedule. The observability
+hooks (sentinels, hang watch, flight recorder, memory ledger) come with
+the observability slice.
 """
 
 from __future__ import annotations
@@ -54,8 +59,8 @@ class TrainConfig(Config):
     warmup_steps: int = field(0, help="linear warmup steps for the schedule")
     plateau_patience: int = field(5, help="plateau schedule: epochs-worth of steps without improvement before decaying (not ported yet)")
     plateau_factor: float = field(0.5, help="plateau schedule: lr decay factor (not ported yet)")
-    algorithm: str = field("xla", help="gradient sync: xla | ring | ring2 | auto | naive (the quantized algorithms come with the compressed-communication slice)")
-    error_feedback: bool = field(False, help="error-feedback residuals for quantized sync (compressed-communication slice)")
+    algorithm: str = field("xla", help="gradient sync: xla | ring | ring2 | auto | naive | q8 (int8 gather) | q8_ring | q8_ring2 | q4_ring | q4_ring2 (block-quantized ring schedules) | quant (per dtype from DSML_QUANT)")
+    error_feedback: bool = field(False, help="error-feedback residuals for quantized ring sync (q8_ring/q8_ring2/q4_ring/q4_ring2/quant): each rank's compression error re-enters the next step's gradients")
     bucket_mb: float = field(0.0, help="explicit-sync gradient bucket size in MiB (0 = the DSML_BUCKET_MB default, currently 4; negative = single buffer)")
     dp: int = field(0, help="data-parallel ranks (0 or 1 = this device; more needs a mesh of that many processes)")
     seed: int = field(0, help="init + shuffle seed")

@@ -40,6 +40,15 @@ DTYPES = {
     "int32_signed": (np.int32, torch.int32, -100, 100),
 }
 WIDE = ("uint8_wrap", "int32_signed")
+# the "xla" route's two faults (ROADMAP queue 3, faults 2 and 3): an integer
+# AVG (three rows of the fault's report and a fourth for n = 4) and bf16
+# rows of 4096 values, first n rows at world size n
+FAULT_INT_ROWS = np.array([[1, 2, 7], [2, 2, 1], [4, 3, 5], [6, 0, 9]], np.int32)
+FAULT_INT_ALGS = ("xla", "ring", "naive")
+
+
+def _fault_bf16_rows(n):
+    return (np.random.default_rng(0).random((4, 4096)) * 2 - 1)[:n]
 
 
 def _cases(name):
@@ -91,6 +100,12 @@ def _rank_worker(rank, n, tmp):
         out[f"rs/{op.name}"] = shard
         out[f"rs_gather/{op.name}"] = C.all_gather(shard, group)
     out["all_gather_untiled"] = C.all_gather(big, group, axis=1, tiled=False)
+    ints = torch.from_numpy(FAULT_INT_ROWS[rank])
+    for alg in FAULT_INT_ALGS:
+        out[f"fault2/{alg}"] = C.all_reduce(ints, group, C.ReduceOp.AVG, alg)
+    bf16 = _port_input(_fault_bf16_rows(n)[rank], torch.bfloat16)
+    for op in (C.ReduceOp.SUM, C.ReduceOp.AVG):
+        out[f"fault3/{op.name}"] = C.all_reduce(bf16, group, op, "xla")
     for op in (C.ReduceOp.SUM, C.ReduceOp.MAX):
         shard, padded = C.flat_reduce_scatter(f32, group, op)
         out[f"flat/{op.name}"] = C.flat_all_gather(shard, group, f32.numel())
@@ -142,6 +157,79 @@ def jax_rings(devices8):
                                         check_vma=False))(inputs)
             out[(n, name)] = {k: np.asarray(v) for k, v in res.items()}
     return out
+
+
+def _jax_xla(devices8, n, x, op):
+    """The JAX package's ``all_reduce(..., "xla")`` of the rows ``x`` [n, ...]
+    under ``shard_map`` on ``devices8[:n]`` → [n, ...] numpy."""
+    import jax
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+
+    from dsml_tpu.ops import collectives as JC
+
+    mesh = Mesh(np.asarray(devices8[:n]), ("dev",))
+    fn = jax.jit(jax.shard_map(lambda s: JC.all_reduce(s[0], "dev", JC.ReduceOp(int(op)), "xla")[None],
+                               mesh=mesh, in_specs=P("dev"), out_specs=P("dev"), check_vma=False))
+    return np.asarray(fn(x))
+
+
+@pytest.mark.parametrize("n", WORLD_SIZES)
+def test_xla_integer_avg_is_float32_as_jax(port_runs, devices8, n):
+    """Queue 3 fault 2: an integer AVG through ``"xla"`` returns float32,
+    as ``lax.pmean`` does, bit for bit with the JAX package (its mean is
+    the int sum times the f32 reciprocal of n: at n = 3 the rows [1, 2, 7],
+    [2, 2, 1], [4, 3, 5] give [2.3333335, 2.3333335, 4.3333335]); the ring
+    and naive routes keep int32 (truncating), as the JAX rings do."""
+    want = _jax_xla(devices8, n, FAULT_INT_ROWS[:n], C.ReduceOp.AVG)
+    assert want.dtype == np.float32
+    for r, ranks in enumerate(port_runs[n]):
+        got = ranks["fault2/xla"]
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want[r])
+        for alg in ("ring", "naive"):
+            got = ranks[f"fault2/{alg}"]
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), (FAULT_INT_ROWS[:n].sum(0) // n))
+    if n == 3:
+        np.testing.assert_array_equal(port_runs[3][0]["fault2/xla"].numpy(),
+                                      np.float32([7, 7, 13]) * np.float32(1 / 3))
+
+
+def test_xla_integer_avg_at_one_rank_is_float32_as_jax(devices8):
+    """Fault 2 at n = 1: ``lax.pmean`` of an int32 row is float32 there too."""
+    want = _jax_xla(devices8, 1, FAULT_INT_ROWS[:1], C.ReduceOp.AVG)[0]
+    got = C.all_reduce(torch.from_numpy(FAULT_INT_ROWS[0]), RingGroup(None, [0], 0, "cpu"),
+                       C.ReduceOp.AVG, "xla")
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n", WORLD_SIZES)
+def test_xla_bf16_reduces_in_f32_as_jax(port_runs, devices8, n):
+    """Queue 3 fault 3: a bf16 SUM or AVG through ``"xla"`` is reduced in
+    f32 and rounded to bf16 once. It equals the JAX package's
+    ``lax.psum``/``lax.pmean`` on CPU devices bit for bit, at n = 2, 3 and
+    4 (before the repair gloo rounded every partial sum: 1273 of 4096
+    elements differed at n = 4). The SUM lies within one bf16 rounding of
+    the exact sum of the bf16 inputs; the AVG, as ``lax.pmean``, is that
+    rounded sum times the f32 reciprocal of n, rounded once more."""
+    x = _fault_bf16_rows(n)
+    xb = torch.from_numpy(x).float().to(torch.bfloat16)
+    import jax.numpy as jnp
+
+    for op in (C.ReduceOp.SUM, C.ReduceOp.AVG):
+        want = _jax_xla(devices8, n, jnp.asarray(x).astype(jnp.bfloat16), op)
+        exact = xb.double().sum(0)  # exact in f32 too: four bf16 values in (-1, 1)
+        if op == C.ReduceOp.AVG:
+            exact = exact.float().to(torch.bfloat16).double() / n
+        _, e = torch.frexp(exact.float())
+        half_ulp = torch.ldexp(torch.ones_like(exact), e - 9)  # half of 2^-7 of the binade
+        for r, ranks in enumerate(port_runs[n]):
+            got = ranks[f"fault3/{op.name}"]
+            assert got.dtype == torch.bfloat16
+            np.testing.assert_array_equal(_bits(got), _jax_bits(want[r]), err_msg=op.name)
+            assert bool(((got.double() - exact).abs() <= half_ulp).all()), op.name
 
 
 def _jax_bits(a: np.ndarray) -> np.ndarray:

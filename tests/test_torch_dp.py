@@ -503,29 +503,36 @@ def test_train_gpt2_cli_dp2_on_cpu(capfd):
 
 @pytest.mark.parametrize("algorithm", ["q8", "q8_ring", "q8_ring2", "q4_ring", "q4_ring2", "quant"])
 def test_quantized_algorithms_raise_naming_item_10(algorithm):
+    """Item 10 (compressed communication) is ported: no entry point raises
+    for a quantized algorithm any more. The dp step and the hybrid step
+    build with it, and the bucketed sync over a group of one is the
+    identity (``tests/test_torch_quant_sync.py`` holds the syncs against
+    the JAX package)."""
     model = MLP((4, 2), device="cpu").init(0)
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_dp_train_step(model, opt, None, algorithm=algorithm)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        B.bucketed_all_reduce([torch.ones(3)], RingGroup(None, [0], 0, "cpu"), ReduceOp.AVG,
-                              algorithm, 1.0)
+    assert callable(make_dp_train_step(model, opt, None, algorithm=algorithm))
+    x = torch.ones(3)
+    for mb in (1.0, None):
+        got = B.bucketed_all_reduce([x], RingGroup(None, [0], 0, "cpu"), ReduceOp.AVG, algorithm, mb)
+        assert torch.equal(got[0], x)
     mesh = Mesh(MeshSpec(dp=2).resolved(2), 0, torch.device("cpu"), {})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        thybrid.make_hybrid_train_step(tgpt2.GPT2(tgpt2.GPT2Config.tiny(), device="cpu"),
-                                       opt, mesh, dp_sync=algorithm)
+    assert callable(thybrid.make_hybrid_train_step(tgpt2.GPT2(tgpt2.GPT2Config.tiny(), device="cpu"),
+                                                   opt, mesh, dp_sync=algorithm))
 
 
 def test_error_feedback_dp_cp_and_bad_options_raise(tmp_path):
     data = tdata.synthetic_classification(64, 4, 2)
     model = MLP((4, 2), device="cpu").init(0)
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
-    with pytest.raises(NotImplementedError, match="error_feedback .*item 10"):
-        make_dp_train_step(model, opt, None, algorithm="q8_ring", error_feedback=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # error feedback pairs with the quantized ring family only (ValueError,
+    # as in the JAX package); with it, it builds
+    assert make_dp_train_step(model, opt, None, algorithm="q8_ring", error_feedback=True)
+    with pytest.raises(ValueError, match="error_feedback"):
+        make_dp_train_step(model, opt, None, algorithm="ring", error_feedback=True)
+    with pytest.raises(ValueError, match="error_feedback"):
         B.bucketed_all_reduce([torch.ones(3)], RingGroup(None, [0], 0, "cpu"),
                               error_feedback=[torch.zeros(3)])
-    with pytest.raises(NotImplementedError, match="compressed-communication"):
+    with pytest.raises(ValueError, match="error_feedback"):
         Trainer(model, TrainConfig(epochs=1, batch_size=8, error_feedback=True)).train(data)
     with pytest.raises(ValueError, match="unknown gradient sync algorithm"):
         make_dp_train_step(model, opt, None, algorithm="bogus")
