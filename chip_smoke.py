@@ -37,7 +37,18 @@ before the path and read just after):
   sync (the stochastic int8 quantizer kernel on every float bucket, then
   an int8 gather over the IPC ring), q8_ring2 and q8_ring2 with error
   feedback, and the MNIST ``Trainer`` at dp = 2 full-precision and
-  compressed; before it, the quantized all-reduces on their own.
+  compressed; before it, the quantized all-reduces on their own;
+- Llama, at the full width of TinyLlama-1.1B (22 × 2048, 32 query / 4 kv
+  heads, vocab 32000, weights from seed 0): train steps at batch 2 × 2048
+  in bf16 (the JAX bench's llama1b row: flash kernels 1–3 over K/V
+  repeated to the query heads, the chunked loss through the untied
+  lm_head, AdamW); ``ContinuousBatcher(paged_kv="int4")`` on 48 requests
+  through the pipelined paged kernel, plain and with the speculative tick
+  (prompt-lookup drafts, one W = 4 verify call a tick over the GQA pages),
+  and at f32 through the single-buffer kernel; the dense int8-KV batcher
+  under turbo, adaptive and plain ticks; and the ``train_gpt2``,
+  ``serve_continuous`` and ``decode_speculative`` entry points with
+  ``--family llama``.
 
 Each phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit and no result line. The line before the last is the card's
@@ -91,8 +102,24 @@ buckets, peak memory and IPC slot bytes, a traced step; then q8, q8_ring2
 and q8_ring2 with error feedback from the same weights: kernel 8 once per
 float bucket a q8 step, step and sync ms, wire bytes, losses within 0.06
 of the ring's, identical replicas; the MNIST Trainer under ring and
-q8_ring2 with error feedback); dp_cli (``train_gpt2 --dp 2``); kernels
-(one line for the run; kernel 8's entry counts both of its paths).
+q8_ring2 with error feedback); dp_cli (``train_gpt2 --dp 2``); llama_cli
+(the three Llama entry points as processes, started before the Llama
+weights are built and waited for before any Llama phase: each exit code
+0 and its closing log line); llama_kernel (kernels 1–3 at [64, 2048, 64]
+bf16 causal and kernels 5–6 at the Llama decode, W = 4 verify and
+256-row chunk shapes with int4 pages and rep 8, each against its plain
+version, then kernel_time lines beside the bounds); llama_train (22
+launches of kernels 1–3 a step, step ms, tokens/s, MFU, peak memory, a
+first loss within 0.5 of ln 32000 that falls, a traced step); llama_serve
+(tokens/s, verify ticks, acceptance and committed-token EWMAs, 22
+launches a dispatch, every request complete and every page back, the
+idle share of a plain and of a speculative tick; the same drain at f32,
+speculative tokens equal to plain ones wherever the top-2 margin exceeds
+1e-3); llama_ticks (identical tokens under turbo, adaptive and plain
+ticks, tokens/s, tick counts, host syncs a decode tick; the adaptive
+tick's EOS branch: tokens cut at the EOS, read-backs, dropped steps); kernels (one line for the run; kernel
+8's entry counts both of its paths, kernels 1–3, 5 and 6 their Llama
+paths too).
 
 Float32 matmuls stay in full f32 (TF32 off, PyTorch's default, set here
 explicitly): the f32 phases compare two paths at f32 tolerances.
@@ -907,7 +934,7 @@ def paged_case(dev, rng, gen, b, hq, hkv, hd, n_pt, positions, q_dtype, mode):
             torch.as_tensor(positions, dtype=torch.int32, device=dev))
 
 
-def paged_bound_ms(q, pool, positions):
+def paged_bound_ms(q, pool, table, positions):
     """Least time of one paged-attention call: the larger of its bytes (the
     live K and V rows and their scales — positions 0..max_pos of each slot,
     every kv head — q and out once, the table and positions) over the
@@ -920,7 +947,7 @@ def paged_bound_ms(q, pool, positions):
     live_rows = int((pos.amax(1) + 1).clamp_min(0).sum())
     kept = int((pos + 1).clamp_min(0).sum()) * hq
     nbytes = (live_rows * hkv * row + 2 * q.numel() * q.element_size()
-              + pos.numel() * 4 + b * (1024 // PAGE) * 4)
+              + pos.numel() * 4 + table.numel() * 4)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = 4.0 * hd * kept / PEAK_FLOPS[torch.bfloat16] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -959,7 +986,7 @@ def paged_time(dev, cases):
         call = (*args, mode)
         per_kernel = paged_kernel_ms(tpa, call)
         plain_ms = cuda_ms(lambda: tpa._paged_attention_reference(*call))
-        bound_ms, bound_by = paged_bound_ms(args[0], args[1], args[3])
+        bound_ms, bound_by = paged_bound_ms(*args)
         for name in ("paged_attn", "paged_attn_pipelined"):
             pipe = name == "paged_attn_pipelined"
             timing.setdefault(name, {})[shape] = {
@@ -2946,6 +2973,441 @@ def phase_dp_cli():
           f"the train_gpt2 --dp 2 entry point: {out}")
 
 
+# ---- Llama: TinyLlama-1.1B trained and served ------------------------------------
+
+LLAMA_HEADS, LLAMA_KV_HEADS = 32, 4  # TinyLlama-1.1B: head_dim 64, 8 query heads a kv head
+LLAMA_TRAIN_B, LLAMA_TRAIN_S = 2, 2048  # the JAX bench's llama1b row
+LLAMA_TRAIN_WARMUP, LLAMA_TRAIN_STEPS = 2, 4
+LLAMA_SPEC_WINDOW = 4
+# the JAX bench's Llama serving row (bench.py::_bench_serving_llama_kvquant), at full width
+LLAMA_TICK_SLOTS, LLAMA_TICK_QUANTUM, LLAMA_TICK_PROMPT, LLAMA_TICK_NEW = 8, 8, 128, 64
+LLAMA_TURBO, LLAMA_ADAPTIVE = 4, 32
+LLAMA_LOSS_AT_INIT = float(np.log(32000))  # a uniform guess over the vocabulary
+
+
+@functools.lru_cache(maxsize=1)
+def llama_weights():
+    """TinyLlama-1.1B's f32 weights from seed 0 (``Llama.init``: the JAX
+    init's numpy draws), built once on the host for every Llama phase."""
+    from dsml_tpu_torch.models.llama import Llama, LlamaConfig
+
+    return Llama(LlamaConfig.tinyllama_1b(), device="cpu").init(0).state_dict()
+
+
+def llama_model(dev, **replace):
+    """TinyLlama-1.1B on ``dev`` with ``replace`` applied to its config,
+    holding :func:`llama_weights` (rounded to bf16 for a bf16 model)."""
+    from dsml_tpu_torch.models.llama import Llama, LlamaConfig
+
+    model = Llama(dataclasses.replace(LlamaConfig.tinyllama_1b(), **replace), device=dev)
+    model.load_state_dict(llama_weights())
+    return model
+
+
+def llama_cli_start():
+    """Start the three Llama entry points as processes on the card (no
+    ``--device``): ``train_gpt2`` trains TinyLlama-1.1B for 3 steps,
+    ``serve_continuous`` serves the tiny Llama under turbo ticks and
+    ``decode_speculative`` decodes TinyLlama-1.1B in f32. They run while
+    this process builds its own TinyLlama weights (host work) and are
+    waited for before any Llama phase is timed."""
+    entries = {
+        "train_gpt2": ["dsml_tpu_torch.cli.train_gpt2", "--family", "llama", "--model",
+                       "tinyllama_1b", "--attn", "flash", "--dtype", "bfloat16", "--steps", "3",
+                       "--batch_size", "2", "--grad_accum", "1", "--log_every", "1",
+                       "--warmup_steps", "1"],
+        "serve_continuous": ["dsml_tpu_torch.cli.serve_continuous", "--family", "llama",
+                             "--turbo", "4"],
+        "decode_speculative": ["dsml_tpu_torch.cli.decode_speculative", "--family", "llama",
+                               "--model", "tinyllama_1b"],
+    }
+    root = os.path.dirname(os.path.abspath(__file__))
+    return {name: subprocess.Popen([sys.executable, "-m", *args], cwd=root, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True)
+            for name, args in entries.items()}
+
+
+def phase_llama_cli(procs):
+    """Wait for the entry points of :func:`llama_cli_start` and check each
+    exit code and its closing log line."""
+    want = {"train_gpt2": "dsml.gpt2: step 3: loss =",
+            "serve_continuous": "dsml.serve: tokens/s: continuous",
+            "decode_speculative": "tokens identical to greedy generate"}
+    t_phase = time.perf_counter()
+    row, failed = {"phase": "llama_cli"}, []
+    for name, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        lines = [line for line in out.splitlines() if "dsml." in line]
+        ok = proc.returncode == 0 and want[name] in out
+        row[name] = {"exit_code": proc.returncode, "ok": ok, "log_tail": lines[-4:]}
+        if not ok:
+            failed.append(f"{name} (exit {proc.returncode}):\n{out[-3000:]}")
+    row["seconds_waited"] = time.perf_counter() - t_phase
+    emit(row)
+    check(not failed, "a Llama entry point failed: " + "\n".join(failed))
+
+
+def phase_llama_kernel(tflash, dev):
+    """Kernels 1–3 at TinyLlama-1.1B's train shape, [64, 2048, 64] bf16
+    causal (K/V repeated to the 32 query heads), and kernels 5–6 at its
+    serving shapes (16 slots, 4 kv heads under 32 query heads, hd 64, int4
+    pages, bf16 q: decode, the W = 4 verify window, a 256-row chunk; and
+    f32 q at decode and verify, the f32 drains' shape), each against its
+    plain version as the kernel, kernel_bwd and kernel_paged phases hold
+    them; then kernel_time lines beside the bounds."""
+    from dsml_tpu_torch.ops import paged_attention as tpa
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    bh, s, d, dt = LLAMA_TRAIN_B * LLAMA_HEADS, LLAMA_TRAIN_S, D, torch.bfloat16
+    q, k, v, do = (torch.randn(bh, s, d, generator=gen, device=dev).to(dt) for _ in range(4))
+    tflash.flash_fwd_launches = 0
+    out, lse = tflash.flash_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = tflash._flash_fwd_reference(q, k, v, True)
+    errs = {"out": (out.float() - ref_out.float()).abs().max().item(),
+            "lse": (lse - ref_lse).abs().max().item()}
+    ok = (tflash.flash_fwd_launches == 1 and bool(torch.isfinite(out).all())
+          and errs["out"] <= TOL[dt]["out"] and errs["lse"] <= TOL[dt]["lse"])
+    emit({"phase": "llama_kernel", "kernel": "flash_fwd", "shape": [bh, s, d], "dtype": "bfloat16",
+          "causal": True, "max_abs_err": errs, "tol": TOL[dt], "ok": ok})
+    check(ok, f"flash_fwd at the Llama train shape: {errs}")
+    before = bwd_counts(tflash)
+    got = tflash.flash_bwd(q, k, v, ref_out, ref_lse, do)
+    torch.cuda.synchronize()
+    launched = {name: n - before[name] for name, n in bwd_counts(tflash).items()}
+    want = tflash._flash_bwd_reference(q, k, v, ref_out, ref_lse, do)
+    bwd_errs, rel = {}, 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        bwd_errs[name] = (g.float() - w.float()).abs().max().item()
+        rel = max(rel, bwd_errs[name] / max(w.float().abs().max().item(), 1e-30))
+    ok = (launched == {name: int(name in BWD_KERNELS[dt]) for name in launched}
+          and all(bool(torch.isfinite(g).all()) for g in got) and rel <= TOL_BWD[dt])
+    emit({"phase": "llama_kernel", "kernels": list(BWD_KERNELS[dt]), "shape": [bh, s, d],
+          "dtype": "bfloat16", "causal": True, "launched": launched, "max_abs_err": bwd_errs,
+          "max_err_over_max_abs": rel, "tol": TOL_BWD[dt], "ok": ok})
+    check(ok, f"flash_bwd at the Llama train shape: launched {launched}, rel err {rel}")
+    del got, want
+
+    timing = {}
+    q4, k4, v4 = (t.view(LLAMA_TRAIN_B, LLAMA_HEADS, s, d) for t in (q, k, v))
+    fwd_bound, fwd_by = attention_bound_ms(bh, s, s, d, dt, True)
+    timing["flash_fwd"] = {
+        "ms": device_ms(functools.partial(tflash.flash_fwd, q, k, v, True), pattern="flash_fwd_kernel<"),
+        "plain_ms": cuda_ms(functools.partial(tflash._flash_fwd_reference, q, k, v, True), reps=5,
+                            warmup=1),
+        "bound_ms": fwd_bound, "bound_by": fwd_by,
+        "library_ms": device_ms(functools.partial(F.scaled_dot_product_attention, q4, k4, v4,
+                                                  is_causal=True))}
+    call = functools.partial(tflash.flash_bwd, q, k, v, ref_out, ref_lse, do)
+    plain_bwd = cuda_ms(functools.partial(tflash._flash_bwd_reference, q, k, v, ref_out, ref_lse,
+                                          do), reps=5, warmup=1)
+    qg, kg, vg, dog = (t.view(LLAMA_TRAIN_B, LLAMA_HEADS, s, d).detach().requires_grad_()
+                       for t in (q, k, v, do))
+
+    def sdpa(backward):
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        if backward:
+            torch.autograd.grad(o, (qg, kg, vg), dog)
+
+    library_bwd = (device_ms(functools.partial(sdpa, True), reps=10)
+                   - device_ms(functools.partial(sdpa, False), reps=10))
+    for name, products, n_out in zip(BWD_KERNELS[dt], (3, 4), (1, 2)):
+        bound_ms, bound_by = backward_bound_ms(bh, s, s, d, dt, True, products, n_out)
+        timing[name] = {"ms": device_ms(call, reps=10, pattern=f"{name}_kernel<"),
+                        "plain_ms": plain_bwd, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_bwd}
+    emit({"phase": "kernel_time", "path": "llama", "shape": [bh, s, d], "dtype": "bfloat16",
+          "causal": True, **timing, "note": "ms and library_ms profiler device time, plain_ms CUDA "
+          "events (the plain versions' ~20 launches a call made whole profiler traces flaky); "
+          "the backward's plain_ms and library_ms are whole backwards (dq, dk and dv), "
+          "library_ms SDPA forward+backward minus forward"})
+    del q, k, v, do, out, lse, ref_out, ref_lse, q4, k4, v4, qg, kg, vg, dog
+
+    # kernels 5 and 6 at the Llama serving shapes, through the kernel_paged checks
+    rng = np.random.default_rng(12)
+    n_pt = 2048 // PAGE
+    depths = rng.integers(1, 2048, PAGED_SLOTS)
+    decode_pos = (depths - 1)[:, None].copy()
+    decode_pos[[5, 9]] = -1  # dead slots
+    shapes = {
+        "llama_decode": (PAGED_SLOTS, decode_pos),
+        "llama_verify": (PAGED_SLOTS, rng.integers(0, 2044, PAGED_SLOTS)[:, None]
+                         + np.arange(LLAMA_SPEC_WINDOW)[None, :]),
+        "llama_chunk": (1, (512 + np.arange(PAGED_CHUNK))[None, :]),
+    }
+    paged_err, paged_timing = 0.0, {}
+    for shape, (b, positions) in shapes.items():
+        for q_dtype in (torch.bfloat16, torch.float32):
+            if shape == "llama_chunk" and q_dtype == torch.float32:
+                continue  # f32 drains prefill chunks too, but chunks are the bf16 path's shape
+            args = paged_case(dev, rng, gen, b, LLAMA_HEADS, LLAMA_KV_HEADS, D, n_pt, positions,
+                              q_dtype, "int4")
+            err = paged_check(dev, tpa, shape, args, "int4", q_dtype, positions)
+            if q_dtype == torch.bfloat16:
+                paged_err = max(paged_err, err)
+                call = (*args, "int4")
+                per_kernel = paged_kernel_ms(tpa, call)
+                bound_ms, bound_by = paged_bound_ms(*args)
+                plain_ms = cuda_ms(lambda: tpa._paged_attention_reference(*call))
+                for name in ("paged_attn", "paged_attn_pipelined"):
+                    paged_timing.setdefault(name, {})[shape] = {
+                        "ms": per_kernel[name], "call_device_ms": per_kernel[f"{name}_call"],
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None}
+    emit({"phase": "kernel_time", "path": "llama", "kernels": ["paged_attn", "paged_attn_pipelined"],
+          "shapes": {"llama_decode": "16 slots, depths 1-2047 (2 dead)",
+                     "llama_verify": f"16 slots, W = {LLAMA_SPEC_WINDOW}",
+                     "llama_chunk": f"{PAGED_CHUNK} rows from 512"},
+          "hq": LLAMA_HEADS, "hkv": LLAMA_KV_HEADS, "hd": D, "page": PAGE, "q": "bfloat16",
+          "codec": "int4", **paged_timing, "phase_seconds": time.perf_counter() - t_phase})
+    return {"flash_err": errs["out"], "bwd_err": bwd_errs, "paged_err": paged_err,
+            "timing": timing, "paged_timing": paged_timing}
+
+
+def phase_llama_train(tflash, dev, card):
+    """TinyLlama-1.1B bf16 at batch 2 × 2048 (the JAX bench's llama1b row:
+    flash attention, the chunked loss of 8192 vocabulary rows through the
+    untied lm_head, AdamW(3e-4, weight_decay=0.01), weights from seed 0)
+    on one batch repeated: 22 launches of kernels 1–3 a step, step ms,
+    tokens/s, MFU, peak memory, a first loss near ln 32000 that falls."""
+    from dsml_tpu_torch.models.common import transformer_train_flops
+
+    t_phase = time.perf_counter()
+    model = llama_model(dev, dtype="bfloat16", xent_chunk=8192)
+    cfg = model.config
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LLAMA_TRAIN_B, LLAMA_TRAIN_S)), device=dev)
+    y = torch.roll(x, -1, 1)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(x, y, attn_impl="flash")
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = [step() for _ in range(LLAMA_TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(tflash)  # the main path, counted
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(LLAMA_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / LLAMA_TRAIN_STEPS
+    counts = train_counts(tflash)
+    losses = torch.stack(losses).float().tolist()
+    tokens = LLAMA_TRAIN_B * LLAMA_TRAIN_S
+    flops = transformer_train_flops(cfg, tokens, LLAMA_TRAIN_S, gated_mlp=True)
+    emit({"phase": "llama_train", "model": "tinyllama-1.1b", "params": model.n_params(),
+          "dtype": "bfloat16", "batch": LLAMA_TRAIN_B, "seq": LLAMA_TRAIN_S, "attn_impl": "flash",
+          "xent_chunk": cfg.xent_chunk, "optimizer": "AdamW(3e-4, weight_decay=0.01)",
+          "steps": LLAMA_TRAIN_STEPS, "launches": counts, "step_ms": step_ms,
+          "tokens_per_s": tokens * 1e3 / step_ms, "model_flops_per_step": flops,
+          "mfu": flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "losses": losses,
+          "loss_at_init": LLAMA_LOSS_AT_INIT, "card": card,
+          "phase_seconds": time.perf_counter() - t_phase})
+    want = cfg.n_layer * LLAMA_TRAIN_STEPS
+    check(bf16_step_counts_ok(counts, want, want),
+          f"Llama train steps launched {counts}, expected {want} of the forward and of each "
+          f"tensor-core backward kernel ({cfg.n_layer} per step) and no FMA backward")
+    check(all(np.isfinite(losses)) and abs(losses[0] - LLAMA_LOSS_AT_INIT) < 0.5
+          and losses[-1] < losses[0],
+          f"Llama train loss not finite, near ln 32000 at first and falling: {losses}")
+    phase_train_trace(step, label="llama_train_step")
+    del model, opt
+    return counts
+
+
+def llama_prompts(rng, n):
+    """``n`` prompts of 64–768 tokens that repeat a span of 16–63 random
+    tokens (text that revisits earlier spans, where prompt lookup drafts),
+    with budgets of 16–128 new tokens."""
+    lengths = rng.integers(64, 769, n)
+    budgets = rng.integers(16, 129, n)
+    prompts = [np.resize(rng.integers(0, 32000, int(rng.integers(16, 64))), int(L)).astype(np.int64)
+               for L in lengths]
+    return prompts, budgets, lengths
+
+
+def phase_llama_serve(dev, card):
+    """TinyLlama-1.1B bf16 through ContinuousBatcher(paged_kv="int4",
+    page_size=16, prefill_chunk=256, n_slots=16) on 48 greedy requests
+    submitted at once, a plain drain and then a drain with the speculative
+    tick (W = 4): tokens/s, verify ticks, acceptance and committed-token
+    EWMAs, launches of the pipelined kernel (22 a chunk, tick or verify
+    tick), every request complete, every page back, the idle share of one
+    steady tick of each kind. Then the same 48 requests, 16 slots and
+    budgets at f32 through the single-buffer kernel, plain and speculative:
+    equal tokens wherever the top-2 margin exceeds 1e-3. The drain refills
+    slots while others verify, so it also holds the speculative tick's slot
+    reuse (the per-slot acceptance reset, dummy windows on the scratch page,
+    pages handed to a new request) to the plain tokens. The bf16 drains'
+    tokens are recorded, not compared: bf16 rounding of a window of rows
+    against one row flips near-ties, and a flipped token changes the rest
+    of its request."""
+    from dsml_tpu_torch.ops import paged_attention as tpa
+    from dsml_tpu_torch.serving import ContinuousBatcher
+
+    t_phase = time.perf_counter()
+    model = llama_model(dev, dtype="bfloat16")
+    n_layer = model.config.n_layer
+    prompts, budgets, lengths = llama_prompts(np.random.default_rng(2), PAGED_REQUESTS)
+    kw = dict(paged_kv="int4", page_size=PAGE, prefill_chunk=PAGED_CHUNK, n_slots=PAGED_SLOTS)
+    row = {"phase": "llama_serve", "model": "tinyllama-1.1b", "dtype": "bfloat16",
+           "paged_kv": "int4", "page_size": PAGE, "prefill_chunk": PAGED_CHUNK,
+           "n_slots": PAGED_SLOTS, "requests": PAGED_REQUESTS, "prompt_tokens": int(lengths.sum()),
+           "card": card}
+    counts = {"paged_attn": 0, "paged_attn_pipelined": 0}
+    drains = {}
+    for name, extra in (("plain", {}), ("speculative", dict(speculative_window=LLAMA_SPEC_WINDOW))):
+        srv = ContinuousBatcher(model, **kw, **extra)
+        drain(srv, prompts[:4], [8] * 4)  # warm-up: cuBLAS, the allocator
+        srv.reset_latency_stats()
+        plain0, spec0, pre0 = srv.n_plain_ticks, srv.n_spec_ticks, srv.n_prefill_dispatches
+        tpa.paged_attn_launches = tpa.paged_attn_pipelined_launches = 0  # the main path, counted
+        toks, wall, tick_ms = drain(srv, prompts, budgets)
+        launched = paged_counts(tpa)
+        for key in counts:
+            counts[key] += launched[key]
+        n_chunks = srv.n_prefill_dispatches - pre0
+        n_ticks = (srv.n_plain_ticks - plain0) + (srv.n_spec_ticks - spec0)
+        new_tokens = sum(len(t) for t in toks)
+        lat = srv.latency_stats()
+        check(launched == {"paged_attn": 0, "paged_attn_pipelined": n_layer * (n_chunks + n_ticks)},
+              f"the Llama {name} drain launched {launched}, expected {n_layer} x "
+              f"{n_chunks + n_ticks} pipelined launches")
+        check(all(len(t) == int(n) for t, n in zip(toks, budgets)),
+              f"a request of the Llama {name} drain did not complete its budget")
+        check(srv.free_pages == srv.n_pages - 1, f"pages leaked by the Llama {name} drain")
+        drains[name] = toks
+        row[name] = {"launches": launched, "dispatches": {"prefill_chunks": n_chunks,
+                                                          "decode_ticks": n_ticks},
+                     "new_tokens": new_tokens, "wall_s": wall, "tokens_per_s": new_tokens / wall,
+                     "ttft_p50_s": lat.get("ttft_p50_s"), "e2e_p50_s": lat.get("e2e_p50_s"),
+                     "decode_tick_ms_median": statistics.median(tick_ms)}
+        if extra:
+            row[name].update(verify_ticks=n_ticks, accept_ewma=srv.accept_ewma,
+                             commit_ewma=srv.commit_ewma, window_used=srv.spec_window_used,
+                             predicted_tpot_s=srv.predicted_tpot_s())
+        row[name]["steady_tick"] = steady_tick(srv, prompts)
+        del srv
+    row["bf16_tokens_equal"] = drains["plain"] == drains["speculative"]
+    del model
+    torch.cuda.empty_cache()
+
+    # f32, single-buffer kernel: speculative against plain, the margin rule
+    model32 = llama_model(dev)
+    runs, f32_rows, before = {}, {}, paged_counts(tpa)
+    os.environ["DSML_PAGED_ATTN_PIPELINE"] = "0"
+    try:
+        for name, extra in (("plain", {}), ("speculative", dict(speculative_window=LLAMA_SPEC_WINDOW))):
+            srv = ContinuousBatcher(model32, **kw, **extra)
+            runs[name], wall, _ = drain(srv, prompts, budgets)
+            check(srv.free_pages == srv.n_pages - 1, "pages leaked by an f32 Llama drain")
+            f32_rows[name] = {"wall_s": wall, "decode_ticks": srv.n_plain_ticks + srv.n_spec_ticks,
+                              "prefill_chunks": srv.n_prefill_dispatches}
+            del srv
+    finally:
+        del os.environ["DSML_PAGED_ATTN_PIPELINE"]
+    f32_launches = {key: n - before[key] for key, n in paged_counts(tpa).items()}
+    counts["paged_attn"] += f32_launches["paged_attn"]
+    near_ties, mismatches = [], 0
+    for i, (a, w) in enumerate(zip(runs["speculative"], runs["plain"])):
+        diff = [j for j, (x, y) in enumerate(zip(a, w)) if x != y]
+        if diff:
+            m = first_divergence_margin(model32, prompts[i], w, diff[0])
+            near_ties.append({"request": i, "step": diff[0], "margin": m})
+            mismatches += m >= MARGIN
+    row["f32"] = {"requests": PAGED_REQUESTS, "n_slots": PAGED_SLOTS, **f32_rows,
+                  "kernel": "paged_attn (single buffer)", "launches": f32_launches,
+                  "tokens_equal": runs["speculative"] == runs["plain"], "near_ties": near_ties}
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    check(f32_launches["paged_attn"] > 0 and f32_launches["paged_attn_pipelined"] == 0,
+          f"the f32 Llama drains launched {f32_launches}, expected the single-buffer kernel only")
+    check(all(len(t) == int(n) for name in runs for t, n in zip(runs[name], budgets)),
+          "a request of an f32 Llama drain did not complete")
+    check(mismatches == 0, f"f32 speculative tokens diverge from plain beyond the margin rule: "
+                           f"{near_ties}")
+    del model32
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_llama_ticks(dev, card):
+    """The JAX bench's Llama serving row at full width: TinyLlama-1.1B
+    bf16 with the dense int8 KV cache, 8 slots, decode_quantum 8, 128-token
+    prompts and 64 new tokens each, drained under turbo_factor=4, then
+    adaptive_quantum=32, then plain ticks: identical tokens in all three,
+    tokens/s, tick counts and host syncs a decode tick. Then the adaptive
+    tick's EOS branch: ``eos_id`` is the token the plain drain's greedy
+    chains emit most, so requests end early and each adaptive tick reads
+    its tokens back every ADAPTIVE_EOS_CHECK steps; its tokens are the
+    plain ones cut after their first EOS, with the read-backs and the steps
+    decoded past a stop counted."""
+    from dsml_tpu_torch.serving import ContinuousBatcher
+    from dsml_tpu_torch.serving.batcher import ADAPTIVE_EOS_CHECK
+
+    t_phase = time.perf_counter()
+    model = llama_model(dev, dtype="bfloat16", kv_quant=True)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 32000, LLAMA_TICK_PROMPT).astype(np.int64)
+               for _ in range(LLAMA_TICK_SLOTS)]
+    row = {"phase": "llama_ticks", "model": "tinyllama-1.1b", "dtype": "bfloat16",
+           "kv_quant": "int8", "n_slots": LLAMA_TICK_SLOTS, "decode_quantum": LLAMA_TICK_QUANTUM,
+           "prompt_tokens": LLAMA_TICK_PROMPT, "new_tokens": LLAMA_TICK_NEW, "card": card}
+    counters = ("n_plain_ticks", "n_turbo_ticks", "n_adaptive_ticks", "n_adaptive_syncs",
+                "n_adaptive_steps_dropped")
+
+    def run(name, **extra):
+        srv = ContinuousBatcher(model, n_slots=LLAMA_TICK_SLOTS, prompt_buckets=(LLAMA_TICK_PROMPT,),
+                                decode_quantum=LLAMA_TICK_QUANTUM, **extra)
+        drain(srv, prompts, [LLAMA_TICK_QUANTUM + 1] * LLAMA_TICK_SLOTS)  # warm-up: cuBLAS, the allocator
+        before = {k: getattr(srv, k) for k in counters}
+        toks, wall, tick_ms = drain(srv, prompts, [LLAMA_TICK_NEW] * LLAMA_TICK_SLOTS)
+        ticks = {k: getattr(srv, k) - v for k, v in before.items()}
+        n_ticks = ticks["n_plain_ticks"] + ticks["n_turbo_ticks"] + ticks["n_adaptive_ticks"]
+        syncs = (ticks["n_plain_ticks"] + ticks["n_turbo_ticks"] + ticks["n_adaptive_syncs"])
+        row[name] = {**ticks, "decode_ticks": n_ticks, "host_syncs_per_decode_tick": syncs / n_ticks,
+                     "wall_s": wall, "tokens_per_s": sum(len(t) for t in toks) / wall,
+                     "decode_tick_ms_median": statistics.median(tick_ms)}
+        return toks
+
+    tokens = {"turbo": run("turbo", turbo_factor=LLAMA_TURBO),
+              "adaptive": run("adaptive", adaptive_quantum=LLAMA_ADAPTIVE), "plain": run("plain")}
+    check(all(len(t) == LLAMA_TICK_NEW for toks in tokens.values() for t in toks),
+          "a turbo, adaptive or plain tick request did not complete")
+    row["tokens_identical"] = tokens["turbo"] == tokens["adaptive"] == tokens["plain"]
+    # decoded tokens only: a first token (the prefill's) never reaches a tick
+    freq = np.bincount(np.concatenate([t[1:] for t in tokens["plain"]]))
+    eos = int(freq.argmax())
+    want = [t[:t.index(eos) + 1] if eos in t else t for t in tokens["plain"]]
+    got = run("adaptive_eos", adaptive_quantum=LLAMA_ADAPTIVE, eos_id=eos)
+    eos_row = row["adaptive_eos"]
+    eos_row.update(eos_id=eos, eos_check_steps=ADAPTIVE_EOS_CHECK,
+                   requests_stopped_at_eos=sum(len(t) < LLAMA_TICK_NEW for t in want),
+                   tokens_equal_plain_cut_at_eos=got == want)
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    check(row["tokens_identical"], "turbo, adaptive and plain ticks gave different tokens")
+    check(row["turbo"]["n_turbo_ticks"] > 0 and row["adaptive"]["n_adaptive_ticks"] > 0,
+          f"the turbo or adaptive ticks never engaged: {row}")
+    check(eos_row["tokens_equal_plain_cut_at_eos"],
+          f"the adaptive EOS drain's tokens are not the plain ones cut at eos_id {eos}")
+    check(eos_row["requests_stopped_at_eos"] > 0
+          and eos_row["n_adaptive_syncs"] > eos_row["n_adaptive_ticks"],
+          f"the adaptive tick's EOS branch never engaged: {eos_row}")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: this smoke test needs the card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2993,7 +3455,12 @@ def main() -> None:
                   "allreduce": lambda: phase_allreduce(card),
                   "quant_allreduce": lambda: phase_quant_allreduce(card),
                   "dp_slice": lambda: phase_dp_slice(card),
-                  "dp_cli": phase_dp_cli}
+                  "dp_cli": phase_dp_cli,
+                  "llama_cli": lambda: phase_llama_cli(llama_cli_start()),
+                  "llama_kernel": lambda: phase_llama_kernel(tflash, dev),
+                  "llama_train": lambda: phase_llama_train(tflash, dev, card),
+                  "llama_serve": lambda: phase_llama_serve(dev, card),
+                  "llama_ticks": lambda: phase_llama_ticks(dev, card)}
         for name in only:
             phases[name]()
         raise SystemExit(f"chip_smoke: ran only {only}; no result line")
@@ -3007,6 +3474,9 @@ def main() -> None:
     quant8_err, quant8_timing = phase_kernel_quant8(dev)
     stream_err, stream_timing = phase_kernel_stream(tflash, dev)
     phase_kernel_head_dim(tflash, dev)
+    # with the other kernel phases: late in a full run the profiler's traces
+    # lost events twice in this phase (never in its own run)
+    llama_kernels = phase_llama_kernel(tflash, dev)
     launches, model, prompt = phase_slice(tflash, dev, card)
     phase_trace(model, prompt)
     del model
@@ -3033,35 +3503,64 @@ def main() -> None:
     phase_quant_allreduce(card)
     _, q8_launches = phase_dp_slice(card)
     phase_dp_cli()
+    torch.cuda.empty_cache()
+    # the Llama entry points run as processes while this one builds
+    # TinyLlama's weights on the host; every Llama phase is timed after them
+    procs = llama_cli_start()
+    t0 = time.perf_counter()
+    llama_weights()
+    emit({"phase": "llama_weights", "seconds": time.perf_counter() - t0,
+          "note": "TinyLlama-1.1B's f32 init from seed 0 on the host, while the entry points run"})
+    phase_llama_cli(procs)
+    llama_train_launches = phase_llama_train(tflash, dev, card)
+    torch.cuda.empty_cache()
+    llama_paged_launches = phase_llama_serve(dev, card)
+    phase_llama_ticks(dev, card)
 
     # the backward's two routes: bf16 (tensor cores) with launches from the
     # bf16 train steps, f32 (FMAs) with launches from phase_train's f32
     # gradient check; times at [96, 1024, 64] causal in each route's type
+    # the Llama paths add their launches: kernels 1-3 from the TinyLlama
+    # train steps, kernels 5-6 from the Llama drains (bf16 pipelined, f32
+    # single-buffer); each path counted from 0 around itself
     bwd_rows = []
     for dtype, source, counts in ((torch.bfloat16, BWD_TC_SOURCE, train_launches),
                                   (torch.float32, BWD_FMA_SOURCE, f32_launches)):
         dq_name, dkv_name = BWD_KERNELS[dtype]
         err = bwd_err[dtype]
+        llama = llama_train_launches if dtype == torch.bfloat16 else {dq_name: 0, dkv_name: 0}
         bwd_rows += [
             {"name": dq_name, "route": "cuda", "source": source, "replaces": "dsml_tpu/ops/flash.py:481",
-             "launches": counts[dq_name], "max_abs_err": err["dq"], **bwd_timing[dq_name]},
+             "launches": counts[dq_name] + llama[dq_name],
+             "launches_by_path": {"train": counts[dq_name], "llama_train": llama[dq_name]},
+             "max_abs_err": err["dq"], **bwd_timing[dq_name]},
             {"name": dkv_name, "route": "cuda", "source": source, "replaces": "dsml_tpu/ops/flash.py:526",
-             "launches": counts[dkv_name], "max_abs_err": max(err["dk"], err["dv"]),
-             **bwd_timing[dkv_name]}]
+             "launches": counts[dkv_name] + llama[dkv_name],
+             "launches_by_path": {"train": counts[dkv_name], "llama_train": llama[dkv_name]},
+             "max_abs_err": max(err["dk"], err["dv"]), **bwd_timing[dkv_name]}]
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": "dsml_tpu_torch/ops/csrc/flash_fwd.cu",
-         "replaces": "dsml_tpu/ops/flash.py:198", "launches": launches,
+         "replaces": "dsml_tpu/ops/flash.py:198",
+         "launches": launches + llama_train_launches["flash_fwd"],
+         "launches_by_path": {"slice": launches, "llama_train": llama_train_launches["flash_fwd"]},
          "max_abs_err": main_err, **timing},
         *bwd_rows,
         # times at the decode tick's shape (the chunk's are in the kernel_time line);
         # launches from the paged slice's two drains, one per kernel
         {"name": "paged_attn", "route": "cuda", "source": PAGED_SOURCE,
          "replaces": "dsml_tpu/ops/paged_attention.py:169",
-         "launches": single_launches["paged_attn"], "max_abs_err": paged_err,
+         "launches": single_launches["paged_attn"] + llama_paged_launches["paged_attn"],
+         "launches_by_path": {"paged_slice": single_launches["paged_attn"],
+                              "llama_serve": llama_paged_launches["paged_attn"]},
+         "max_abs_err": max(paged_err, llama_kernels["paged_err"]),
          **paged_timing["paged_attn"]["decode"]},
         {"name": "paged_attn_pipelined", "route": "cuda", "source": PAGED_SOURCE,
          "replaces": "dsml_tpu/ops/paged_attention.py:259",
-         "launches": paged_launches["paged_attn_pipelined"], "max_abs_err": paged_err,
+         "launches": paged_launches["paged_attn_pipelined"]
+         + llama_paged_launches["paged_attn_pipelined"],
+         "launches_by_path": {"paged_slice": paged_launches["paged_attn_pipelined"],
+                              "llama_serve": llama_paged_launches["paged_attn_pipelined"]},
+         "max_abs_err": max(paged_err, llama_kernels["paged_err"]),
          **paged_timing["paged_attn_pipelined"]["decode"]},
         # times at the decode tick's shape of wqkv (16 rows, int4, bf16 x; the
         # other projections and the chunk are in the kernel_time line);

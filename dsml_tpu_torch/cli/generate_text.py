@@ -1,14 +1,17 @@
-"""Sample text from a byte-tokenised GPT-2 with fresh weights — the port's
-counterpart of ``examples/generate_text.py``: one prefill (through the flash
-kernel once the prompt reaches 512 tokens on the card), then the KV-cache
-decode loop, then the continuations printed one per line.
+"""Sample text from a byte-tokenised GPT-2 or Llama with fresh weights — the
+port's counterpart of ``examples/generate_text.py``: one prefill (through
+the flash kernel once the prompt reaches 512 tokens on the card), then the
+KV-cache decode loop, then the continuations printed one per line.
 
     python -m dsml_tpu_torch.cli.generate_text --model small --prompt "the cat " \\
         --prompt_len 512 --max_new_tokens 32 --temperature 0
+    python -m dsml_tpu_torch.cli.generate_text --family llama --model tinyllama_1b \\
+        --max_new_tokens 8 --temperature 0
     python -m dsml_tpu_torch.cli.generate_text --device cpu --model tiny --max_new_tokens 4
 
-Runs on the CUDA card unless ``--device cpu``. Checkpoints, BPE prompts,
-speculative decoding and tensor-parallel serving come with later slices.
+Runs on the CUDA card unless ``--device cpu``. Checkpoints, BPE prompts and
+tensor-parallel serving come with later slices; speculative decoding is
+``cli/decode_speculative.py``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from dsml_tpu_torch.utils.config import Config, field
 @dataclasses.dataclass
 class GenerateConfig(Config):
     device: str = field("cuda", help="torch device: cuda | cpu")
-    model: str = field("tiny", help="GPT-2 preset: tiny|small|medium|large|xl")
+    family: str = field("gpt2", help="model family: gpt2 | llama")
+    model: str = field("tiny", help="preset (gpt2: tiny|small|medium|large|xl; llama: tiny|tinyllama_1b|llama2_7b|llama3_8b)")
     prompt: str = field("the cat ", help="prompt text (byte-tokenised)")
     prompt_len: int = field(0, help="repeat the prompt up to this many tokens (0 = as given; >= 512 reaches the flash kernel on the card)")
     n_samples: int = field(2, help="continuations to sample (the batch)")
@@ -45,7 +49,7 @@ def main(argv=None) -> list[str]:
         raise SystemExit("--prompt must be non-empty")
     try:
         # tiny = byte tokens; the other presets keep GPT-2's vocabulary
-        model, model_cfg = model_by_family("gpt2", cfg.model, device=cfg.device,
+        model, model_cfg = model_by_family(cfg.family, cfg.model, device=cfg.device,
                                            **({"vocab_size": 256} if cfg.model == "tiny" else {}))
     except ValueError as e:
         raise SystemExit(str(e))
@@ -54,7 +58,7 @@ def main(argv=None) -> list[str]:
     if cfg.prompt_len:
         ids = np.resize(ids, cfg.prompt_len)  # repeats the prompt up to the length
     prompt = np.tile(ids, (cfg.n_samples, 1))
-    log.info("gpt2-%s on %s: batch %d, prompt %d tokens, %d new", cfg.model, model.device,
+    log.info("%s-%s on %s: batch %d, prompt %d tokens, %d new", cfg.family, cfg.model, model.device,
              cfg.n_samples, prompt.shape[1], cfg.max_new_tokens)
     out = model.generate(
         prompt, cfg.max_new_tokens, temperature=cfg.temperature, top_k=cfg.top_k,

@@ -5,8 +5,11 @@ baseline — the port of ``examples/serve_continuous.py``.
 Requests with different prompt and output lengths are served slot by slot:
 a finished request's slot is refilled from the queue at once, where a
 static batch idles every lane until the group's longest request finishes.
-Logs the workload, each strategy's wall time, decode-lane utilization and
-tokens/s. ``--paged_kv`` serves from a page pool (fp, int8 or int4 pages;
+Logs the workload, each strategy's wall time, decode-lane utilization (the
+plain, turbo and adaptive decode dispatches) and tokens/s. ``--turbo F``
+escalates steady-state ticks to ``F`` times the quantum; ``--adaptive K``
+decodes until any slot finishes, up to K steps a tick (dense cache only,
+as in the JAX batcher). ``--paged_kv`` serves from a page pool (fp, int8 or int4 pages;
 on the card through the CUDA paged-attention kernels) and needs
 ``--prefill_chunk > 0``.
 
@@ -22,9 +25,10 @@ baseline runs the same quantized weights (the batcher's ``model``).
         --prefill_chunk 64 --requests 16
     DSML_WEIGHT_QUANT=int4 python -m dsml_tpu_torch.cli.serve_continuous --model small \\
         --paged_kv int4 --prefill_chunk 64 --requests 16
+    python -m dsml_tpu_torch.cli.serve_continuous --family llama --model tinyllama_1b \\
+        --quantum 4 --turbo 4
 
-Runs on the CUDA card unless ``--device cpu``. ``--turbo``, ``--adaptive``
-and ``--family llama`` come with later slices and raise here.
+Runs on the CUDA card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -41,12 +45,14 @@ from dsml_tpu_torch.utils.config import Config, field
 @dataclasses.dataclass
 class ServeConfig(Config):
     device: str = field("cuda", help="torch device: cuda | cpu")
-    family: str = field("gpt2", help="model family: gpt2 (llama: a later slice)")
+    family: str = field("gpt2", help="model family: gpt2 | llama")
     model: str = field("tiny", help="model preset (tiny for the demo)")
     n_slots: int = field(4, help="decode slots (concurrent requests)")
     quantum: int = field(1, help="tokens decoded per scheduler tick (one host fetch per tick)")
-    adaptive: int = field(0, help="adaptive early-exit tick budget (a later slice; 0 = off)")
-    turbo: int = field(0, help="turbo factor (a later slice; 0 = off)")
+    adaptive: int = field(0, help="adaptive early-exit tick budget: one tick decodes until "
+                          "any slot finishes (or this many steps); 0 = off")
+    turbo: int = field(0, help="turbo factor: steady-state ticks decode quantum*turbo tokens "
+                       "(0 = off)")
     prefill_chunk: int = field(0, help="chunked-prefill admission: prefill C "
                                "tokens per tick with decode quanta between a "
                                "long prompt's chunks (0 = whole-prompt)")
@@ -71,8 +77,6 @@ def main(argv=None) -> dict:
     from dsml_tpu_torch.utils.logging import get_logger
 
     log = get_logger("serve")
-    if cfg.turbo or cfg.adaptive:
-        raise NotImplementedError("--turbo and --adaptive come with the speculative/turbo slice")
     if cfg.paged_kv not in ("off", "fp", "int8", "int4"):
         raise SystemExit(f"--paged_kv must be off, fp, int8 or int4, got {cfg.paged_kv!r}")
     paged = False if cfg.paged_kv == "off" else cfg.paged_kv
@@ -94,9 +98,9 @@ def main(argv=None) -> dict:
     # ---- continuous batching -------------------------------------------------
     srv = ContinuousBatcher(
         model, n_slots=cfg.n_slots, temperature=cfg.temperature, seed=cfg.seed,
-        prompt_buckets=(16, 32, 64), decode_quantum=cfg.quantum,
-        prefill_chunk=cfg.prefill_chunk, paged_kv=paged, page_size=cfg.page_size,
-        n_pages=cfg.n_pages,
+        prompt_buckets=(16, 32, 64), decode_quantum=cfg.quantum, turbo_factor=cfg.turbo,
+        prefill_chunk=cfg.prefill_chunk, adaptive_quantum=cfg.adaptive, paged_kv=paged,
+        page_size=cfg.page_size, n_pages=cfg.n_pages,
     )
     # warm-up pass: the kernels' build, cuBLAS handles, the allocator
     for p, n in zip(prompts, budgets):
@@ -104,7 +108,8 @@ def main(argv=None) -> dict:
     srv.run()
     for p, n in zip(prompts, budgets):
         srv.submit(p, int(n))
-    plain0, prefill0 = srv.n_plain_ticks, srv.n_prefill_dispatches
+    plain0, turbo0, adapt0 = srv.n_plain_ticks, srv.n_turbo_ticks, srv.n_adaptive_ticks
+    prefill0, syncs0 = srv.n_prefill_dispatches, srv.n_adaptive_syncs
     _sync(cfg.device)
     t0 = time.monotonic()
     steps = 0
@@ -117,9 +122,12 @@ def main(argv=None) -> dict:
     cont_s = time.monotonic() - t0
     srv.collect()
     n_plain = srv.n_plain_ticks - plain0
-    # each request's first token comes from its prefill, not a decode lane
+    n_turbo = srv.n_turbo_ticks - turbo0
+    n_adapt = srv.n_adaptive_ticks - adapt0
+    # each request's first token comes from its prefill, not a decode lane;
+    # a turbo tick carries turbo x the base quantum
     useful_ticks -= cfg.requests
-    lane_capacity = n_plain * cfg.quantum * cfg.n_slots
+    lane_capacity = (n_plain + n_turbo * max(cfg.turbo, 1)) * cfg.quantum * cfg.n_slots
 
     # ---- static-batch baseline: groups of n_slots, each waiting for its
     # longest budget (what a plain batched `generate` loop does) ----------------
@@ -149,9 +157,17 @@ def main(argv=None) -> dict:
     static_util = static_useful / max(static_ticks, 1)
     util = useful_ticks / max(lane_capacity, 1)
 
-    log.info("continuous: %.2fs (%d scheduler steps, lane utilization %.0f%%, "
-             "%d plain decode dispatches, %d prefill dispatches)",
-             cont_s, steps, 100 * util, n_plain, srv.n_prefill_dispatches - prefill0)
+    if n_adapt:
+        # an adaptive tick decodes a data-dependent number of steps: the
+        # dispatch count is the story, not a fixed lane capacity
+        log.info("continuous: %.2fs (%d scheduler steps, %d adaptive early-exit decode "
+                 "dispatches with %d token read-backs, %d plain, %d prefill dispatches)",
+                 cont_s, steps, n_adapt, srv.n_adaptive_syncs - syncs0, n_plain,
+                 srv.n_prefill_dispatches - prefill0)
+    else:
+        log.info("continuous: %.2fs (%d scheduler steps, lane utilization %.0f%%, "
+                 "%d plain / %d turbo decode dispatches, %d prefill dispatches)",
+                 cont_s, steps, 100 * util, n_plain, n_turbo, srv.n_prefill_dispatches - prefill0)
     log.info("static    : %.2fs (lane utilization %.0f%% — idle lanes wait for the "
              "group's longest request)", static_s, 100 * static_util)
     log.info("tokens/s: continuous %.1f vs static %.1f",
@@ -165,11 +181,14 @@ def main(argv=None) -> dict:
     log.info("reading the numbers: every continuous tick is a host round trip "
              "over eager decode steps; continuous batching wins lane UTILIZATION "
              "(above), online arrival (it starts serving at once) and tail latency — "
-             "raise --quantum to amortize the per-tick host cost")
+             "use --adaptive K or raise --quantum (or --turbo) to amortize the per-tick "
+             "host cost")
     return {"requests": cfg.requests, "total_tokens": total_tokens, "continuous_s": cont_s,
             "static_s": static_s, "tokens_per_s": total_tokens / cont_s,
             "static_tokens_per_s": total_tokens / static_s, "lane_utilization": util,
             "static_lane_utilization": static_util, "steps": steps, "n_plain_ticks": n_plain,
+            "n_turbo_ticks": n_turbo, "n_adaptive_ticks": n_adapt,
+            "n_adaptive_syncs": srv.n_adaptive_syncs - syncs0,
             "n_prefill_dispatches": srv.n_prefill_dispatches - prefill0,
             "paged_kv": cfg.paged_kv, "n_pages": srv.n_pages, "free_pages": srv.free_pages,
             "weight_quant": srv.weight_quant}

@@ -1,5 +1,5 @@
-"""Train GPT-2 on byte tokens — the single-device, the data-parallel and
-the context-parallel paths of ``examples/train_gpt2.py``.
+"""Train GPT-2 or Llama on byte tokens — the single-device, the
+data-parallel and the context-parallel paths of ``examples/train_gpt2.py``.
 
 Tokens are the bytes of ``--data FILE`` or, without one, of a generated
 story corpus (simple grammatical sentences, so the loss measures sequence
@@ -16,6 +16,8 @@ tokens/s".
     python -m dsml_tpu_torch.cli.train_gpt2 --model small --cp 2 --dtype bfloat16 --steps 4
     python -m dsml_tpu_torch.cli.train_gpt2 --model small --dp 2 --attn flash --dtype bfloat16 \\
         --steps 4 --grad_accum 1
+    python -m dsml_tpu_torch.cli.train_gpt2 --family llama --model tinyllama_1b --attn flash \\
+        --dtype bfloat16 --steps 3 --batch_size 2 --grad_accum 1
 
 ``--dp N`` or ``--cp N`` spawns N ranks (``torch.multiprocessing``), one
 process each, joined over gloo through a rendezvous file in a temporary
@@ -29,8 +31,8 @@ fewer cards than ranks, ranks share a card), or on the CPU with
 ``--device cpu``. Rank 0 logs the steps; a failing rank fails the run.
 
 Runs on the CUDA card unless ``--device cpu``. Pipeline, tensor and the
-other sequence parallelisms, dp composed with cp, Llama, BPE, the prose
-corpus, checkpoints, profiles and adafactor come with later slices and
+other sequence parallelisms, dp composed with cp, Llama under cp, BPE, the
+prose corpus, checkpoints, profiles and adafactor come with later slices and
 raise here.
 """
 
@@ -51,8 +53,8 @@ from dsml_tpu_torch.utils.config import Config, field
 @dataclasses.dataclass
 class GPT2TrainConfig(Config):
     device: str = field("cuda", help="torch device: cuda | cpu")
-    model: str = field("tiny", help="GPT-2 preset: tiny | small (124M) | medium | large | xl")
-    family: str = field("gpt2", help="model family: gpt2 (llama: a later slice)")
+    model: str = field("tiny", help="gpt2 family: tiny | small (124M) | medium | large | xl; llama family: tiny | tinyllama_1b | llama2_7b | llama3_8b")
+    family: str = field("gpt2", help="model family: gpt2 | llama (RMSNorm/RoPE/SwiGLU/GQA)")
     dtype: str = field("", help="params/activations dtype: float32 | bfloat16 ('' = model default)")
     remat: bool = field(False, help="rematerialize each block's activations in backward (less memory, more FLOPs)")
     data: str = field("", help="UTF-8 text file to train on; '' = generated stories ('prose': a later slice)")
@@ -115,7 +117,8 @@ def _check_supported(cfg: GPT2TrainConfig) -> None:
         "of the long-context slice)": cfg.cp > 1 and cfg.attn in ("flash", "xla"),
         "--dp > 1 with --cp > 1 (dp composed with cp, the rest of the long-context slice)":
             cfg.dp > 1 and cfg.cp > 1,
-        "--family llama (the Llama slice)": cfg.family == "llama",
+        "--family llama with --cp > 1 (the RoPE global-position offset under an sp group, "
+        "ROADMAP.md queue 1, item 12)": cfg.family == "llama" and cfg.cp > 1,
         "--tokenizer bpe (a later slice, with utils/tokenizer.py)": cfg.tokenizer == "bpe",
         "--data prose (a later slice: the corpus reads the JAX package's docstrings)": cfg.data == "prose",
         "--checkpoint_dir (the checkpointing slice)": bool(cfg.checkpoint_dir),
@@ -125,7 +128,7 @@ def _check_supported(cfg: GPT2TrainConfig) -> None:
     for what, asked in later.items():
         if asked:
             raise NotImplementedError(f"{what} is not ported yet")
-    if cfg.family != "gpt2":
+    if cfg.family not in ("gpt2", "llama"):
         raise SystemExit(f"unknown --family {cfg.family!r} (gpt2 | llama)")
     if cfg.tokenizer:
         raise SystemExit(f"unknown --tokenizer {cfg.tokenizer!r} (use '' or 'bpe')")
@@ -234,7 +237,7 @@ def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
     quiet = mesh is not None and mesh.rank != 0
     device = cfg.device if mesh is None else mesh.device
     try:
-        model, model_cfg = model_by_family("gpt2", cfg.model, device=device, vocab_size=256)
+        model, model_cfg = model_by_family(cfg.family, cfg.model, device=device, vocab_size=256)
     except ValueError as e:
         raise SystemExit(str(e))
     replace = {}
@@ -294,9 +297,10 @@ def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
         def eval_loss(x, y):
             return hybrid_eval_loss(model, mesh, attn_impl, x, y)
     if not quiet:
-        log.info("GPT-2 %s on %s: %.1fM params, %s, attn=%s, seq=%d, batch=%d x accum=%d%s",
-                 cfg.model, model.device, model.n_params() / 1e6, model_cfg.dtype, attn_impl, seq,
-                 cfg.batch_size, cfg.grad_accum,
+        log.info("%s %s on %s: %.1fM params, %s, attn=%s, seq=%d, batch=%d x accum=%d%s",
+                 "Llama" if cfg.family == "llama" else "GPT-2", cfg.model, model.device,
+                 model.n_params() / 1e6, model_cfg.dtype, attn_impl, seq, cfg.batch_size,
+                 cfg.grad_accum,
                  "" if mesh is None else f", dp={mesh.shape['dp']}, cp={mesh.shape['cp']}")
 
     def device_batch(x, y):

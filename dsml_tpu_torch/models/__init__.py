@@ -1,6 +1,6 @@
-"""Model families of the port: GPT-2 (serving and training) and the MNIST
-MLP. The other families of ``dsml_tpu.models`` (Llama, the CNN and ResNet)
-come with later slices."""
+"""Model families of the port: GPT-2 and Llama (serving and training) and
+the MNIST MLP. The CNN and ResNet of ``dsml_tpu.models`` come with a later
+slice."""
 
 from dsml_tpu_torch.models.mlp import MLP
 
@@ -13,7 +13,10 @@ def model_by_family(family: str, name: str, device=None, **tiny_kwargs):
     model's weights are allocated on ``device`` (``None`` = the CUDA card)
     and still need ``init(seed)`` or ``load_state_dict``."""
     if family == "llama":
-        raise NotImplementedError("the llama family is not yet ported (see ROADMAP.md)")
+        from dsml_tpu_torch.models.llama import Llama, LlamaConfig
+
+        cfg = LlamaConfig.by_name(name, **tiny_kwargs)
+        return Llama(cfg, device=device), cfg
     if family == "gpt2":
         from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
 

@@ -45,7 +45,19 @@ shard's origin, attention is the bidirectional flash ring
 (``attn_impl="ring2"``, ``ops/ring_attention.py``) and the loss is this
 rank's mean over its own rows (``parallel/hybrid.py`` reduces it over the
 group). Tensor and pipeline parallelism, the other sequence-parallel
-attentions, MoE and speculative decoding come with later slices.
+attentions and MoE come with later slices.
+
+The model-family hooks (``models/llama.py`` overrides them, as the JAX
+``Llama`` overrides ``GPT2``'s): every surface turns its token positions
+into :meth:`GPT2._rotary` once (nothing here, GPT-2's positions live in
+``wpe``; Llama's RoPE tables) and hands that to :meth:`GPT2._serving_qkv`
+in every layer; :meth:`GPT2._attn_kv` widens the cache's K/V to what the
+shared attention takes (Llama repeats its kv heads);
+:meth:`GPT2._unembed_matrix` is the unembedding the dense and the chunked
+loss both read (``wte`` here, Llama's untied ``lm_head``);
+:attr:`GPT2._n_cache_heads` is the head count of the cache and the page
+pool (Llama's kv heads); :meth:`GPT2._add_attn_out` adds the attention
+output (and GPT-2's ``bo``) to the residual.
 """
 
 from __future__ import annotations
@@ -308,8 +320,34 @@ class GPT2(nn.Module):
     def _final_norm(self, h):
         return _layer_norm(h, self.ln_f["scale"], self.ln_f["bias"])
 
+    def _unembed_matrix(self) -> torch.Tensor:
+        """[vocab, d] unembedding: tied to ``wte`` here (Llama: ``lm_head``)."""
+        return self.wte
+
     def _unembed(self, h):
-        return h @ self.wte.T  # tied to wte
+        return h @ self._unembed_matrix().T
+
+    def _rotary(self, positions, length):
+        """What :meth:`_serving_qkv` needs of the token positions, computed
+        once for every layer: ``positions`` is an int start (the positions
+        are start .. start+length-1) or a tensor of them ([s] shared or
+        [b, s] per row). Nothing here (GPT-2's positions live in ``wpe``);
+        Llama builds its RoPE tables."""
+        return None
+
+    def _serving_qkv(self, layer, x, rot):
+        """(q, k, v) of ``x``, [b, H, s, hd]; K/V as the cache stores them.
+        ``rot`` is :meth:`_rotary`'s (unused here)."""
+        return self._qkv_heads(layer, x)
+
+    def _attn_kv(self, k, v):
+        """The cache's K/V as the shared attention takes them (Llama
+        repeats its kv heads to the query heads)."""
+        return k, v
+
+    def _add_attn_out(self, layer, h, attn_out):
+        """The attention residual of the serving surfaces: ``h + out + bo``."""
+        return h + attn_out + layer["attn"]["bo"]
 
     def _attend(self, attn_impl: str, sp_group=None):
         """The attention function for ``attn_impl``, routed as the JAX
@@ -334,10 +372,11 @@ class GPT2(nn.Module):
             return lambda q, k, v, causal=True: ring_attention(q, k, v, sp_group, causal)
         return attention if attn_impl == "xla" else flash_attention
 
-    def _block(self, layer, h, attend):
+    def _block(self, layer, h, attend, rot=None):
         """One pre-LN block: attention residual, then the FFN residual (the
         only checkpointed part under ``remat="mlp"``, which keeps the
-        attention activations, flash's saved residuals among them)."""
+        attention activations, flash's saved residuals among them).
+        ``rot`` (:meth:`_rotary`) is unused here; Llama rotates q/k by it."""
         q, k, v = self._qkv_heads(layer, self._norm1(layer, h))
         out = qmatmul(self._merge_heads(attend(q, k, v, causal=True)), layer["attn"]["wo"])
         h = h + (out + layer["attn"]["bo"])
@@ -352,17 +391,19 @@ class GPT2(nn.Module):
         ``sp_group``, ``tokens`` is this rank's contiguous shard of the
         sequence and positions start at its origin."""
         attend = self._attend(attn_impl, sp_group)
-        h = self._embed(tokens, 0 if sp_group is None else sp_group.rank * tokens.shape[1])
+        offset = 0 if sp_group is None else sp_group.rank * tokens.shape[1]
+        h = self._embed(tokens, offset)
+        rot = self._rotary(offset, tokens.shape[1])
         remat = self.config.remat if torch.is_grad_enabled() else False
         if remat == "int8":
-            block = compressed_checkpoint(lambda layer, x: self._block(layer, x, attend))
+            block = compressed_checkpoint(lambda layer, x: self._block(layer, x, attend, rot))
         for layer in self.layers:
             if remat is True:
-                h = checkpoint(self._block, layer, h, attend, use_reentrant=False)
+                h = checkpoint(self._block, layer, h, attend, rot, use_reentrant=False)
             elif remat == "int8":
                 h = block(layer, h)
             else:
-                h = self._block(layer, h, attend)
+                h = self._block(layer, h, attend, rot)
         return h
 
     def apply(self, tokens: torch.Tensor, attn_impl: str = "xla", sp_group=None) -> torch.Tensor:
@@ -386,7 +427,7 @@ class GPT2(nn.Module):
         cfg = self.config
         h = self._final_norm(self._blocks(tokens, attn_impl, sp_group))
         if cfg.xent_chunk and cfg.vocab_size > cfg.xent_chunk:
-            return chunked_softmax_xent(h, self.wte, targets, cfg.xent_chunk)
+            return chunked_softmax_xent(h, self._unembed_matrix(), targets, cfg.xent_chunk)
         logp = torch.log_softmax(self._unembed(h).float(), dim=-1)
         return -logp.gather(-1, targets.long()[..., None]).mean()
 
@@ -395,10 +436,17 @@ class GPT2(nn.Module):
     # returns a new cache and donates the old buffers to XLA; here a new
     # cache per step would be a copy.
 
+    @property
+    def _n_cache_heads(self) -> int:
+        """Heads of a KV cache entry and a page: every head here (Llama: its
+        kv heads)."""
+        return self.config.n_head
+
     def init_cache(self, batch: int) -> list[dict[str, torch.Tensor]]:
-        """KV cache, one entry per layer, allocated at max_seq. With
-        ``config.kv_quant`` the entries are int8 (or int4 packed in uint8)
-        rows plus one f32 scale per row (:meth:`_cache_write`)."""
+        """KV cache, one entry per layer, allocated at max_seq, with
+        :attr:`_n_cache_heads` heads. With ``config.kv_quant`` the entries
+        are int8 (or int4 packed in uint8) rows plus one f32 scale per row
+        (:meth:`_cache_write`)."""
         return [self._cache_entry(batch) for _ in range(self.config.n_layer)]
 
     def _kv_mode(self) -> str | None:
@@ -415,7 +463,7 @@ class GPT2(nn.Module):
 
     def _cache_entry(self, batch: int) -> dict[str, torch.Tensor]:
         cfg = self.config
-        hd = cfg.d_model // cfg.n_head
+        hd, heads = cfg.d_model // cfg.n_head, self._n_cache_heads
         mode = self._kv_mode()
 
         def zeros(shape, dtype):
@@ -425,12 +473,12 @@ class GPT2(nn.Module):
             if mode == "int4":
                 if hd % 2:
                     raise ValueError(f"kv_quant='int4' needs an even head_dim, got {hd}")
-                shape, dt = (batch, cfg.n_head, cfg.max_seq, hd // 2), torch.uint8  # 2 nibbles/byte
+                shape, dt = (batch, heads, cfg.max_seq, hd // 2), torch.uint8  # 2 nibbles/byte
             else:
-                shape, dt = (batch, cfg.n_head, cfg.max_seq, hd), torch.int8
+                shape, dt = (batch, heads, cfg.max_seq, hd), torch.int8
             return {"k": zeros(shape, dt), "k_s": zeros((*shape[:3], 1), torch.float32),
                     "v": zeros(shape, dt), "v_s": zeros((*shape[:3], 1), torch.float32)}
-        shape = (batch, cfg.n_head, cfg.max_seq, hd)
+        shape = (batch, heads, cfg.max_seq, hd)
         return {"k": zeros(shape, cfg.torch_dtype), "v": zeros(shape, cfg.torch_dtype)}
 
     def _kv_quantize(self, x, mode: str | None = None):
@@ -505,15 +553,16 @@ class GPT2(nn.Module):
         itself attends to the exact ones."""
         b, t = tokens.shape
         h = self._embed(tokens)
+        rot = self._rotary(0, t)
         cache = self.init_cache(b)
         attend = flash_attention if self._prefill_use_flash(t) else attention
         for layer, c in zip(self.layers, cache):
-            q, k, v = self._qkv_heads(layer, self._norm1(layer, h))
-            attn_out = qmatmul(self._merge_heads(attend(q, k, v, causal=True)),
+            q, kc, vc = self._serving_qkv(layer, self._norm1(layer, h), rot)
+            attn_out = qmatmul(self._merge_heads(attend(q, *self._attn_kv(kc, vc), causal=True)),
                                layer["attn"]["wo"])
-            h = h + attn_out + layer["attn"]["bo"]
+            h = self._add_attn_out(layer, h, attn_out)
             h = self._ffn(layer, h)
-            self._cache_write(c, k, v, lambda arr, new: arr[:, :, :t].copy_(new))
+            self._cache_write(c, kc, vc, lambda arr, new: arr[:, :, :t].copy_(new))
         h = self._final_norm(h)
         h_last = h[:, -1] if last_index is None else h[:, last_index]
         return self._unembed(h_last), cache
@@ -527,20 +576,22 @@ class GPT2(nn.Module):
             return self._unembed(h)
         return self._unembed(h[:, 0 if read_index is None else int(read_index)])
 
-    def _decode_core(self, cache, h, valid, write, read_index=None):
-        """The decode layer loop for the tokens ``h`` [b, C, d]: norm → qkv
-        → cache write through the caller's ``write`` placement (in place) →
-        attention over the cache under ``valid`` → wo → ffn; then the logits
-        at ``read_index`` (:meth:`_read_logits`). ``decode_step``,
-        ``decode_step_slots``, ``prefill_chunk`` and ``verify_step`` differ
-        only in valid, write and read_index."""
+    def _decode_core(self, cache, h, positions, valid, write, read_index=None):
+        """The decode layer loop for the tokens ``h`` [b, C, d] at
+        ``positions`` (an int start, [C] or [b, C]): norm → qkv → cache write through the
+        caller's ``write`` placement (in place) → attention over the cache
+        under ``valid`` → wo → ffn; then the logits at ``read_index``
+        (:meth:`_read_logits`). ``decode_step``, ``decode_step_slots``,
+        ``prefill_chunk`` and ``verify_step`` differ only in positions,
+        valid, write and read_index."""
+        rot = self._rotary(positions, h.shape[1])
         for layer, c in zip(self.layers, cache):
-            q, k, v = self._qkv_heads(layer, self._norm1(layer, h))
-            self._cache_write(c, k, v, write)
+            q, kc, vc = self._serving_qkv(layer, self._norm1(layer, h), rot)
+            self._cache_write(c, kc, vc, write)
             ck, cv, k_s, v_s = self._cache_attn_inputs(c)
             out = self._decode_attention(q, ck, cv, valid, k_s, v_s)
             attn_out = qmatmul(self._merge_heads(out), layer["attn"]["wo"])
-            h = h + attn_out + layer["attn"]["bo"]
+            h = self._add_attn_out(layer, h, attn_out)
             h = self._ffn(layer, h)
         return self._read_logits(h, read_index), cache
 
@@ -551,7 +602,7 @@ class GPT2(nn.Module):
         pos = int(pos)
         valid = torch.arange(self.config.max_seq, device=self.device) <= pos
         return self._decode_core(
-            cache, self._embed(tokens[:, None], offset=pos), valid,
+            cache, self._embed(tokens[:, None], offset=pos), pos, valid,
             lambda arr, new: arr[:, :, pos:pos + 1].copy_(new),
         )
 
@@ -570,7 +621,7 @@ class GPT2(nn.Module):
             arr[bidx, :, pos] = new[:, :, 0]
 
         return self._decode_core(cache, self._embed(tokens[:, None], offset=pos[:, None]),
-                                 valid, write)
+                                 pos[:, None], valid, write)
 
     @torch.no_grad()
     def verify_step(self, cache, tokens: torch.Tensor, start):
@@ -589,8 +640,8 @@ class GPT2(nn.Module):
         def write(arr, new):  # arr [b, H, S, x], new [b, H, C, x]
             arr[bidx, :, positions] = new.transpose(1, 2)
 
-        return self._decode_core(cache, self._embed(tokens, offset=start[:, None]), valid,
-                                 write, read_index="all")
+        return self._decode_core(cache, self._embed(tokens, offset=start[:, None]), positions,
+                                 valid, write, read_index="all")
 
     @torch.no_grad()
     def prefill_chunk(self, cache, tokens: torch.Tensor, start: int, last_index: int | None = None):
@@ -609,7 +660,7 @@ class GPT2(nn.Module):
         valid = torch.arange(self.config.max_seq, device=self.device)[None, None, :] \
             <= positions[None, :, None]  # [1, C, S]
         return self._decode_core(
-            cache, self._embed(tokens, offset=start), valid,
+            cache, self._embed(tokens, offset=start), positions, valid,
             lambda arr, new: arr[:, :, start:start + c].copy_(new),
             read_index=c - 1 if last_index is None else last_index,
         )
@@ -634,9 +685,9 @@ class GPT2(nn.Module):
 
     def init_page_pool(self, n_pages: int, page_size: int, quant="int4") -> list:
         """Per-layer page pool: ``n_pages`` physical pages of ``page_size``
-        token rows, ``k``/``v`` [n_pages, n_head, page_size, hd (hd/2 for
-        int4)] plus f32 ``k_s``/``v_s`` [n_pages, n_head, page_size, 1] when
-        quantized. ``page_size`` must divide max_seq, so a slot's table has
+        token rows, ``k``/``v`` [n_pages, H, page_size, hd (hd/2 for int4)]
+        plus f32 ``k_s``/``v_s`` [n_pages, H, page_size, 1] when quantized,
+        H = :attr:`_n_cache_heads`. ``page_size`` must divide max_seq, so a slot's table has
         ``max_seq // page_size`` entries. Page 0 is the SCRATCH page: dead
         slots and unallocated entries name it, so their masked writes land
         nowhere that is read."""
@@ -646,21 +697,21 @@ class GPT2(nn.Module):
         if n_pages < 2:
             raise ValueError(f"need n_pages >= 2 (page 0 is the scratch page), got {n_pages}")
         mode = self._page_mode(quant)
-        hd = cfg.d_model // cfg.n_head
+        hd, n_heads = cfg.d_model // cfg.n_head, self._n_cache_heads
         if mode == "int4":
             if hd % 2:
                 raise ValueError(f"int4 pages need an even head_dim, got {hd}")
-            shape, dt = (n_pages, cfg.n_head, page_size, hd // 2), torch.uint8
+            shape, dt = (n_pages, n_heads, page_size, hd // 2), torch.uint8
         elif mode == "int8":
-            shape, dt = (n_pages, cfg.n_head, page_size, hd), torch.int8
+            shape, dt = (n_pages, n_heads, page_size, hd), torch.int8
         else:
-            shape, dt = (n_pages, cfg.n_head, page_size, hd), cfg.torch_dtype
+            shape, dt = (n_pages, n_heads, page_size, hd), cfg.torch_dtype
 
         def entry():
             e = {"k": torch.zeros(shape, dtype=dt, device=self.device),
                  "v": torch.zeros(shape, dtype=dt, device=self.device)}
             if mode:
-                sshape = (n_pages, cfg.n_head, page_size, 1)
+                sshape = (n_pages, n_heads, page_size, 1)
                 e["k_s"] = torch.zeros(sshape, dtype=torch.float32, device=self.device)
                 e["v_s"] = torch.zeros(sshape, dtype=torch.float32, device=self.device)
             return e
@@ -709,16 +760,17 @@ class GPT2(nn.Module):
         use_kernel = paged_attn_impl(h.device) == "pallas"
         b_q, c_q = h.shape[:2]
         posq = torch.broadcast_to(torch.atleast_2d(positions).to(torch.int32), (b_q, c_q))
+        rot = self._rotary(positions, h.shape[1])
         for layer, c in zip(self.layers, pool):
-            q, k, v = self._qkv_heads(layer, self._norm1(layer, h))
-            self._paged_write(c, k, v, write, mode)
+            q, kc, vc = self._serving_qkv(layer, self._norm1(layer, h), rot)
+            self._paged_write(c, kc, vc, write, mode)
             if use_kernel:
                 out = paged_attention(q, c, page_table, posq, mode)
             else:
                 ck, cv, k_s, v_s = self._paged_attn_inputs(c, page_table, mode)
                 out = self._decode_attention(q, ck, cv, valid, k_s, v_s)
             attn_out = qmatmul(self._merge_heads(out), layer["attn"]["wo"])
-            h = h + attn_out + layer["attn"]["bo"]
+            h = self._add_attn_out(layer, h, attn_out)
             h = self._ffn(layer, h)
         return self._read_logits(h, read_index), pool
 

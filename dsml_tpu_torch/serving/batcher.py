@@ -13,7 +13,13 @@ admits a queued one into the freed slot:
   ``prefill_chunk``) by chunks with decode ticks between a long prompt's
   chunks;
 - a host scheduler loop: admit → one decode QUANTUM of k steps (a Python
-  loop, sampling on the card, one host fetch per tick) → emit / retire.
+  loop, sampling on the card, one host fetch per tick) → emit / retire;
+- three other ticks over the dense cache: ``turbo_factor`` escalates to a
+  quantum ``turbo_factor`` times longer while nothing waits to admit,
+  ``adaptive_quantum`` decodes until the step at which any active slot
+  finishes (budget or EOS), and ``speculative_window`` (dense or paged)
+  verifies a window of prompt-lookup drafts per slot in one
+  ``verify_step`` call and commits 1..window tokens a slot.
 
 ``paged_kv`` replaces the dense per-slot cache with a page POOL (int4 rows
 with per-row scales by default, "int8", or "fp" for unquantized pages), a
@@ -37,11 +43,10 @@ noise of row b at step s is a counter-based hash of (request key, s, token
 id) (:func:`request_uniform`), computed on the device in int64 arithmetic,
 so the CPU and the card draw the same noise.
 
-Left for later slices, each raising where a caller can reach it: the turbo
-and adaptive quanta and the speculative tick (item 5), tensor-parallel
-serving over a mesh (item 11), serving from a checkpoint (item 9) and the
-fleet's handoff admission ``inject`` (item 13). The observability hooks (spans, gauges, the memory
-ledger) come with item 7.
+Left for later slices, each raising where a caller can reach it:
+tensor-parallel serving over a mesh (item 11), serving from a checkpoint
+(item 9) and the fleet's handoff admission ``inject`` (item 13). The
+observability hooks (spans, gauges, the memory ledger) come with item 7.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ import torch
 
 from dsml_tpu_torch.models.common import quantize_weights_blocked
 from dsml_tpu_torch.models.gpt2 import sample_token_logits
+from dsml_tpu_torch.models.speculative import lookup_draft_host
 from dsml_tpu_torch.ops.quantization import QuantizedWeight, weight_quant_mode
 from dsml_tpu_torch.serving.paging import (
     PagePool,
@@ -122,11 +128,14 @@ def request_uniform(keys: torch.Tensor, steps: torch.Tensor, vocab: int) -> torc
 
 
 _NOT_PORTED = "comes with a later slice of the port (ROADMAP.md queue 1, item {})"
+# an adaptive tick with an EOS id reads its tokens back every this many
+# steps to find the stop; steps decoded past the stop are dropped
+ADAPTIVE_EOS_CHECK = 8
 
 
 class ContinuousBatcher:
-    """Slot-based continuous-batching decoder over one ``GPT2`` (which holds
-    its weights, on the device the batcher serves from).
+    """Slot-based continuous-batching decoder over one ``GPT2`` or ``Llama``
+    (which holds its weights, on the device the batcher serves from).
 
     ``submit`` enqueues prompts; ``step`` admits queued requests into free
     slots, runs one decode quantum, emits new tokens and retires finished
@@ -137,6 +146,33 @@ class ContinuousBatcher:
     ``decode_quantum`` — decode steps per scheduler tick; each tick costs
     one host fetch of the sampled tokens. Tokens are identical for any
     quantum; a request finishing mid-quantum wastes the rest of its lane.
+
+    ``turbo_factor`` — 0 (off) or >= 2: a dense tick with nothing queued
+    and no admission mid-flight runs ``decode_quantum * turbo_factor``
+    steps when some active slot has that much budget left
+    (``n_turbo_ticks``). Tokens are identical with turbo on or off.
+
+    ``adaptive_quantum`` — 0 (off) or in [2, max_seq]: while no chunked
+    admission is mid-flight, a dense tick decodes until the step at which
+    any active slot reaches its budget or emits ``eos_id``, or
+    ``adaptive_quantum`` steps (``n_adaptive_ticks``). The budget stop is
+    known on the host; an EOS stop is found by reading the tokens back
+    every :data:`ADAPTIVE_EOS_CHECK` steps (``n_adaptive_syncs`` counts the
+    read-backs, ``n_adaptive_steps_dropped`` the steps decoded past an EOS
+    stop). Exclusive with turbo and the speculative tick.
+
+    ``speculative_window`` — when >= 2, each tick drafts ``window - 1``
+    tokens per active slot by prompt lookup over its own history
+    (``models.speculative.lookup_draft_host``, n-gram ``speculative_ngram``),
+    scores every slot's window at its own depth in ONE ``verify_step`` (or
+    ``verify_step_paged``) call and commits the longest draft prefix on the
+    model's greedy chain plus the model's next token. Greedy only, with
+    ``decode_quantum=1``; tokens equal the plain batcher's. Inactive slots
+    carry a dummy window at position 0 that writes their own dead rows
+    (dense) or the scratch page (paged). ``speculative_adaptive`` sizes the
+    window per tick from the acceptance EWMA (:meth:`_spec_window_for_tick`);
+    ``accept_ewma``, ``commit_ewma``, ``spec_tick_s_ewma`` and
+    :meth:`predicted_tpot_s` report what the ticks measured.
 
     ``prefill_chunk`` — when > 0, admission prefills prompts in chunks of
     that many tokens (``GPT2.prefill_chunk``), at most one chunk per tick
@@ -193,12 +229,6 @@ class ContinuousBatcher:
         weight_quant: str | None = "env",
     ):
         cfg = model.config
-        if turbo_factor or adaptive_quantum:
-            raise NotImplementedError(
-                "turbo_factor and adaptive_quantum " + _NOT_PORTED.format(5))
-        if speculative_window or speculative_adaptive or speculative_ngram != 2:
-            raise NotImplementedError(
-                "the speculative tick (speculative_*) " + _NOT_PORTED.format(5))
         if mesh is not None:
             raise NotImplementedError("tensor-parallel serving (mesh) " + _NOT_PORTED.format(11))
         # dequant-fused serving weights: resolve the knob and quantize the
@@ -299,9 +329,69 @@ class ContinuousBatcher:
         if decode_quantum < 1:
             raise ValueError(f"decode_quantum must be >= 1, got {decode_quantum}")
         self.decode_quantum = decode_quantum
-        # dispatch counters: decode ticks and prefill passes (whole prompts
-        # or chunks); insert copies of prefix rows and swapped-in pages
+        if turbo_factor < 0 or turbo_factor == 1:
+            raise ValueError(f"turbo_factor must be 0 (off) or >= 2, got {turbo_factor}")
+        if turbo_factor and speculative_window:
+            raise ValueError(
+                "turbo_factor composes with plain quanta only; the speculative "
+                "window sets its own per-tick budget")
+        if turbo_factor and decode_quantum * turbo_factor >= cfg.max_seq:
+            # submit's L + max_new <= max_seq with a nonempty prompt caps the
+            # remaining budget at max_seq - 1: such a quantum never engages
+            raise ValueError(
+                f"turbo quantum {decode_quantum * turbo_factor} >= max_seq={cfg.max_seq} — "
+                "no request could ever have that much budget remaining")
+        self.turbo_factor = int(turbo_factor)
+        if adaptive_quantum:
+            if adaptive_quantum < 2 or adaptive_quantum > cfg.max_seq:
+                raise ValueError(
+                    f"adaptive_quantum must be in [2, max_seq={cfg.max_seq}] or 0 (off), "
+                    f"got {adaptive_quantum}")
+            if turbo_factor or speculative_window:
+                raise ValueError(
+                    "adaptive_quantum sets its own early-exit per-tick budget; "
+                    "exclusive with turbo_factor and speculative_window")
+        self.adaptive_quantum = int(adaptive_quantum)
+        if speculative_window:
+            if speculative_window < 2 or speculative_ngram < 1:
+                raise ValueError(
+                    f"speculative_window must be >= 2 (1 committed + >=1 draft) and "
+                    f"speculative_ngram >= 1; got {speculative_window}, {speculative_ngram}")
+            if self.temperature > 0.0:
+                raise ValueError(
+                    "speculative decoding is greedy-only (verify-by-argmax); temperature must be 0")
+            if decode_quantum != 1:
+                raise ValueError(
+                    "speculative_window replaces decode_quantum (the window IS the per-tick "
+                    "token budget); set decode_quantum=1")
+        self.speculative_window = int(speculative_window)
+        self.speculative_ngram = int(speculative_ngram)
+        if speculative_adaptive and not speculative_window:
+            raise ValueError(
+                "speculative_adaptive adapts the speculative window; set speculative_window >= 2")
+        self.speculative_adaptive = bool(speculative_adaptive)
+        # acceptance telemetry of the speculative tick: per-slot and
+        # batcher-level EWMAs of the draft acceptance rate, the verify
+        # tick's wall time and the tokens committed a slot a tick — the
+        # inputs of the adaptive window and of predicted_tpot_s. (The JAX
+        # batcher's speculative tick also sets the serving_spec_accept_rate
+        # gauge from accept_ewma; the gauges come with the observability
+        # slice, ROADMAP.md queue 1, item 7.)
+        self._slot_accept = np.full(n_slots, np.nan)
+        self.accept_ewma: float | None = None
+        self.spec_tick_s_ewma: float | None = None
+        self.commit_ewma: float | None = None
+        self.n_spec_ticks = 0
+        self.spec_window_used: dict[int, int] = {}  # width -> ticks
+        # dispatch counters: decode ticks by kind and prefill passes (whole
+        # prompts or chunks); insert copies of prefix rows and swapped-in
+        # pages; the adaptive ticks' token read-backs and the steps they
+        # decoded past an EOS stop
         self.n_plain_ticks = 0
+        self.n_turbo_ticks = 0
+        self.n_adaptive_ticks = 0
+        self.n_adaptive_syncs = 0
+        self.n_adaptive_steps_dropped = 0
         self.n_prefill_dispatches = 0
         self.n_insert_dispatches = 0
 
@@ -346,29 +436,69 @@ class ContinuousBatcher:
         return sample_token_logits(logits, None, self.temperature, self.top_k, self.top_p,
                                    uniform=request_uniform(keys, steps, logits.shape[-1]))
 
-    def _decode_tokens(self, steps_done: np.ndarray) -> np.ndarray:
-        """One decode quantum over every slot: ``decode_quantum`` steps, each
-        sampling on the device and feeding its tokens to the next, then one
-        host fetch → tokens [quantum, n_slots]. Positions clamp at
-        max_seq - 1: a slot that retires mid-quantum keeps writing its own
-        dead last row (dense) or the scratch page (paged)."""
-        dev, max_seq = self.device, self.model.config.max_seq
-        t = torch.as_tensor(self._last_tok, device=dev)
-        pos = torch.as_tensor(self._pos, device=dev)
-        keys = torch.as_tensor(self._slot_key, device=dev)
-        steps = torch.as_tensor(steps_done, device=dev)
-        table = torch.as_tensor(self._decode_table(), device=dev) if self.paged else None
+    def _decode_state(self, steps_done: np.ndarray) -> dict:
+        """The device inputs of a decode chain: every slot's last token,
+        position, sampler key and steps done, and (paged) the decode table."""
+        dev = self.device
+        return {"t": torch.as_tensor(self._last_tok, device=dev),
+                "pos": torch.as_tensor(self._pos, device=dev),
+                "keys": torch.as_tensor(self._slot_key, device=dev),
+                "steps": torch.as_tensor(steps_done, device=dev),
+                "table": torch.as_tensor(self._decode_table(), device=dev) if self.paged else None}
+
+    def _decode_steps(self, st: dict, i0: int, n: int) -> list:
+        """Steps ``i0 .. i0+n-1`` of the decode chain ``st`` (advanced in
+        place), each sampling on the device and feeding its tokens to the
+        next; returns the n token tensors [n_slots], not fetched. Positions
+        clamp at max_seq - 1: a slot that retires mid-chain keeps writing
+        its own dead last row (dense) or the scratch page (paged)."""
+        max_seq = self.model.config.max_seq
         toks = []
-        for i in range(self.decode_quantum):
+        for i in range(i0, i0 + n):
             if self.paged:
-                logits, _ = self.model.decode_step_slots_paged(self._pool, table, t, pos,
-                                                               quant=self.page_quant)
+                logits, _ = self.model.decode_step_slots_paged(
+                    self._pool, st["table"], st["t"], st["pos"], quant=self.page_quant)
             else:
-                logits, _ = self.model.decode_step_slots(self._cache, t, pos)
-            t = self._sample_rows(logits, keys, steps + i)
-            toks.append(t)
-            pos = torch.clamp(pos + 1, max=max_seq - 1)
-        return torch.stack(toks).cpu().numpy()
+                logits, _ = self.model.decode_step_slots(self._cache, st["t"], st["pos"])
+            st["t"] = self._sample_rows(logits, st["keys"], st["steps"] + i)
+            toks.append(st["t"])
+            st["pos"] = torch.clamp(st["pos"] + 1, max=max_seq - 1)
+        return toks
+
+    def _decode_tokens(self, steps_done: np.ndarray, quantum: int) -> np.ndarray:
+        """One decode quantum over every slot: ``quantum`` chained steps,
+        then one host fetch → tokens [quantum, n_slots]."""
+        return torch.stack(self._decode_steps(self._decode_state(steps_done), 0, quantum)) \
+            .cpu().numpy()
+
+    def _decode_until(self, steps_done: np.ndarray, remaining: np.ndarray, active) -> np.ndarray:
+        """The adaptive tick: decode until the step at which any active slot
+        reaches its budget (``remaining``, on the host: step
+        ``min(remaining[active])``) or samples ``eos_id``, or
+        ``adaptive_quantum`` steps — the stop of the JAX early-exit
+        ``while_loop``. Without an EOS id that is one chain and one fetch;
+        with one, the tokens are read back every :data:`ADAPTIVE_EOS_CHECK`
+        steps and the chain stops at the first group holding an active
+        slot's EOS (steps past the stop write rows that the next tick
+        overwrites before any query reads them, and their tokens are
+        dropped). Returns tokens [n_steps, n_slots]."""
+        k_stop = int(min(self.adaptive_quantum, remaining[active].min()))
+        if self.eos_id is None:
+            self.n_adaptive_syncs += 1
+            return self._decode_tokens(steps_done, k_stop)
+        st = self._decode_state(steps_done)
+        groups, i = [], 0
+        while i < k_stop:
+            n = min(ADAPTIVE_EOS_CHECK, k_stop - i)
+            got = torch.stack(self._decode_steps(st, i, n)).cpu().numpy()
+            self.n_adaptive_syncs += 1
+            groups.append(got)
+            hit = np.flatnonzero((got[:, active] == self.eos_id).any(1))
+            if len(hit):
+                self.n_adaptive_steps_dropped += n - int(hit[0]) - 1
+                return np.concatenate(groups)[: i + int(hit[0]) + 1]
+            i += n
+        return np.concatenate(groups)
 
     # ---- request interface -----------------------------------------------------
 
@@ -380,6 +510,14 @@ class ContinuousBatcher:
         # the same validation generate applies
         self.model._check_generate_args(
             len(prompt), max_new_tokens, self.temperature, self.top_k, self.top_p)
+        if self.speculative_window:
+            # a continuing slot verifies a whole window at pos < L + max_new;
+            # its last row (pos + W - 1) must stay inside the cache
+            w = self.speculative_window
+            if len(prompt) + max_new_tokens + w - 1 > self.model.config.max_seq:
+                raise ValueError(
+                    f"prompt ({len(prompt)}) + max_new ({max_new_tokens}) + "
+                    f"speculative_window-1 ({w - 1}) must fit max_seq={self.model.config.max_seq}")
         if self.paged:
             if not self.prefill_chunk:
                 raise ValueError(
@@ -549,11 +687,14 @@ class ContinuousBatcher:
     def _reserve_rows(self, prompt_len: int, max_new: int, prefix_len: int,
                       worst_case: bool = False) -> int:
         """Rows a paged admission reserves pages for: everything the request
-        can ever write — the padded prefill chunk grid and the decode
-        budget. With ``preemption`` only the chunk grid (decode grows page
-        by page); ``worst_case`` (submit's never-fits check) always counts
-        the whole footprint."""
+        can ever write — the padded prefill chunk grid, the decode budget
+        and the speculative window's overhang (W - 1 rows). With
+        ``preemption`` only the chunk grid (decode grows page by page);
+        ``worst_case`` (submit's never-fits check) always counts the whole
+        footprint."""
         base = prompt_len + max_new
+        if self.speculative_window:
+            base += self.speculative_window - 1
         c = self.prefill_chunk or self.page_size
         grid_end = prefix_len + -(-(prompt_len - prefix_len) // c) * c \
             if prompt_len > prefix_len else prompt_len
@@ -730,6 +871,7 @@ class ContinuousBatcher:
         self._pos[slot] = pos
         self._last_tok[slot] = last_tok
         self._slot_key[slot] = self._req_key(req)
+        self._slot_accept[slot] = np.nan
         self._slot_prio[slot] = req.priority
 
     # ---- admission ---------------------------------------------------------------
@@ -739,6 +881,7 @@ class ContinuousBatcher:
         self._pos[slot] = len(req.prompt)
         self._last_tok[slot] = tok
         self._slot_key[slot] = self._req_key(req)
+        self._slot_accept[slot] = np.nan  # a fresh request, a fresh EWMA
         if self.paged:
             self._slot_prio[slot] = req.priority
 
@@ -981,6 +1124,8 @@ class ContinuousBatcher:
         active = np.flatnonzero(self._slot_rid >= 0)
         if len(active) == 0:
             return emitted
+        if self.speculative_window:
+            return self._step_speculative(emitted, active)
         if self.paged and self.preemption:
             # every decoding slot must own pages for this tick's writes
             active = self._ensure_decode_pages(active, self.decode_quantum)
@@ -988,9 +1133,38 @@ class ContinuousBatcher:
                 return emitted
         steps_done = np.asarray(
             [len(self._live[rid].tokens) if rid >= 0 else 0 for rid in self._slot_rid], np.int64)
-        toks = self._decode_tokens(steps_done)
-        self.n_plain_ticks += 1
-        return self._apply_decoded(emitted, active, toks, self.decode_quantum)
+        if self.paged:  # the paged tick is the plain quantum, as in the JAX batcher
+            self.n_plain_ticks += 1
+            return self._apply_decoded(emitted, active,
+                                       self._decode_tokens(steps_done, self.decode_quantum),
+                                       self.decode_quantum)
+        # adaptive early-exit tick, whenever no chunked admission is mid-flight
+        # (those need the plain quantum's chunk interleave); a retirement ends
+        # the tick, so a queued request admits on the very next tick
+        if self.adaptive_quantum and self._pending is None:
+            toks = self._decode_until(steps_done, self._remaining(active), active)
+            self.n_adaptive_ticks += 1
+            return self._apply_decoded(emitted, active, toks, len(toks))
+        # turbo escalation in steady-state decode (nothing waiting to admit):
+        # gated on the LARGEST remaining budget — with an empty queue a slot
+        # freed mid-tick would idle under plain ticks too
+        quantum = self.decode_quantum
+        if (self.turbo_factor and not self._queue and self._pending is None
+                and self._remaining(active)[active].max() >= quantum * self.turbo_factor):
+            quantum *= self.turbo_factor
+            self.n_turbo_ticks += 1
+        else:
+            self.n_plain_ticks += 1
+        return self._apply_decoded(emitted, active, self._decode_tokens(steps_done, quantum),
+                                   quantum)
+
+    def _remaining(self, active) -> np.ndarray:
+        """[n_slots] budget left of each ``active`` slot (max_seq elsewhere)."""
+        rem = np.full(self.n_slots, self.model.config.max_seq, np.int64)
+        for slot in active:
+            req = self._live[int(self._slot_rid[slot])]
+            rem[slot] = req.max_new_tokens - len(req.tokens)
+        return rem
 
     def _apply_decoded(self, emitted: dict, active, toks, quantum: int) -> dict:
         """Apply one tick's tokens [quantum, n_slots]: emit, retire on EOS or
@@ -1017,6 +1191,118 @@ class ContinuousBatcher:
                 self._last_tok[slot] = int(toks[-1, slot])
         return emitted
 
+    def _active_accept_ewma(self) -> float | None:
+        """The adaptive window's acceptance signal: the mean of ACTIVE
+        slots' EWMAs, else the batcher-level EWMA while no active slot has
+        a measurement (fresh admissions), None before any measurement."""
+        active = self._slot_accept[self._slot_rid >= 0]
+        vals = active[~np.isnan(active)]
+        if len(vals):
+            return float(vals.mean())
+        return self.accept_ewma
+
+    def _spec_window_for_tick(self) -> int:
+        """This tick's verify window: ``speculative_window``, or under
+        ``speculative_adaptive`` one draft beyond the expected accepted
+        count at the measured acceptance (floor 2, cap the configured
+        window; the cap until the first measurement). Greedy tokens are
+        the same at any width."""
+        w_max = self.speculative_window
+        if not self.speculative_adaptive:
+            return w_max
+        acc = self._active_accept_ewma()
+        if acc is None:
+            return w_max
+        expected = 1.0 + acc * (w_max - 1)
+        return max(2, min(w_max, int(np.ceil(expected)) + 1))
+
+    def predicted_tpot_s(self) -> float | None:
+        """Acceptance-aware time per output token: the verify tick's wall
+        EWMA over the committed tokens a slot a tick. None until both are
+        measured, or without the speculative tick. (Its consumer, the
+        fleet router's cost model, is ROADMAP.md queue 1, item 13.)"""
+        if (not self.speculative_window or self.spec_tick_s_ewma is None
+                or not self.commit_ewma):
+            return None
+        return self.spec_tick_s_ewma / max(self.commit_ewma, 1.0)
+
+    def _step_speculative(self, emitted: dict, active) -> dict[int, list]:
+        """One speculative tick: per-slot prompt-lookup drafts on the host,
+        ONE verify call over every slot at its own depth (dense
+        ``verify_step``, paged ``verify_step_paged`` through the decode
+        table), one host fetch of the greedy tokens, then each active slot
+        commits its accepted drafts and the model's next token; the
+        acceptance EWMAs update per slot."""
+        w = self._spec_window_for_tick()
+        if self.paged and self.preemption:
+            # the window writes rows pos..pos+w-1: grow first
+            active = self._ensure_decode_pages(active, w)
+            if len(active) == 0:
+                return emitted
+        toks = np.zeros((self.n_slots, w), np.int64)
+        pos = np.zeros(self.n_slots, np.int64)
+        for slot in active:
+            req = self._live[int(self._slot_rid[slot])]
+            history = np.concatenate([req.prompt, np.asarray(req.tokens, np.int64)])
+            toks[slot, 0] = self._last_tok[slot]
+            toks[slot, 1:] = lookup_draft_host(history, self.speculative_ngram, w - 1)
+            pos[slot] = self._pos[slot]
+        t0 = time.monotonic()
+        window, start = self._tokens(toks), torch.as_tensor(pos, device=self.device)
+        if self.paged:
+            logits, _ = self.model.verify_step_paged(
+                self._pool, torch.as_tensor(self._decode_table(), device=self.device), window,
+                start, quant=self.page_quant)
+        else:
+            logits, _ = self.model.verify_step(self._cache, window, start)
+        greedy = logits.argmax(-1).cpu().numpy()  # [n_slots, W]; the fetch ends the tick
+        wall = time.monotonic() - t0
+        self.n_spec_ticks += 1
+        self.spec_window_used[w] = self.spec_window_used.get(w, 0) + 1
+        self.spec_tick_s_ewma = (wall if self.spec_tick_s_ewma is None
+                                 else 0.8 * self.spec_tick_s_ewma + 0.2 * wall)
+        committed_total = 0
+        for slot in active:
+            req = self._live[int(self._slot_rid[slot])]
+            new = emitted.setdefault(req.rid, [])
+            drafts = toks[slot, 1:]
+            committed = 0
+            measured = True  # False when a retirement censors the window
+            for i in range(w):
+                # greedy[i] is the model's next token after window position
+                # i, valid while every earlier draft matched the chain
+                tok = int(greedy[slot, i])
+                req.tokens.append(tok)
+                new.append(tok)
+                self._last_tok[slot] = tok
+                committed += 1
+                if self._finished(req, tok):
+                    self._retire(req)
+                    self._slot_rid[slot] = -1
+                    self._free_slot_pages(slot)
+                    # the unconsumed drafts were never judged: no sample,
+                    # unless the window was accepted whole
+                    measured = committed == w
+                    break
+                if i == w - 1 or int(drafts[i]) != tok:
+                    break
+            committed_total += committed
+            if measured and w > 1:
+                rate = (committed - 1) / (w - 1)
+                prev = self._slot_accept[slot]
+                self._slot_accept[slot] = rate if np.isnan(prev) else 0.8 * prev + 0.2 * rate
+                self.accept_ewma = (rate if self.accept_ewma is None
+                                    else 0.8 * self.accept_ewma + 0.2 * rate)
+            if self._slot_rid[slot] >= 0:
+                self._pos[slot] += committed
+                # submit's L + max_new + W - 1 <= max_seq keeps the next window inside
+                assert self._pos[slot] + w <= self.model.config.max_seq, (
+                    f"slot {slot} verify window would escape max_seq={self.model.config.max_seq}")
+        mean_commit = committed_total / len(active)
+        self.commit_ewma = (mean_commit if self.commit_ewma is None
+                            else 0.8 * self.commit_ewma + 0.2 * mean_commit)
+        return emitted
+
     def abandon(self) -> list[Request]:
         """Evacuate every unfinished request (queued, mid-admission,
         mid-decode, preempted) and reset the scheduler; retired results stay
@@ -1031,6 +1317,7 @@ class ContinuousBatcher:
         self._slot_rid[:] = -1
         self._pos[:] = 0
         self._last_tok[:] = 0
+        self._slot_accept[:] = np.nan
         if self.paged:
             for slot in range(self.n_slots):
                 self._free_slot_pages(slot)

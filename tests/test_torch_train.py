@@ -373,7 +373,7 @@ def test_train_gpt2_cli_runs_and_logs():
 
 @pytest.mark.parametrize("flag", [
     ["--pp", "2"], ["--tp", "2"], ["--sp", "2"], ["--cp", "2", "--attn", "flash"], ["--dp", "2", "--cp", "2"],
-    ["--family", "llama"],
+    ["--family", "llama", "--cp", "2"],
     ["--tokenizer", "bpe"], ["--data", "prose"], ["--checkpoint_dir", "ck"],
     ["--profile_dir", "prof"], ["--optimizer", "adafactor"],
 ])
