@@ -48,7 +48,13 @@ before the path and read just after):
   and at f32 through the single-buffer kernel; the dense int8-KV batcher
   under turbo, adaptive and plain ticks; and the ``train_gpt2``,
   ``serve_continuous`` and ``decode_speculative`` entry points with
-  ``--family llama``.
+  ``--family llama``;
+- observability (``dsml_tpu_torch.obs``): the paged GPT-2-small drain with
+  obs off and on (identical tokens; counters, spans, pool gauges, the
+  memory ledger on ``torch.cuda.memory_stats``), a speculative drain, the
+  hybrid train step with obs off and on in turns, dp = 2 under q8, three
+  forensic runs in their own processes (a sentinel halt, a hang-watch
+  expiry, an OOM), and the disabled hooks' cost against a tick and a step.
 
 Each phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit and no result line. The line before the last is the card's
@@ -117,7 +123,19 @@ idle share of a plain and of a speculative tick; the same drain at f32,
 speculative tokens equal to plain ones wherever the top-2 margin exceeds
 1e-3); llama_ticks (identical tokens under turbo, adaptive and plain
 ticks, tokens/s, tick counts, host syncs a decode tick; the adaptive
-tick's EOS branch: tokens cut at the EOS, read-backs, dropped steps); kernels (one line for the run; kernel
+tick's EOS branch: tokens cut at the EOS, read-backs, dropped steps); obs
+(the 48-request paged drain off then on: tokens identical, launches,
+serving_tokens_total = tokens emitted, 48 admissions and retirements, the
+pool gauges, the kv_pages source = the pool's bytes, serving_memory_pressure
+= bytes_in_use / bytes_limit of torch.cuda.memory_stats, the decode_tick
+Chrome trace saved under build/obs, median tick wall off and on; a
+16-request speculative drain whose acceptance gauge = accept_ewma; the
+hybrid step (8 x 1024, flash, dp_sync ring on one rank) off / on / on / off
+from the same weights: equal losses, one watermark a step from
+memory_stats equal to max_memory_allocated, one plan; dp = 2 under q8 at
+4 MiB: the buckets gauge = the plan, wire bytes = steps x the plan's, one
+plan; a sentinel halt, a hang-watch expiry and an OOM bundle from child
+processes; obs_disabled_overhead_pct of a tick and a step); kernels (one line for the run; kernel
 8's entry counts both of its paths, kernels 1–3, 5 and 6 their Llama
 paths too).
 
@@ -129,6 +147,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
@@ -1148,9 +1167,10 @@ def paged_counts(tpa):
             "paged_attn_pipelined": tpa.paged_attn_pipelined_launches}
 
 
-def drain(srv, prompts, budgets, snapshot=None):
-    """Submit every request at once and step until the batcher drains.
-    Returns (tokens per request, wall s, decode-only tick ms list)."""
+def drain(srv, prompts, budgets, snapshot=None, probe=None):
+    """Submit every request at once and step until the batcher drains;
+    ``probe(srv)`` runs after every tick, outside its timing. Returns
+    (tokens per request, wall s, decode-only tick ms list)."""
     rids = [srv.submit(p, int(n)) for p, n in zip(prompts, budgets)]
     out, ticks = {}, []
     torch.cuda.synchronize()
@@ -1166,6 +1186,8 @@ def drain(srv, prompts, budgets, snapshot=None):
             snapshot.update(n_active=srv.n_active, table=srv._decode_table().copy(),
                             pos=srv._pos.copy(),
                             pool0={k: v.clone() for k, v in srv._pool[0].items()})
+        if probe is not None:
+            probe(srv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     done = srv.collect()
@@ -3408,6 +3430,501 @@ def phase_llama_ticks(dev, card):
     torch.cuda.empty_cache()
 
 
+# ---- observability -------------------------------------------------------------------
+
+OBS_SPEC_REQUESTS = 16  # the speculative drain with obs on: the paged slice's first 16
+OBS_AB_TICKS = 60  # steady ticks, the registry switched off and on in turns
+# obs off / on in turns (off, on, on, off twice), each from the same weights
+OBS_TRAIN_TURNS = (False, True, True, False, False, True, True, False)
+OBS_ENABLED_CALLS = 10_000  # calls of the enabled hooks timed
+OBS_DP_WARMUP, OBS_DP_STEPS = 1, 3
+OBS_BUNDLE_CALLS = 100_000  # calls of the disabled hook bundle timed (bench.py's count)
+OBS_CHILD_TRAIN = 6400  # MNIST rows a forensic child trains on (100 steps of 64)
+OBS_HANG_STALL_S = 2.5  # the stalled sync window; the deadline's floor is 1 s
+OBS_HANG_AT = 60  # the update that stalls: 15 windows of 4 after the 5 the deadline needs
+
+
+def obs_disabled_bundles(n=OBS_BUNDLE_CALLS):
+    """Seconds a call of the hooks the port runs per serving tick and per
+    hybrid train step with the registry disabled, as ``bench.py`` times
+    the JAX package's (its ``obs_disabled_overhead_pct``): the tick's
+    ``enabled`` gate, and its span, histogram, gauge, counter and
+    flight-recorder writes as if ungated (each returns at its own check);
+    the step's batch-signature lookup, its claim gate and its watermark."""
+    from dsml_tpu_torch import obs
+    from dsml_tpu_torch.obs.flight_recorder import FlightRecorder
+    from dsml_tpu_torch.obs.memory import MemoryLedger
+
+    reg = obs.Registry(enabled=False)
+    c, g = reg.counter("obs_guard_total"), reg.gauge("obs_guard")
+    h = reg.histogram("obs_guard_ms")
+    rec, tracer, ledger = FlightRecorder(registry=reg), obs.SpanTracer(registry=reg), \
+        MemoryLedger(registry=reg)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        if reg.enabled:  # the tick's one gate
+            pass
+        with tracer.span("decode_tick"):
+            pass
+        h.observe(0.5)
+        g.set(0)
+        c.inc(1)
+        rec.record("serving_retire", rid=0)
+    tick_s = (time.perf_counter() - t0) / n
+    x = torch.zeros(TRAIN_B, TRAIN_S, dtype=torch.long)
+    seen = {(tuple(x.shape), tuple(x.shape))}
+    t0 = time.perf_counter()
+    for _ in range(n):
+        first = (tuple(x.shape), tuple(x.shape)) not in seen
+        if first and ledger.enabled:
+            pass
+        ledger.note_step_peak()
+    step_s = (time.perf_counter() - t0) / n
+    return tick_s, step_s
+
+
+def obs_enabled_tick_s(srv, reg, n=OBS_ENABLED_CALLS):
+    """Seconds a tick's hooks take with the registry enabled: ``srv.step()``
+    with its work (``_step_inner``) replaced by a 16-slot emission, on the
+    registry and off; the difference is the hooks'."""
+    srv._step_inner = lambda: {rid: [0] for rid in range(PAGED_SLOTS)}
+    cost = {}
+    for on in (True, False):
+        (reg.enable if on else reg.disable)()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            srv.step()
+        cost[on] = (time.perf_counter() - t0) / n
+    reg.disable()
+    del srv._step_inner  # the method again
+    return cost[True] - cost[False]
+
+
+def obs_child(kind, out_dir):
+    """A forensic run in its own process (``python3 -c "import chip_smoke;
+    chip_smoke.obs_child(kind, dir)"``), bundles under ``out_dir``; prints
+    one JSON line. sentinel: the MNIST Trainer on the card under
+    DSML_SENTINELS=halt with a NaN in the loss from update 5; hang: the
+    MNIST Trainer under DSML_HANGWATCH=1 with one sync window stalled;
+    oom: an allocation beyond the card's memory."""
+    from dsml_tpu_torch import obs
+    from dsml_tpu_torch.models import MLP
+    from dsml_tpu_torch.obs.memory import maybe_dump_oom
+    from dsml_tpu_torch.obs.sentinels import SentinelTripped
+    from dsml_tpu_torch.trainer import TrainConfig, Trainer
+    from dsml_tpu_torch.utils.data import Dataset, load_mnist
+
+    out = {"kind": kind}
+    if kind == "oom":
+        obs.enable()
+        held = torch.ones(1 << 28, device="cuda")  # 1 GiB in use when it fails
+        total = torch.cuda.get_device_properties(0).total_memory
+        try:
+            torch.empty(total + 1, dtype=torch.uint8, device="cuda")
+        except torch.OutOfMemoryError as e:
+            out["raised"] = type(e).__name__
+            out["bundle"] = maybe_dump_oom(e)
+        out["held_bytes"] = held.numel() * held.element_size()
+    else:
+        full = load_mnist(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "mnist"))
+        data = Dataset(full.train_x[:OBS_CHILD_TRAIN], full.train_y[:OBS_CHILD_TRAIN],
+                       full.test_x, full.test_y)
+        model = MLP(device="cuda")
+        loss, calls = model.loss, []
+
+        def injected(x, y):
+            calls.append(1)
+            out_ = loss(x, y)
+            if kind == "sentinel" and len(calls) >= 5:
+                return out_ * float("nan")
+            if kind == "hang" and len(calls) == OBS_HANG_AT:
+                time.sleep(OBS_HANG_STALL_S)  # the window that wedges
+            return out_
+
+        model.loss = injected
+        try:
+            Trainer(model, TrainConfig(epochs=1, sync_every=4)).train(data)
+            out["finished"] = True
+        except SentinelTripped as e:
+            out.update(sentinel=e.sentinel, message=str(e), bundle=e.bundle)
+        counter = obs.get_registry().counter("hang_suspected_total", labels=("watcher",))
+        out["hang_suspected_total"] = counter.value(watcher="train_sync_window")
+        out["bundles"] = sorted(os.listdir(out_dir))
+    print(json.dumps(out), flush=True)
+
+
+def obs_children(card):
+    """The three forensic runs at once, each a process on the card with
+    its own postmortem directory; every bundle checked."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    envs = {"sentinel": {"DSML_SENTINELS": "halt"}, "hang": {"DSML_HANGWATCH": "1"}, "oom": {}}
+    procs = {}
+    for kind, extra in envs.items():
+        out_dir = os.path.join(tmp, kind)
+        os.makedirs(out_dir)
+        env = {**os.environ, **extra, "DSML_POSTMORTEM_DIR": out_dir}
+        procs[kind] = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.obs_child({kind!r}, {out_dir!r})"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    res = {}
+    for kind, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"the {kind} child failed ({proc.returncode}): {stderr[-3000:]}")
+        res[kind] = json.loads(stdout.strip().splitlines()[-1])
+
+    def bundle_file(path, name):
+        with open(os.path.join(path, name)) as f:
+            return json.load(f)
+
+    s = res["sentinel"]
+    check(s.get("sentinel") == "nonfinite" and s.get("bundle") and os.path.isdir(s["bundle"]),
+          f"the sentinel child did not halt with a bundle: {s}")
+    fp = bundle_file(s["bundle"], "fingerprint.json")
+    s["fingerprint_card"] = fp.get("card")
+    s["fingerprint_devices"] = fp.get("devices")
+    check(fp.get("card") == card and torch.cuda.get_device_name(0) in fp["devices"]["names"],
+          f"the sentinel bundle's fingerprint does not name the card: {fp.get('card')}, "
+          f"{fp.get('devices')}")
+    h = res["hang"]
+    hang_bundles = [b for b in h["bundles"] if "hang_train_sync_window" in b]
+    check(h["hang_suspected_total"] == 1 and len(hang_bundles) == 1 and h.get("finished"),
+          f"the hang child: {h}")
+    o = res["oom"]
+    check(o.get("raised") == "OutOfMemoryError" and o.get("bundle")
+          and "resource_exhausted" in os.path.basename(o["bundle"]), f"the oom child: {o}")
+    mem = bundle_file(o["bundle"], "memory.json")
+    o["memory_measured"] = mem["measured"]
+    check(mem["measured"].get("source") == "memory_stats"
+          and mem["measured"]["bytes_in_use"] >= o["held_bytes"],
+          f"the OOM bundle's memory.json holds no measured stats: {mem['measured']}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def obs_dp_rank(rank, tmp):
+    rank_main(obs_dp_rank_run, "obs_dp", rank, tmp)
+
+
+def obs_dp_rank_run(rank, tmp, res, stage):
+    """GPT-2-small bf16 at dp = 2 under the q8 sync (4 MiB buckets) with
+    obs on: the plan's gauges and counters against the plan and the wire
+    bytes, kernel 8's launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from dsml_tpu_torch import obs
+    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.ops import quantization as tq
+    from dsml_tpu_torch.parallel.bucketing import plan_buckets
+    from dsml_tpu_torch.parallel.dp import make_dp_train_step, named_params
+    from dsml_tpu_torch.parallel.mesh import data_mesh
+
+    mesh = data_mesh(2, rank, os.path.join(tmp, "rendezvous"))
+    obs.enable(forensics=False)
+    rng = np.random.default_rng(2)
+    x_all = torch.as_tensor(rng.integers(0, 50257, (TRAIN_B, TRAIN_S)))
+    y_all = torch.as_tensor(rng.integers(0, 50257, (TRAIN_B, TRAIN_S)))
+    cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
+    model = GPT2(cfg, device=mesh.device).init(0)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+    step = make_dp_train_step(model, opt, mesh, "q8", bucket_size_mb=DP_BUCKET_MB,
+                              loss_fn=lambda x, y: model.loss(x, y, attn_impl="flash"))
+    stage("q8 steps with obs on")
+    losses = [step(x_all, y_all) for _ in range(OBS_DP_WARMUP)]
+    torch.cuda.synchronize()
+    tq.quantize_int8_launches = 0
+    losses += [step(x_all, y_all) for _ in range(OBS_DP_STEPS)]
+    torch.cuda.synchronize()
+    reg = obs.get_registry()
+    labels = {"algorithm": "q8", "axis": "dp"}
+    res.update(
+        launches_quantize_int8=tq.quantize_int8_launches,
+        plan_buckets=plan_buckets(dict(named_params(model, opt)), DP_BUCKET_MB).n_buckets,
+        collective_sync_buckets=reg.gauge("collective_sync_buckets",
+                                          labels=("algorithm", "axis")).value(**labels),
+        collective_sync_compiles_total=reg.counter("collective_sync_compiles_total",
+                                                   labels=("algorithm", "axis")).value(**labels),
+        collective_quant_bytes_total={
+            s: reg.counter("collective_quant_bytes_total",
+                           labels=("scheme", "algorithm", "axis")).value(scheme=s, **labels)
+            for s in step.quant_wire_bytes},
+        quant_wire_bytes=step.quant_wire_bytes, steps=OBS_DP_WARMUP + OBS_DP_STEPS,
+        losses=[float(v) for v in losses])
+    mesh.close()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_obs(tflash, dev, card):
+    """The observability core on the card, GPT-2-small at full width from
+    seed 0: the paged serving drain with obs off, then on (identical tokens;
+    the tick's counters, the admission histogram, the retirements, the
+    pool's gauges and ledger source, the memory pressure from
+    torch.cuda.memory_stats; the decode_tick spans' Chrome trace under
+    build/), a speculative drain's acceptance gauge; the hybrid train step
+    with obs off and on in turns (equal losses; one watermark a step, equal
+    to max_memory_allocated; one plan); dp = 2 under q8 (the plan's buckets,
+    the wire bytes); the three forensic bundles; and the disabled hooks'
+    cost against the tick and the step."""
+    from dsml_tpu_torch import obs
+    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.ops import _build
+    from dsml_tpu_torch.ops import paged_attention as tpa
+    from dsml_tpu_torch.parallel.hybrid import make_hybrid_train_step
+    from dsml_tpu_torch.parallel.mesh import Mesh, MeshSpec
+    from dsml_tpu_torch.serving import ContinuousBatcher
+
+    t_phase = time.perf_counter()
+    gc.collect()  # no earlier phase's batcher may still feed the ledger
+    reg, ledger, recorder, tracer = (obs.get_registry(), obs.get_memory_ledger(),
+                                     obs.get_flight_recorder(), obs.get_tracer())
+    total_memory = torch.cuda.get_device_properties(dev).total_memory
+
+    def fresh(enabled):
+        obs.disable()
+        reg.reset()
+        recorder.clear()
+        tracer.reset()
+        ledger.clear()
+        if enabled:
+            obs.enable(forensics=False)
+
+    def value(kind, name, labels=(), **kw):
+        return getattr(reg, kind)(name, labels=labels).value(**kw)
+
+    serving_labels = {"replica": "0", "role": "decode"}
+    labels2 = ("replica", "role")
+
+    # (1) serving: the paged slice's 48 requests, obs off then on
+    cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16")
+    model = GPT2(cfg, device=dev).init(0)
+    rng = np.random.default_rng(2)
+    lengths = rng.integers(64, 769, PAGED_REQUESTS)
+    budgets = rng.integers(16, 129, PAGED_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int64) for n in lengths]
+    kw = dict(paged_kv="int4", page_size=PAGE, prefill_chunk=PAGED_CHUNK, n_slots=PAGED_SLOTS)
+    fresh(False)
+    srv = ContinuousBatcher(model, **kw)
+    drain(srv, prompts[:4], [8] * 4)  # warm-up
+    serving = {}
+    probe = {}
+
+    def full_pool_probe(s):
+        # at the first full tick: scrape, then read the allocator's numbers
+        if probe or s.n_active < s.n_slots:
+            return
+        text = reg.to_prometheus_text()
+        stats = torch.cuda.memory_stats(dev)
+        pool_bytes = sum(t.numel() * t.element_size() for layer in s._pool for t in layer.values())
+        probe.update(
+            gauges={k: value("gauge", f"serving_page_pool_{k}", labels2, **serving_labels)
+                    for k in ("used", "free", "shared")},
+            pool={"used": s.used_pages, "free": s.free_pages, "shared": s.shared_pages},
+            kv_pages_source=sum(ledger.claimed()["kv_pages"].values()), pool_bytes=pool_bytes,
+            memory_pressure=value("gauge", "serving_memory_pressure", labels2, **serving_labels),
+            pressure_from_stats=stats["allocated_bytes.all.current"] / total_memory,
+            hbm_source_memory_stats='hbm_source{source="memory_stats"} 1' in text)
+
+    for on in (False, True):
+        fresh(on)
+        tpa.paged_attn_launches = tpa.paged_attn_pipelined_launches = 0
+        ticks0, pre0 = srv.n_plain_ticks, srv.n_prefill_dispatches
+        toks, wall, tick_ms = drain(srv, prompts, budgets, probe=full_pool_probe if on else None)
+        serving["on" if on else "off"] = {
+            "toks": toks, "wall_s": wall, "tick_ms_median": statistics.median(tick_ms),
+            "launches": paged_counts(tpa),
+            "dispatches": (srv.n_prefill_dispatches - pre0) + (srv.n_plain_ticks - ticks0)}
+    on_run, off_run = serving["on"], serving["off"]
+    emitted = sum(len(t) for t in on_run["toks"])
+    events = [e["kind"] for e in recorder.events()]
+    trace_path = _build.BUILD_DIR.parent / "obs" / "decode_tick_trace.json"
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    tracer.save_chrome_trace(str(trace_path))
+    ticks_traced = sum(e["ph"] == "B" and e["name"] == "decode_tick"
+                       for e in tracer.chrome_trace()["traceEvents"])
+    serving_row = {
+        "tokens_identical": on_run["toks"] == off_run["toks"], "tokens_emitted": emitted,
+        "serving_tokens_total": value("counter", "serving_tokens_total", labels2, **serving_labels),
+        "serving_admission_ms_count": reg.histogram("serving_admission_ms", labels=labels2)
+        .summary(**serving_labels)["count"],
+        "serving_retire_events": events.count("serving_retire"),
+        "decode_tick_spans": ticks_traced, "chrome_trace": str(trace_path),
+        "tick_ms_median": {"off": off_run["tick_ms_median"], "on": on_run["tick_ms_median"]},
+        "wall_s": {"off": off_run["wall_s"], "on": on_run["wall_s"]},
+        "tokens_per_s": {"off": emitted / off_run["wall_s"], "on": emitted / on_run["wall_s"]},
+        "launches": on_run["launches"], "full_pool_probe": probe}
+    check(serving_row["tokens_identical"], "obs on changed the drain's tokens")
+    check(on_run["launches"]["paged_attn_pipelined"] == cfg.n_layer * on_run["dispatches"],
+          f"the obs-on drain launched {on_run['launches']}, expected {cfg.n_layer} x "
+          f"{on_run['dispatches']} pipelined launches")
+    check(serving_row["serving_tokens_total"] == emitted,
+          f"serving_tokens_total {serving_row['serving_tokens_total']} != {emitted} emitted")
+    check(serving_row["serving_admission_ms_count"] == PAGED_REQUESTS
+          and serving_row["serving_retire_events"] == PAGED_REQUESTS,
+          f"admissions / retirements recorded: {serving_row['serving_admission_ms_count']} / "
+          f"{serving_row['serving_retire_events']}, expected {PAGED_REQUESTS}")
+    check(probe and probe["gauges"] == probe["pool"], f"pool gauges vs the pool: {probe}")
+    check(probe["kv_pages_source"] == probe["pool_bytes"],
+          f"kv_pages ledger source {probe['kv_pages_source']} != pool bytes {probe['pool_bytes']}")
+    check(probe["hbm_source_memory_stats"]
+          and probe["memory_pressure"] == probe["pressure_from_stats"],
+          f"serving_memory_pressure vs torch.cuda.memory_stats: {probe}")
+
+    # the hooks' cost a tick, A/B on one steady batch (every slot decoding,
+    # no admission or retirement): the registry off and on tick by tick
+    fresh(False)
+    for prompt in prompts[:PAGED_SLOTS]:
+        srv.submit(prompt[:64], OBS_AB_TICKS + 8)
+    while srv.n_queued or srv.n_pending or srv.n_active < srv.n_slots:
+        srv.step()
+    ab = {False: [], True: []}
+    for i in range(OBS_AB_TICKS):
+        on = bool(i % 2)
+        (reg.enable if on else reg.disable)()
+        t = time.perf_counter()
+        srv.step()
+        ab[on].append((time.perf_counter() - t) * 1e3)
+    reg.disable()
+    srv.abandon()
+    enabled_tick_s = obs_enabled_tick_s(srv, reg)
+    serving_row["steady_tick_ab"] = {
+        "ticks": OBS_AB_TICKS, "slots": PAGED_SLOTS, "off_ms_median": statistics.median(ab[False]),
+        "on_ms_median": statistics.median(ab[True]), "off_ms_min": min(ab[False]),
+        "on_ms_min": min(ab[True])}
+
+    fresh(True)
+    spec = ContinuousBatcher(model, speculative_window=LLAMA_SPEC_WINDOW, **kw)
+    tpa.paged_attn_launches = tpa.paged_attn_pipelined_launches = 0
+    spec_toks, spec_wall, _ = drain(spec, prompts[:OBS_SPEC_REQUESTS], budgets[:OBS_SPEC_REQUESTS])
+    spec_row = {"requests": OBS_SPEC_REQUESTS, "window": LLAMA_SPEC_WINDOW,
+                "accept_ewma": spec.accept_ewma, "verify_ticks": spec.n_spec_ticks,
+                "serving_spec_accept_rate": value("gauge", "serving_spec_accept_rate", labels2,
+                                                  **serving_labels),
+                "launches": paged_counts(tpa), "wall_s": spec_wall}
+    check(spec.accept_ewma is not None
+          and spec_row["serving_spec_accept_rate"] == spec.accept_ewma,
+          f"serving_spec_accept_rate vs accept_ewma: {spec_row}")
+    check(all(len(t) == int(n) for t, n in zip(spec_toks, budgets)), "a speculative request "
+          "did not complete its budget")
+    del srv, spec, model
+    torch.cuda.empty_cache()
+
+    # (2) the hybrid train step, obs off and on in turns from the same weights
+    cfg_t = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
+    model = GPT2(cfg_t, device=dev).init(0)
+    init_state = {k: v.clone() for k, v in model.state_dict().items()}
+    mesh = Mesh(MeshSpec(dp=1).resolved(1), 0, dev, {})
+    xy_rng = np.random.default_rng(2)
+    x = torch.as_tensor(xy_rng.integers(0, cfg_t.vocab_size, (TRAIN_B, TRAIN_S)), device=dev)
+    y = torch.as_tensor(xy_rng.integers(0, cfg_t.vocab_size, (TRAIN_B, TRAIN_S)), device=dev)
+    turns = []
+    for on in OBS_TRAIN_TURNS:
+        fresh(on)
+        model.load_state_dict(init_state)
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+        step = make_hybrid_train_step(model, opt, mesh, attn_impl="flash", dp_sync="ring")
+        losses = [step(x, y) for _ in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        reset_counts(tflash)
+        marks, peaks = [], []
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            losses.append(step(x, y))
+            if on:  # host-side reads: the watermark just landed, the allocator's peak
+                marks.append(ledger.watermarks()[-1])
+                peaks.append(torch.cuda.max_memory_allocated(dev))
+        torch.cuda.synchronize()
+        turn = {"obs": on, "step_ms": (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS,
+                "losses": torch.stack(losses).float().tolist(), "launches": train_counts(tflash)}
+        if on:
+            turn.update(
+                watermarks=len(ledger.watermarks()),
+                watermark_sources=sorted({m["source"] for m in marks}),
+                watermarks_equal_max_memory_allocated=[m["peak_bytes"] for m in marks] == peaks,
+                collective_sync_compiles_total=value("counter", "collective_sync_compiles_total",
+                                                     ("algorithm", "axis"), algorithm="ring",
+                                                     axis="dp"),
+                unattributed_bytes=ledger.unattributed_bytes(),
+                claimed=ledger.claimed(), measured=ledger.measure())
+            turn["measured"].pop("per_device", None)
+        turns.append(turn)
+        del opt, step
+        torch.cuda.empty_cache()
+    n = cfg_t.n_layer * TRAIN_STEPS
+    for t in turns:
+        check(bf16_step_counts_ok(t["launches"], n, n),
+              f"hybrid steps (obs {t['obs']}) launched {t['launches']}")
+        check(t["losses"] == turns[0]["losses"], "obs on changed the train step's losses")
+        if t["obs"]:
+            check(t["watermarks"] == TRAIN_WARMUP + TRAIN_STEPS
+                  and t["watermark_sources"] == ["memory_stats"]
+                  and t["watermarks_equal_max_memory_allocated"],
+                  f"watermarks: {t['watermarks']} for {TRAIN_WARMUP + TRAIN_STEPS} steps, "
+                  f"sources {t['watermark_sources']}, equal to max_memory_allocated: "
+                  f"{t['watermarks_equal_max_memory_allocated']}")
+            check(t["collective_sync_compiles_total"] == 1,
+                  f"collective_sync_compiles_total {t['collective_sync_compiles_total']} != 1")
+    del model, init_state
+    torch.cuda.empty_cache()
+    fresh(False)
+
+    # (3) dp = 2 under q8, 4 MiB buckets
+    ranks, dp_seconds = spawn_ranks(obs_dp_rank, "obs_dp")
+    for r in ranks:
+        check(r["collective_sync_buckets"] == r["plan_buckets"]
+              and r["collective_sync_compiles_total"] == 1,
+              f"rank {r['rank']}: buckets {r['collective_sync_buckets']} vs plan "
+              f"{r['plan_buckets']}, compiles {r['collective_sync_compiles_total']}")
+        check(r["collective_quant_bytes_total"] == {s: r["steps"] * b for s, b in
+                                                    r["quant_wire_bytes"].items()},
+              f"rank {r['rank']}: wire bytes {r['collective_quant_bytes_total']} vs "
+              f"{r['steps']} x {r['quant_wire_bytes']}")
+        check(r["launches_quantize_int8"] == r["plan_buckets"] * OBS_DP_STEPS,
+              f"rank {r['rank']}: kernel 8 launched {r['launches_quantize_int8']} times")
+
+    # (4) the forensic bundles, (5) the disabled hooks' cost
+    children = obs_children(card)
+    tick_s, step_s = obs_disabled_bundles()
+    fresh(True)  # the step's enabled hook: one watermark, a read of the allocator's statistics
+    t0 = time.perf_counter()
+    for _ in range(OBS_ENABLED_CALLS):
+        ledger.note_step_peak()
+    enabled_step_s = (time.perf_counter() - t0) / OBS_ENABLED_CALLS
+    fresh(False)
+    off_steps = [t["step_ms"] for t in turns if not t["obs"]]
+    on_steps = [t["step_ms"] for t in turns if t["obs"]]
+    tick_ms = off_run["tick_ms_median"]
+    step_ms = statistics.median(off_steps)
+    row = {"phase": "obs", "model": "gpt2-small", "card": card,
+           "serving": serving_row, "speculative": spec_row,
+           "train": {"batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS,
+                     "warmup": TRAIN_WARMUP, "dp_sync": "ring", "turns": [
+                         {k: v for k, v in t.items() if k != "losses"} for t in turns],
+                     "step_ms": {"off": off_steps, "on": on_steps,
+                                 "off_median": step_ms, "on_median": statistics.median(on_steps)},
+                     "losses": turns[0]["losses"]},
+           "dp2_q8": {"seconds_with_spawn": dp_seconds, "ranks": ranks},
+           "forensics": children,
+           "disabled": {"calls": OBS_BUNDLE_CALLS, "tick_bundle_ns": tick_s * 1e9,
+                        "step_bundle_ns": step_s * 1e9, "tick_ms": tick_ms, "step_ms": step_ms,
+                        "obs_disabled_overhead_pct": {"tick": 100 * tick_s / (tick_ms / 1e3),
+                                                      "step": 100 * step_s / (step_ms / 1e3)},
+                        "bar_pct": 1.0},
+           "enabled": {"calls": OBS_ENABLED_CALLS, "tick_hooks_us": enabled_tick_s * 1e6,
+                       "step_hooks_us": enabled_step_s * 1e6,
+                       "overhead_pct": {"tick": 100 * enabled_tick_s / (tick_ms / 1e3),
+                                        "step": 100 * enabled_step_s / (step_ms / 1e3)}},
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(row)
+    obs.disable()
+    return {"serving": on_run["launches"], "train": turns[1]["launches"]}
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: this smoke test needs the card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3460,7 +3977,8 @@ def main() -> None:
                   "llama_kernel": lambda: phase_llama_kernel(tflash, dev),
                   "llama_train": lambda: phase_llama_train(tflash, dev, card),
                   "llama_serve": lambda: phase_llama_serve(dev, card),
-                  "llama_ticks": lambda: phase_llama_ticks(dev, card)}
+                  "llama_ticks": lambda: phase_llama_ticks(dev, card),
+                  "obs": lambda: phase_obs(tflash, dev, card)}
         for name in only:
             phases[name]()
         raise SystemExit(f"chip_smoke: ran only {only}; no result line")
@@ -3516,6 +4034,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     llama_paged_launches = phase_llama_serve(dev, card)
     phase_llama_ticks(dev, card)
+    torch.cuda.empty_cache()
+    # the observability core on the serving and training paths (its launches
+    # are in its own line: the kernels line reads the paths above)
+    phase_obs(tflash, dev, card)
 
     # the backward's two routes: bf16 (tensor cores) with launches from the
     # bf16 train steps, f32 (FMAs) with launches from phase_train's f32

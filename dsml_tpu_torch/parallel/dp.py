@@ -29,16 +29,25 @@ this rank's f32 residuals in the step (``step.error_feedback``, one per
 trainable parameter in ``named_params`` order): each sync runs on
 ``grads + residual`` with deterministic rounding and leaves the new
 residual there.
+
+Observability, as the JAX step writes it: a ``train_step_build``
+flight-recorder event when the step is built; the sync's bucket plan
+(``obs.record_collective_plan``) once per batch signature, where the JAX
+step records it once per compilation (an explicit algorithm only: the
+``"xla"`` sync has no plan there); the cumulative wire bytes of a
+quantized sync (``obs.record_quant_sync_bytes``) after every step.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
 
-from dsml_tpu_torch.ops.collectives import ReduceOp, all_reduce
 from dsml_tpu_torch.models.common import count_correct
+from dsml_tpu_torch.obs import flight_recorder, record_collective_plan, record_quant_sync_bytes
+from dsml_tpu_torch.ops.collectives import ReduceOp, all_reduce
 from dsml_tpu_torch.parallel.bucketing import (bucketed_all_reduce, default_bucket_mb,
                                                init_error_feedback, is_quantized_algorithm,
                                                plan_buckets, plan_quant_wire_bytes,
@@ -100,18 +109,34 @@ def make_dp_train_step(model, optimizer, mesh=None, algorithm: str = "xla", axis
                          f"(q8_ring/q8_ring2/q4_ring/q4_ring2/quant), got {algorithm!r}")
     if bucket_size_mb == "auto":
         bucket_size_mb = default_bucket_mb()
+    # build-time breadcrumb: a postmortem names the sync the dying run was built with
+    flight_recorder.record("train_step_build", algorithm=algorithm, axis=axis,
+                           bucket_mb=bucket_size_mb,
+                           devices=1 if mesh is None else math.prod(mesh.shape.values()),
+                           error_feedback=error_feedback)
     if algorithm == "xla":
         bucket_size_mb = None  # the process group's one all_reduce of every gradient
     group = None if mesh is None else mesh.group(axis)
     loss_fn = loss_fn or model.loss
     params = [p for _, p in named_params(model, optimizer)]
     device = params[0].device
+    quantized = is_quantized_algorithm(algorithm)
     # the loss mean is exact: a quantized name is no all_reduce algorithm
-    loss_algorithm = "ring" if is_quantized_algorithm(algorithm) else algorithm
+    loss_algorithm = "ring" if quantized else algorithm
+    # the batch signatures seen: where jit would trace (and the JAX step
+    # record its plan) on a new one; None = the "xla" sync, which has none
+    signatures = None if algorithm == "xla" else set()
+    # EF syncs are plan-shaped even at None (per-dtype buckets)
+    plan_mb = bucket_size_mb if bucket_size_mb is not None or not error_feedback else float("inf")
 
     def step(x, y, lr: float | None = None):
         x = rank_rows(x, group).to(device)
         y = rank_rows(y, group).to(device)
+        if signatures is not None:
+            sig = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype)
+            if sig not in signatures:
+                signatures.add(sig)
+                record_collective_plan(algorithm, params, plan_mb, axis)
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(x, y)
         loss.backward()
@@ -131,11 +156,13 @@ def make_dp_train_step(model, optimizer, mesh=None, algorithm: str = "xla", axis
             for g in optimizer.param_groups:
                 g["lr"] = lr
         optimizer.step()
+        if quantized:
+            record_quant_sync_bytes(step.quant_wire_bytes, algorithm, axis)
         return loss
 
     step.error_feedback = init_error_feedback(params) if error_feedback else None
     step.quant_wire_bytes = {}
-    if group is not None and is_quantized_algorithm(algorithm):
+    if group is not None and quantized:
         plan = plan_buckets(params, bucket_size_mb if bucket_size_mb is not None else float("inf"))
         step.quant_wire_bytes = plan_quant_wire_bytes(plan, group.size, algorithm)
     return step

@@ -29,12 +29,23 @@ rank is one process running :func:`make_hybrid_train_step`'s ``step``:
 Pipeline schedules and microbatched pipelines raise and name their ROADMAP
 item; an explicit ``dp_sync`` on a mesh with another sized axis raises, as
 in the JAX package.
+
+Observability, as the JAX step writes it: every step lands a memory-ledger
+peak watermark (``note_step_peak``, an allocator statistic read on the
+host: no device sync); an explicit ``dp_sync`` records its bucket plan
+(``obs.record_collective_plan``) once per batch signature, where the JAX
+step records it once per compilation; the first step, which allocates
+``torch.optim``'s state, claims the parameters and that state in the
+ledger (the JAX ``init_hybrid`` claims them at initialisation: optax's
+state exists before the first update, torch's after it).
 """
 
 from __future__ import annotations
 
 import torch
 
+from dsml_tpu_torch.obs import record_collective_plan
+from dsml_tpu_torch.obs.memory import get_memory_ledger
 from dsml_tpu_torch.ops.collectives import ReduceOp, all_reduce
 from dsml_tpu_torch.parallel.bucketing import (bucketed_all_reduce, default_bucket_mb,
                                                is_quantized_algorithm)
@@ -131,10 +142,18 @@ def make_hybrid_train_step(model, optimizer, mesh: Mesh, attn_impl: str | None =
     loss_fn = hybrid_loss_fn(model, attn_impl, seq_group)
     n_seq = 1 if seq_group is None else seq_group.size
     params = [p for _, p in named_params(model, optimizer)]
+    ledger = get_memory_ledger()
+    signatures = set()  # the batch signatures seen: where jit would trace
 
     def step(x, y, lr: float | None = None):
         x = rank_rows(_shard(x, seq_group), dp_group).to(model.device).long()
         y = rank_rows(_shard(y, seq_group), dp_group).to(model.device).long()
+        sig = (tuple(x.shape), tuple(y.shape))
+        first = sig not in signatures
+        if first:
+            signatures.add(sig)
+            if dp_sync != "xla":
+                record_collective_plan(dp_sync, params, mb, "dp")
         if x.shape[0] % grad_accum:
             raise ValueError(f"per-rank batch {x.shape[0]} not divisible by grad_accum={grad_accum}")
         micro = x.shape[0] // grad_accum
@@ -171,6 +190,10 @@ def make_hybrid_train_step(model, optimizer, mesh: Mesh, attn_impl: str | None =
             for g in optimizer.param_groups:
                 g["lr"] = lr
         optimizer.step()
+        if first and ledger.enabled:
+            ledger.claim_tree("params", model, detail="hybrid")
+            ledger.claim_tree("optimizer", optimizer.state, detail="hybrid")
+        ledger.note_step_peak()
         return loss
 
     return step

@@ -43,10 +43,21 @@ noise of row b at step s is a counter-based hash of (request key, s, token
 id) (:func:`request_uniform`), computed on the device in int64 arithmetic,
 so the CPU and the card draw the same noise.
 
+Observability (``dsml_tpu_torch.obs``, off unless enabled; one branch a
+call site when off), as the JAX batcher writes it: a ``decode_tick`` span
+a tick (no fence: the tick already ends in its host fetch), admission
+latency with the request's ``trace_id`` as exemplar, slot occupancy, queue
+depth, tokens, shed requests, CoW copies, preemptions and page waits,
+flight-recorder events per admission, retirement, preemption and resume,
+the speculative acceptance gauge, and, refreshed at scrape time, the page
+pool's gauges and ``serving_memory_pressure``. The memory ledger reads the
+pool's bytes (``kv_pages``) and the quantized weights' (``weights_quant``)
+as live sources. Metrics carry ``replica`` and ``role`` labels
+(``obs_replica = "0"``, ``obs_role = "decode"``).
+
 Left for later slices, each raising where a caller can reach it:
 tensor-parallel serving over a mesh (item 11), serving from a checkpoint
-(item 9) and the fleet's handoff admission ``inject`` (item 13). The
-observability hooks (spans, gauges, the memory ledger) come with item 7.
+(item 9) and the fleet's handoff admission ``inject`` (item 13).
 """
 
 from __future__ import annotations
@@ -61,11 +72,15 @@ import torch
 from dsml_tpu_torch.models.common import quantize_weights_blocked
 from dsml_tpu_torch.models.gpt2 import sample_token_logits
 from dsml_tpu_torch.models.speculative import lookup_draft_host
+from dsml_tpu_torch.obs import TraceContext, flight_recorder, get_registry, get_tracer
+from dsml_tpu_torch.obs.memory import get_memory_ledger, tree_nbytes
 from dsml_tpu_torch.ops.quantization import QuantizedWeight, weight_quant_mode
 from dsml_tpu_torch.serving.paging import (
     PagePool,
     copy_page,
+    export_pool_gauges,
     gather_pages,
+    note_page_wait,
     pages_for,
     plan_admission,
     prefill_prefix_into_pages,
@@ -96,9 +111,17 @@ class Request:
     # the sampler's identity: noise derives from (seed, key_rid, step)
     # instead of the local rid when set
     key_rid: int | None = None
+    # request-scoped trace identity (obs.TraceContext.trace_id): the
+    # spans, flow events and the admission histogram's exemplar tag with it
+    trace_id: str | None = None
     # preemption priority (paged ``preemption=True``): the lowest-priority
     # slot is evicted first, the youngest within a priority
     priority: int = 0
+
+    def trace_ctx(self) -> TraceContext | None:
+        """The request's TraceContext (its flow id derives from the
+        trace_id alone); None when the request carries no trace."""
+        return None if self.trace_id is None else TraceContext(trace_id=self.trace_id)
 
 
 def _bucket(n: int, buckets: tuple) -> int:
@@ -231,6 +254,11 @@ class ContinuousBatcher:
         cfg = model.config
         if mesh is not None:
             raise NotImplementedError("tensor-parallel serving (mesh) " + _NOT_PORTED.format(11))
+        self._obs = get_registry()  # no-op unless observability is enabled
+        # serving metrics are labeled per replica and worker kind, as the
+        # JAX batcher's: a standalone batcher is replica "0", role "decode"
+        self.obs_replica = "0"
+        self.obs_role = "decode"
         # dequant-fused serving weights: resolve the knob and quantize the
         # projections before any cache or pool is built from the model
         if weight_quant == "env":
@@ -246,8 +274,8 @@ class ContinuousBatcher:
             leaves = [m for m in model.modules() if isinstance(m, QuantizedWeight)]
             self._wq_bytes = {"packed": sum(q.qw.nbytes for q in leaves),
                               "scales": sum(q.qs.nbytes for q in leaves)}
-            # the memory ledger's "weights_quant" source comes with the
-            # observability slice (ROADMAP.md queue 1, item 7)
+            get_memory_ledger(self._obs).register_source(
+                "weights_quant", self._ledger_weight_quant_bytes, name=self._ledger_name())
         self.weight_quant = weight_quant
         self.model = model
         self.device = model.device
@@ -306,6 +334,16 @@ class ContinuousBatcher:
             # take them off the reservable ceiling
             self._registry_pages = 0
             self._pool = model.init_page_pool(self.n_pages, self.page_size, quant=self.page_quant)
+            # the request whose page wait is being counted (its first
+            # blocked tick marks the request's flow, later ones only count)
+            self._page_wait_rid = None
+            # pool gauges refresh at SCRAPE time (an idle batcher's gauges
+            # never freeze at the last tick's); the ledger reads the pool's
+            # bytes at every scrape and postmortem — both weakly held
+            self._page_nbytes: float | None = None
+            self._obs.add_collect_hook(self._export_pool_gauges)
+            get_memory_ledger(self._obs).register_source(
+                "kv_pages", self._ledger_page_bytes, name=self._ledger_name())
         else:
             self.n_pages = 0
             self._cache = model.init_cache(n_slots)
@@ -373,10 +411,8 @@ class ContinuousBatcher:
         # acceptance telemetry of the speculative tick: per-slot and
         # batcher-level EWMAs of the draft acceptance rate, the verify
         # tick's wall time and the tokens committed a slot a tick — the
-        # inputs of the adaptive window and of predicted_tpot_s. (The JAX
-        # batcher's speculative tick also sets the serving_spec_accept_rate
-        # gauge from accept_ewma; the gauges come with the observability
-        # slice, ROADMAP.md queue 1, item 7.)
+        # inputs of the adaptive window, of predicted_tpot_s and of the
+        # serving_spec_accept_rate gauge
         self._slot_accept = np.full(n_slots, np.nan)
         self.accept_ewma: float | None = None
         self.spec_tick_s_ewma: float | None = None
@@ -503,7 +539,7 @@ class ContinuousBatcher:
     # ---- request interface -----------------------------------------------------
 
     def submit(self, prompt, max_new_tokens: int, key_rid: int | None = None,
-               priority: int = 0) -> int:
+               trace_id: str | None = None, priority: int = 0) -> int:
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if len(prompt) < 1:
             raise ValueError("empty prompt")
@@ -544,13 +580,20 @@ class ContinuousBatcher:
         elif not self._chunk_grid_fits(len(prompt)):
             _bucket(len(prompt), self.prompt_buckets)  # whole-prompt admission: reject now
         if self.max_queue and len(self._queue) >= self.max_queue:
+            # shed AFTER validation: a malformed request is the caller's bug
+            # (ValueError), a full queue is the deployment's state
+            if self._obs.enabled:
+                self._obs.counter("serving_shed_total", "requests rejected by the queue cap",
+                                  labels=("replica", "role")).inc(
+                    replica=self.obs_replica, role=self.obs_role)
             raise QueueFull(
                 f"admission queue at its cap ({self.max_queue} waiting); "
                 "request shed — retry on another replica or back off")
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, prompt=prompt, max_new_tokens=max_new_tokens,
-                      submitted_at=time.monotonic(), key_rid=key_rid, priority=int(priority))
+                      submitted_at=time.monotonic(), key_rid=key_rid, trace_id=trace_id,
+                      priority=int(priority))
         self._queue.append(req)
         self._live[rid] = req
         return rid
@@ -713,6 +756,11 @@ class ContinuousBatcher:
             src, dst = plan.copy
             self._pool = copy_page(self._pool, src, dst)
             self.n_cow_copies += 1
+            if self._obs.enabled:
+                self._obs.counter("serving_cow_copies_total",
+                                  "prefix pages materialized privately on first write",
+                                  labels=("replica", "role")).inc(
+                    replica=self.obs_replica, role=self.obs_role)
 
     def _decode_table(self) -> np.ndarray:
         """The page table a decode tick sees: ACTIVE slots' rows only. A
@@ -778,6 +826,18 @@ class ContinuousBatcher:
         self._free_slot_pages(slot)
         self._preempted.append(entry)
         self.n_preemptions += 1
+        if self._obs.enabled:
+            self._obs.counter("serving_preemptions_total",
+                              "slots evicted under page-pool pressure",
+                              labels=("kind", "replica", "role")).inc(
+                kind=kind, replica=self.obs_replica, role=self.obs_role)
+            # the pressure that forced the eviction: a postmortem shows
+            # whether the card or merely the pool's sizing was the limit.
+            # The eviction's kind rides as preempt_kind: ``kind`` is the
+            # event's own (the JAX batcher's kind=kind raises a TypeError)
+            flight_recorder.record("serving_preempt", rid=req.rid, preempt_kind=kind,
+                                   pos=entry["pos"], pressure=round(self.memory_pressure(), 4),
+                                   **self._trace_field(req))
 
     def _ensure_decode_pages(self, active, width: int) -> list:
         """Before a decode tick each participating slot must own pages for
@@ -873,6 +933,8 @@ class ContinuousBatcher:
         self._slot_key[slot] = self._req_key(req)
         self._slot_accept[slot] = np.nan
         self._slot_prio[slot] = req.priority
+        if self._obs.enabled:
+            flight_recorder.record("serving_resume", rid=req.rid, pos=pos, **self._trace_field(req))
 
     # ---- admission ---------------------------------------------------------------
 
@@ -892,6 +954,20 @@ class ContinuousBatcher:
         tok = self._sample(logits_row, req)
         req.tokens.append(tok)
         req.first_token_at = time.monotonic()
+        if self._obs.enabled:
+            # admission latency = queue wait + prefill, the serving-side
+            # time to first token; the trace_id rides as the exemplar
+            admission_ms = (req.first_token_at - req.submitted_at) * 1e3
+            self._obs.histogram("serving_admission_ms", "submit→first-token latency",
+                                labels=("replica", "role")).observe(
+                admission_ms, exemplar=req.trace_id, replica=self.obs_replica,
+                role=self.obs_role)
+            flight_recorder.record("serving_admit", rid=req.rid, prompt_len=len(req.prompt),
+                                   admission_ms=round(admission_ms, 3), **self._trace_field(req))
+            if req.trace_id is not None:
+                get_tracer().instant("serving_first_token", trace_id=req.trace_id, rid=req.rid,
+                                     admission_ms=round(admission_ms, 3),
+                                     replica=self.obs_replica)
         emitted[req.rid] = [tok]
         if self._finished(req, tok):
             self._retire(req)
@@ -998,6 +1074,7 @@ class ContinuousBatcher:
                 # resumes precede fresh admissions; one that cannot reserve
                 # holds the line
                 if not self._try_resume(self._preempted[0], int(free[0])):
+                    self._note_page_wait(self._preempted[0]["req"])
                     return emitted
                 self._preempted.popleft()
                 continue
@@ -1021,6 +1098,7 @@ class ContinuousBatcher:
                         f"request {req.rid} can never reserve its pages "
                         f"({self._registry_pages} held by the prefix registry); register "
                         "prefixes before accepting traffic, or raise n_pages")
+                self._note_page_wait(req)
                 return emitted  # pool full: wait for retirements
             self._queue.popleft()
             self._assign_slot_pages(slot, plan)
@@ -1069,6 +1147,15 @@ class ContinuousBatcher:
             (req.first_token_at or req.finished_at) - req.submitted_at,  # TTFT
             req.finished_at - req.submitted_at,  # end to end
         ))
+        if self._obs.enabled:
+            flight_recorder.record("serving_retire", rid=req.rid, tokens=len(req.tokens),
+                                   e2e_ms=round((req.finished_at - req.submitted_at) * 1e3, 3),
+                                   **self._trace_field(req))
+            ctx = req.trace_ctx()
+            if ctx is not None:
+                # flow END: the request's causal chain ends on this lane
+                get_tracer().flow("serving_retire", ctx, phase="end", rid=req.rid,
+                                  outcome="retired", replica=self.obs_replica)
         self._done[req.rid] = self._live.pop(req.rid)
 
     def _note_emissions(self, emitted: dict) -> None:
@@ -1112,9 +1199,90 @@ class ContinuousBatcher:
         """One scheduler tick: admit, one decode quantum over all slots,
         emit. Returns {rid: [new tokens]} for every request that produced
         tokens, the admissions' first tokens included."""
-        emitted = self._step_inner()
+        if not self._obs.enabled:
+            emitted = self._step_inner()
+            self._note_emissions(emitted)
+            return emitted
+        # one span a tick (decode quantum + admissions), without a fence:
+        # the tick already ends in the host fetch of its tokens
+        with get_tracer().span("decode_tick", replica=self.obs_replica, n_active=self.n_active):
+            emitted = self._step_inner()
         self._note_emissions(emitted)
+        labels = {"replica": self.obs_replica, "role": self.obs_role}
+        self._obs.histogram(
+            "serving_slot_occupancy", "active slots / n_slots per tick", labels=("replica", "role"),
+            buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0),
+        ).observe(self.n_active / self.n_slots, **labels)
+        self._obs.gauge("serving_queue_depth", "requests waiting for a slot",
+                        labels=("replica", "role")).set(self.n_queued, **labels)
+        self._obs.counter("serving_tokens_total", "tokens emitted", labels=("replica", "role")).inc(
+            sum(len(t) for t in emitted.values()), **labels)
         return emitted
+
+    # ---- observability -----------------------------------------------------------
+
+    def _ledger_name(self) -> str:
+        return f"{self.obs_replica}/{self.obs_role}/{id(self):x}"
+
+    @staticmethod
+    def _trace_field(req: Request) -> dict:
+        return {"trace_id": req.trace_id} if req.trace_id else {}
+
+    def _note_page_wait(self, req: Request) -> None:
+        """One tick of an admission (or a resume) waiting for pool pages;
+        the first tick of the request's wait marks its flow."""
+        first = self._page_wait_rid != req.rid
+        self._page_wait_rid = req.rid
+        note_page_wait(self._obs, self.obs_replica, self.obs_role,
+                       trace=req.trace_ctx() if first else None)
+
+    def _export_pool_gauges(self) -> None:
+        """Collect-hook body: the pool's occupancy gauges and
+        ``serving_memory_pressure`` from its CURRENT state at every
+        exposition."""
+        if not self._obs.enabled:
+            return  # the hooks run on a disabled registry too: skip the reads
+        export_pool_gauges(self._obs, self._pages, self.obs_replica, self.obs_role)
+        self._obs.gauge(
+            "serving_memory_pressure",
+            "device-memory pressure in [0,1]: measured bytes_in_use / bytes_limit when the "
+            "card reports memory_stats, else the pool's allocated-page fraction",
+            labels=("replica", "role"),
+        ).set(self.memory_pressure(), replica=self.obs_replica, role=self.obs_role)
+
+    def _bytes_per_page(self) -> float:
+        """Bytes of ONE physical page, from the live pool tensors (int4
+        rows, kv heads and scales all reflected), computed once."""
+        if self._page_nbytes is None:
+            self._page_nbytes = tree_nbytes(self._pool, per_device=True) / max(self.n_pages, 1)
+        return self._page_nbytes
+
+    def _ledger_page_bytes(self) -> dict:
+        """Ledger source: the pool's device bytes as a disjoint
+        live/shared/free/scratch split (summing to the whole pool, which is
+        resident whatever the occupancy)."""
+        bpp = self._bytes_per_page()
+        shared = self._pages.shared_pages
+        return {"live": (self._pages.used_pages - shared) * bpp, "shared": shared * bpp,
+                "free": self._pages.free_pages * bpp, "scratch": bpp}
+
+    def _ledger_weight_quant_bytes(self) -> dict:
+        """Ledger source: the quantized serving weights' packed codes and
+        scales."""
+        return dict(self._wq_bytes)
+
+    def memory_pressure(self) -> float:
+        """Device-memory pressure in [0, 1]: MEASURED ``bytes_in_use /
+        bytes_limit`` when the card reports ``torch.cuda.memory_stats``
+        (the whole card, weights and temporaries included), else the pool's
+        allocated-page fraction (a CPU run). 0 for a dense cache."""
+        if not self.paged:
+            return 0.0
+        measured = get_memory_ledger(self._obs).measure()
+        if measured["available"] and measured.get("bytes_limit"):
+            return min(max(measured["bytes_in_use"] / measured["bytes_limit"], 0.0), 1.0)
+        allocatable = max(self.n_pages - 1, 1)
+        return (allocatable - self._pages.free_pages) / allocatable
 
     def _step_inner(self) -> dict[int, list]:
         if self.paged:
@@ -1301,6 +1469,10 @@ class ContinuousBatcher:
         mean_commit = committed_total / len(active)
         self.commit_ewma = (mean_commit if self.commit_ewma is None
                             else 0.8 * self.commit_ewma + 0.2 * mean_commit)
+        if self._obs.enabled and self.accept_ewma is not None:
+            self._obs.gauge("serving_spec_accept_rate", "speculative draft acceptance rate (EWMA)",
+                            labels=("replica", "role")).set(
+                self.accept_ewma, replica=self.obs_replica, role=self.obs_role)
         return emitted
 
     def abandon(self) -> list[Request]:
@@ -1321,6 +1493,13 @@ class ContinuousBatcher:
         if self.paged:
             for slot in range(self.n_slots):
                 self._free_slot_pages(slot)
+        if self._obs.enabled:
+            flight_recorder.record("serving_abandon", n_requests=len(live))
+            for req in live:
+                if req.trace_id is not None:
+                    # not a flow end: a fleet requeues them under the same trace
+                    get_tracer().instant("serving_abandon", trace_id=req.trace_id, rid=req.rid,
+                                         outcome="abandoned", replica=self.obs_replica)
         return live
 
     def collect(self) -> dict[int, list]:

@@ -22,8 +22,9 @@ Page 0 is the SCRATCH page: never allocated, named by every free slot's
 table entries, so a dead slot's (masked, never read) writes cannot land in
 a live slot's pages.
 
-The pool-occupancy gauges and the page-wait counter of the JAX module come
-with the observability slice.
+The pool-occupancy gauges and the page-wait counter
+(:func:`export_pool_gauges`, :func:`note_page_wait`) are the paged
+batcher's observability hooks.
 """
 
 from __future__ import annotations
@@ -38,7 +39,9 @@ __all__ = [
     "AdmissionPlan",
     "PagePool",
     "copy_page",
+    "export_pool_gauges",
     "gather_pages",
+    "note_page_wait",
     "pages_for",
     "plan_admission",
     "prefill_prefix_into_pages",
@@ -200,3 +203,34 @@ def prefill_prefix_into_pages(chunk, pool, allocator: PagePool, tokens, chunk_si
     if n_grid > n_keep:  # pad-only pages hold nothing shareable
         allocator.release(pages[n_keep:])
     return pages[:n_keep], logits[0], pool
+
+
+def export_pool_gauges(obs, pool: PagePool, replica: str, role: str) -> None:
+    """The (replica, role)-labeled occupancy/free-list/CoW gauges of a
+    paged worker, written into the registry ``obs``."""
+    for name, help_, value in (
+        ("serving_page_pool_used", "pool pages in use", pool.used_pages),
+        ("serving_page_pool_free", "pool pages on the free list", pool.free_pages),
+        ("serving_page_pool_shared", "pages shared by >1 owner (CoW)", pool.shared_pages),
+    ):
+        obs.gauge(name, help_, labels=("replica", "role")).set(value, replica=replica, role=role)
+
+
+def note_page_wait(obs, replica: str, role: str, trace=None) -> None:
+    """Count one pool-pressure wait tick (an admission that could not
+    reserve its page plan and stayed queued) and, when ``trace`` (a
+    ``TraceContext``) is passed, mark the wait on the request's flow.
+    Callers pass ``trace`` only on the FIRST blocked tick of a wait
+    episode, so a request stuck for thousands of ticks does not flood its
+    causal chain (the counter stays per tick)."""
+    if not obs.enabled:
+        return
+    obs.counter(
+        "serving_page_wait_total",
+        "admission ticks spent waiting for pool pages",
+        labels=("replica", "role"),
+    ).inc(replica=replica, role=role)
+    if trace is not None:
+        from dsml_tpu_torch.obs import get_tracer
+
+        get_tracer().flow("page_wait", trace, phase="step", replica=replica)

@@ -23,10 +23,21 @@ the loop on its rows of the same global batches, syncing with
 (zero at the start; they ride no checkpoint until checkpointing is
 ported).
 
+Observability (``dsml_tpu_torch.obs``), as in the JAX trainer and all of
+it at the existing loss sync, which adds no device→host round trip: with
+the registry enabled, a per-step breakdown (data / step_dispatch /
+loss_sync) and goodput; ``train_start``, ``step``, ``loss_sync`` and
+``epoch`` flight-recorder events; memory-ledger claims of the parameters,
+the optimizer state (claimed after the first update, which allocates
+``torch.optim``'s state) and the error-feedback residuals, and a peak
+watermark at every loss sync; ``quant_error_feedback_norm`` (the global L2
+norm of ``step.error_feedback``, f32) at loss syncs; an OOM postmortem on
+the way out. ``DSML_SENTINELS`` checks the synced loss; ``DSML_HANGWATCH``
+arms a deadline per sync window (disarmed on every exit). Either knob
+implies ``obs.enable()``.
+
 Not ported yet, and raising: ``checkpoint_dir``/``resume`` (the
-checkpointing slice) and the ``plateau`` schedule. The observability
-hooks (sentinels, hang watch, flight recorder, memory ledger) come with
-the observability slice.
+checkpointing slice) and the ``plateau`` schedule.
 """
 
 from __future__ import annotations
@@ -37,6 +48,10 @@ import time
 import numpy as np
 import torch
 
+from dsml_tpu_torch import obs
+from dsml_tpu_torch.obs import GoodputTracker, StepBreakdown, flight_recorder, hangwatch
+from dsml_tpu_torch.obs.memory import get_memory_ledger, maybe_dump_oom
+from dsml_tpu_torch.obs.sentinels import TrainingSentinels
 from dsml_tpu_torch.parallel.dp import make_dp_train_step, make_eval_step
 from dsml_tpu_torch.utils.config import Config, field
 from dsml_tpu_torch.utils.data import Dataset, prefetch_batches, shard_batches
@@ -71,7 +86,7 @@ class TrainConfig(Config):
     keep_checkpoints: int = field(3, help="max checkpoints retained")
     resume: bool = field(False, help="resume from the latest checkpoint in checkpoint_dir")
     progress: bool = field(False, help="draw per-epoch train/eval progress bars on stderr")
-    sync_every: int = field(32, help="device→host loss sync cadence in steps")
+    sync_every: int = field(32, help="device→host loss sync cadence in steps; also the training-health sentinel check point (DSML_SENTINELS)")
 
 
 def _check_supported(cfg: TrainConfig, mesh) -> None:
@@ -103,6 +118,13 @@ def _make_optimizer(cfg: TrainConfig, params, steps_per_epoch: int):
     if cfg.optimizer not in makers:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}; choose from {sorted(makers)}")
     return makers[cfg.optimizer](), schedule
+
+
+@torch.no_grad()
+def _global_norm(tensors) -> float:
+    """optax.global_norm in f32: the L2 norm over every element of
+    ``tensors`` (one host read)."""
+    return torch.sqrt(sum(t.float().square().sum() for t in tensors)).item()
 
 
 class Trainer:
@@ -140,39 +162,132 @@ class Trainer:
         step = make_dp_train_step(model, optimizer, self.mesh, cfg.algorithm,
                                   bucket_size_mb=bucket, error_feedback=cfg.error_feedback)
         sync_every = max(cfg.sync_every, 1)
+        # observability: opt-in and sync-free (every host read below is the
+        # loss sync the loop does anyway); a forensic knob implies enable()
+        obs_reg = obs.get_registry()
+        recorder = flight_recorder.get_flight_recorder()
+        sentinels = TrainingSentinels.maybe_from_env()
+        hw_cfg = hangwatch.config_from_env()
+        hw = hangwatch.get_hangwatch() if hw_cfg is not None else None
+        if sentinels is not None or hw is not None:
+            obs.enable()
+        track = obs_reg.enabled
+        goodput = GoodputTracker(registry=obs_reg) if track else None
+        breakdown = StepBreakdown(registry=obs_reg) if track else None
+        ledger = get_memory_ledger(obs_reg)
+        if track:
+            ledger.claim_tree("params", model)
+            if step.error_feedback is not None:
+                ledger.claim_tree("error_feedback", step.error_feedback)
+        step_deadline = (hangwatch.TrailingDeadline.from_config(hw_cfg)
+                         if hw_cfg is not None else None)
+        recorder.record("train_start", epochs=cfg.epochs, batch_size=cfg.batch_size,
+                        steps_per_epoch=steps_per_epoch, algorithm=cfg.algorithm, start_epoch=1)
         count = 0  # updates done: the schedule's argument, as optax counts
         history = []
         t0 = time.monotonic()
-        for epoch in range(1, cfg.epochs + 1):
-            losses = []  # device scalars, synced every sync_every steps
-            bar = ProgressBar(steps_per_epoch, desc=f"Epoch {epoch}/{cfg.epochs}",
-                              enabled=cfg.progress and self.lead)
-            model.train()
-            for x, y in prefetch_batches(
-                    shard_batches(data.train_x, data.train_y, cfg.batch_size, seed=cfg.seed + epoch)):
-                losses.append(step(x, y, lr=schedule(count)))
-                count += 1
-                bar.update()
-                if len(losses) % sync_every == 0:
-                    losses[-1].item()  # bounds how far the host runs ahead
-            bar.close()
-            em = EpochMetrics()
-            for loss in torch.stack(losses).tolist() if losses else []:
-                em.update(loss, 0, cfg.batch_size)
-            train_acc = self.evaluate(data.train_x, data.train_y)
-            if self.lead:
-                log.info("Epoch %d: Average Loss = %.4f, Accuracy = %.2f%%", epoch, em.avg_loss,
-                         train_acc * 100)
-            history.append(self.metrics.log(epoch=epoch, avg_loss=em.avg_loss,
-                                            train_accuracy=train_acc))
+        try:
+            for epoch in range(1, cfg.epochs + 1):
+                losses = []  # device scalars, synced every sync_every steps
+                bar = ProgressBar(steps_per_epoch, desc=f"Epoch {epoch}/{cfg.epochs}",
+                                  enabled=cfg.progress and self.lead)
+                model.train()
+                epoch_t0 = time.monotonic()
+                t_prev = win_t0 = time.perf_counter()
+                # the hang watch covers the SYNC WINDOW (sync to sync): only
+                # the sync blocks, so single steps' walls are launch times
+                hw_token = None
+                try:
+                    for x, y in prefetch_batches(shard_batches(
+                            data.train_x, data.train_y, cfg.batch_size, seed=cfg.seed + epoch)):
+                        if hw is not None and hw_token is None:
+                            deadline_s = step_deadline.timeout_s()
+                            if deadline_s is not None:
+                                hw_token = hw.arm("train_sync_window", deadline_s,
+                                                  step=count + 1, epoch=epoch)
+                        if track:
+                            t_data = time.perf_counter()
+                            breakdown.add("data", t_data - t_prev)
+                        losses.append(step(x, y, lr=schedule(count)))
+                        count += 1
+                        if track:
+                            t_disp = time.perf_counter()
+                            breakdown.add("step_dispatch", t_disp - t_data)
+                            if count == 1:  # torch.optim allocates its state in the first update
+                                ledger.claim_tree("optimizer", optimizer.state)
+                        bar.update()
+                        if len(losses) % sync_every == 0:
+                            loss_host = losses[-1].item()  # bounds how far the host runs ahead
+                            if track:
+                                breakdown.add("loss_sync", time.perf_counter() - t_disp)
+                                ledger.note_step_peak(count)
+                            if hw is not None:
+                                if hw_token is not None:
+                                    hw.disarm(hw_token)
+                                    hw_token = None
+                                now_sync = time.perf_counter()
+                                step_deadline.observe(now_sync - win_t0)
+                                win_t0 = now_sync
+                            if sentinels is not None or track:
+                                recorder.record("loss_sync", step=count, epoch=epoch,
+                                                loss=loss_host)
+                                if sentinels is not None:
+                                    # a halt raises SentinelTripped with the bundle on disk
+                                    sentinels.check(count, loss_host)
+                            if track and step.error_feedback is not None:
+                                obs_reg.gauge(
+                                    "quant_error_feedback_norm",
+                                    "global L2 norm of the error-feedback residual tree "
+                                    "(sampled at loss syncs)",
+                                ).set(_global_norm(step.error_feedback))
+                        if track:
+                            now = time.perf_counter()
+                            breakdown.note_step_wall(now - t_prev)
+                            recorder.record("step", step=count, epoch=epoch,
+                                            wall_ms=round((now - t_prev) * 1e3, 3))
+                            t_prev = now
+                finally:
+                    # disarm on EVERY exit: a halt, an exception or an epoch
+                    # ending mid-window must not leave a deadline to fire later
+                    if hw_token is not None:
+                        hw.disarm(hw_token)
+                bar.close()
+                if track:
+                    goodput.add_productive(time.monotonic() - epoch_t0)
+                em = EpochMetrics()
+                for loss in torch.stack(losses).tolist() if losses else []:
+                    em.update(loss, 0, cfg.batch_size)
+                train_acc = self.evaluate(data.train_x, data.train_y)
+                if self.lead:
+                    log.info("Epoch %d: Average Loss = %.4f, Accuracy = %.2f%%", epoch,
+                             em.avg_loss, train_acc * 100)
+                recorder.record("epoch", epoch=epoch, avg_loss=em.avg_loss,
+                                train_accuracy=train_acc)
+                history.append(self.metrics.log(epoch=epoch, avg_loss=em.avg_loss,
+                                                train_accuracy=train_acc))
+        except BaseException as e:
+            # a device OOM unwinding through here leaves a postmortem whose
+            # memory.json carries the ledger; anything else passes untouched
+            if track:
+                try:
+                    maybe_dump_oom(e)
+                except Exception:  # noqa: BLE001 — never mask the real crash
+                    pass
+            raise
         test_acc = self.evaluate(data.test_x, data.test_y,
                                  progress_label="Testing" if cfg.progress else None)
         wall = time.monotonic() - t0
         samples = cfg.epochs * steps_per_epoch * cfg.batch_size
         if self.lead:
             log.info("Final Test Accuracy: %.2f%%", test_acc * 100)
-        self.metrics.log(test_accuracy=test_acc, wall_time_s=wall,
-                         samples_per_sec=samples / max(wall, 1e-9))
+        final = {"test_accuracy": test_acc, "wall_time_s": wall,
+                 "samples_per_sec": samples / max(wall, 1e-9)}
+        if track:
+            gsum = goodput.summary()
+            obs_reg.gauge("train_goodput", "productive/wall of the last run").set(gsum["goodput"])
+            final["obs_goodput"] = gsum
+            final["obs_step_breakdown"] = breakdown.summary()
+        self.metrics.log(**final)
         return model.state_dict(), history, test_acc
 
     @torch.no_grad()

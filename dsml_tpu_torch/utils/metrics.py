@@ -1,17 +1,15 @@
 """Training metrics and terminal progress, the counterpart of
-``dsml_tpu/utils/metrics.py``: per-epoch average loss and accuracy, a
-TTY-aware progress bar and the JSON-lines metrics history (the port's own
-copy of ``dsml_tpu/obs/export.py::MetricsLogger``, with size-capped
-rotation and without the metrics registry, which comes with the
-observability slice)."""
+``dsml_tpu/utils/metrics.py``: per-epoch average loss and accuracy and a
+TTY-aware progress bar. ``MetricsLogger``, the JSON-lines metrics history,
+lives in the observability package (``obs.export``) and is re-exported
+here, as in the JAX package."""
 
 from __future__ import annotations
 
-import json
-import os
 import sys
-import threading
 import time
+
+from dsml_tpu_torch.obs.export import MetricsLogger
 
 __all__ = ["EpochMetrics", "MetricsLogger", "ProgressBar"]
 
@@ -102,43 +100,3 @@ class ProgressBar:
             self.stream.write("\n")
             self.stream.flush()
 
-
-class MetricsLogger:
-    """Append-only JSON-lines metrics history with wall-clock timestamps.
-    ``path=None`` keeps records in memory only. With ``max_bytes`` set, a
-    file that would grow past it is first rotated to ``<path>.1``."""
-
-    def __init__(self, path: str | None = None, max_bytes: int | None = None):
-        self.path = path
-        self.max_bytes = max_bytes
-        self.records: list[dict] = []
-        self._lock = threading.Lock()
-
-    def log(self, **kv) -> dict:
-        rec = {"time": time.time(), **kv}
-        line = json.dumps(rec) + "\n"
-        with self._lock:
-            self.records.append(rec)
-            if self.path:
-                self._maybe_rotate(len(line))
-                with open(self.path, "a") as f:
-                    f.write(line)
-        return rec
-
-    def _maybe_rotate(self, incoming: int) -> None:
-        if not self.max_bytes:
-            return
-        try:
-            size = os.path.getsize(self.path)
-        except OSError:
-            return
-        if size + incoming > self.max_bytes:
-            os.replace(self.path, self.path + ".1")  # atomic on one filesystem
-
-    def last(self, **match) -> dict | None:
-        with self._lock:
-            records = list(self.records)
-        for rec in reversed(records):
-            if all(rec.get(k) == v for k, v in match.items()):
-                return rec
-        return None

@@ -420,14 +420,16 @@ def _imported_modules(tree):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
     names = {str(p.relative_to(PKG)) for p in files if PKG in p.parents}
-    # the training and paged-serving slices' modules are among those scanned
+    # every slice's modules are among those scanned, the observability package's too
     assert {"ops/xent.py", "models/mlp.py", "trainer.py", "cli/train_gpt2.py", "utils/data.py",
             "utils/schedules.py", "utils/metrics.py", "ops/quantization.py",
             "ops/paged_attention.py", "serving/paging.py", "serving/batcher.py",
             "cli/serve_continuous.py", "ops/ring_attention.py", "ops/collectives.py",
             "parallel/mesh.py", "parallel/peer.py", "parallel/hybrid.py",
             "parallel/bucketing.py", "parallel/dp.py", "models/llama.py",
-            "models/speculative.py", "cli/decode_speculative.py"} <= names
+            "models/speculative.py", "cli/decode_speculative.py", "obs/__init__.py",
+            "obs/registry.py", "obs/flight_recorder.py", "obs/spans.py", "obs/step_stats.py",
+            "obs/export.py", "obs/sentinels.py", "obs/hangwatch.py", "obs/memory.py"} <= names
     bad = []
     for path in files:
         for mod in _imported_modules(ast.parse(path.read_text(), str(path))):
