@@ -54,7 +54,12 @@ before the path and read just after):
   memory ledger on ``torch.cuda.memory_stats``), a speculative drain, the
   hybrid train step with obs off and on in turns, dp = 2 under q8, three
   forensic runs in their own processes (a sentinel halt, a hang-watch
-  expiry, an OOM), and the disabled hooks' cost against a tick and a step.
+  expiry, an OOM), and the disabled hooks' cost against a tick and a step;
+- checkpointing (``dsml_tpu_torch.checkpoint``): GPT-2-small bf16 train
+  steps as ``train_gpt2`` takes them, an async save, a restore into a
+  fresh model and optimizer, the continued run, ``ContinuousBatcher.
+  from_checkpoint`` through both paged kernels, and a dp = 2 q8_ring +
+  error-feedback ``Trainer`` resumed from its checkpoint.
 
 Each phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit and no result line. The line before the last is the card's
@@ -135,9 +140,15 @@ from the same weights: equal losses, one watermark a step from
 memory_stats equal to max_memory_allocated, one plan; dp = 2 under q8 at
 4 MiB: the buckets gauge = the plan, wire bytes = steps x the plan's, one
 plan; a sentinel halt, a hang-watch expiry and an OOM bundle from child
-processes; obs_disabled_overhead_pct of a tick and a step); kernels (one line for the run; kernel
-8's entry counts both of its paths, kernels 1–3, 5 and 6 their Llama
-paths too).
+processes; obs_disabled_overhead_pct of a tick and a step); checkpoint
+(the snapshot stall, the commit ms, bytes written, GB/s and step ms
+beside the card; the restored state bit for bit with the in-memory copy,
+the continued run within the copy's run-to-run gap, the tokens served
+from the checkpoint through both paged kernels equal to the in-memory
+weights', the dp = 2 q8_ring + EF resume bit-identical with each rank
+writing only its own residual rows); kernels (one line for the run;
+kernel 8's entry counts both of its paths, kernels 1–3, 5 and 6 their
+Llama and checkpoint paths too).
 
 Float32 matmuls stay in full f32 (TF32 off, PyTorch's default, set here
 explicitly): the f32 phases compare two paths at f32 tolerances.
@@ -3925,6 +3936,266 @@ def phase_obs(tflash, dev, card):
     return {"serving": on_run["launches"], "train": turns[1]["launches"]}
 
 
+CKPT_STEPS = 5  # k: the steps before the async save, and again after it
+CKPT_REQUESTS = 8  # greedy requests served from the checkpoint
+CKPT_MLP = (64, 256, 8)  # the dp = 2 resume's MLP, on synthetic data
+CKPT_DP_ROWS, CKPT_DP_EPOCHS = 2048, 4
+
+
+def ckpt_dp_rank(rank, tmp):
+    rank_main(ckpt_dp_rank_run, "ckpt_dp", rank, tmp)
+
+
+def ckpt_dp_rank_run(rank, tmp, res, stage):
+    """One rank of the dp = 2 resume: the MLP Trainer under q8_ring with
+    error feedback, 4 epochs straight, then 2 epochs with a checkpoint and a
+    resume to 4; the weights of both runs and the pieces this rank wrote."""
+    import torch.distributed as dist
+
+    from dsml_tpu_torch.checkpoint import native
+    from dsml_tpu_torch.models import MLP
+    from dsml_tpu_torch.parallel.mesh import data_mesh
+    from dsml_tpu_torch.trainer import TrainConfig, Trainer
+    from dsml_tpu_torch.utils.data import synthetic_classification
+
+    mesh = data_mesh(2, rank, os.path.join(tmp, "rendezvous"))
+    written = []
+    real_snapshot = native.snapshot
+
+    def spy(*args, **kwargs):
+        snap = real_snapshot(*args, **kwargs)
+        written.append(sorted(fn for fn, _ in snap.blobs))
+        return snap
+
+    native.snapshot = spy
+    data = synthetic_classification(CKPT_DP_ROWS, features=CKPT_MLP[0], classes=CKPT_MLP[-1],
+                                    seed=0)
+
+    def run(epochs, checkpoint_dir="", resume=False):
+        cfg = TrainConfig(epochs=epochs, batch_size=64, lr=0.05, optimizer="momentum",
+                          algorithm="q8_ring", error_feedback=True, seed=3, resume=resume,
+                          checkpoint_dir=checkpoint_dir)
+        return Trainer(MLP(CKPT_MLP, device=mesh.device), cfg, mesh=mesh).train(data)[0]
+
+    stage("straight run")
+    straight = run(CKPT_DP_EPOCHS)
+    stage("run with a checkpoint")
+    ckdir = os.path.join(tmp, "killed")
+    run(CKPT_DP_EPOCHS // 2, ckdir)
+    res["written"] = list(written)
+    stage("resume")
+    resumed = run(CKPT_DP_EPOCHS, ckdir, resume=True)
+    res["bit_identical"] = all(torch.equal(straight[k], resumed[k]) for k in straight)
+    res["weights_checksum"] = float(sum(t.double().sum().item() for t in resumed.values()))
+    mesh.close()
+    dist.destroy_process_group()
+    if rank == 0:
+        res["manifest"] = native.read_manifest(
+            os.path.join(ckdir, native.step_dirname(CKPT_DP_EPOCHS // 2)))
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_checkpoint(tflash, dev, card):
+    """Checkpointing on the card. GPT-2-small bf16 trained as ``train_gpt2``
+    steps it (``train_step``: flash attention, clip 1.0, AdamW on the
+    warmup-cosine schedule) at batch 8 × 1024: k steps, an async save
+    through ``CheckpointManager`` (the step loop pays the snapshot), k more
+    steps while the commit runs. A fresh model and optimizer restored from
+    step k equal the in-memory copy of step k bit for bit; the same k steps
+    from the restored state and twice from the copy: the restored run's
+    losses and weights differ from the copy's by no more than the copy's
+    two runs differ. ``ContinuousBatcher.from_checkpoint`` serves step k
+    through int4 pages, pipelined (kernel 6) and single-buffer (kernel 5):
+    greedy tokens equal a batcher's on the in-memory weights. Then a dp = 2
+    q8_ring + error-feedback MLP Trainer resumed from its checkpoint equals
+    its straight run, each rank having written only its own residual rows.
+    Kernels 1-3, 5 and 6 counted over the phase."""
+    import copy
+    import tempfile
+
+    from dsml_tpu_torch import obs
+    from dsml_tpu_torch.checkpoint import CheckpointManager
+    from dsml_tpu_torch.checkpoint.optim_state import (load_optax_state, load_param_tree,
+                                                       optax_state, param_tree)
+    from dsml_tpu_torch.cli.train_gpt2 import OPT_STATE_KIND, train_step
+    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.ops import paged_attention as tpa
+    from dsml_tpu_torch.serving import ContinuousBatcher
+    from dsml_tpu_torch.utils.schedules import make_schedule
+
+    cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
+    k = CKPT_STEPS
+    rng = np.random.default_rng(5)
+    batches = [tuple(torch.as_tensor(rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)),
+                                     device=dev) for _ in range(2)) for _ in range(2 * k)]
+    schedule = make_schedule("cosine", 3e-4, 2 * k, 1)
+
+    def fresh():
+        m = GPT2(cfg, device=dev)
+        return m, torch.optim.AdamW(m.parameters(), lr=0.0, weight_decay=1e-4)
+
+    def run(model, opt, first):
+        """Steps first..first+k-1: (losses, wall ms per step)."""
+        losses, ms = [], []
+        for i in range(first, first + k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(train_step(model, opt, schedule(i), *batches[i], clip_norm=1.0,
+                                     attn_impl="flash"))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return torch.stack(losses).float().tolist(), ms
+
+    def weights(model):
+        return {n: t.clone() for n, t in model.state_dict().items()}
+
+    def gap(run_a, run_b):
+        (la, wa), (lb, wb) = run_a, run_b
+        return max(max(abs(a - b) for a, b in zip(la, lb)),
+                   max((wa[n].float() - wb[n].float()).abs().max().item() for n in wa))
+
+    reg = obs.get_registry()
+    was_on = reg.enabled
+    reg.enable()  # the writer's checkpoint_commit event carries the commit's wall
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    row = {"phase": "checkpoint", "model": "gpt2-small", "dtype": "bfloat16",
+           "batch": [TRAIN_B, TRAIN_S], "optimizer": "clip 1.0 + AdamW(cosine 3e-4, wd 1e-4)",
+           "k": k, "card": card}
+    try:
+        # the main path, counted: train, save, restore, continue, serve
+        reset_counts(tflash)
+        tpa.paged_attn_launches = tpa.paged_attn_pipelined_launches = 0
+        model, opt = fresh()
+        model.init(0)
+        mgr = CheckpointManager(tmp)
+        losses0, ms0 = run(model, opt, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(k, {"params": param_tree(model),
+                     "opt_state": optax_state(opt, model, OPT_STATE_KIND, k)}, wait=False)
+        stall_ms = (time.perf_counter() - t0) * 1e3
+        mem_model = copy.deepcopy(model.state_dict())  # the in-memory copy of step k
+        mem_opt = copy.deepcopy(opt.state_dict())
+        _, ms1 = run(model, opt, k)  # overlapping the commit
+        mgr.wait_until_finished()
+        mgr.close()
+        commits = [e for e in obs.get_flight_recorder().events()
+                   if e["kind"] == "checkpoint_commit" and e["label"] == f"step {k}"]
+        commit_ms = commits[-1]["ms"] if commits else None
+        step_dir = os.path.join(tmp, f"step_{k:08d}")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        timing = {"snapshot_stall_ms": stall_ms, "commit_ms": commit_ms, "bytes_written": nbytes,
+                    "snapshot_gb_per_s": nbytes / (stall_ms / 1e3) / 1e9,
+                    "host_write_gb_per_s": None if not commit_ms else nbytes / (commit_ms / 1e3) / 1e9,
+                    "step_ms": statistics.median(ms0),
+                    "step_ms_during_commit": statistics.median(ms1)}
+        check(commit_ms is not None and commits[-1]["ok"],
+              f"no successful checkpoint_commit event for step {k}: {commits}")
+
+        # restore into a fresh model and optimizer: bit for bit with the copy
+        m2, o2 = fresh()
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(tmp)
+        state = mgr.restore(k, template={"params": param_tree(m2),
+                                         "opt_state": optax_state(o2, m2, OPT_STATE_KIND, 0)})
+        mgr.close()
+        load_param_tree(m2, state["params"])
+        count = load_optax_state(o2, m2, OPT_STATE_KIND, state["opt_state"])
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        del state
+        got_opt = o2.state_dict()["state"]
+        mismatched = [n for n, t in m2.state_dict().items() if not torch.equal(t, mem_model[n])]
+        mismatched += [f"opt {i} {key}" for i, st in mem_opt["state"].items()
+                       for key in ("exp_avg", "exp_avg_sq", "step")
+                       if not torch.equal(got_opt[i][key], st[key])]
+        check(count == k and not mismatched,
+              f"the restored state differs from the in-memory copy of step {k}: count {count}, "
+              f"{mismatched[:6]}")
+
+        # the same k steps from the restored state and twice from the copy
+        restored = run(m2, o2, k)[0], weights(m2)
+        del m2, o2
+        copies = []
+        for _ in range(2):
+            model.load_state_dict(mem_model)
+            opt.load_state_dict(copy.deepcopy(mem_opt))
+            copies.append((run(model, opt, k)[0], weights(model)))
+        copy_gap = gap(*copies)
+        restored_gap = min(gap(restored, c) for c in copies)
+        row.update(timing, restore_ms=restore_ms, restored_bit_identical=not mismatched,
+                   first_losses=losses0, continued_losses_restored=restored[0],
+                   continued_losses_copy=copies[0][0], restored_vs_copy_gap=restored_gap,
+                   copy_vs_copy_gap=copy_gap)
+        check(all(np.isfinite(restored[0])), f"restored run's losses {restored[0]}")
+        check(restored_gap <= copy_gap,
+              f"the restored run differs from the in-memory copy's by {restored_gap}, "
+              f"more than the copy's two runs differ ({copy_gap})")
+        del restored, copies
+
+        # serve step k from the checkpoint through both paged kernels
+        kw = dict(paged_kv="int4", page_size=PAGE, prefill_chunk=PAGED_CHUNK, n_slots=PAGED_SLOTS)
+        lengths = rng.integers(64, 513, CKPT_REQUESTS)
+        budgets = rng.integers(16, 49, CKPT_REQUESTS)
+        prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int64) for n in lengths]
+        model.load_state_dict(mem_model)
+        del opt
+        want = drain(ContinuousBatcher(model, **kw), prompts, budgets)[0]
+        srv = ContinuousBatcher.from_checkpoint(GPT2(cfg, device=dev), tmp, step=k, **kw)
+        got = drain(srv, prompts, budgets)[0]
+        os.environ["DSML_PAGED_ATTN_PIPELINE"] = "0"
+        try:
+            got_single = drain(srv, prompts, budgets)[0]
+        finally:
+            del os.environ["DSML_PAGED_ATTN_PIPELINE"]
+        counts = {**train_counts(tflash), **paged_counts(tpa)}
+        row.update(served_requests=CKPT_REQUESTS, served_tokens_equal=got == want,
+                   served_single_buffer_tokens_equal=got_single == want, launches=counts)
+        check(got == want and got_single == want,
+              "the tokens served from the checkpoint differ from the in-memory weights'")
+        n_steps = 5 * k  # the first k, the k after the save, the restored k, the copy's 2 x k
+        check(bf16_step_counts_ok(train_counts(tflash), cfg.n_layer * n_steps,
+                                  cfg.n_layer * n_steps),
+              f"the checkpoint phase's train steps launched {train_counts(tflash)}, expected "
+              f"{cfg.n_layer * n_steps} of the forward and of each tensor-core backward kernel")
+        check(counts["paged_attn"] > 0 and counts["paged_attn_pipelined"] > 0,
+              f"the checkpoint phase's drains launched {paged_counts(tpa)}")
+        del model, srv
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if not was_on:
+            reg.disable()
+
+    # dp = 2: the error-feedback residuals ride the checkpoint
+    ranks, seconds = spawn_ranks(ckpt_dp_rank, "ckpt_dp")
+    ef = [e for e in ranks[0]["manifest"]["leaves"] if e["path"].startswith("ef/")]
+    ef_files = {p["file"] for e in ef for p in e["pieces"]}
+    rest = {p["file"] for e in ranks[0]["manifest"]["leaves"] if "pieces" in e
+            for p in e["pieces"]} - ef_files
+    own_only = all(set(files) == ({f for f in ef_files if f.endswith(f"_P{r['rank']:03d}.bin")}
+                                  | (rest if r["rank"] == 0 else set()))
+                   for r in ranks for files in r["written"])
+    row["dp2_resume"] = {"mlp": list(CKPT_MLP), "algorithm": "q8_ring", "error_feedback": True,
+                         "epochs": [CKPT_DP_EPOCHS // 2, CKPT_DP_EPOCHS],
+                         "bit_identical": [r["bit_identical"] for r in ranks],
+                         "ef_leaves": [[e["path"], e["shape"], len(e["pieces"])] for e in ef],
+                         "each_rank_wrote_its_own_rows": own_only,
+                         "seconds_with_spawn": seconds}
+    emit(row)
+    check(all(r["bit_identical"] for r in ranks),
+          "the resumed dp = 2 q8_ring + EF run differs from the straight run")
+    check(ranks[0]["weights_checksum"] == ranks[1]["weights_checksum"],
+          "the dp = 2 replicas diverged")
+    check(len(ef) == 2 * (len(CKPT_MLP) - 1)
+          and all(e["shape"][0] == 2 and len(e["pieces"]) == 2 for e in ef),
+          f"the dp = 2 checkpoint's ef leaves: {row['dp2_resume']['ef_leaves']}")
+    check(own_only and all(len(r["written"]) == CKPT_DP_EPOCHS // 2 for r in ranks),
+          f"a rank wrote pieces that are not its own: {[r['written'] for r in ranks]}")
+    return counts
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: this smoke test needs the card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3978,7 +4249,8 @@ def main() -> None:
                   "llama_train": lambda: phase_llama_train(tflash, dev, card),
                   "llama_serve": lambda: phase_llama_serve(dev, card),
                   "llama_ticks": lambda: phase_llama_ticks(dev, card),
-                  "obs": lambda: phase_obs(tflash, dev, card)}
+                  "obs": lambda: phase_obs(tflash, dev, card),
+                  "checkpoint": lambda: phase_checkpoint(tflash, dev, card)}
         for name in only:
             phases[name]()
         raise SystemExit(f"chip_smoke: ran only {only}; no result line")
@@ -4038,6 +4310,8 @@ def main() -> None:
     # the observability core on the serving and training paths (its launches
     # are in its own line: the kernels line reads the paths above)
     phase_obs(tflash, dev, card)
+    torch.cuda.empty_cache()
+    ckpt_launches = phase_checkpoint(tflash, dev, card)
 
     # the backward's two routes: bf16 (tensor cores) with launches from the
     # bf16 train steps, f32 (FMAs) with launches from phase_train's f32
@@ -4053,35 +4327,41 @@ def main() -> None:
         llama = llama_train_launches if dtype == torch.bfloat16 else {dq_name: 0, dkv_name: 0}
         bwd_rows += [
             {"name": dq_name, "route": "cuda", "source": source, "replaces": "dsml_tpu/ops/flash.py:481",
-             "launches": counts[dq_name] + llama[dq_name],
-             "launches_by_path": {"train": counts[dq_name], "llama_train": llama[dq_name]},
+             "launches": counts[dq_name] + llama[dq_name] + ckpt_launches[dq_name],
+             "launches_by_path": {"train": counts[dq_name], "llama_train": llama[dq_name],
+                                  "checkpoint": ckpt_launches[dq_name]},
              "max_abs_err": err["dq"], **bwd_timing[dq_name]},
             {"name": dkv_name, "route": "cuda", "source": source, "replaces": "dsml_tpu/ops/flash.py:526",
-             "launches": counts[dkv_name] + llama[dkv_name],
-             "launches_by_path": {"train": counts[dkv_name], "llama_train": llama[dkv_name]},
+             "launches": counts[dkv_name] + llama[dkv_name] + ckpt_launches[dkv_name],
+             "launches_by_path": {"train": counts[dkv_name], "llama_train": llama[dkv_name],
+                                  "checkpoint": ckpt_launches[dkv_name]},
              "max_abs_err": max(err["dk"], err["dv"]), **bwd_timing[dkv_name]}]
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": "dsml_tpu_torch/ops/csrc/flash_fwd.cu",
          "replaces": "dsml_tpu/ops/flash.py:198",
-         "launches": launches + llama_train_launches["flash_fwd"],
-         "launches_by_path": {"slice": launches, "llama_train": llama_train_launches["flash_fwd"]},
+         "launches": launches + llama_train_launches["flash_fwd"] + ckpt_launches["flash_fwd"],
+         "launches_by_path": {"slice": launches, "llama_train": llama_train_launches["flash_fwd"],
+                              "checkpoint": ckpt_launches["flash_fwd"]},
          "max_abs_err": main_err, **timing},
         *bwd_rows,
         # times at the decode tick's shape (the chunk's are in the kernel_time line);
         # launches from the paged slice's two drains, one per kernel
         {"name": "paged_attn", "route": "cuda", "source": PAGED_SOURCE,
          "replaces": "dsml_tpu/ops/paged_attention.py:169",
-         "launches": single_launches["paged_attn"] + llama_paged_launches["paged_attn"],
+         "launches": single_launches["paged_attn"] + llama_paged_launches["paged_attn"]
+         + ckpt_launches["paged_attn"],
          "launches_by_path": {"paged_slice": single_launches["paged_attn"],
-                              "llama_serve": llama_paged_launches["paged_attn"]},
+                              "llama_serve": llama_paged_launches["paged_attn"],
+                              "checkpoint": ckpt_launches["paged_attn"]},
          "max_abs_err": max(paged_err, llama_kernels["paged_err"]),
          **paged_timing["paged_attn"]["decode"]},
         {"name": "paged_attn_pipelined", "route": "cuda", "source": PAGED_SOURCE,
          "replaces": "dsml_tpu/ops/paged_attention.py:259",
          "launches": paged_launches["paged_attn_pipelined"]
-         + llama_paged_launches["paged_attn_pipelined"],
+         + llama_paged_launches["paged_attn_pipelined"] + ckpt_launches["paged_attn_pipelined"],
          "launches_by_path": {"paged_slice": paged_launches["paged_attn_pipelined"],
-                              "llama_serve": llama_paged_launches["paged_attn_pipelined"]},
+                              "llama_serve": llama_paged_launches["paged_attn_pipelined"],
+                              "checkpoint": ckpt_launches["paged_attn_pipelined"]},
          "max_abs_err": max(paged_err, llama_kernels["paged_err"]),
          **paged_timing["paged_attn_pipelined"]["decode"]},
         # times at the decode tick's shape of wqkv (16 rows, int4, bf16 x; the

@@ -9,7 +9,11 @@ KV-cache decode loop, then the continuations printed one per line.
         --max_new_tokens 8 --temperature 0
     python -m dsml_tpu_torch.cli.generate_text --device cpu --model tiny --max_new_tokens 4
 
-Runs on the CUDA card unless ``--device cpu``. Checkpoints, BPE prompts and
+``--checkpoint_dir DIR`` serves the parameters of the newest step there (a
+``train_gpt2`` run of either package, of the same ``--family`` and
+``--model``: a weights-only partial restore) instead of fresh weights.
+
+Runs on the CUDA card unless ``--device cpu``. BPE prompts and
 tensor-parallel serving come with later slices; speculative decoding is
 ``cli/decode_speculative.py``.
 """
@@ -35,6 +39,7 @@ class GenerateConfig(Config):
     temperature: float = field(0.8, help="0 = greedy")
     top_k: int = field(32, help="0 = full distribution")
     top_p: float = field(0.0, help="nucleus sampling mass (0 = off)")
+    checkpoint_dir: str = field("", help="train_gpt2 checkpoint directory to serve ('' = fresh weights)")
     seed: int = field(0, help="seed of the fresh weights and of the sampler")
     eos: int = field(-1, help="stop token id (-1 = none); rows pad with it after stopping")
 
@@ -53,7 +58,20 @@ def main(argv=None) -> list[str]:
                                            **({"vocab_size": 256} if cfg.model == "tiny" else {}))
     except ValueError as e:
         raise SystemExit(str(e))
-    model.init(cfg.seed)
+    if cfg.checkpoint_dir:
+        from dsml_tpu_torch.checkpoint.optim_state import load_param_tree, param_tree
+        from dsml_tpu_torch.utils.checkpoint import Checkpointer
+
+        # every parameter is restored: the module's own tensors are the template
+        ckpt = Checkpointer(cfg.checkpoint_dir)
+        try:
+            state = ckpt.restore(template={"params": param_tree(model)}, partial=True)
+        finally:
+            ckpt.close()
+        load_param_tree(model, state["params"])
+        log.info("loaded checkpoint from %s", cfg.checkpoint_dir)
+    else:
+        model.init(cfg.seed)
     ids = np.frombuffer(cfg.prompt.encode(), np.uint8).astype(np.int64) % model_cfg.vocab_size
     if cfg.prompt_len:
         ids = np.resize(ids, cfg.prompt_len)  # repeats the prompt up to the length

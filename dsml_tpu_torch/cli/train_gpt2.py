@@ -30,10 +30,18 @@ there). Rank r runs on ``cuda:{r % device_count}`` (logged per rank: with
 fewer cards than ranks, ranks share a card), or on the CPU with
 ``--device cpu``. Rank 0 logs the steps; a failing rank fails the run.
 
+``--checkpoint_dir DIR`` resumes from the newest step there (the
+parameters and the optimizer's state in the JAX package's trees, so a
+checkpoint of ``examples/train_gpt2.py`` resumes here and the reverse),
+runs ``--steps`` more updates on the cosine horizon ``start + steps`` with
+the batch stream seeded ``seed + start``, and saves step ``start +
+steps`` at the end (under ``--dp``/``--cp`` every rank saves: rank 0
+writes the replicated state, all ranks wait for the commit).
+
 Runs on the CUDA card unless ``--device cpu``. Pipeline, tensor and the
 other sequence parallelisms, dp composed with cp, Llama under cp, BPE, the
-prose corpus, checkpoints, profiles and adafactor come with later slices and
-raise here.
+prose corpus, profiles and adafactor come with later slices and raise
+here.
 """
 
 from __future__ import annotations
@@ -48,6 +56,10 @@ import numpy as np
 import torch
 
 from dsml_tpu_torch.utils.config import Config, field
+
+
+# the optax state of the JAX example's optax.chain(clip or identity, adamw)
+OPT_STATE_KIND = "clip_adamw"
 
 
 @dataclasses.dataclass
@@ -80,7 +92,7 @@ class GPT2TrainConfig(Config):
     log_every: int = field(10, help="log every N steps")
     eval_every: int = field(0, help="held-out loss every N steps (0 = off)")
     profile_dir: str = field("", help="profiler trace directory (a later slice)")
-    checkpoint_dir: str = field("", help="checkpoint directory (checkpointing slice)")
+    checkpoint_dir: str = field("", help="checkpoint directory: resume from its newest step, save at the end ('' = none)")
 
 
 _WORDS = {
@@ -121,7 +133,6 @@ def _check_supported(cfg: GPT2TrainConfig) -> None:
         "ROADMAP.md queue 1, item 12)": cfg.family == "llama" and cfg.cp > 1,
         "--tokenizer bpe (a later slice, with utils/tokenizer.py)": cfg.tokenizer == "bpe",
         "--data prose (a later slice: the corpus reads the JAX package's docstrings)": cfg.data == "prose",
-        "--checkpoint_dir (the checkpointing slice)": bool(cfg.checkpoint_dir),
         "--profile_dir (a later slice, with utils/tracing.py)": bool(cfg.profile_dir),
         "--optimizer adafactor (a later slice)": cfg.optimizer == "adafactor",
     }
@@ -228,6 +239,8 @@ def _rank(rank: int, cfg: GPT2TrainConfig, tmp: str) -> None:
 def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
     """The training loop on one device, or as one rank of ``mesh`` (the
     hybrid step on a dp or a cp mesh; rank 0 logs)."""
+    from dsml_tpu_torch.checkpoint.optim_state import (load_optax_state, load_param_tree,
+                                                       optax_state, param_tree)
     from dsml_tpu_torch.models import model_by_family
     from dsml_tpu_torch.utils.data import carve_lm_eval_split, lm_window_batches, prefetch_batches
     from dsml_tpu_torch.utils.logging import get_logger
@@ -271,10 +284,28 @@ def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
             log.warning("corpus (%d tokens) too small to carve an eval split at seq=%d; "
                         "eval disabled", len(tokens), seq)
 
+    # probe the checkpoint FIRST: a resumed update count sits at start_step,
+    # so the cosine horizon must cover start_step + cfg.steps
+    ckpt = None
+    start_step = 0
+    if cfg.checkpoint_dir:
+        from dsml_tpu_torch.utils.checkpoint import Checkpointer
+
+        ckpt = Checkpointer(cfg.checkpoint_dir, mesh=mesh)
+        start_step = ckpt.latest_step() or 0
     # the same pieces as the JAX example's optax.chain(clip_by_global_norm,
     # adamw(schedule)): adamw's default weight decay there is 1e-4
-    schedule = make_schedule("cosine", cfg.lr, cfg.steps, cfg.warmup_steps)
+    schedule = make_schedule("cosine", cfg.lr, start_step + cfg.steps, cfg.warmup_steps)
     optimizer = torch.optim.AdamW(model.parameters(), lr=0.0, weight_decay=1e-4)
+    count = 0  # updates done: the schedule's argument
+    if start_step > 0:
+        template = {"params": param_tree(model),
+                    "opt_state": optax_state(optimizer, model, OPT_STATE_KIND, 0)}
+        state = ckpt.restore(template=template)
+        load_param_tree(model, state["params"])
+        count = load_optax_state(optimizer, model, OPT_STATE_KIND, state["opt_state"])
+        if not quiet:
+            log.info("resumed from checkpoint at step %d", start_step)
     if mesh is None:
         attn_impl = cfg.attn or "xla"
 
@@ -311,13 +342,16 @@ def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
     if eval_tokens is not None:
         eval_x, eval_y = device_batch(*next(lm_window_batches(eval_tokens, seq, cfg.batch_size,
                                                               seed=1234)))
-    batches = prefetch_batches(lm_window_batches(tokens, seq, cfg.batch_size, seed=cfg.seed))
+    # the stream moves on past what the earlier run consumed
+    batches = prefetch_batches(lm_window_batches(tokens, seq, cfg.batch_size,
+                                                 seed=cfg.seed + start_step))
     t0 = time.monotonic()
     tokens_done = 0
     first_loss = loss = None
     for i in range(1, cfg.steps + 1):
         x, y = device_batch(*next(batches))
-        loss = run_step(schedule(i - 1), x, y)
+        loss = run_step(schedule(count), x, y)
+        count += 1
         tokens_done += x.numel()
         if first_loss is None:
             first_loss = float(loss)
@@ -330,6 +364,10 @@ def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
                 el = float(eval_loss(eval_x, eval_y))
             if not quiet:
                 log.info("step %d: eval loss = %.4f, perplexity = %.2f", i, el, float(np.exp(el)))
+    if ckpt is not None:
+        ckpt.save(start_step + cfg.steps, param_tree(model),
+                  optax_state(optimizer, model, OPT_STATE_KIND, count))
+        ckpt.close()
     return {"first_loss": first_loss, "last_loss": float(loss)}
 
 

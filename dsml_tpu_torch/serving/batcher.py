@@ -55,9 +55,12 @@ pool's bytes (``kv_pages``) and the quantized weights' (``weights_quant``)
 as live sources. Metrics carry ``replica`` and ``role`` labels
 (``obs_replica = "0"``, ``obs_role = "decode"``).
 
+:meth:`ContinuousBatcher.from_checkpoint` serves a training checkpoint of
+either package (a weights-only partial restore).
+
 Left for later slices, each raising where a caller can reach it:
-tensor-parallel serving over a mesh (item 11), serving from a checkpoint
-(item 9) and the fleet's handoff admission ``inject`` (item 13).
+tensor-parallel serving over a mesh (item 11) and the fleet's handoff
+admission ``inject`` (item 13).
 """
 
 from __future__ import annotations
@@ -445,8 +448,38 @@ class ContinuousBatcher:
         return cls(model, **kwargs)
 
     @classmethod
-    def from_checkpoint(cls, model, directory, **kwargs):
-        raise NotImplementedError("serving from a checkpoint " + _NOT_PORTED.format(9))
+    def from_checkpoint(cls, model, directory, step: int | None = None, mesh=None,
+                        param_dtype=None, **kwargs):
+        """Serve straight from a training checkpoint: a WEIGHTS-ONLY partial
+        restore of the ``params`` subtree into ``model`` (the optimizer
+        state is never read). ``directory`` is a native checkpoint run
+        directory of either package (or an open ``CheckpointManager``);
+        ``step=None`` loads the latest committed step. ``param_dtype``
+        (``"float32"``/``"bfloat16"`` or a torch dtype) serves the weights
+        in that type: ``model`` is rebuilt in it first and the restore
+        casts (e.g. a bf16-trained checkpoint served as f32). Every
+        parameter is restored, so the module's own tensors are the
+        template (the JAX package's ``init_seed`` template has no use
+        here). Remaining kwargs go to the constructor."""
+        if mesh is not None:
+            raise NotImplementedError("tensor-parallel serving (mesh) " + _NOT_PORTED.format(11))
+        from dsml_tpu_torch.checkpoint import CheckpointManager
+        from dsml_tpu_torch.checkpoint.optim_state import load_param_tree, param_tree
+
+        name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}.get(param_dtype, param_dtype)
+        if name is not None and name != model.config.dtype:
+            model = type(model)(dataclasses.replace(model.config, dtype=name),
+                                device=model.device)
+        own = not hasattr(directory, "restore")
+        manager = CheckpointManager(directory) if own else directory
+        try:
+            params = manager.restore(step, template={"params": param_tree(model)},
+                                     partial=True)["params"]
+        finally:
+            if own:
+                manager.close()
+        load_param_tree(model, params)
+        return cls(model, **kwargs)
 
     # ---- device steps ----------------------------------------------------------
 

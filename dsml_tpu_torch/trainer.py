@@ -20,39 +20,60 @@ the loop on its rows of the same global batches, syncing with
 ``cfg.algorithm`` takes every sync of the dp step, the quantized ones
 (``q8``, the ``q8_ring``/``q4_ring`` family, ``quant``) included;
 ``cfg.error_feedback`` keeps each rank's compression residuals in the step
-(zero at the start; they ride no checkpoint until checkpointing is
-ported).
+(zero at the start, restored on resume).
+
+Checkpointing (``cfg.checkpoint_dir``), as the JAX trainer: the state
+``{"params", "opt_state", "meta": {"epoch"}, "ef"?}`` in the JAX
+package's trees (``checkpoint.optim_state``), with the loader position
+``{"epoch", "consumed"}`` in the manifest, is saved asynchronously every
+``save_every`` epochs and, with ``save_every_steps``, inside an epoch
+(then the checkpoint id is the global step, else the completed epoch);
+the last save waits, and the writer is closed on every exit. At dp > 1
+every rank saves: the error-feedback residuals are each rank's own rows
+of ``ef/<p>`` ``[n, *shape]`` (``native.RankShard``), the rest is rank
+0's. ``resume`` restores the latest step (a checkpoint that cannot be read
+raises) and, after a save inside an epoch, fast-forwards that epoch's
+``shard_batches(seed + epoch)`` stream past the consumed batches: the run
+continues bit for bit as if never stopped. A checkpoint either package
+wrote resumes in the other.
 
 Observability (``dsml_tpu_torch.obs``), as in the JAX trainer and all of
 it at the existing loss sync, which adds no device→host round trip: with
 the registry enabled, a per-step breakdown (data / step_dispatch /
 loss_sync) and goodput; ``train_start``, ``step``, ``loss_sync`` and
 ``epoch`` flight-recorder events; memory-ledger claims of the parameters,
-the optimizer state (claimed after the first update, which allocates
-``torch.optim``'s state) and the error-feedback residuals, and a peak
-watermark at every loss sync; ``quant_error_feedback_norm`` (the global L2
+the optimizer state (claimed after the run's first update: a fresh
+``torch.optim`` allocates its state there) and the error-feedback
+residuals, and a peak watermark at every loss sync;
+``quant_error_feedback_norm`` (the global L2
 norm of ``step.error_feedback``, f32) at loss syncs; an OOM postmortem on
 the way out. ``DSML_SENTINELS`` checks the synced loss; ``DSML_HANGWATCH``
 arms a deadline per sync window (disarmed on every exit). Either knob
-implies ``obs.enable()``.
+implies ``obs.enable()``. With a checkpoint: the ``checkpoint_stall``
+breakdown phase (the save's synchronous part), the goodput marks
+``restore`` and ``checkpoint_save``, a ``checkpoint_save`` event.
 
-Not ported yet, and raising: ``checkpoint_dir``/``resume`` (the
-checkpointing slice) and the ``plateau`` schedule.
+Not ported yet, and raising: the ``plateau`` schedule.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import os
 import time
 
 import numpy as np
 import torch
 
 from dsml_tpu_torch import obs
+from dsml_tpu_torch.checkpoint import CheckpointManager, RankShard
+from dsml_tpu_torch.checkpoint.optim_state import (flat_paths, load_optax_state, load_param_tree,
+                                                   nest_paths, optax_state, param_tree)
 from dsml_tpu_torch.obs import GoodputTracker, StepBreakdown, flight_recorder, hangwatch
 from dsml_tpu_torch.obs.memory import get_memory_ledger, maybe_dump_oom
 from dsml_tpu_torch.obs.sentinels import TrainingSentinels
-from dsml_tpu_torch.parallel.dp import make_dp_train_step, make_eval_step
+from dsml_tpu_torch.parallel.dp import make_dp_train_step, make_eval_step, named_params
 from dsml_tpu_torch.utils.config import Config, field
 from dsml_tpu_torch.utils.data import Dataset, prefetch_batches, shard_batches
 from dsml_tpu_torch.utils.logging import get_logger
@@ -80,10 +101,10 @@ class TrainConfig(Config):
     dp: int = field(0, help="data-parallel ranks (0 or 1 = this device; more needs a mesh of that many processes)")
     seed: int = field(0, help="init + shuffle seed")
     log_metrics: str = field("", help="optional JSONL metrics path")
-    checkpoint_dir: str = field("", help="checkpoint directory (checkpointing slice; '' = off)")
+    checkpoint_dir: str = field("", help="checkpoint directory ('' = no checkpointing; the native sharded format, shared with the JAX package)")
     save_every: int = field(1, help="checkpoint every N epochs")
-    save_every_steps: int = field(0, help="also checkpoint every N steps mid-epoch")
-    keep_checkpoints: int = field(3, help="max checkpoints retained")
+    save_every_steps: int = field(0, help="ALSO checkpoint every N steps mid-epoch (0 = epoch boundaries only); the data-loader position (epoch, consumed batches) rides the manifest so a preempted run resumes mid-epoch bit-identically; step-granularity saves use the global step as the checkpoint id")
+    keep_checkpoints: int = field(3, help="max checkpoints retained (older steps garbage-collected)")
     resume: bool = field(False, help="resume from the latest checkpoint in checkpoint_dir")
     progress: bool = field(False, help="draw per-epoch train/eval progress bars on stderr")
     sync_every: int = field(32, help="device→host loss sync cadence in steps; also the training-health sentinel check point (DSML_SENTINELS)")
@@ -96,8 +117,6 @@ def _check_supported(cfg: TrainConfig, mesh) -> None:
             f"dp={cfg.dp} needs a mesh of dp={cfg.dp} ranks (got dp={n_dp}): start {cfg.dp} "
             "processes (torch.multiprocessing.spawn) and in rank r pass "
             f"mesh=parallel.mesh.data_mesh({cfg.dp}, r, <shared rendezvous file>)")
-    if cfg.checkpoint_dir or cfg.resume:
-        raise NotImplementedError("checkpoint_dir / resume come with the checkpointing slice")
 
 
 def _make_optimizer(cfg: TrainConfig, params, steps_per_epoch: int):
@@ -161,6 +180,58 @@ class Trainer:
         bucket = "auto" if cfg.bucket_mb == 0 else (None if cfg.bucket_mb < 0 else cfg.bucket_mb)
         step = make_dp_train_step(model, optimizer, self.mesh, cfg.algorithm,
                                   bucket_size_mb=bucket, error_feedback=cfg.error_feedback)
+        rank = 0 if self.mesh is None else self.mesh.rank
+        ef_names = ([n for n, _ in named_params(model, optimizer)]
+                    if step.error_feedback is not None else None)
+
+        def state_tree(epochs_done: int) -> dict:
+            """The checkpointed state, in the JAX trainer's trees."""
+            state = {"params": param_tree(model),
+                     "opt_state": optax_state(optimizer, model, cfg.optimizer, count),
+                     "meta": {"epoch": epochs_done}}
+            if ef_names is not None:
+                # this rank's residuals: its row of the JAX package's [n, *shape]
+                state["ef"] = nest_paths({n: RankShard(t, rank, self.n_dp)
+                                          for n, t in zip(ef_names, step.error_feedback)})
+            return state
+
+        ckpt = None
+        count = 0  # updates done: the schedule's argument, as optax counts
+        start_epoch = 1
+        resume_skip = 0  # batches already consumed of start_epoch (mid-epoch resume)
+        if cfg.checkpoint_dir:
+            ckpt = CheckpointManager(cfg.checkpoint_dir, max_to_keep=cfg.keep_checkpoints,
+                                     mesh=self.mesh)
+            if cfg.resume and ckpt.latest_step() is None:
+                foreign = [n for n in os.listdir(ckpt.directory) if n.isdigit()]
+                if foreign:
+                    # digit-named step dirs = the orbax layout the JAX package's
+                    # old Checkpointer wrote; restarting silently would redo
+                    # every completed epoch
+                    raise RuntimeError(
+                        f"resume=True but {cfg.checkpoint_dir} holds no native checkpoints — "
+                        f"found orbax-format step dirs {foreign[:3]}; restore them with the JAX "
+                        "package's Checkpointer(backend='orbax') or start a fresh checkpoint_dir")
+            if cfg.resume and ckpt.latest_step() is not None:
+                state = ckpt.restore(template=state_tree(0))
+                load_param_tree(model, state["params"])
+                count = load_optax_state(optimizer, model, cfg.optimizer, state["opt_state"])
+                if ef_names is not None:
+                    # restoring the residuals keeps a kill-and-resume under a
+                    # quantized sync bit-identical to the unkilled run
+                    ef = flat_paths(state["ef"])
+                    step.error_feedback = [ef[n] for n in ef_names]
+                it_state = ckpt.iterator_state() or {}
+                if int(it_state.get("consumed", 0)) > 0:
+                    # a save inside an epoch: restart there, past the consumed
+                    # prefix of the same (seed + epoch) shuffle
+                    start_epoch = int(it_state["epoch"])
+                    resume_skip = int(it_state["consumed"])
+                    log.info("resumed mid-epoch %d at batch %d", start_epoch, resume_skip)
+                else:
+                    start_epoch = int(state["meta"]["epoch"]) + 1
+                    log.info("resumed from checkpoint at epoch %d", start_epoch - 1)
+        start_count = count
         sync_every = max(cfg.sync_every, 1)
         # observability: opt-in and sync-free (every host read below is the
         # loss sync the loop does anyway); a forensic knob implies enable()
@@ -179,17 +250,46 @@ class Trainer:
             ledger.claim_tree("params", model)
             if step.error_feedback is not None:
                 ledger.claim_tree("error_feedback", step.error_feedback)
+        if track and start_epoch > 1:
+            goodput.mark("restore", epoch=start_epoch - 1)
         step_deadline = (hangwatch.TrailingDeadline.from_config(hw_cfg)
                          if hw_cfg is not None else None)
+        save_every_steps = max(cfg.save_every_steps, 0)
         recorder.record("train_start", epochs=cfg.epochs, batch_size=cfg.batch_size,
-                        steps_per_epoch=steps_per_epoch, algorithm=cfg.algorithm, start_epoch=1)
-        count = 0  # updates done: the schedule's argument, as optax counts
+                        steps_per_epoch=steps_per_epoch, algorithm=cfg.algorithm,
+                        start_epoch=start_epoch)
+
+        def save_ckpt(epochs_done: int, it_epoch: int, consumed_now: int, wait: bool = False):
+            """THE checkpoint write of all three call sites (inside an epoch,
+            at its end, at the end of the run): id = the global step when
+            step-granularity saves are on, else the completed epoch; the
+            loader position rides the manifest. With wait=False the loop
+            pays only the host snapshot (the commit rides the writer
+            thread)."""
+            t_save = time.perf_counter()
+            ckpt.save(count if save_every_steps else epochs_done, state_tree(epochs_done),
+                      iterator_state={"epoch": it_epoch, "consumed": consumed_now}, wait=wait)
+            if track:
+                breakdown.add("checkpoint_stall", time.perf_counter() - t_save)
+                goodput.mark("checkpoint_save", epoch=it_epoch, step=count)
+            recorder.record("checkpoint_save", epoch=it_epoch, step=count,
+                            stall_ms=round((time.perf_counter() - t_save) * 1e3, 3))
+
         history = []
         t0 = time.monotonic()
+        train_body_done = False
         try:
-            for epoch in range(1, cfg.epochs + 1):
+            for epoch in range(start_epoch, cfg.epochs + 1):
                 losses = []  # device scalars, synced every sync_every steps
-                bar = ProgressBar(steps_per_epoch, desc=f"Epoch {epoch}/{cfg.epochs}",
+                batches = prefetch_batches(shard_batches(
+                    data.train_x, data.train_y, cfg.batch_size, seed=cfg.seed + epoch))
+                skip = resume_skip if epoch == start_epoch else 0
+                if skip:
+                    # past the consumed prefix of the deterministic stream (the
+                    # prefetcher never over-advances the recorded position)
+                    batches = itertools.islice(batches, skip, None)
+                consumed = skip
+                bar = ProgressBar(steps_per_epoch - skip, desc=f"Epoch {epoch}/{cfg.epochs}",
                                   enabled=cfg.progress and self.lead)
                 model.train()
                 epoch_t0 = time.monotonic()
@@ -198,8 +298,8 @@ class Trainer:
                 # the sync blocks, so single steps' walls are launch times
                 hw_token = None
                 try:
-                    for x, y in prefetch_batches(shard_batches(
-                            data.train_x, data.train_y, cfg.batch_size, seed=cfg.seed + epoch)):
+                    for x, y in batches:
+                        consumed += 1
                         if hw is not None and hw_token is None:
                             deadline_s = step_deadline.timeout_s()
                             if deadline_s is not None:
@@ -213,7 +313,7 @@ class Trainer:
                         if track:
                             t_disp = time.perf_counter()
                             breakdown.add("step_dispatch", t_disp - t_data)
-                            if count == 1:  # torch.optim allocates its state in the first update
+                            if count == start_count + 1:  # a fresh torch.optim allocates here
                                 ledger.claim_tree("optimizer", optimizer.state)
                         bar.update()
                         if len(losses) % sync_every == 0:
@@ -246,6 +346,13 @@ class Trainer:
                             recorder.record("step", step=count, epoch=epoch,
                                             wall_ms=round((now - t_prev) * 1e3, 3))
                             t_prev = now
+                        if (ckpt is not None and save_every_steps
+                                and consumed < steps_per_epoch
+                                and count % save_every_steps == 0):
+                            # a preemption point inside the epoch
+                            save_ckpt(epoch - 1, epoch, consumed)
+                            if track:
+                                t_prev = time.perf_counter()  # a save is not data time
                 finally:
                     # disarm on EVERY exit: a halt, an exception or an epoch
                     # ending mid-window must not leave a deadline to fire later
@@ -265,6 +372,15 @@ class Trainer:
                                 train_accuracy=train_acc)
                 history.append(self.metrics.log(epoch=epoch, avg_loss=em.avg_loss,
                                                 train_accuracy=train_acc))
+                if ckpt is not None and epoch % max(cfg.save_every, 1) == 0:
+                    # async: the commit overlaps the next epoch; the loader
+                    # position is the next epoch's seed
+                    save_ckpt(epoch, epoch, 0)
+            if ckpt is not None and cfg.epochs >= start_epoch \
+                    and cfg.epochs % max(cfg.save_every, 1) != 0:
+                # the final state is always persisted, even off the cadence
+                save_ckpt(cfg.epochs, cfg.epochs, 0, wait=True)
+            train_body_done = True
         except BaseException as e:
             # a device OOM unwinding through here leaves a postmortem whose
             # memory.json carries the ledger; anything else passes untouched
@@ -274,10 +390,23 @@ class Trainer:
                 except Exception:  # noqa: BLE001 — never mask the real crash
                     pass
             raise
+        finally:
+            if ckpt is not None:
+                # ALWAYS flush: a dying run still commits its queued saves —
+                # the checkpoint recovery resumes from. A writer error must
+                # not mask the original exception.
+                try:
+                    ckpt.close()
+                except Exception:
+                    if train_body_done:
+                        raise
+                    log.warning("checkpoint close failed during exception unwind",
+                                exc_info=True)
         test_acc = self.evaluate(data.test_x, data.test_y,
                                  progress_label="Testing" if cfg.progress else None)
         wall = time.monotonic() - t0
-        samples = cfg.epochs * steps_per_epoch * cfg.batch_size
+        epochs_run = max(cfg.epochs - start_epoch + 1, 0)  # a resume skips the earlier epochs
+        samples = epochs_run * steps_per_epoch * cfg.batch_size
         if self.lead:
             log.info("Final Test Accuracy: %.2f%%", test_acc * 100)
         final = {"test_accuracy": test_acc, "wall_time_s": wall,

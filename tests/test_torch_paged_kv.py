@@ -331,8 +331,6 @@ def test_constructor_and_submit_validation(setup, monkeypatch):
         ContinuousBatcher(model, weight_quant="int3")
     with pytest.raises(NotImplementedError, match="item 13"):
         srv.inject(np.ones(3), 2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ContinuousBatcher.from_checkpoint(model, "ckpt")
     with pytest.raises(NotImplementedError, match="item 11"):
         ContinuousBatcher.for_devices(model, ["cpu", "cpu"])
     assert ContinuousBatcher.for_devices(model, ["cpu"]).n_slots == 8
@@ -365,6 +363,34 @@ def _margins(model, prompt, tokens):
         top2 = logits[0].topk(2).values
         out.append(round(float(top2[0] - top2[1]), 6))
     return out
+
+
+def test_paged_batcher_serves_from_checkpoint(setup, tmp_path):
+    """``ContinuousBatcher.from_checkpoint`` (it raised before the
+    checkpointing slice): a training checkpoint ({params, opt_state, meta})
+    served through int4 pages gives the tokens of a batcher built from the
+    in-memory weights, the optimizer state unread; ``param_dtype`` serves
+    the weights in bf16 from the f32 checkpoint."""
+    from dsml_tpu_torch.checkpoint import CheckpointManager
+    from dsml_tpu_torch.checkpoint.optim_state import optax_state, param_tree
+
+    cfg, model, _ = setup
+    opt = torch.optim.AdamW(model.parameters(), lr=0.0)
+    with CheckpointManager(str(tmp_path / "ck")) as m:
+        m.save(5, {"params": param_tree(model), "opt_state": optax_state(opt, model, "adamw", 5),
+                   "meta": {"epoch": 5}})
+    prompts = _prompts(cfg, [5, 21, 12, 30], seed=3)
+    budgets = [6, 4, 7, 5]
+    kw = dict(n_slots=2, n_pages=40, **PAGED)
+    want = _drain(ContinuousBatcher(model, **kw), prompts, budgets)
+    fresh = tgpt2.GPT2(cfg, device="cpu")  # uninitialised: every weight comes from the checkpoint
+    srv = ContinuousBatcher.from_checkpoint(fresh, str(tmp_path / "ck"), **kw)
+    assert _drain(srv, prompts, budgets) == want
+    assert srv.free_pages == srv.n_pages - 1
+    bf16 = ContinuousBatcher.from_checkpoint(fresh, str(tmp_path / "ck"),
+                                             param_dtype=torch.bfloat16, **kw)
+    assert bf16.model.config.dtype == "bfloat16"
+    assert torch.equal(bf16.model.wte, model.wte.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("paged_kv", ["fp", "int4"])

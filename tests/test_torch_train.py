@@ -328,15 +328,14 @@ def test_trainer_epochs_match_jax_trainer(optimizer, schedule, warmup):
 
 
 def test_trainer_raises_for_unported_options():
-    """Checkpointing and the plateau schedule raise, naming their slices.
-    The quantized syncs are ported (a single-device Trainer has nothing to
-    sync and trains), and error feedback with the full-precision default
-    sync raises ``ValueError``, as in the JAX package."""
+    """The plateau schedule raises, naming its slice. The quantized syncs
+    are ported (a single-device Trainer has nothing to sync and trains),
+    and error feedback with the full-precision default sync raises
+    ``ValueError``, as in the JAX package."""
     data = tdata.synthetic_classification(100, 4, 2)
-    for kw, match in (({"checkpoint_dir": "ck"}, "checkpointing"),
-                      ({"lr_schedule": "plateau"}, "plateau")):
-        with pytest.raises(NotImplementedError, match=match):
-            Trainer(MLP((4, 2), device="cpu"), TrainConfig(epochs=1, batch_size=10, **kw)).train(data)
+    with pytest.raises(NotImplementedError, match="plateau"):
+        Trainer(MLP((4, 2), device="cpu"),
+                TrainConfig(epochs=1, batch_size=10, lr_schedule="plateau")).train(data)
     for algorithm in ("q8_ring", "quant"):
         _, history, _ = Trainer(MLP((4, 2), device="cpu"),
                                 TrainConfig(epochs=1, batch_size=10, algorithm=algorithm)).train(data)
@@ -344,6 +343,22 @@ def test_trainer_raises_for_unported_options():
     with pytest.raises(ValueError, match="error_feedback"):
         Trainer(MLP((4, 2), device="cpu"),
                 TrainConfig(epochs=1, batch_size=10, error_feedback=True)).train(data)
+
+
+def test_trainer_checkpoint_dir_resumes(tmp_path):
+    """``checkpoint_dir``/``resume`` (they raised before the checkpointing
+    slice): two epochs with a checkpoint, resumed to four, give the
+    straight four-epoch run's weights bit for bit and train epochs 3-4
+    only."""
+    data = tdata.synthetic_classification(300, 8, 3, seed=2)
+    kw = dict(batch_size=20, lr=0.05, optimizer="adam", seed=4)
+    straight, _, _ = Trainer(MLP((8, 16, 3), device="cpu"), TrainConfig(epochs=4, **kw)).train(data)
+    ck = str(tmp_path / "ck")
+    Trainer(MLP((8, 16, 3), device="cpu"), TrainConfig(epochs=2, checkpoint_dir=ck, **kw)).train(data)
+    state, hist, _ = Trainer(MLP((8, 16, 3), device="cpu"), TrainConfig(
+        epochs=4, checkpoint_dir=ck, resume=True, **kw)).train(data)
+    assert [h["epoch"] for h in hist] == [3, 4]
+    assert all(torch.equal(straight[k], state[k]) for k in straight)
 
 
 class _Records(logging.Handler):
@@ -374,12 +389,38 @@ def test_train_gpt2_cli_runs_and_logs():
 @pytest.mark.parametrize("flag", [
     ["--pp", "2"], ["--tp", "2"], ["--sp", "2"], ["--cp", "2", "--attn", "flash"], ["--dp", "2", "--cp", "2"],
     ["--family", "llama", "--cp", "2"],
-    ["--tokenizer", "bpe"], ["--data", "prose"], ["--checkpoint_dir", "ck"],
+    ["--tokenizer", "bpe"], ["--data", "prose"],
     ["--profile_dir", "prof"], ["--optimizer", "adafactor"],
 ])
 def test_train_gpt2_cli_raises_for_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         train_gpt2.main(["--device", "cpu", "--steps", "1", *flag])
+
+
+def test_train_gpt2_cli_checkpoint_dir_restores(tmp_path):
+    """``--checkpoint_dir`` (it raised before the checkpointing slice): a
+    two-step run saves step 2; the next run restores it, logs the resume
+    and saves step 4, whose update count and weights moved on."""
+    from dsml_tpu_torch.checkpoint import CheckpointManager
+
+    ck = str(tmp_path / "ck")
+    args = ["--device", "cpu", "--model", "tiny", "--steps", "2", "--seq_len", "32",
+            "--batch_size", "4", "--grad_accum", "1", "--log_every", "1", "--checkpoint_dir", ck]
+    handler = _Records()
+    logger = logging.getLogger("dsml.gpt2")
+    logger.addHandler(handler)
+    try:
+        train_gpt2.main(args)
+        train_gpt2.main(args)
+    finally:
+        logger.removeHandler(handler)
+    assert "resumed from checkpoint at step 2" in handler.lines
+    with CheckpointManager(ck) as m:
+        assert m.all_steps() == [2, 4]
+        two, four = m.restore(2), m.restore(4)
+    assert int(two["opt_state"]["1"]["2"]["count"]) == 2
+    assert int(four["opt_state"]["1"]["2"]["count"]) == 4
+    assert not torch.equal(two["params"]["wte"], four["params"]["wte"])
 
 
 def test_generated_stories_equal_the_jax_example():
