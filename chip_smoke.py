@@ -59,7 +59,15 @@ before the path and read just after):
   steps as ``train_gpt2`` takes them, an async save, a restore into a
   fresh model and optimizer, the continued run, ``ContinuousBatcher.
   from_checkpoint`` through both paged kernels, and a dp = 2 q8_ring +
-  error-feedback ``Trainer`` resumed from its checkpoint.
+  error-feedback ``Trainer`` resumed from its checkpoint;
+- model parallelism (``parallel.tp``, ``parallel.pp``, ``parallel.fsdp``
+  through ``make_hybrid_train_step`` on spawned rank meshes sharing the
+  card): TinyLlama-1.1B at tp = 2 (kernels 1–3 over each rank's 16 local
+  heads), GPT-2-small at pp = 2 under gpipe, 1f1b and the interleaved
+  schedule (and one remat="int8" step through kernel 8), GPT-2-small at
+  fsdp = 2 under ZeRO-3 and ZeRO-2 (full precision, int8 + error feedback)
+  against the dp = 2 ring, TinyLlama-1.1B at pp = 2 × tp = 2 on four
+  ranks, and ``train_gpt2 --tp 2`` / ``--pp 2 --schedule 1f1b``.
 
 Each phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit and no result line. The line before the last is the card's
@@ -146,9 +154,20 @@ beside the card; the restored state bit for bit with the in-memory copy,
 the continued run within the copy's run-to-run gap, the tokens served
 from the checkpoint through both paged kernels equal to the in-memory
 weights', the dp = 2 q8_ring + EF resume bit-identical with each rank
-writing only its own residual rows); kernels (one line for the run;
-kernel 8's entry counts both of its paths, kernels 1–3, 5 and 6 their
-Llama and checkpoint paths too).
+writing only its own residual rows); model_parallel (per tp rank: 22
+launches of kernels 1–3 a step, the step-0 loss against the single-device
+step's, f32 gradients of a 2-layer model at TinyLlama's width within
+TOL_TRAIN_GRADS of the single-device plain path's, identical replicated
+leaves, step ms, tp all-reduces a step and the 16 MiB all-reduce's ms,
+peak memory, IPC slot bytes; per pp schedule: 24 launches a step a rank,
+losses agreeing, step ms, peak memory, f32 gradients at 4 layers, kernel
+8 launched 24 times in the int8-remat step; ZeRO-3 / ZeRO-2 / ZeRO-2
+int8 + EF losses against the dp = 2 ring's and optimizer-state bytes near
+half of dp's; pp × tp identical losses and replicas on four ranks; its
+phase_seconds); mp_cli (the two model-parallel ``train_gpt2`` runs);
+kernels (one line for the run; kernel 8's entry counts its three paths,
+kernels 1–3, 5 and 6 their Llama, checkpoint and model-parallel paths
+too).
 
 Float32 matmuls stay in full f32 (TF32 off, PyTorch's default, set here
 explicitly): the f32 phases compare two paths at f32 tolerances.
@@ -4196,6 +4215,544 @@ def phase_checkpoint(tflash, dev, card):
     return counts
 
 
+# ---- model parallelism: tp, pp and ZeRO on process meshes (port slice 15) ---------
+
+MP_TP_WARMUP, MP_TP_STEPS = 2, 3
+MP_PP_B, MP_PP_S, MP_PP_MICRO = 8, 1024, 4
+MP_PP_WARMUP, MP_PP_STEPS = 1, 3
+MP_F32_LAYERS = 2  # the f32 gradient checks' depth (TinyLlama's and GPT-2-small's width)
+MP_PP_F32_LAYERS = 4
+MP_ZERO_BUCKET_MB = 4.0
+MP_4RANK_STEPS = 3
+# bf16: losses of two schedules (or two ZeRO layouts) from the same weights
+# agree within this share (f32 sums in another order under bf16 rounding)
+MP_BF16_LOSS_RTOL = 2e-3
+MP_LOSS_DRIFT = 0.05  # a later step's loss off the reference's (bf16 updates compound)
+
+
+def _param_sha(params) -> str:
+    """sha256 of the bytes of ``params`` (bf16 read as int16)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in params:
+        t = p.detach()
+        t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _shard_grad_err(model, ref, coords, sizes):
+    """max over this rank's parameters of |grad − its slice of the
+    single-device ``ref`` gradient| / max |ref gradient| (the dp_slice rule)."""
+    from dsml_tpu_torch.models.common import shard_leaf
+    from dsml_tpu_torch.parallel.hybrid import _global_name
+
+    specs = ref.param_specs()
+    full = dict(ref.named_parameters())
+    worst = 0.0
+    for name, p in model.named_parameters():
+        g_ref = full[_global_name(model, name)].grad
+        want = shard_leaf(g_ref, specs[_global_name(model, name)], coords, sizes)
+        scale = float(g_ref.abs().max()) or 1.0
+        worst = max(worst, float((p.grad.float() - want.float()).abs().max()) / scale)
+    return worst
+
+
+def mp_tp_rank(rank, tmp, weights):
+    rank_main(lambda r, t, res, stage: mp_tp_run(r, t, res, stage, weights), "tp", rank, tmp)
+
+
+def mp_tp_run(rank, tmp, res, stage, weights):
+    """TinyLlama-1.1B bf16 at tp = 2 (one rank)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from dsml_tpu_torch.models.llama import Llama, LlamaConfig
+    from dsml_tpu_torch.ops import flash as tflash
+    from dsml_tpu_torch.parallel import tp as ttp
+    from dsml_tpu_torch.parallel.hybrid import make_hybrid_train_step
+    from dsml_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    mesh = build_mesh(MeshSpec(tp=2), rank, 2, os.path.join(tmp, "rendezvous"))
+    dev, group = mesh.device, mesh.group("tp")
+    res["device"] = str(dev)
+    stage("weights")
+    cfg = dataclasses.replace(LlamaConfig.tinyllama_1b(), dtype="bfloat16")
+    model = Llama(cfg, device=dev, tp_group=group)
+    model.load_full(torch.load(weights, mmap=True))
+    res["local_heads"] = cfg.n_head // group.size
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LLAMA_TRAIN_B, LLAMA_TRAIN_S)))
+    y = torch.roll(x, -1, 1)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+    step = make_hybrid_train_step(model, opt, mesh, attn_impl="flash")
+    stage("tp steps")
+    losses = [step(x, y) for _ in range(MP_TP_WARMUP)]
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(tflash)
+    ttp.reset_stats()
+    t0 = time.perf_counter()
+    losses += [step(x, y) for _ in range(MP_TP_STEPS)]
+    torch.cuda.synchronize()
+    res["step_ms"] = (time.perf_counter() - t0) * 1e3 / MP_TP_STEPS
+    res["launches"] = train_counts(tflash)
+    res["tp_all_reduces_per_step"] = ttp.STATS["all_reduce"] / MP_TP_STEPS
+    res["tp_all_reduce_bytes_per_step"] = ttp.STATS["bytes"] / MP_TP_STEPS
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    res["ipc_slot_bytes"] = mesh.slot_bytes()
+    res["losses"] = [float(v) for v in losses]
+    specs = model.param_specs()
+    res["replicated_sha"] = _param_sha(
+        [p for n, p in model.named_parameters() if "tp" not in specs[n]])
+    stage("tp all-reduce alone")
+    buf = torch.randn(LLAMA_TRAIN_B, LLAMA_TRAIN_S, cfg.d_model, device=dev).to(torch.bfloat16)
+    times = collective_times(lambda: ttp.tp_all_reduce(buf, group), group.pg)
+    res["all_reduce_16MiB_ms"] = statistics.median(times)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    stage("f32 gradient check")
+    cfg32 = dataclasses.replace(LlamaConfig.tinyllama_1b(), n_layer=MP_F32_LAYERS)
+    shard = Llama(cfg32, device=dev, tp_group=group).init(0)
+    ref = Llama(cfg32, device=dev).init(0)
+    xd, yd = x.to(dev), y.to(dev)
+    loss = shard.loss(xd, yd, attn_impl="flash")
+    loss.backward()
+    ref_loss = ref.loss(xd, yd, attn_impl="xla")
+    ref_loss.backward()
+    loss, ref_loss = float(loss.detach()), float(ref_loss.detach())
+    res["f32"] = {"loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+                  "grads_max_err_over_max_abs": _shard_grad_err(
+                      shard, ref, {"tp": group.rank}, {"tp": group.size})}
+    mesh.close()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def mp_pp_rank(rank, tmp):
+    rank_main(mp_pp_run, "pp", rank, tmp)
+
+
+MP_SCHEDULES = {"gpipe": ("gpipe", 1), "1f1b": ("1f1b", 1), "interleaved": ("gpipe", 2)}
+
+
+def mp_pp_run(rank, tmp, res, stage):
+    """GPT-2-small bf16 at pp = 2 (one stage) under the three schedules."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.ops import flash as tflash
+    from dsml_tpu_torch.ops import quantization as tq
+    from dsml_tpu_torch.parallel.hybrid import hybrid_model, make_hybrid_train_step
+    from dsml_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    mesh = build_mesh(MeshSpec(pp=2), rank, 2, os.path.join(tmp, "rendezvous"))
+    dev = mesh.device
+    res["device"] = str(dev)
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.integers(0, 50257, (MP_PP_B, MP_PP_S)))
+    y = torch.as_tensor(rng.integers(0, 50257, (MP_PP_B, MP_PP_S)))
+    cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
+    # the weights of seed 0, drawn once (each stage keeps its layers of them)
+    full = GPT2(dataclasses.replace(cfg, dtype="float32"), device="cpu").init(0).state_dict()
+    res["schedules"] = {}
+    for name, (schedule, v) in MP_SCHEDULES.items():
+        stage(f"pp steps under {name}")
+        model = hybrid_model(GPT2, dataclasses.replace(cfg, pp_interleave=v), mesh).load_full(full)
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+        step = make_hybrid_train_step(model, opt, mesh, attn_impl="flash",
+                                      n_microbatches=MP_PP_MICRO, schedule=schedule)
+        losses = [step(x, y) for _ in range(MP_PP_WARMUP)]
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts(tflash)
+        t0 = time.perf_counter()
+        losses += [step(x, y) for _ in range(MP_PP_STEPS)]
+        torch.cuda.synchronize()
+        res["schedules"][name] = {
+            "step_ms": (time.perf_counter() - t0) * 1e3 / MP_PP_STEPS,
+            "launches": train_counts(tflash), "layers": model.layer_ids,
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "losses": [float(v) for v in losses]}
+        del model, opt, step
+        torch.cuda.empty_cache()
+    res["ipc_slot_bytes"] = mesh.slot_bytes()
+    stage("int8 remat step")
+    model = hybrid_model(GPT2, dataclasses.replace(cfg, remat="int8"), mesh).load_full(full)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+    step = make_hybrid_train_step(model, opt, mesh, attn_impl="flash",
+                                  n_microbatches=MP_PP_MICRO)
+    tq.quantize_int8_launches = 0
+    loss = float(step(x, y))
+    res["int8_remat"] = {"loss": loss, "quantize_int8": tq.quantize_int8_launches}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    stage("f32 gradient check")
+    cfg32 = dataclasses.replace(GPT2Config.small(), n_layer=MP_PP_F32_LAYERS, xent_chunk=0)
+    ref = GPT2(cfg32, device=dev).init(0)
+    xd, yd = x.to(dev), y.to(dev)
+    ref_loss = ref.loss(xd, yd, attn_impl="xla")
+    ref_loss.backward()
+    ref_loss = float(ref_loss.detach())
+    res["f32"] = {}
+    full32 = ref.state_dict()
+    for name, (schedule, v) in MP_SCHEDULES.items():
+        model = hybrid_model(GPT2, dataclasses.replace(cfg32, pp_interleave=v), mesh)
+        model.load_full(full32)
+        opt = torch.optim.SGD(model.parameters(), lr=0.0)
+        loss = make_hybrid_train_step(model, opt, mesh, attn_impl="flash",
+                                      n_microbatches=MP_PP_MICRO, schedule=schedule)(x, y)
+        res["f32"][name] = {
+            "loss_rel_err": abs(float(loss) - ref_loss) / abs(ref_loss),
+            "grads_max_err_over_max_abs": _shard_grad_err(model, ref, {}, {})}
+        del model, opt
+    mesh.close()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def mp_zero_rank(rank, tmp):
+    rank_main(mp_zero_run, "fsdp", rank, tmp)
+
+
+def _opt_bytes(opt) -> int:
+    """Bytes of ``opt``'s moment tensors (its 0-d step counts left out)."""
+    return sum(t.numel() * t.element_size() for st in opt.state.values()
+               for t in st.values() if torch.is_tensor(t) and t.ndim)
+
+
+def mp_zero_run(rank, tmp, res, stage):
+    """GPT-2-small bf16 at fsdp = 2 (one rank): the dp = 2 ring step, the
+    hybrid ZeRO-3 step and ZeRO-2 (full precision, int8 + error feedback)
+    from the same weights."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.ops import flash as tflash
+    from dsml_tpu_torch.parallel.dp import make_dp_train_step
+    from dsml_tpu_torch.parallel.fsdp import init_zero2, make_zero2_train_step
+    from dsml_tpu_torch.parallel.hybrid import hybrid_model, init_hybrid, make_hybrid_train_step
+    from dsml_tpu_torch.parallel.mesh import Mesh, MeshSpec, build_mesh
+
+    mesh = build_mesh(MeshSpec(fsdp=2), rank, 2, os.path.join(tmp, "rendezvous"))
+    dev = mesh.device
+    # the same two ranks as a dp = 2 mesh: the reference step's
+    dp_mesh = Mesh(MeshSpec(dp=2).resolved(2), rank, dev, {"dp": mesh.group("fsdp")},
+                   {**mesh.coords, "dp": rank, "fsdp": 0})
+    res["device"] = str(dev)
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.integers(0, 50257, (TRAIN_B, TRAIN_S)))
+    y = torch.as_tensor(rng.integers(0, 50257, (TRAIN_B, TRAIN_S)))
+    cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
+
+    def adamw(params):
+        return torch.optim.AdamW(params, lr=3e-4, weight_decay=0.01)
+
+    def run(name, step, opt):
+        stage(name)
+        losses = [step(x, y) for _ in range(MP_PP_WARMUP)]
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts(tflash)
+        t0 = time.perf_counter()
+        losses += [step(x, y) for _ in range(MP_PP_STEPS)]
+        torch.cuda.synchronize()
+        res[name] = {"step_ms": (time.perf_counter() - t0) * 1e3 / MP_PP_STEPS,
+                     "launches": train_counts(tflash), "losses": [float(v) for v in losses],
+                     "optimizer_state_bytes": _opt_bytes(opt),
+                     "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+    model = GPT2(cfg, device=dev).init(0)
+    init_state = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = adamw(model.parameters())
+    run("dp_ring", make_dp_train_step(model, opt, dp_mesh, "ring", bucket_size_mb=MP_ZERO_BUCKET_MB,
+                                      loss_fn=lambda a, b: model.loss(a, b, attn_impl="flash")), opt)
+    del model, opt
+    model = hybrid_model(GPT2, cfg, mesh)
+    model, opt = init_hybrid(model, adamw(model.parameters()), mesh, 0)
+    run("zero3", make_hybrid_train_step(model, opt, mesh, attn_impl="flash"), opt)
+    res["zero3"]["param_shard_bytes"] = sum(s.numel() * s.element_size()
+                                            for s in model.fsdp.shards)
+    del model, opt
+    for name, quant, ef in (("zero2", None, False), ("zero2_int8_ef", "int8", True)):
+        model = GPT2(cfg, device=dev)
+        model.load_state_dict(init_state)
+        state = init_zero2(model, adamw(model.parameters()), mesh, None,
+                           bucket_size_mb=MP_ZERO_BUCKET_MB)
+        run(name, make_zero2_train_step(model, state, mesh, bucket_size_mb=MP_ZERO_BUCKET_MB,
+                                        quant=quant, error_feedback=ef, attn_impl="flash"),
+            state.optimizer)
+        res[name]["buckets"] = state.plan.n_buckets
+        res[name]["weights_sha"] = _param_sha(model.parameters())
+        del model, state
+        torch.cuda.empty_cache()
+    res["ipc_slot_bytes"] = mesh.slot_bytes()
+    mesh.close()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def mp_4rank_rank(rank, tmp, weights):
+    rank_main(lambda r, t, res, stage: mp_4rank_run(r, t, res, stage, weights), "pp_tp", rank, tmp)
+
+
+def mp_4rank_run(rank, tmp, res, stage, weights):
+    """TinyLlama-1.1B bf16 at pp = 2 × tp = 2 (one of four ranks)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from dsml_tpu_torch.models.llama import Llama, LlamaConfig
+    from dsml_tpu_torch.ops import flash as tflash
+    from dsml_tpu_torch.parallel.hybrid import _global_name, hybrid_model, make_hybrid_train_step
+    from dsml_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    mesh = build_mesh(MeshSpec(pp=2, tp=2), rank, 4, os.path.join(tmp, "rendezvous"))
+    dev = mesh.device
+    res.update(device=str(dev), coords=mesh.coords)
+    stage("weights")
+    cfg = dataclasses.replace(LlamaConfig.tinyllama_1b(), dtype="bfloat16")
+    model = hybrid_model(Llama, cfg, mesh)
+    model.load_full(torch.load(weights, mmap=True))
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LLAMA_TRAIN_B, LLAMA_TRAIN_S)))
+    y = torch.roll(x, -1, 1)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+    step = make_hybrid_train_step(model, opt, mesh, attn_impl="flash", n_microbatches=2,
+                                  schedule="1f1b")
+    stage("pp x tp steps")
+    reset_counts(tflash)
+    t0 = time.perf_counter()
+    res["losses"] = [float(step(x, y)) for _ in range(MP_4RANK_STEPS)]
+    torch.cuda.synchronize()
+    res["step_ms"] = (time.perf_counter() - t0) * 1e3 / MP_4RANK_STEPS
+    res["launches"] = train_counts(tflash)
+    res["layers"] = model.layer_ids
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    res["ipc_slot_bytes"] = mesh.slot_bytes()
+    specs = model.param_specs()
+    named = list(model.named_parameters())
+    # tp-replicated leaves: equal within a stage; non-layer leaves: equal
+    # across the stages (each tp shard of wte/lm_head, and rms_f)
+    res["tp_replicated_sha"] = _param_sha(
+        [p for n, p in named if "tp" not in specs[_global_name(model, n)]])
+    res["non_layer_sha"] = _param_sha([p for n, p in named if not n.startswith("layers.")])
+    mesh.close()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def spawn_mesh(fn, kind, nprocs, *args):
+    """Run ``fn(rank, tmp, *args)`` on ``nprocs`` spawned ranks (one card:
+    they share it); each rank's JSON and the seconds the spawn took."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{kind}_") as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(fn, args=(tmp, *args), nprocs=nprocs, join=True)
+        seconds = time.perf_counter() - t0
+        ranks = []
+        for r in range(nprocs):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return ranks, seconds
+
+
+def phase_model_parallel(tflash, dev, card, with_cli: bool = False):
+    """(a) TinyLlama-1.1B bf16 at tp = 2, batch 2 × 2048, AdamW(3e-4,
+    weight_decay=0.01): 22 launches of kernels 1–3 a step a rank over 16
+    local heads, the step-0 loss against the single-device step's from the
+    same weights, f32 gradients of a 2-layer model at TinyLlama's width
+    against the single-device plain path's, identical replicated leaves,
+    step ms, the tp all-reduces a step and their ms, peak memory and IPC
+    slot bytes a rank. (b) GPT-2-small bf16 at pp = 2, 8 × 1024, 4
+    microbatches under gpipe, 1f1b and the interleaved schedule (v = 2):
+    losses that agree, 6 layers × 4 microbatches of launches a rank a step,
+    step ms and peak memory per schedule, f32 gradients at 4 layers against
+    the single-device plain path, one remat="int8" step through kernel 8.
+    (c) GPT-2-small bf16 at fsdp = 2: the hybrid ZeRO-3 step and ZeRO-2 in 4
+    MiB buckets (full precision, int8 + error feedback) against the dp = 2
+    ring step from the same weights, optimizer-state bytes a rank, step ms.
+    (d) TinyLlama-1.1B at pp = 2 × tp = 2 (four ranks), 1F1B, ending with
+    identical replicas; with ``with_cli`` the ``mp_cli`` entry points run
+    beside it (its step ms is then not the mesh's alone). Ranks time-slice
+    the one card: the times are the cost of the collectives and the
+    schedules, not a model-parallel speed-up. Returns rank 0's launches
+    per path."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    # the TinyLlama weights, bf16, once for the tp and the pp x tp ranks
+    # (a file each rank maps), and the single-device step-0 loss from them
+    wdir = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    weights = os.path.join(wdir, "tinyllama_bf16.pt")
+    procs = None
+    try:
+        torch.save({k: v.to(torch.bfloat16) for k, v in llama_weights().items()}, weights)
+        model = llama_model(dev, dtype="bfloat16", xent_chunk=8192)
+        rng = np.random.default_rng(0)
+        x = torch.as_tensor(rng.integers(0, 32000, (LLAMA_TRAIN_B, LLAMA_TRAIN_S)), device=dev)
+        with torch.no_grad():
+            single_loss = float(model.loss(x, torch.roll(x, -1, 1), attn_impl="flash"))
+        del model
+        torch.cuda.empty_cache()
+        tp_ranks, tp_seconds = spawn_mesh(mp_tp_rank, "tp", 2, weights)
+        pp_ranks, pp_seconds = spawn_mesh(mp_pp_rank, "pp", 2)
+        zero_ranks, zero_seconds = spawn_mesh(mp_zero_rank, "fsdp", 2)
+        procs = mp_cli_start() if with_cli else None
+        four, four_seconds = spawn_mesh(mp_4rank_rank, "pp_tp", 4, weights)
+    except BaseException:
+        for p in (procs or {}).values():
+            p.kill()
+        raise
+    finally:
+        shutil.rmtree(wdir, ignore_errors=True)
+    if procs is not None:
+        phase_mp_cli(procs)
+    note = ("ranks time-slice one card: the times are the cost of the collectives and the "
+            "schedule, not a model-parallel speed-up")
+
+    # (a) tp
+    n_layer = 22
+    for r in tp_ranks:  # the step's all-reduces at the measured 16 MiB time
+        r["all_reduce_ms_per_step_est"] = (r["all_reduce_16MiB_ms"]
+                                           * r["tp_all_reduce_bytes_per_step"] / (16 << 20))
+    emit({"phase": "model_parallel_tp", "model": "tinyllama-1.1b", "dtype": "bfloat16", "tp": 2,
+          "batch": [LLAMA_TRAIN_B, LLAMA_TRAIN_S], "optimizer": "AdamW(3e-4, weight_decay=0.01)",
+          "steps": MP_TP_STEPS, "warmup": MP_TP_WARMUP, "single_device_step0_loss": single_loss,
+          "seconds_with_spawn": tp_seconds, "card": card, "note": note, "ranks": tp_ranks})
+    for r in tp_ranks:
+        rk = r["rank"]
+        check(bf16_step_counts_ok(r["launches"], n_layer * MP_TP_STEPS, n_layer * MP_TP_STEPS),
+              f"tp rank {rk}: flash launches {r['launches']}, expected {n_layer} a step")
+        check(abs(r["losses"][0] - single_loss) <= MP_BF16_LOSS_RTOL * abs(single_loss),
+              f"tp rank {rk}: step-0 loss {r['losses'][0]} vs single-device {single_loss}")
+        check(all(np.isfinite(r["losses"])) and r["losses"][-1] < r["losses"][0],
+              f"tp rank {rk}: losses {r['losses']}")
+        check(r["f32"]["loss_rel_err"] <= 1e-5
+              and r["f32"]["grads_max_err_over_max_abs"] <= TOL_TRAIN_GRADS,
+              f"tp rank {rk}: f32 gradients against the single-device plain path: {r['f32']}")
+    check(tp_ranks[0]["losses"] == tp_ranks[1]["losses"]
+          and tp_ranks[0]["replicated_sha"] == tp_ranks[1]["replicated_sha"],
+          "tp ranks: losses or replicated leaves differ")
+
+    # (b) pp
+    emit({"phase": "model_parallel_pp", "model": "gpt2-small", "dtype": "bfloat16", "pp": 2,
+          "batch": [MP_PP_B, MP_PP_S], "n_micro": MP_PP_MICRO, "steps": MP_PP_STEPS,
+          "warmup": MP_PP_WARMUP, "seconds_with_spawn": pp_seconds, "card": card, "note": note,
+          "ranks": pp_ranks})
+    for r in pp_ranks:
+        rk = r["rank"]
+        per = 6 * MP_PP_MICRO * MP_PP_STEPS
+        base = r["schedules"]["gpipe"]["losses"]
+        for name, row in r["schedules"].items():
+            check(bf16_step_counts_ok(row["launches"], per, per),
+                  f"pp rank {rk} {name}: flash launches {row['launches']}, expected {per}")
+            check(abs(row["losses"][0] - base[0]) <= MP_BF16_LOSS_RTOL * abs(base[0])
+                  and max(abs(a - b) for a, b in zip(row["losses"], base)) <= MP_LOSS_DRIFT,
+                  f"pp rank {rk}: {name} losses {row['losses']} vs gpipe {base}")
+        for name, f32 in r["f32"].items():
+            check(f32["loss_rel_err"] <= 1e-5 and f32["grads_max_err_over_max_abs"] <= TOL_TRAIN_GRADS,
+                  f"pp rank {rk} {name}: f32 gradients against the single-device plain path: {f32}")
+        check(r["int8_remat"]["quantize_int8"] == 6 * MP_PP_MICRO
+              and abs(r["int8_remat"]["loss"] - base[0]) <= MP_BF16_LOSS_RTOL * abs(base[0]),
+              f"pp rank {rk}: int8 remat step {r['int8_remat']}")
+    check(all(pp_ranks[0]["schedules"][k]["losses"] == pp_ranks[1]["schedules"][k]["losses"]
+              for k in MP_SCHEDULES), "pp ranks report different losses")
+
+    # (c) ZeRO
+    emit({"phase": "model_parallel_zero", "model": "gpt2-small", "dtype": "bfloat16", "fsdp": 2,
+          "batch": [TRAIN_B, TRAIN_S], "bucket_mb": MP_ZERO_BUCKET_MB, "steps": MP_PP_STEPS,
+          "warmup": MP_PP_WARMUP, "seconds_with_spawn": zero_seconds, "card": card, "note": note,
+          "ranks": zero_ranks})
+    for r in zero_ranks:
+        rk, ref = r["rank"], r["dp_ring"]
+        for name in ("zero3", "zero2", "zero2_int8_ef"):
+            row = r[name]
+            check(bf16_step_counts_ok(row["launches"], 12 * MP_PP_STEPS, 12 * MP_PP_STEPS),
+                  f"fsdp rank {rk} {name}: flash launches {row['launches']}")
+            check(abs(row["losses"][0] - ref["losses"][0]) <= MP_BF16_LOSS_RTOL * abs(ref["losses"][0])
+                  and max(abs(a - b) for a, b in zip(row["losses"], ref["losses"])) <= MP_LOSS_DRIFT,
+                  f"fsdp rank {rk}: {name} losses {row['losses']} vs dp ring {ref['losses']}")
+            share = row["optimizer_state_bytes"] / ref["optimizer_state_bytes"]
+            check(0.45 <= share <= 0.55, f"fsdp rank {rk}: {name} optimizer state is {share} of dp's")
+    for name in ("zero2", "zero2_int8_ef"):
+        check(zero_ranks[0][name]["weights_sha"] == zero_ranks[1][name]["weights_sha"],
+              f"{name}: the replicated parameters differ across ranks")
+
+    # (d) pp x tp
+    emit({"phase": "model_parallel_pp_tp", "model": "tinyllama-1.1b", "dtype": "bfloat16",
+          "pp": 2, "tp": 2, "schedule": "1f1b", "n_micro": 2,
+          "batch": [LLAMA_TRAIN_B, LLAMA_TRAIN_S], "steps": MP_4RANK_STEPS,
+          "seconds_with_spawn": four_seconds, "card": card, "note": note, "ranks": four})
+    for r in four:
+        check(all(np.isfinite(r["losses"])) and r["losses"] == four[0]["losses"],
+              f"pp x tp rank {r['rank']}: losses {r['losses']} vs rank 0's {four[0]['losses']}")
+        per = 11 * 2 * MP_4RANK_STEPS
+        check(bf16_step_counts_ok(r["launches"], per, per),
+              f"pp x tp rank {r['rank']}: flash launches {r['launches']}, expected {per}")
+        for s in four:
+            if s["coords"]["pp"] == r["coords"]["pp"]:
+                check(s["tp_replicated_sha"] == r["tp_replicated_sha"],
+                      f"ranks {r['rank']} and {s['rank']}: tp-replicated leaves differ")
+            if s["coords"]["tp"] == r["coords"]["tp"]:
+                check(s["non_layer_sha"] == r["non_layer_sha"],
+                      f"ranks {r['rank']} and {s['rank']}: non-layer leaves differ across stages")
+    emit({"phase": "model_parallel", "phase_seconds": time.perf_counter() - t_phase,
+          "seconds": {"tp": tp_seconds, "pp": pp_seconds, "zero": zero_seconds,
+                      "pp_tp": four_seconds}, "card": card})
+    counts = {k: tp_ranks[0]["launches"][k] + pp_ranks[0]["schedules"]["gpipe"]["launches"][k]
+              for k in tp_ranks[0]["launches"]}
+    return counts, pp_ranks[0]["int8_remat"]["quantize_int8"]
+
+
+def mp_cli_start():
+    """Start ``train_gpt2 --family llama --model tinyllama_1b --tp 2`` and
+    ``train_gpt2 --model small --pp 2 --schedule 1f1b`` on the card, a few
+    steps each, as processes (waited for by :func:`phase_mp_cli`)."""
+    entries = {
+        "tinyllama_tp2": ["--family", "llama", "--model", "tinyllama_1b", "--tp", "2",
+                          "--batch_size", "2"],
+        "small_pp2_1f1b": ["--model", "small", "--pp", "2", "--schedule", "1f1b", "--n_micro", "4",
+                           "--batch_size", "8"],
+    }
+    root = os.path.dirname(os.path.abspath(__file__))
+    return {name: subprocess.Popen(
+        [sys.executable, "-m", "dsml_tpu_torch.cli.train_gpt2", *args, "--attn", "flash",
+         "--dtype", "bfloat16", "--steps", "3", "--grad_accum", "1", "--log_every", "1",
+         "--warmup_steps", "1"], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name, args in entries.items()}
+
+
+def phase_mp_cli(procs):
+    """The two model-parallel ``train_gpt2`` runs of :func:`mp_cli_start`:
+    exit 0 and the last step's log line."""
+    t_phase = time.perf_counter()
+    rows = {}
+    for name, p in procs.items():
+        out, _ = p.communicate(timeout=600)
+        lines = [l for l in out.splitlines() if "step 3: loss" in l]
+        rows[name] = {"rc": p.returncode, "last": lines[-1] if lines else out[-2000:]}
+    emit({"phase": "mp_cli", "runs": rows, "waited_seconds": time.perf_counter() - t_phase})
+    for name, row in rows.items():
+        check(row["rc"] == 0 and "step 3: loss" in row["last"], f"mp_cli {name}: {row}")
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: this smoke test needs the card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4250,7 +4807,9 @@ def main() -> None:
                   "llama_serve": lambda: phase_llama_serve(dev, card),
                   "llama_ticks": lambda: phase_llama_ticks(dev, card),
                   "obs": lambda: phase_obs(tflash, dev, card),
-                  "checkpoint": lambda: phase_checkpoint(tflash, dev, card)}
+                  "checkpoint": lambda: phase_checkpoint(tflash, dev, card),
+                  "model_parallel": lambda: phase_model_parallel(tflash, dev, card),
+                  "mp_cli": lambda: phase_mp_cli(mp_cli_start())}
         for name in only:
             phases[name]()
         raise SystemExit(f"chip_smoke: ran only {only}; no result line")
@@ -4312,36 +4871,48 @@ def main() -> None:
     phase_obs(tflash, dev, card)
     torch.cuda.empty_cache()
     ckpt_launches = phase_checkpoint(tflash, dev, card)
+    torch.cuda.empty_cache()
+    # model parallelism: tp, pp (three schedules), ZeRO-3/ZeRO-2 and pp x tp,
+    # the two model-parallel entry points beside the last
+    mp_launches, mp_quant8 = phase_model_parallel(tflash, dev, card, with_cli=True)
 
     # the backward's two routes: bf16 (tensor cores) with launches from the
     # bf16 train steps, f32 (FMAs) with launches from phase_train's f32
     # gradient check; times at [96, 1024, 64] causal in each route's type
     # the Llama paths add their launches: kernels 1-3 from the TinyLlama
     # train steps, kernels 5-6 from the Llama drains (bf16 pipelined, f32
-    # single-buffer); each path counted from 0 around itself
+    # single-buffer); each path counted from 0 around itself; the
+    # model-parallel path adds rank 0's kernels 1-3 of the TinyLlama tp = 2
+    # steps and of the GPT-2-small pp = 2 gpipe steps, and kernel 8 of its
+    # pp int8-remat step
     bwd_rows = []
     for dtype, source, counts in ((torch.bfloat16, BWD_TC_SOURCE, train_launches),
                                   (torch.float32, BWD_FMA_SOURCE, f32_launches)):
         dq_name, dkv_name = BWD_KERNELS[dtype]
         err = bwd_err[dtype]
         llama = llama_train_launches if dtype == torch.bfloat16 else {dq_name: 0, dkv_name: 0}
+        mp = mp_launches if dtype == torch.bfloat16 else {dq_name: 0, dkv_name: 0}
         bwd_rows += [
             {"name": dq_name, "route": "cuda", "source": source, "replaces": "dsml_tpu/ops/flash.py:481",
-             "launches": counts[dq_name] + llama[dq_name] + ckpt_launches[dq_name],
+             "launches": counts[dq_name] + llama[dq_name] + ckpt_launches[dq_name] + mp[dq_name],
              "launches_by_path": {"train": counts[dq_name], "llama_train": llama[dq_name],
-                                  "checkpoint": ckpt_launches[dq_name]},
+                                  "checkpoint": ckpt_launches[dq_name],
+                                  "model_parallel": mp[dq_name]},
              "max_abs_err": err["dq"], **bwd_timing[dq_name]},
             {"name": dkv_name, "route": "cuda", "source": source, "replaces": "dsml_tpu/ops/flash.py:526",
-             "launches": counts[dkv_name] + llama[dkv_name] + ckpt_launches[dkv_name],
+             "launches": counts[dkv_name] + llama[dkv_name] + ckpt_launches[dkv_name] + mp[dkv_name],
              "launches_by_path": {"train": counts[dkv_name], "llama_train": llama[dkv_name],
-                                  "checkpoint": ckpt_launches[dkv_name]},
+                                  "checkpoint": ckpt_launches[dkv_name],
+                                  "model_parallel": mp[dkv_name]},
              "max_abs_err": max(err["dk"], err["dv"]), **bwd_timing[dkv_name]}]
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": "dsml_tpu_torch/ops/csrc/flash_fwd.cu",
          "replaces": "dsml_tpu/ops/flash.py:198",
-         "launches": launches + llama_train_launches["flash_fwd"] + ckpt_launches["flash_fwd"],
+         "launches": launches + llama_train_launches["flash_fwd"] + ckpt_launches["flash_fwd"]
+         + mp_launches["flash_fwd"],
          "launches_by_path": {"slice": launches, "llama_train": llama_train_launches["flash_fwd"],
-                              "checkpoint": ckpt_launches["flash_fwd"]},
+                              "checkpoint": ckpt_launches["flash_fwd"],
+                              "model_parallel": mp_launches["flash_fwd"]},
          "max_abs_err": main_err, **timing},
         *bwd_rows,
         # times at the decode tick's shape (the chunk's are in the kernel_time line);
@@ -4376,9 +4947,9 @@ def main() -> None:
         # steps, each counted from 0 around its path
         {"name": "quantize_int8", "route": "cuda", "source": QUANT8_SOURCE,
          "replaces": "dsml_tpu/ops/quantization.py:141",
-         "launches": remat_launches["quantize_int8"] + q8_launches,
+         "launches": remat_launches["quantize_int8"] + q8_launches + mp_quant8,
          "launches_by_path": {"train_int8remat": remat_launches["quantize_int8"],
-                              "dp_slice_q8": q8_launches},
+                              "dp_slice_q8": q8_launches, "model_parallel_pp_int8": mp_quant8},
          "max_abs_err": quant8_err, **{k: quant8_timing[k] for k in KERNEL_TIMES}},
         # times at the cp = 2 hop's shape (q [96, 512, 64], K/V half [96, 256,
         # 64], bf16; library_ms the two-call yardstick SDPA + copy_); launches

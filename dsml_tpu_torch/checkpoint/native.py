@@ -21,6 +21,11 @@ and piece bytes).
   error-feedback residuals' JAX layout): every rank writes its own piece,
   and a restore on rank r reads row r only. Every other leaf is
   replicated: the manifest lists its one piece and rank 0 writes it.
+  A :class:`FlatShard` leaf is one rank's contiguous segment of a flat
+  1-D leaf sharded over the fsdp axis (ZeRO-2's moment buckets, the JAX
+  ``init_zero2`` layout): every rank writes its segment as one piece, and a
+  restore reassembles the buckets, re-pads them to the template's width and
+  keeps the rank's segment.
   ``commit`` waits on a barrier for every rank's pieces before rank 0
   writes the manifest and publishes the step.
 - **Atomic**: files land in ``.tmp.step_N`` (fsynced, the manifest last)
@@ -49,7 +54,7 @@ import torch
 
 from dsml_tpu_torch.utils.logging import get_logger
 
-__all__ = ["RankShard", "Snapshot", "commit", "read_manifest", "restore_tree", "snapshot",
+__all__ = ["FlatShard", "RankShard", "Snapshot", "commit", "read_manifest", "restore_tree", "snapshot",
            "step_dirname", "tree_leaves_with_path"]
 
 log = get_logger("checkpoint.native")
@@ -83,6 +88,19 @@ class RankShard:
     tensor: torch.Tensor
     rank: int
     n: int
+
+
+@dataclasses.dataclass
+class FlatShard:
+    """Segment ``rank`` of a flat leaf of ``n · len(tensor)`` elements
+    sharded over ``axis`` (the JAX ``P(axis)`` of a ZeRO-2 bucket). As a
+    template leaf it restores this rank's segment of the saved leaf, after
+    the 1-D resize rule brings it to ``n · len(tensor)``."""
+
+    tensor: torch.Tensor
+    rank: int
+    n: int
+    axis: str = "fsdp"
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +225,19 @@ def snapshot(state: Any, step: int, extra: dict | None = None, rank: int = 0,
                 "pieces": pieces,
             })
             blobs.append((pieces[leaf.rank]["file"], _host_array(t)[None]))
+            continue
+        if isinstance(leaf, FlatShard):
+            t = leaf.tensor
+            seg = t.shape[0]
+            pieces = [{"file": f"L{li:05d}_P{r:03d}.bin", "index": [[r * seg, (r + 1) * seg]]}
+                      for r in range(leaf.n)]
+            entries.append({
+                "path": path, "shape": [leaf.n * seg], "dtype": _torch_dtype_name(t.dtype),
+                "sharding": {"spec": [[leaf.axis]], "mesh_axes": [leaf.axis],
+                             "mesh_shape": [leaf.n]},
+                "pieces": pieces,
+            })
+            blobs.append((pieces[leaf.rank]["file"], _host_array(t)))
             continue
         if isinstance(leaf, torch.Tensor):
             shape, dtype = list(leaf.shape), _torch_dtype_name(leaf.dtype)
@@ -354,7 +385,8 @@ def _to_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 def _materialize(ckpt_dir: str, entry: dict, tleaf) -> Any:
     """Restore one leaf with the shape, dtype and device of the template
-    leaf: a tensor, a :class:`RankShard` (this rank's row), a numpy array
+    leaf: a tensor, a :class:`RankShard` (this rank's row), a
+    :class:`FlatShard` (this rank's segment), a numpy array
     or a Python scalar."""
     if "inline" in entry or entry.get("kind"):
         return entry.get("inline")
@@ -362,6 +394,16 @@ def _materialize(ckpt_dir: str, entry: dict, tleaf) -> Any:
         t = _to_tensor(_rank_row(ckpt_dir, entry, tleaf), entry["dtype"])
         return t.to(device=tleaf.tensor.device, dtype=tleaf.tensor.dtype)
     arr = _assemble(ckpt_dir, entry)
+    if isinstance(tleaf, FlatShard):
+        seg = tleaf.tensor.shape[0]
+        if arr.ndim != 1 or (arr.shape[0] != seg * tleaf.n and not _saved_dim0_sharded(entry)):
+            raise ValueError(f"template flat shard of {seg * tleaf.n} != saved shape "
+                             f"{arr.shape} for {entry['path']!r}")
+        if arr.shape[0] != seg * tleaf.n:
+            arr = _resize_flat(arr, seg * tleaf.n, entry["path"])
+        t = _to_tensor(np.ascontiguousarray(arr[tleaf.rank * seg:(tleaf.rank + 1) * seg]),
+                       entry["dtype"])
+        return t.to(device=tleaf.tensor.device, dtype=tleaf.tensor.dtype)
     t_shape = getattr(tleaf, "shape", None)
     if t_shape is not None and tuple(t_shape) != arr.shape:
         if arr.ndim == 1 and len(t_shape) == 1 and _saved_dim0_sharded(entry):

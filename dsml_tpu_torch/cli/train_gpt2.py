@@ -1,5 +1,6 @@
-"""Train GPT-2 or Llama on byte tokens — the single-device, the
-data-parallel and the context-parallel paths of ``examples/train_gpt2.py``.
+"""Train GPT-2 or Llama on byte tokens — the single-device, data-parallel,
+context-parallel, tensor-parallel and pipeline-parallel paths of
+``examples/train_gpt2.py``.
 
 Tokens are the bytes of ``--data FILE`` or, without one, of a generated
 story corpus (simple grammatical sentences, so the loss measures sequence
@@ -18,15 +19,23 @@ tokens/s".
         --steps 4 --grad_accum 1
     python -m dsml_tpu_torch.cli.train_gpt2 --family llama --model tinyllama_1b --attn flash \\
         --dtype bfloat16 --steps 3 --batch_size 2 --grad_accum 1
+    python -m dsml_tpu_torch.cli.train_gpt2 --family llama --model tinyllama_1b --tp 2 \\
+        --attn flash --dtype bfloat16 --steps 3 --batch_size 2 --grad_accum 1
+    python -m dsml_tpu_torch.cli.train_gpt2 --model small --pp 2 --schedule 1f1b --n_micro 4 \\
+        --attn flash --dtype bfloat16 --steps 3 --batch_size 8 --grad_accum 1
 
-``--dp N`` or ``--cp N`` spawns N ranks (``torch.multiprocessing``), one
-process each, joined over gloo through a rendezvous file in a temporary
-directory; they run ``parallel.hybrid.make_hybrid_train_step``: with
-``--dp`` each rank trains on its rows of the global batch and the
-gradients are averaged through the process group's own ``all_reduce``
-(``dp_sync="xla"``, as the JAX example); with ``--cp`` the sequence is
-sharded over the context-parallel ring (``--attn ring2``, the default
-there). Rank r runs on ``cuda:{r % device_count}`` (logged per rank: with
+``--dp N``, ``--cp N``, ``--tp N`` or ``--pp N`` spawns one rank
+(``torch.multiprocessing``) per mesh position, joined over gloo through a
+rendezvous file in a temporary directory; they run
+``parallel.hybrid.make_hybrid_train_step``: with ``--dp`` each rank trains
+on its rows of the global batch and the gradients are averaged through the
+process group's own ``all_reduce`` (``dp_sync="xla"``, as the JAX example);
+with ``--cp`` the sequence is sharded over the context-parallel ring
+(``--attn ring2``, the default there); with ``--tp`` each rank holds its
+Megatron shard of the model; with ``--pp`` its pipeline stage, running
+``--schedule gpipe|1f1b`` over ``--n_micro`` microbatches (lowered to the
+largest count that divides a dp rank's rows, with a note, as the JAX
+example does). dp, tp and pp compose. Rank r runs on ``cuda:{r % device_count}`` (logged per rank: with
 fewer cards than ranks, ranks share a card), or on the CPU with
 ``--device cpu``. Rank 0 logs the steps; a failing rank fails the run.
 
@@ -38,10 +47,10 @@ the batch stream seeded ``seed + start``, and saves step ``start +
 steps`` at the end (under ``--dp``/``--cp`` every rank saves: rank 0
 writes the replicated state, all ranks wait for the commit).
 
-Runs on the CUDA card unless ``--device cpu``. Pipeline, tensor and the
-other sequence parallelisms, dp composed with cp, Llama under cp, BPE, the
-prose corpus, profiles and adafactor come with later slices and raise
-here.
+Runs on the CUDA card unless ``--device cpu``. The other sequence
+parallelisms, cp composed with another axis, Llama under cp, checkpoints
+under tp or pp, BPE, the prose corpus, profiles and adafactor come with
+later slices and raise here.
 """
 
 from __future__ import annotations
@@ -76,13 +85,13 @@ class GPT2TrainConfig(Config):
     batch_size: int = field(8, help="GLOBAL batch size (rows per optimizer step)")
     seq_len: int = field(0, help="sequence length (0 = model max)")
     grad_accum: int = field(2, help="gradient-accumulation microbatches per step")
-    pp: int = field(1, help="pipeline-parallel stages (model-parallel slice)")
-    schedule: str = field("gpipe", help="pipeline schedule (pp > 1)")
+    pp: int = field(1, help="pipeline-parallel stages: spawns this many ranks per dp x tp position")
+    schedule: str = field("gpipe", help="pipeline schedule (pp > 1): gpipe | 1f1b")
     n_micro: int = field(2, help="pipeline microbatches per step (pp > 1)")
     dp: int = field(0, help="data-parallel size: spawns this many ranks (0 or 1 = this device)")
     sp: int = field(1, help="sequence-parallel size (long-context slice)")
     cp: int = field(1, help="context-parallel size: spawns this many ranks over the flash ring (ring2)")
-    tp: int = field(1, help="tensor-parallel size (model-parallel slice)")
+    tp: int = field(1, help="tensor-parallel size: spawns this many ranks per dp x pp position")
     attn: str = field("", help="attention impl: flash | xla | ring2 ('' = plain attention on one device, ring2 with --cp > 1, as the JAX example)")
     lr: float = field(3e-4, help="peak learning rate")
     optimizer: str = field("adamw", help="adamw (adafactor: a later slice)")
@@ -121,8 +130,11 @@ def _generated_stories(n_chars: int, seed: int) -> bytes:
 
 def _check_supported(cfg: GPT2TrainConfig) -> None:
     later = {
-        "--pp/--tp > 1 (the model-parallel slice)": cfg.pp > 1 or cfg.tp > 1,
         "--sp > 1 (the rest of the long-context slice)": cfg.sp > 1,
+        "--checkpoint_dir with --tp/--pp > 1 (checkpoints of sharded models, ROADMAP.md queue 1, "
+        "item 11: checkpointing under tp/pp)": bool(cfg.checkpoint_dir) and (cfg.pp > 1 or cfg.tp > 1),
+        "--cp > 1 with --tp/--pp > 1 (cp composed with another axis, the rest of the long-context "
+        "slice)": cfg.cp > 1 and (cfg.pp > 1 or cfg.tp > 1),
         f"--attn {cfg.attn} (the rest of the long-context slice)":
             cfg.attn in ("ring", "ulysses", "ulysses_flash", "ring_flash"),
         f"--attn {cfg.attn} with --cp > 1 (the JAX package routes it to the XLA ring, the rest "
@@ -147,6 +159,8 @@ def _check_supported(cfg: GPT2TrainConfig) -> None:
         raise SystemExit(f"unknown --optimizer {cfg.optimizer!r} (adamw | adafactor)")
     if cfg.attn not in ("", "flash", "xla", "ring2"):
         raise SystemExit(f"--attn {cfg.attn!r}: this port runs flash | xla | ring2")
+    if cfg.schedule not in ("gpipe", "1f1b"):
+        raise SystemExit(f"unknown --schedule {cfg.schedule!r} (gpipe | 1f1b)")
 
 
 @torch.no_grad()
@@ -197,18 +211,28 @@ def main(argv=None) -> dict:
             f"batch_size={cfg.batch_size} must be divisible by grad_accum*dp="
             f"{cfg.grad_accum * dp}"
         )
-    if dp > 1 or cfg.cp > 1:
+    if cfg.pp > 1:
+        rows_per_rank = cfg.batch_size // (cfg.grad_accum * dp)
+        n_micro = cfg.n_micro
+        while rows_per_rank % n_micro:
+            n_micro -= 1  # largest feasible microbatch count ≥ 1
+        if n_micro != cfg.n_micro:
+            print(f"note: n_micro={cfg.n_micro} does not divide the {rows_per_rank} "
+                  f"rows per dp rank; using n_micro={n_micro}")
+            cfg = dataclasses.replace(cfg, n_micro=n_micro)
+    if dp * cfg.cp * cfg.pp * cfg.tp > 1:
         return _spawn(cfg)
     return _train(cfg)
 
 
 def _spawn(cfg: GPT2TrainConfig) -> dict:
-    """Run the ``--dp`` or ``--cp`` ranks of :func:`_rank` and return rank
-    0's result; a rank that raises fails the run."""
+    """Run the mesh's ranks of :func:`_rank` and return rank 0's result; a
+    rank that raises fails the run."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="dsml_ranks_") as tmp:
-        mp.spawn(_rank, args=(cfg, tmp), nprocs=max(cfg.dp, 1) * cfg.cp, join=True)
+        mp.spawn(_rank, args=(cfg, tmp), nprocs=max(cfg.dp, 1) * cfg.cp * cfg.pp * cfg.tp,
+                 join=True)
         with open(os.path.join(tmp, "result.json")) as f:
             return json.load(f)
 
@@ -221,11 +245,11 @@ def _rank(rank: int, cfg: GPT2TrainConfig, tmp: str) -> None:
 
     # rank r on cuda:{r % device_count}: a placement, never a CPU fallback
     device = "cpu" if torch.device(cfg.device).type == "cpu" else None
-    spec = MeshSpec(dp=max(cfg.dp, 1), cp=cfg.cp)
-    world = spec.dp * spec.cp
+    spec = MeshSpec(pp=cfg.pp, dp=max(cfg.dp, 1), cp=cfg.cp, tp=cfg.tp)
+    world = spec.pp * spec.dp * spec.cp * spec.tp
     mesh = build_mesh(spec, rank, world, os.path.join(tmp, "rendezvous"), device)
-    get_logger("gpt2").info("%s rank %d of %d on %s", "cp" if cfg.cp > 1 else "dp", rank, world,
-                            mesh.device)
+    axes = " x ".join(a for a, n in mesh.shape.items() if n > 1)
+    get_logger("gpt2").info("%s rank %d of %d on %s", axes, rank, world, mesh.device)
     try:
         out = _train(cfg, mesh)
         if rank == 0:
@@ -250,7 +274,7 @@ def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
     quiet = mesh is not None and mesh.rank != 0
     device = cfg.device if mesh is None else mesh.device
     try:
-        model, model_cfg = model_by_family(cfg.family, cfg.model, device=device, vocab_size=256)
+        model, model_cfg = model_by_family(cfg.family, cfg.model, device="meta", vocab_size=256)
     except ValueError as e:
         raise SystemExit(str(e))
     replace = {}
@@ -258,8 +282,12 @@ def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
         replace["dtype"] = cfg.dtype
     if cfg.remat:
         replace["remat"] = True
-    if replace:
-        model_cfg = dataclasses.replace(model_cfg, **replace)
+    model_cfg = dataclasses.replace(model_cfg, **replace)
+    if mesh is not None:
+        from dsml_tpu_torch.parallel.hybrid import hybrid_model
+
+        model = hybrid_model(type(model), model_cfg, mesh)  # this rank's tp shard / pp stage
+    else:
         model = type(model)(model_cfg, device=device)
     model.init(cfg.seed)
     seq = cfg.seq_len or model_cfg.max_seq
@@ -320,7 +348,8 @@ def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
 
         attn_impl = cfg.attn or default_attn_impl(mesh)
         hybrid_step = make_hybrid_train_step(model, optimizer, mesh, attn_impl=attn_impl,
-                                             grad_accum=cfg.grad_accum, clip_norm=cfg.clip_norm)
+                                             grad_accum=cfg.grad_accum, clip_norm=cfg.clip_norm,
+                                             n_microbatches=cfg.n_micro, schedule=cfg.schedule)
 
         def run_step(lr, x, y):
             return hybrid_step(x, y, lr)
@@ -332,7 +361,9 @@ def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
                  "Llama" if cfg.family == "llama" else "GPT-2", cfg.model, model.device,
                  model.n_params() / 1e6, model_cfg.dtype, attn_impl, seq, cfg.batch_size,
                  cfg.grad_accum,
-                 "" if mesh is None else f", dp={mesh.shape['dp']}, cp={mesh.shape['cp']}")
+                 "" if mesh is None else ", " + ", ".join(
+                     f"{a}={n}" for a, n in mesh.shape.items() if n > 1 or a == "dp")
+                 + (" (params: this rank's shard)" if model.is_partial else ""))
 
     def device_batch(x, y):
         # the hybrid step takes the global batch and moves only its own share

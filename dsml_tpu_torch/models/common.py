@@ -3,8 +3,13 @@
 three weight forms (plain, per-channel int8, block-quantized for the
 dequant-fused kernel), the serving twins that carry quantized weights, the
 classification losses, He init and the analytic training FLOP counts that
-every MFU figure divides by. The FSDP spec transforms come with the
-model-parallel slice."""
+every MFU figure divides by; and the sharding specs of the model-parallel
+paths: :func:`with_fsdp` / :func:`fsdp_spec_fn` (the ZeRO-3 "first free
+divisible dim" rule) and :func:`shard_leaf`, which cuts a full array into
+one rank's shard.
+
+A spec is a tuple with one entry per leading dim, each a mesh axis name or
+``None`` (the JAX ``PartitionSpec``'s parts; trailing dims unnamed)."""
 
 from __future__ import annotations
 
@@ -17,7 +22,8 @@ from dsml_tpu_torch.ops.quantization import QuantizedWeight, quantize_weight_blo
 __all__ = [
     "ChannelInt8Weight", "qmatmul", "maybe_dequant", "quantize_weights_int8",
     "quantize_weights_blocked", "he_init", "softmax_xent", "count_correct",
-    "transformer_train_flops", "mlp_train_flops",
+    "transformer_train_flops", "mlp_train_flops", "with_fsdp", "fsdp_spec_fn", "shard_leaf",
+    "spec_dim",
 ]
 
 
@@ -148,6 +154,53 @@ def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
         raise TypeError(f"qmatmul takes a tensor, QuantizedWeight or ChannelInt8Weight, "
                         f"got {type(w).__name__}")
     return torch.einsum("bsd,dke->bske", x, w) if w.ndim == 3 else x @ w
+
+
+def with_fsdp(spec: tuple, shape: tuple, fsdp: int, axis: str = "fsdp") -> tuple:
+    """Add ``axis`` to ``spec`` on the first unnamed dim of ``shape`` that
+    divides by ``fsdp`` (``dsml_tpu/models/common.py::with_fsdp``). Leaves
+    with no such dim stay as given: replicated over fsdp. ``shape`` is the
+    GLOBAL (unstacked) leaf shape."""
+    if fsdp <= 1:
+        return tuple(spec)
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (p, n) in enumerate(zip(parts, shape)):
+        if p is None and n % fsdp == 0 and n >= fsdp:
+            parts[i] = axis
+            return tuple(parts)
+    return tuple(spec)
+
+
+def fsdp_spec_fn(fsdp: int, axis: str = "fsdp"):
+    """``F(spec, *shape)`` over :func:`with_fsdp`, as the JAX adapter."""
+    return lambda spec, *shape: with_fsdp(spec, shape, fsdp, axis)
+
+
+def spec_dim(spec: tuple, axis: str) -> int | None:
+    """The dim ``spec`` shards over ``axis``, or None."""
+    for i, part in enumerate(spec):
+        if part == axis:
+            return i
+    return None
+
+
+def shard_leaf(arr, spec: tuple, coords: dict, sizes: dict):
+    """Rank ``coords``'s block of the full array (numpy or torch) ``arr``
+    under ``spec``: each dim named by an axis of size n > 1 cut into n equal
+    contiguous pieces, piece ``coords[axis]`` kept (what ``device_put`` of a
+    ``NamedSharding`` hands that device). An indivisible dim raises."""
+    index = []
+    for dim, axis in enumerate(spec):
+        n = sizes.get(axis, 1) if axis is not None else 1
+        if n == 1:
+            index.append(slice(None))
+            continue
+        if arr.shape[dim] % n:
+            raise ValueError(f"dim {dim} of a {tuple(arr.shape)} leaf is not divisible by "
+                             f"{axis}={n}")
+        step = arr.shape[dim] // n
+        index.append(slice(coords[axis] * step, (coords[axis] + 1) * step))
+    return arr[tuple(index)]
 
 
 def he_init(rng: np.random.Generator, *shape: int, fan_in: int) -> torch.Tensor:

@@ -13,6 +13,14 @@ Quantized serving weights cross too: a JAX per-channel leaf is already a
 JAX package is imported) becomes ``<path>.qw`` and ``<path>.qs`` entries,
 which a twin from ``models.common.quantize_weights_blocked`` loads: both
 packages can then serve from the same codes.
+
+A rank of a model-parallel mesh takes its shard of a whole JAX tree
+(``params_from_jax(tree, model=...)``): the Megatron cut of the model's
+``param_specs`` (``wqkv [d, 3, d]`` on its last axis), the layers this
+pipeline stage holds (from a list of layers, or from the JAX stacked form,
+whose layer axis ``init_hybrid`` permuted for the interleaved schedule),
+renamed to the stage's positions. :func:`zero2_shards_from_jax` cuts the
+flat ZeRO-2 buckets as the JAX ``_local_shards`` does.
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "zero2_shards_from_jax"]
 
 
 def _leaf_to_tensor(a) -> torch.Tensor:
@@ -34,10 +42,28 @@ def _is_quantized_weight(node) -> bool:
     return all(hasattr(node, a) for a in ("qw", "qs", "scheme", "block", "shape"))
 
 
-def params_from_jax(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+def params_from_jax(tree, prefix: str = "", model=None,
+                    layer_order=None) -> dict[str, torch.Tensor]:
     """Nested dicts/lists of arrays → ``{dotted path: CPU tensor}``, the
     keys and shapes of the port's ``state_dict()``. Pass the result to
-    ``load_state_dict``, which copies onto the module's device and type."""
+    ``load_state_dict``, which copies onto the module's device and type.
+
+    With ``model`` (a tensor-parallel shard or pipeline stage of the port)
+    the result is that rank's state dict: the whole tree's leaves (the
+    layers a list, or stacked on a leading axis whose position i holds
+    layer ``layer_order[i]``, default i) cut by ``model.param_specs()`` and
+    renamed to the stage's layer positions."""
+    if model is not None:
+        full = params_from_jax({k: v for k, v in tree.items() if k != "layers"})
+        layers = tree.get("layers")
+        if isinstance(layers, dict):  # the JAX stacked form
+            stacked = params_from_jax(layers)
+            n = next(iter(stacked.values())).shape[0]
+            for pos, lid in enumerate(range(n) if layer_order is None else layer_order):
+                full.update({f"layers.{lid}.{k}": v[pos] for k, v in stacked.items()})
+        elif layers is not None:
+            full.update(params_from_jax(layers, "layers"))
+        return {k: t.contiguous() for k, t in model.local_shards(full).items()}
     if _is_quantized_weight(tree):
         tree = {"qw": tree.qw, "qs": tree.qs}
     if isinstance(tree, dict):
@@ -49,6 +75,20 @@ def params_from_jax(tree, prefix: str = "") -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
     for key, sub in items:
         out.update(params_from_jax(sub, f"{prefix}.{key}" if prefix else str(key)))
+    return out
+
+
+def zero2_shards_from_jax(flat_buckets, n: int, rank: int) -> list[torch.Tensor]:
+    """Rank ``rank``'s segment of every flat ZeRO-2 bucket (arrays of the
+    JAX ``flatten_buckets``), zero-padded to a multiple of ``n`` first, as
+    the JAX ``_local_shards``."""
+    out = []
+    for flat in flat_buckets:
+        t = _leaf_to_tensor(flat)
+        padded = -(-t.shape[0] // n) * n
+        t = torch.cat([t, t.new_zeros(padded - t.shape[0])])
+        seg = padded // n
+        out.append(t[rank * seg:(rank + 1) * seg].clone())
     return out
 
 

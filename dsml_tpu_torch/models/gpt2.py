@@ -44,8 +44,23 @@ each rank holds its contiguous shard of the tokens, positions start at the
 shard's origin, attention is the bidirectional flash ring
 (``attn_impl="ring2"``, ``ops/ring_attention.py``) and the loss is this
 rank's mean over its own rows (``parallel/hybrid.py`` reduces it over the
-group). Tensor and pipeline parallelism, the other sequence-parallel
-attentions and MoE come with later slices.
+group). The other sequence-parallel attentions and MoE come with later
+slices.
+
+Tensor and pipeline parallelism: a model built with ``tp_group`` (a
+``RingGroup`` of the mesh's ``tp`` axis) holds this rank's Megatron shard
+of every weight, as :meth:`GPT2.param_specs` cuts the JAX tree
+(vocab-sharded ``wte``, column-parallel ``wqkv [d, 3, d/tp]`` and ``w_in``,
+row-parallel ``wo`` and ``w_out``, ``n_head/tp`` local heads), and runs the
+JAX ``_block``'s psums as ``parallel.tp``'s conjugate pairs, the embedding
+as the masked gather and the loss as the vocab-parallel cross-entropy. A
+model built with ``layer_ids`` holds only those layers (a pipeline stage,
+in the order ``parallel.pp`` runs them: the JAX stacked and
+interleave-permuted layer axis, cut by rank); its blocks run through
+``parallel.pp``'s schedules, not :meth:`GPT2.loss`. :meth:`GPT2.init` draws
+the whole model's ``np.random.default_rng(seed)`` sequence and keeps this
+rank's blocks, so every rank holds the shard of the same weights. Serving
+under tp or pp is the next slice's and raises.
 
 The model-family hooks (``models/llama.py`` overrides them, as the JAX
 ``Llama`` overrides ``GPT2``'s): every surface turns its token positions
@@ -71,13 +86,15 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dsml_tpu_torch.models.common import qmatmul
+from dsml_tpu_torch.models.common import fsdp_spec_fn, qmatmul, shard_leaf
 from dsml_tpu_torch.ops.attention import _NEG_INF, attention
 from dsml_tpu_torch.ops.flash import flash_attention
 from dsml_tpu_torch.ops.paged_attention import paged_attention, paged_attn_impl
 from dsml_tpu_torch.ops.quantization import compressed_checkpoint, quantize_kv_rows, unpack_int4
 from dsml_tpu_torch.ops.ring_attention import ring_attention
 from dsml_tpu_torch.ops.xent import chunked_softmax_xent
+from dsml_tpu_torch.parallel.tp import (copy_to_tp, reduce_from_tp, tp_rank, tp_size,
+                                        vocab_parallel_embed, vocab_parallel_xent)
 from dsml_tpu_torch.utils.platform import resolve_device
 
 __all__ = ["GPT2Config", "GPT2", "sample_token_logits"]
@@ -103,6 +120,9 @@ class GPT2Config:
     xent_chunk: int = 8192
     # MoE layers: kept so that a JAX config carries over; raises if set
     n_experts: int = 0
+    # interleaved virtual pipeline stages (Megatron PTD-P): each pp rank
+    # holds this many non-contiguous layer chunks (parallel/pp.py); gpipe only
+    pp_interleave: int = 1
     # dense KV cache codec: False (model dtype) | True/"int8" | "int4"
     kv_quant: bool | str = False
 
@@ -114,7 +134,8 @@ class GPT2Config:
                 f"unknown remat mode {self.remat!r}; choose False, True, 'int8', or 'mlp'")
         if self.n_experts:
             raise NotImplementedError(
-                "MoE layers (n_experts > 0) come with the model-parallel training slice"
+                "MoE layers (n_experts > 0) come with the model-parallel serving and expert "
+                "slice (ROADMAP.md queue 1, item 11)"
             )
 
     @property
@@ -200,19 +221,24 @@ def _layer_norm(x, scale, bias, eps=1e-5):
 
 
 class GPT2(nn.Module):
-    """Decoder-only transformer on one device. Build it, then fill its
-    weights with :meth:`init` (or ``load_state_dict``): the constructor
-    allocates them uninitialised on ``device`` (``None`` = the CUDA card)."""
+    """Decoder-only transformer. Build it, then fill its weights with
+    :meth:`init` (or ``load_state_dict``): the constructor allocates them
+    uninitialised on ``device`` (``None`` = the CUDA card). ``tp_group``
+    makes it this rank's tensor-parallel shard, ``layer_ids`` (global layer
+    indices, in the order the stage runs them) a pipeline stage's layers
+    (see the module docstring)."""
 
     _ATTN_IMPLS = ("flash", "xla", "ring2")
     # the JAX package's other sequence-parallel attentions, not ported yet
     _LATER_ATTN_IMPLS = ("ring", "ulysses", "ulysses_flash", "ring_flash")
 
-    def __init__(self, config: GPT2Config | None = None, device=None):
+    def __init__(self, config: GPT2Config | None = None, device=None, tp_group=None,
+                 layer_ids=None):
         super().__init__()
         self.config = cfg = config or GPT2Config.small()
         self.device = resolve_device(device)
-        dt, d = cfg.torch_dtype, cfg.d_model
+        self._set_parallel(tp_group, layer_ids)
+        dt, d, tp = cfg.torch_dtype, cfg.d_model, self.tp
 
         def param(*shape):
             return nn.Parameter(torch.empty(shape, dtype=dt, device=self.device))
@@ -220,7 +246,7 @@ class GPT2(nn.Module):
         def norm():
             return nn.ParameterDict({"scale": param(d), "bias": param(d)})
 
-        self.wte = param(cfg.vocab_size, d)
+        self.wte = param(cfg.vocab_size // tp, d)
         self.wpe = param(cfg.max_seq, d)
         self.ln_f = norm()
         self.layers = nn.ModuleList(
@@ -228,16 +254,96 @@ class GPT2(nn.Module):
                 "ln_1": norm(),
                 "ln_2": norm(),
                 "attn": nn.ParameterDict({
-                    "wqkv": param(d, 3, d), "bqkv": param(3, d),
-                    "wo": param(d, d), "bo": param(d),
+                    "wqkv": param(d, 3, d // tp), "bqkv": param(3, d // tp),
+                    "wo": param(d // tp, d), "bo": param(d),
                 }),
                 "mlp": nn.ParameterDict({
-                    "w_in": param(d, cfg.d_ff), "b_in": param(cfg.d_ff),
-                    "w_out": param(cfg.d_ff, d), "b_out": param(d),
+                    "w_in": param(d, cfg.d_ff // tp), "b_in": param(cfg.d_ff // tp),
+                    "w_out": param(cfg.d_ff // tp, d), "b_out": param(d),
                 }),
             })
-            for _ in range(cfg.n_layer)
+            for _ in self.layer_ids
         )
+
+    def _set_parallel(self, tp_group, layer_ids) -> None:
+        """The tensor-parallel group and the held layers, with the JAX
+        package's divisibility checks (``_block_closure``; the vocab, which
+        ``device_put`` refuses to split unevenly there)."""
+        cfg = self.config
+        self.tp_group = tp_group if tp_size(tp_group) > 1 else None
+        self.tp = tp_size(tp_group)
+        if cfg.n_head % self.tp:
+            raise ValueError(f"n_head={cfg.n_head} not divisible by tp={self.tp}")
+        if cfg.vocab_size % self.tp:
+            raise ValueError(f"vocab_size={cfg.vocab_size} not divisible by tp={self.tp}")
+        self.layer_ids = list(range(cfg.n_layer)) if layer_ids is None else list(layer_ids)
+
+    @property
+    def is_partial(self) -> bool:
+        """True for a tensor-parallel shard or a pipeline stage."""
+        return self.tp > 1 or self.layer_ids != list(range(self.config.n_layer))
+
+    def param_specs(self, fsdp: int = 1) -> dict:
+        """``{dotted name: spec}`` of the WHOLE model (layers ``0 ..
+        n_layer-1``), the JAX ``param_specs``: Megatron tp sharding, and with
+        ``fsdp > 1`` every leaf also ZeRO-sharded on its first free divisible
+        dim (``models.common.with_fsdp``). Under pp the JAX tree stacks the
+        layers and shards that axis over ``pp`` (``parallel.pp.pipeline_specs``)."""
+        cfg = self.config
+        d, ff, V, S = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.max_seq
+        F = fsdp_spec_fn(fsdp)
+        layer = {
+            "ln_1.scale": F((), d), "ln_1.bias": F((), d),
+            "ln_2.scale": F((), d), "ln_2.bias": F((), d),
+            # column-parallel (heads split); fsdp takes the input dim
+            "attn.wqkv": F((None, None, "tp"), d, 3, d),
+            "attn.bqkv": F((None, "tp"), 3, d),
+            "attn.wo": F(("tp", None), d, d),  # row-parallel
+            "attn.bo": F((), d),
+            "mlp.w_in": F((None, "tp"), d, ff),
+            "mlp.b_in": F(("tp",), ff),
+            "mlp.w_out": F(("tp", None), ff, d),
+            "mlp.b_out": F((), d),
+        }
+        specs = {"wte": F(("tp", None), V, d), "wpe": F((), S, d),
+                 "ln_f.scale": F((), d), "ln_f.bias": F((), d)}
+        for i in range(cfg.n_layer):
+            specs.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+        return specs
+
+    def local_name(self, name: str) -> str | None:
+        """This model's parameter name for the whole model's ``name``
+        (``layers.<global id>.*`` → ``layers.<position>.*``), or None when
+        the stage does not hold that layer."""
+        if not name.startswith("layers."):
+            return name
+        _, lid, rest = name.split(".", 2)
+        pos = {g: i for i, g in enumerate(self.layer_ids)}.get(int(lid))
+        return None if pos is None else f"layers.{pos}.{rest}"
+
+    def local_shards(self, full: dict) -> dict:
+        """``{this model's name: this rank's block}`` of the WHOLE model's
+        weights ``full`` (``{dotted name: array or tensor}``, the JAX tree's
+        names and shapes; names this rank does not hold are left out)."""
+        specs = self.param_specs()
+        coords, sizes = {"tp": tp_rank(self.tp_group)}, {"tp": self.tp}
+        return {self.local_name(name): shard_leaf(arr, specs[name], coords, sizes)
+                for name, arr in full.items() if self.local_name(name) is not None}
+
+    @torch.no_grad()
+    def load_full(self, full: dict) -> "GPT2":
+        """Copy :meth:`local_shards` of ``full`` into this model."""
+        params = dict(self.named_parameters())
+        for local, cut in self.local_shards(full).items():
+            params[local].copy_(torch.as_tensor(np.ascontiguousarray(cut)
+                                                if isinstance(cut, np.ndarray) else cut))
+        return self
+
+    def _check_whole(self, what: str) -> None:
+        if self.is_partial:
+            raise NotImplementedError(
+                f"{what} on a tensor-parallel shard or a pipeline stage comes with the "
+                "model-parallel serving slice (ROADMAP.md queue 1, item 11)")
 
     # ---- params ---------------------------------------------------------------
 
@@ -248,10 +354,8 @@ class GPT2(nn.Module):
         the same seed gives the same f32 weights in both packages (a bf16
         model rounds them from f32). Returns ``self``."""
         cfg = self.config
-        rng = np.random.default_rng(seed)
-
-        def normal(p, std=0.02):
-            p.copy_(torch.from_numpy((rng.standard_normal(tuple(p.shape)) * std).astype(np.float32)))
+        d, ff = cfg.d_model, cfg.d_ff
+        normal = self._drawer(seed)
 
         def unit_norm(ln):
             ln["scale"].fill_(1.0)
@@ -259,22 +363,35 @@ class GPT2(nn.Module):
 
         # GPT-2 scales residual-path projections by 1/sqrt(2*n_layer)
         res_std = 0.02 / math.sqrt(2 * cfg.n_layer)
-        normal(self.wte)
-        normal(self.wpe, std=0.01)
+        normal("wte", (cfg.vocab_size, d))
+        normal("wpe", (cfg.max_seq, d), std=0.01)
         unit_norm(self.ln_f)
+        for i in range(cfg.n_layer):
+            normal(f"layers.{i}.attn.wqkv", (d, 3, d))
+            normal(f"layers.{i}.attn.wo", (d, d), std=res_std)
+            normal(f"layers.{i}.mlp.w_in", (d, ff))
+            normal(f"layers.{i}.mlp.w_out", (ff, d), std=res_std)
         for layer in self.layers:
             unit_norm(layer["ln_1"])
             unit_norm(layer["ln_2"])
-            attn, mlp = layer["attn"], layer["mlp"]
-            normal(attn["wqkv"])
-            attn["bqkv"].zero_()
-            normal(attn["wo"], std=res_std)
-            attn["bo"].zero_()
-            normal(mlp["w_in"])
-            mlp["b_in"].zero_()
-            normal(mlp["w_out"], std=res_std)
-            mlp["b_out"].zero_()
+            for key in ("bqkv", "bo"):
+                layer["attn"][key].zero_()
+            for key in ("b_in", "b_out"):
+                layer["mlp"][key].zero_()
         return self
+
+    def _drawer(self, seed: int):
+        """``normal(name, full_shape, std)``: the next ``standard_normal``
+        draw of ``np.random.default_rng(seed)`` at the WHOLE model's shape
+        (the JAX init's sequence), this rank's shard of it copied in when it
+        holds ``name``."""
+        rng = np.random.default_rng(seed)
+
+        def normal(name, shape, std=0.02):
+            arr = (rng.standard_normal(shape) * std).astype(np.float32)
+            self.load_full({name: arr})
+
+        return normal
 
     def n_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
@@ -285,7 +402,7 @@ class GPT2(nn.Module):
         """Token + position embedding → [b, s, d]; positions start at
         ``offset``: an int, or a tensor [b, 1] of per-row starts."""
         pos = torch.arange(tokens.shape[1], device=tokens.device) + offset
-        return self.wte[tokens] + self.wpe[pos]
+        return vocab_parallel_embed(self.wte, tokens, self.tp_group) + self.wpe[pos]
 
     def _qkv_heads(self, layer, x):
         """Fused QKV projection (``wqkv [d, 3, d]``) and head split →
@@ -294,8 +411,8 @@ class GPT2(nn.Module):
         qkv = qmatmul(x, attn["wqkv"]) + attn["bqkv"]  # [b, s, 3, d]
         b, s = x.shape[:2]
 
-        def heads(t):  # [b, s, d] -> [b, h, s, hd]
-            return t.reshape(b, s, self.config.n_head, -1).transpose(1, 2)
+        def heads(t):  # [b, s, d/tp] -> [b, h/tp, s, hd]
+            return t.reshape(b, s, self.config.n_head // self.tp, -1).transpose(1, 2)
 
         return heads(qkv[:, :, 0]), heads(qkv[:, :, 1]), heads(qkv[:, :, 2])
 
@@ -304,11 +421,19 @@ class GPT2(nn.Module):
         b, _, s, _ = t.shape
         return t.transpose(1, 2).reshape(b, s, -1)
 
+    def _tp_in(self, x):
+        """In front of a column-parallel projection (``parallel.tp.copy_to_tp``)."""
+        return copy_to_tp(x, self.tp_group)
+
+    def _tp_out(self, x):
+        """After a row-parallel projection: the JAX psum (``reduce_from_tp``)."""
+        return reduce_from_tp(x, self.tp_group)
+
     def _mlp_block(self, mlp, x):
         # jax.nn.gelu defaults to the tanh approximation; the erf form
         # differs by up to ~5e-4 per activation
-        hmid = F.gelu(qmatmul(x, mlp["w_in"]) + mlp["b_in"], approximate="tanh")
-        return qmatmul(hmid, mlp["w_out"]) + mlp["b_out"]
+        hmid = F.gelu(qmatmul(self._tp_in(x), mlp["w_in"]) + mlp["b_in"], approximate="tanh")
+        return self._tp_out(qmatmul(hmid, mlp["w_out"])) + mlp["b_out"]
 
     def _ffn(self, layer, h):
         return h + self._mlp_block(layer["mlp"], _layer_norm(h, layer["ln_2"]["scale"],
@@ -325,7 +450,8 @@ class GPT2(nn.Module):
         return self.wte
 
     def _unembed(self, h):
-        return h @ self._unembed_matrix().T
+        """Logits of ``h``: the rank's vocab shard under tp."""
+        return self._tp_in(h) @ self._unembed_matrix().T
 
     def _rotary(self, positions, length):
         """What :meth:`_serving_qkv` needs of the token positions, computed
@@ -377,9 +503,9 @@ class GPT2(nn.Module):
         only checkpointed part under ``remat="mlp"``, which keeps the
         attention activations, flash's saved residuals among them).
         ``rot`` (:meth:`_rotary`) is unused here; Llama rotates q/k by it."""
-        q, k, v = self._qkv_heads(layer, self._norm1(layer, h))
+        q, k, v = self._qkv_heads(layer, self._tp_in(self._norm1(layer, h)))
         out = qmatmul(self._merge_heads(attend(q, k, v, causal=True)), layer["attn"]["wo"])
-        h = h + (out + layer["attn"]["bo"])
+        h = h + (self._tp_out(out) + layer["attn"]["bo"])
         if self.config.remat == "mlp" and torch.is_grad_enabled():
             return checkpoint(self._ffn, layer, h, use_reentrant=False)
         return self._ffn(layer, h)
@@ -390,6 +516,9 @@ class GPT2(nn.Module):
         ``remat="int8"`` recomputes it from its input stashed as int8. With
         ``sp_group``, ``tokens`` is this rank's contiguous shard of the
         sequence and positions start at its origin."""
+        if self.layer_ids != list(range(self.config.n_layer)):
+            raise ValueError(f"this model holds the pipeline stage {self.layer_ids}: its blocks "
+                             "run through parallel.pp's schedules")
         attend = self._attend(attn_impl, sp_group)
         offset = 0 if sp_group is None else sp_group.rank * tokens.shape[1]
         h = self._embed(tokens, offset)
@@ -410,7 +539,9 @@ class GPT2(nn.Module):
         """Logits [b, s, vocab] of ``tokens`` [b, s] (causal). ``attn_impl``
         is ``"xla"`` (plain attention), ``"flash"`` (the flash kernels) or
         ``"ring2"`` (the flash ring over ``sp_group``, whose rank holds
-        ``tokens`` as its shard of the sequence; flash without one)."""
+        ``tokens`` as its shard of the sequence; flash without one). Under tp
+        the logits are this rank's vocab shard [b, s, vocab/tp], as the JAX
+        ``apply_spmd`` returns them."""
         return self._unembed(self._final_norm(self._blocks(tokens, attn_impl, sp_group)))
 
     forward = apply
@@ -423,9 +554,21 @@ class GPT2(nn.Module):
         ``vocab_size > xent_chunk > 0``, else dense logits in the model's
         type, cast to f32, then log-softmax. With ``sp_group`` (the JAX
         ``loss_spmd`` with ``sp_axis``) both are this rank's shard of the
-        sequence and the loss is the mean over this rank's rows."""
+        sequence and the loss is the mean over this rank's rows. Under tp the
+        head is the vocab-parallel cross-entropy (:meth:`head_loss`)."""
+        return self.head_loss(self._blocks(tokens, attn_impl, sp_group), targets)
+
+    def head_loss(self, h_raw: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """Final norm, unembedding and mean cross-entropy of PRE-final-norm
+        hidden states (the JAX ``_head_loss_spmd``, the head the pipeline's
+        last stage runs): at tp > 1 the dense vocab-parallel loss in f32
+        (``parallel.tp.vocab_parallel_xent``); else the chunked loss of
+        ``ops/xent.py`` when ``vocab_size > xent_chunk > 0``, or dense logits
+        in the model's type, cast to f32, then log-softmax."""
         cfg = self.config
-        h = self._final_norm(self._blocks(tokens, attn_impl, sp_group))
+        h = self._final_norm(h_raw)
+        if self.tp > 1:
+            return vocab_parallel_xent(self._unembed(h).float(), targets, self.tp_group)
         if cfg.xent_chunk and cfg.vocab_size > cfg.xent_chunk:
             return chunked_softmax_xent(h, self._unembed_matrix(), targets, cfg.xent_chunk)
         logp = torch.log_softmax(self._unembed(h).float(), dim=-1)
@@ -447,6 +590,7 @@ class GPT2(nn.Module):
         :attr:`_n_cache_heads` heads. With ``config.kv_quant`` the entries
         are int8 (or int4 packed in uint8) rows plus one f32 scale per row
         (:meth:`_cache_write`)."""
+        self._check_whole("a KV cache")
         return [self._cache_entry(batch) for _ in range(self.config.n_layer)]
 
     def _kv_mode(self) -> str | None:
@@ -691,6 +835,7 @@ class GPT2(nn.Module):
         ``max_seq // page_size`` entries. Page 0 is the SCRATCH page: dead
         slots and unallocated entries name it, so their masked writes land
         nowhere that is read."""
+        self._check_whole("a page pool")
         cfg = self.config
         if page_size < 1 or cfg.max_seq % page_size:
             raise ValueError(f"page_size must divide max_seq={cfg.max_seq}, got {page_size}")

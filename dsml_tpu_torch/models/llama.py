@@ -27,6 +27,12 @@ so ``models.convert.params_from_jax`` carries JAX weights over unchanged, and
 :meth:`Llama.init` draws the JAX init's ``np.random.default_rng(seed)``
 sequence. Mixtral's expert layers (``n_experts > 0``) and Llama under a
 context-parallel ring raise, naming the ROADMAP items that bring them.
+
+Tensor and pipeline parallelism as in ``models/gpt2.py`` (``tp_group``,
+``layer_ids``), with the JAX ``Llama.param_specs``: column-parallel
+``wq``/``wk``/``wv``/``w_gate``/``w_up``, row-parallel ``wo``/``w_down``,
+vocab-sharded ``wte`` and ``lm_head``, and ``n_kv_head/tp`` local kv heads
+repeated inside the rank to its ``n_head/tp`` query heads.
 """
 
 from __future__ import annotations
@@ -34,15 +40,15 @@ from __future__ import annotations
 import dataclasses
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dsml_tpu_torch.models.common import qmatmul
+from dsml_tpu_torch.models.common import fsdp_spec_fn, qmatmul
 from dsml_tpu_torch.models.gpt2 import _DTYPES, GPT2
 from dsml_tpu_torch.ops.attention import _NEG_INF
+from dsml_tpu_torch.parallel.tp import vocab_parallel_embed
 from dsml_tpu_torch.utils.platform import resolve_device
 
 __all__ = ["LlamaConfig", "Llama"]
@@ -81,8 +87,8 @@ class LlamaConfig:
                 f"n_head={self.n_head} is not a multiple of n_kv_head={self.n_kv_head}")
         if self.n_experts:
             raise NotImplementedError(
-                "Mixtral expert layers (n_experts > 0) come with the model-parallel slice "
-                "(ROADMAP.md queue 1, item 11)")
+                "Mixtral expert layers (n_experts > 0) come with the model-parallel serving and "
+                "expert slice (ROADMAP.md queue 1, item 11)")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -180,12 +186,14 @@ class Llama(GPT2):
     constructor allocates them uninitialised on ``device`` (``None`` = the
     CUDA card)."""
 
-    def __init__(self, config: LlamaConfig | None = None, device=None):
+    def __init__(self, config: LlamaConfig | None = None, device=None, tp_group=None,
+                 layer_ids=None):
         nn.Module.__init__(self)
         self.config = cfg = config or LlamaConfig.tinyllama_1b()
         self._kv_mode()  # a bad kv_quant string fails at construction
         self.device = resolve_device(device)
-        dt, d = cfg.torch_dtype, cfg.d_model
+        self._set_parallel(tp_group, layer_ids)
+        dt, d, tp = cfg.torch_dtype, cfg.d_model, self.tp
         kv_d = cfg.n_kv_head * (d // cfg.n_head)
 
         def param(*shape):
@@ -194,24 +202,50 @@ class Llama(GPT2):
         def norm():
             return nn.ParameterDict({"scale": param(d)})
 
-        self.wte = param(cfg.vocab_size, d)
-        self.lm_head = param(cfg.vocab_size, d)
+        self.wte = param(cfg.vocab_size // tp, d)
+        self.lm_head = param(cfg.vocab_size // tp, d)
         self.rms_f = norm()
         self.layers = nn.ModuleList(
             nn.ModuleDict({
                 "rms_1": norm(),
                 "rms_2": norm(),
                 "attn": nn.ParameterDict({
-                    "wq": param(d, d), "wk": param(d, kv_d), "wv": param(d, kv_d),
-                    "wo": param(d, d),
+                    "wq": param(d, d // tp), "wk": param(d, kv_d // tp),
+                    "wv": param(d, kv_d // tp), "wo": param(d // tp, d),
                 }),
                 "mlp": nn.ParameterDict({
-                    "w_gate": param(d, cfg.d_ff), "w_up": param(d, cfg.d_ff),
-                    "w_down": param(cfg.d_ff, d),
+                    "w_gate": param(d, cfg.d_ff // tp), "w_up": param(d, cfg.d_ff // tp),
+                    "w_down": param(cfg.d_ff // tp, d),
                 }),
             })
-            for _ in range(cfg.n_layer)
+            for _ in self.layer_ids
         )
+
+    def _set_parallel(self, tp_group, layer_ids) -> None:
+        cfg, tp = self.config, 1 if tp_group is None else tp_group.size
+        if cfg.n_head % tp or cfg.n_kv_head % tp:
+            raise ValueError(
+                f"n_head={cfg.n_head}/n_kv_head={cfg.n_kv_head} not divisible by tp={tp}")
+        super()._set_parallel(tp_group, layer_ids)
+
+    def param_specs(self, fsdp: int = 1) -> dict:
+        """The JAX ``Llama.param_specs`` (see ``GPT2.param_specs``)."""
+        cfg = self.config
+        d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+        kv_d = cfg.n_kv_head * (cfg.d_model // cfg.n_head)
+        F = fsdp_spec_fn(fsdp)
+        layer = {
+            "rms_1.scale": F((), d), "rms_2.scale": F((), d),
+            "attn.wq": F((None, "tp"), d, d), "attn.wk": F((None, "tp"), d, kv_d),
+            "attn.wv": F((None, "tp"), d, kv_d), "attn.wo": F(("tp", None), d, d),
+            "mlp.w_gate": F((None, "tp"), d, ff), "mlp.w_up": F((None, "tp"), d, ff),
+            "mlp.w_down": F(("tp", None), ff, d),
+        }
+        specs = {"wte": F(("tp", None), V, d), "lm_head": F(("tp", None), V, d),
+                 "rms_f.scale": F((), d)}
+        for i in range(cfg.n_layer):
+            specs.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+        return specs
 
     # ---- params ---------------------------------------------------------------
 
@@ -224,33 +258,30 @@ class Llama(GPT2):
         the same seed gives the same f32 weights in both packages (a bf16
         model rounds them from f32). Returns ``self``."""
         cfg = self.config
-        rng = np.random.default_rng(seed)
-
-        def normal(p, std=0.02):
-            draw = rng.standard_normal(tuple(p.shape)) * std
-            p.copy_(torch.from_numpy(draw.astype(np.float32)))
-
+        d, ff = cfg.d_model, cfg.d_ff
+        kv_d = cfg.n_kv_head * (d // cfg.n_head)
+        normal = self._drawer(seed)
         res_std = 0.02 / math.sqrt(2 * cfg.n_layer)
-        normal(self.wte)
-        normal(self.lm_head)
+        normal("wte", (cfg.vocab_size, d))
+        normal("lm_head", (cfg.vocab_size, d))
         self.rms_f["scale"].fill_(1.0)
+        for i in range(cfg.n_layer):
+            for key, shape in (("wq", (d, d)), ("wk", (d, kv_d)), ("wv", (d, kv_d))):
+                normal(f"layers.{i}.attn.{key}", shape)
+            normal(f"layers.{i}.attn.wo", (d, d), std=res_std)
+            normal(f"layers.{i}.mlp.w_gate", (d, ff))
+            normal(f"layers.{i}.mlp.w_up", (d, ff))
+            normal(f"layers.{i}.mlp.w_down", (ff, d), std=res_std)
         for layer in self.layers:
             layer["rms_1"]["scale"].fill_(1.0)
             layer["rms_2"]["scale"].fill_(1.0)
-            attn, mlp = layer["attn"], layer["mlp"]
-            for key in ("wq", "wk", "wv"):
-                normal(attn[key])
-            normal(attn["wo"], std=res_std)
-            normal(mlp["w_gate"])
-            normal(mlp["w_up"])
-            normal(mlp["w_down"], std=res_std)
         return self
 
     # ---- architecture hooks ---------------------------------------------------
 
     def _embed(self, tokens: torch.Tensor, offset=0) -> torch.Tensor:
         """Token embedding only: positions enter through RoPE."""
-        return self.wte[tokens]
+        return vocab_parallel_embed(self.wte, tokens, self.tp_group)
 
     def _norm1(self, layer, h):
         return _rms_norm(h, layer["rms_1"]["scale"], self.config.rms_eps)
@@ -287,9 +318,10 @@ class Llama(GPT2):
         def heads(t, n):  # [b, s, n·hd] -> [b, n, s, hd]
             return t.reshape(b, s, n, hd).transpose(1, 2)
 
-        q = _apply_rope(heads(qmatmul(x, attn["wq"]), cfg.n_head), *rot)
-        k = _apply_rope(heads(qmatmul(x, attn["wk"]), cfg.n_kv_head), *rot)
-        return q, k, heads(qmatmul(x, attn["wv"]), cfg.n_kv_head)
+        nq, nkv = cfg.n_head // self.tp, cfg.n_kv_head // self.tp  # this rank's heads
+        q = _apply_rope(heads(qmatmul(x, attn["wq"]), nq), *rot)
+        k = _apply_rope(heads(qmatmul(x, attn["wk"]), nkv), *rot)
+        return q, k, heads(qmatmul(x, attn["wv"]), nkv)
 
     def _attn_kv(self, k, v):
         """K/V repeated to the query heads, as ``jnp.repeat(k, rep, axis=1)``:
@@ -301,7 +333,9 @@ class Llama(GPT2):
         return torch.repeat_interleave(k, rep, dim=1), torch.repeat_interleave(v, rep, dim=1)
 
     def _mlp_block(self, mlp, x):
-        return qmatmul(F.silu(qmatmul(x, mlp["w_gate"])) * qmatmul(x, mlp["w_up"]), mlp["w_down"])
+        x = self._tp_in(x)
+        return self._tp_out(qmatmul(F.silu(qmatmul(x, mlp["w_gate"])) * qmatmul(x, mlp["w_up"]),
+                                    mlp["w_down"]))
 
     def _ffn(self, layer, h):
         return h + self._mlp_block(layer["mlp"], _rms_norm(h, layer["rms_2"]["scale"],
@@ -321,9 +355,10 @@ class Llama(GPT2):
         (:meth:`_rotary`), over the repeated K/V → wo residual, then the
         SwiGLU FFN residual (the only checkpointed part under
         ``remat="mlp"``)."""
-        q, k, v = self._serving_qkv(layer, self._norm1(layer, h), rot)
-        h = h + qmatmul(self._merge_heads(attend(q, *self._attn_kv(k, v), causal=True)),
-                        layer["attn"]["wo"])
+        q, k, v = self._serving_qkv(layer, self._tp_in(self._norm1(layer, h)), rot)
+        h = h + self._tp_out(qmatmul(self._merge_heads(attend(q, *self._attn_kv(k, v),
+                                                              causal=True)),
+                                     layer["attn"]["wo"]))
         if self.config.remat == "mlp" and torch.is_grad_enabled():
             return checkpoint(self._ffn, layer, h, use_reentrant=False)
         return self._ffn(layer, h)

@@ -42,6 +42,7 @@ __all__ = [
     "ring_perm_tables",
     "ring_pass",
     "ring_pass_start",
+    "ppermute_ring",
     "ring_all_reduce",
     "ring2_all_reduce",
     "naive_all_reduce",
@@ -173,6 +174,17 @@ def ring_pass(x, group, sign: int = +1):
     """One rotate step of the ring schedule (:func:`ring_pass_start`,
     waited for at once): the counterpart of the JAX ``ring_pass``."""
     return ring_pass_start(x, group, sign, overlap=False).wait()
+
+
+def ppermute_ring(x, group, shift: int = 1):
+    """Rotate ``x`` ``shift`` hops around the ring (rank i's value lands on
+    rank i + shift), the JAX ``ppermute_ring``: ``|shift|`` ring passes in
+    the direction of its sign. The pipeline schedules move activations on
+    +1 and cotangents on −1 (``parallel/pp.py``)."""
+    sign = 1 if shift >= 0 else -1
+    for _ in range(abs(shift) % max(group.size, 1)):
+        x = ring_pass(x, group, sign)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -1,59 +1,72 @@
-"""The hybrid train step on the meshes the port serves — the cp and the dp
-slices of ``dsml_tpu/parallel/hybrid.py``.
+"""The hybrid train step — ``dsml_tpu/parallel/hybrid.py`` over every axis
+the port serves: pp × dp × fsdp × tp, and cp alone.
 
 The JAX step is one jitted SPMD program over the mesh: parameters
-replicated, the batch sharded over dp and the sequence over cp, the loss
+TP-sharded (and ZeRO-sharded over fsdp, and stage-sharded over pp), the
+batch rows sharded over dp × fsdp and the sequence over cp, the loss
 ``pmean``-ed over the batch and sequence axes, and the shard_map transpose
-summing each replicated parameter's gradient over the ranks. Here each
-rank is one process running :func:`make_hybrid_train_step`'s ``step``:
+assigning every collective's cotangent. Here each rank is one process
+running :func:`make_hybrid_train_step`'s ``step``:
 
-1. it takes its share of the global batch: its contiguous sequence shard
-   on a cp mesh, its contiguous rows on a dp mesh;
-2. on cp, the per-rank loss (``GPT2.loss`` with ``sp_group``: ring
-   attention, the rank's own cross-entropy) is scaled by 1/cp and
-   differentiated, so the ring attention's backward carries every rank's
-   cotangents of this rank's K/V home; the gradients are then summed over
-   the cp group (one flat buffer through the ring all-reduce: gloo for
-   CPU tensors, the CUDA IPC transport for CUDA tensors), the global mean
-   loss likewise;
-3. on dp, the microbatch gradients of the rank's rows are summed and
-   divided by ``grad_accum``, then averaged over the dp group once per
-   step: ``dp_sync="xla"`` through the process group's own ``all_reduce``
-   of one flat buffer, any explicit algorithm, the quantized ones
-   included, through ``parallel.bucketing.bucketed_all_reduce`` (the JAX
-   step's explicit sync, ``dsml_tpu/parallel/hybrid.py:281-345``), so
-   quantization noise enters once per step, not once per microbatch;
-4. clip by global norm (optax's rule) and the optimizer run on every rank
-   on identical gradients, so the replicas stay identical.
+1. it takes its share of the global batch: its rows over dp then fsdp
+   (``P(("dp", "fsdp"))``), or its contiguous sequence shard on a cp mesh;
+2. with fsdp, the ZeRO-3 shards are all-gathered into the module's weights
+   (``parallel.fsdp.Zero3``, the JAX ``gather_fsdp``);
+3. the loss and its gradients: ``model.loss`` (Megatron tp inside the
+   model, ``parallel.tp``; every rank seeds its identical loss with 1), or
+   with pp the pipeline (``parallel.pp``: ``"gpipe"``, interleaved when
+   ``config.pp_interleave > 1``, or ``"1f1b"``, over ``n_microbatches``),
+   whose non-layer gradients (the embedding's on stage 0, the head's on the
+   last stage: the tied ``wte`` gets both) are then summed over the pp
+   group, and whose loss is the last stage's; on cp the per-rank loss is
+   scaled by 1/cp and the gradients summed over the cp group;
+4. the microbatch gradients summed and divided by ``grad_accum``; with
+   fsdp reduce-scattered back into the shards (averaged over fsdp); then
+   averaged over dp — ``dp_sync="xla"`` through the process group's own
+   ``all_reduce`` of one flat buffer, an explicit algorithm (a dp-only
+   mesh) through ``parallel.bucketing.bucketed_all_reduce`` once per step;
+5. clip by the global norm (optax's rule; on a sharded model the squares
+   of every shard, each counted once, summed over tp, pp and fsdp), then
+   the optimizer on every rank: the replicas stay identical.
 
-Pipeline schedules and microbatched pipelines raise and name their ROADMAP
-item; an explicit ``dp_sync`` on a mesh with another sized axis raises, as
-in the JAX package.
+The JAX guards hold: ``"1f1b"`` needs pp > 1, ``pp_interleave > 1`` is
+gpipe only, an explicit ``dp_sync`` needs a dp-only mesh.
+:func:`hybrid_model` builds a rank's model (its tp shard and pp stage, the
+layers in the interleave order) and :func:`init_hybrid` fills it and, with
+fsdp, shards it.
 
 Observability, as the JAX step writes it: every step lands a memory-ledger
 peak watermark (``note_step_peak``, an allocator statistic read on the
 host: no device sync); an explicit ``dp_sync`` records its bucket plan
 (``obs.record_collective_plan``) once per batch signature, where the JAX
 step records it once per compilation; the first step, which allocates
-``torch.optim``'s state, claims the parameters and that state in the
-ledger (the JAX ``init_hybrid`` claims them at initialisation: optax's
-state exists before the first update, torch's after it).
+``torch.optim``'s state, claims the parameters (this rank's shard bytes)
+and that state in the ledger (the JAX ``init_hybrid`` claims them at
+initialisation: optax's state exists before the first update, torch's
+after it).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from dsml_tpu_torch.models.common import spec_dim
 from dsml_tpu_torch.obs import record_collective_plan
 from dsml_tpu_torch.obs.memory import get_memory_ledger
 from dsml_tpu_torch.ops.collectives import ReduceOp, all_reduce
+from dsml_tpu_torch.ops.quantization import compressed_checkpoint
 from dsml_tpu_torch.parallel.bucketing import (bucketed_all_reduce, default_bucket_mb,
                                                is_quantized_algorithm)
 from dsml_tpu_torch.parallel.dp import named_params, rank_rows
+from dsml_tpu_torch.parallel.fsdp import Zero3, rebuild_optimizer
 from dsml_tpu_torch.parallel.mesh import _NOT_PORTED, Mesh
+from dsml_tpu_torch.parallel.pp import pipeline_train, pipeline_train_1f1b, stage_layer_ids
 
-__all__ = ["default_attn_impl", "hybrid_eval_loss", "hybrid_loss_fn", "init_hybrid",
-           "make_hybrid_train_step"]
+__all__ = ["default_attn_impl", "gather_fsdp", "hybrid_eval_loss", "hybrid_loss_fn",
+           "hybrid_model", "init_hybrid", "make_hybrid_train_step"]
+
+_MP_AXES = ("pp", "fsdp", "tp")  # the model-parallel axes: their own step
 
 
 def default_attn_impl(mesh: Mesh) -> str:
@@ -84,12 +97,48 @@ def hybrid_loss_fn(model, attn_impl: str = "ring", seq_group=None):
     return loss_fn
 
 
+def _is_mp(mesh: Mesh) -> bool:
+    return any(mesh.shape.get(a, 1) > 1 for a in _MP_AXES)
+
+
+def hybrid_model(model_cls, config, mesh: Mesh):
+    """This rank's model of ``model_cls(config)`` on ``mesh``: its tp shard
+    (the mesh's ``tp`` group) and, with pp, its stage's layers in the order
+    the schedule runs them (``parallel.pp.stage_layer_ids``: the JAX stacked
+    axis after ``init_hybrid``'s interleave permutation), on the mesh's
+    device. Weights uninitialised (:func:`init_hybrid` fills them)."""
+    layer_ids = None
+    if mesh.shape.get("pp", 1) > 1:
+        layer_ids = stage_layer_ids(config.n_layer, mesh.shape["pp"], mesh.coord("pp"),
+                                    config.pp_interleave)
+    return model_cls(config, device=mesh.device, tp_group=mesh.group("tp"), layer_ids=layer_ids)
+
+
+def gather_fsdp(model):
+    """The rank's ZeRO-3 shards all-gathered into ``model``'s weights (the
+    JAX ``gather_fsdp``); a no-op for a model :func:`init_hybrid` did not
+    shard."""
+    zero3 = getattr(model, "fsdp", None)
+    if zero3 is not None:
+        zero3.gather()
+
+
 def init_hybrid(model, optimizer, mesh: Mesh, seed: int = 0):
-    """Fill the weights from ``seed`` on every rank: parameters are
-    replicated over cp, and the same seed gives the same weights
-    (``GPT2.init`` draws them from numpy). Returns ``(model, optimizer)``."""
-    del mesh  # every rank holds the whole model
+    """Fill the weights from ``seed`` on every rank (the same seed gives the
+    same weights, and each tp/pp rank keeps its shard of them:
+    ``GPT2.init`` draws the whole model from numpy). With fsdp > 1 the
+    weights become ZeRO-3 shards on the first free divisible dim of
+    ``model.param_specs(fsdp)`` (``parallel.fsdp.Zero3``, kept as
+    ``model.fsdp``) and the optimizer is rebuilt over them. Returns
+    ``(model, optimizer)``; the parameters and the optimizer state are
+    claimed in the memory ledger at this rank's shard bytes after the first
+    step."""
     model.init(seed)
+    if mesh.shape.get("fsdp", 1) > 1:
+        specs = model.param_specs(fsdp=mesh.shape["fsdp"])
+        full = {model.local_name(k): spec_dim(v, "fsdp") for k, v in specs.items()}
+        model.fsdp = Zero3(model, mesh.group("fsdp"), {k: v for k, v in full.items() if k})
+        optimizer = rebuild_optimizer(optimizer, model.fsdp.shards)
     return model, optimizer
 
 
@@ -126,13 +175,20 @@ def make_hybrid_train_step(model, optimizer, mesh: Mesh, attn_impl: str | None =
     example's ``optax.chain`` puts the clip in the optimizer); ``lr`` sets
     every group's learning rate before the update. Returns the global mean
     loss (a device scalar, identical on every rank)."""
-    if schedule != "gpipe" or n_microbatches != 1 or mesh.shape.get("pp", 1) > 1:
-        raise NotImplementedError("pipeline schedules (pp, n_microbatches) " + _NOT_PORTED.format(11))
+    if schedule not in ("gpipe", "1f1b"):
+        raise ValueError(f"unknown pipeline schedule {schedule!r}")
+    if schedule == "1f1b" and mesh.shape.get("pp", 1) == 1:
+        raise ValueError("schedule='1f1b' requires a mesh with pp > 1")
+    if schedule == "1f1b" and model.config.pp_interleave > 1:
+        raise ValueError("pp_interleave > 1 composes with the gpipe schedule only")
     if dp_sync != "xla":
         busy = {a: s for a in ("pp", "fsdp", "sp", "cp", "tp") if (s := mesh.shape.get(a, 1)) > 1}
         if busy:
             raise ValueError(f"dp_sync={dp_sync!r} requires a dp-only mesh; got {busy} — "
                              "use dp_sync='xla' on multi-axis meshes")
+    if _is_mp(mesh):
+        return _make_mp_step(model, optimizer, mesh, attn_impl or default_attn_impl(mesh),
+                             grad_accum, n_microbatches, schedule, clip_norm)
     # the loss mean is exact: a quantized name is no all_reduce algorithm
     loss_sync = "ring" if is_quantized_algorithm(dp_sync) else dp_sync
     mb = default_bucket_mb() if bucket_size_mb == "auto" else bucket_size_mb
@@ -199,11 +255,200 @@ def make_hybrid_train_step(model, optimizer, mesh: Mesh, attn_impl: str | None =
     return step
 
 
+def _sum_over(tensors, group) -> None:
+    """Sum ``tensors`` over ``group`` in place, as one flat buffer."""
+    if group is None or not tensors:
+        return
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    flat = all_reduce(flat, group, ReduceOp.SUM, "xla" if flat.is_cpu else "ring")
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
+
+
+def _pp_loss_backward(model, x, y, group, n_micro: int, schedule: str, attn_impl: str):
+    """This stage's share of the pipelined loss of ``x``/``y`` and its
+    backward (gradients accumulate in ``.grad``): stage 0 embeds and feeds
+    ``n_micro`` microbatches, the stages run ``parallel.pp``'s schedule,
+    the last stage runs the head (:meth:`GPT2.head_loss`), and stage 0
+    pulls the feed's cotangent back through the embedding. ``remat=True``
+    recomputes each stage (each chunk) in the backward and ``"int8"``
+    each layer from an int8 stash, as the JAX ``_blocks_spmd`` does for
+    GPipe; ``"mlp"`` is inside the block. Returns the loss on the last
+    stage, 0 elsewhere."""
+    cfg = model.config
+    b, s = x.shape
+    if b % n_micro:
+        raise ValueError(f"per-rank batch {b} not divisible by n_micro={n_micro}")
+    mb, v = b // n_micro, cfg.pp_interleave
+    attend = model._attend(attn_impl)
+    rot = model._rotary(0, s)
+    layers = list(model.layers)
+    per_chunk = len(layers) // v
+
+    def layer_fn(layer, h):
+        return model._block(layer, h, attend, rot)
+
+    if cfg.remat == "int8":
+        layer_fn = compressed_checkpoint(layer_fn)
+
+    def chunk(chunk_layers):
+        def run(h):
+            for layer in chunk_layers:
+                h = layer_fn(layer, h)
+            return h
+
+        if cfg.remat is True:
+            return lambda h: checkpoint(run, h, use_reentrant=False)
+        return run
+
+    chunks = [chunk(layers[j * per_chunk:(j + 1) * per_chunk]) for j in range(v)]
+    like = (n_micro, (mb, s, cfg.d_model), cfg.torch_dtype, model.device)
+    micros = h = None
+    if group.rank == 0:
+        h = model._embed(x)
+        micros = h.detach().view(n_micro, mb, s, cfg.d_model)
+    targets = y.view(n_micro, mb, s)
+    if schedule == "1f1b":
+        loss, d_micros = pipeline_train_1f1b(chunks[0], model.head_loss, micros, targets, group,
+                                             like)
+    else:
+        loss, d_micros = pipeline_train(chunks, model.head_loss, micros, targets, group, like)
+    if group.rank == 0:
+        h.backward(d_micros.view_as(h))
+    return loss
+
+
+def _replication(model, mesh: Mesh, name: str) -> int:
+    """How many ranks of one dp replica hold identical copies of parameter
+    ``name`` (tp for a leaf tp does not shard, pp for a non-layer leaf,
+    fsdp for a leaf fsdp does not shard)."""
+    spec = model.param_specs(fsdp=mesh.shape.get("fsdp", 1))[_global_name(model, name)]
+    n = 1
+    if "tp" not in spec:
+        n *= mesh.shape.get("tp", 1)
+    if not name.startswith("layers."):
+        n *= mesh.shape.get("pp", 1)
+    if "fsdp" not in spec:
+        n *= mesh.shape.get("fsdp", 1)
+    return n
+
+
+def _global_name(model, name: str) -> str:
+    if not name.startswith("layers."):
+        return name
+    _, pos, rest = name.split(".", 2)
+    return f"layers.{model.layer_ids[int(pos)]}.{rest}"
+
+
+def _make_mp_step(model, optimizer, mesh: Mesh, attn_impl: str, grad_accum: int,
+                  n_micro: int, schedule: str, clip_norm: float):
+    """The step on a mesh with a sized pp, fsdp or tp axis (see the module
+    docstring)."""
+    pp_group, dp_group = mesh.group("pp"), mesh.group("dp")
+    fsdp_group = mesh.group("fsdp")
+    zero3 = getattr(model, "fsdp", None)
+    if fsdp_group is not None and zero3 is None:
+        raise ValueError("an fsdp mesh needs the ZeRO-3 shards of init_hybrid")
+    if attn_impl == "ring":
+        attn_impl = "xla"  # the XLA ring on an unsharded sequence is plain attention
+    named = named_params(model)
+    layer_params = [p for n, p in named if n.startswith("layers.")]
+    head_params = [p for n, p in named if not n.startswith("layers.")]
+    if zero3 is not None:
+        by_id = {id(p): s for _, p, _, s in zero3.entries}
+        targets = [(n, by_id[id(p)]) for n, p in named]
+    else:
+        targets = named
+    weights = None  # each target's 1/copies in a replica, for the clip's norm
+    ledger = get_memory_ledger()
+    first = True
+
+    def step(x, y, lr: float | None = None):
+        nonlocal weights, first
+        x, y = torch.as_tensor(x), torch.as_tensor(y)
+        for g in (dp_group, fsdp_group):
+            x, y = rank_rows(x, g), rank_rows(y, g)
+        x, y = x.to(model.device).long(), y.to(model.device).long()
+        if x.shape[0] % grad_accum:
+            raise ValueError(f"per-rank batch {x.shape[0]} not divisible by grad_accum={grad_accum}")
+        gather_fsdp(model)
+        for _, p in named:
+            p.grad = None
+        micro = x.shape[0] // grad_accum
+        loss = torch.zeros((), dtype=torch.float32, device=model.device)
+        for m in range(grad_accum):
+            rows = slice(m * micro, (m + 1) * micro)
+            if pp_group is not None:
+                loss += _pp_loss_backward(model, x[rows], y[rows], pp_group, n_micro, schedule,
+                                          attn_impl)
+            else:
+                micro_loss = model.loss(x[rows], y[rows], attn_impl=attn_impl)
+                micro_loss.backward()
+                loss += micro_loss.detach().float()
+        for p in layer_params + head_params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if pp_group is not None:
+            # the embedding's gradient lives on stage 0, the head's on the
+            # last stage: the one tied wte sums both
+            _sum_over([p.grad for p in head_params], pp_group)
+            loss = all_reduce(loss, pp_group, ReduceOp.SUM, "xla" if loss.is_cpu else "ring")
+        if grad_accum > 1:
+            torch._foreach_div_([p.grad for p in layer_params + head_params], grad_accum)
+        loss = loss / grad_accum
+        if zero3 is not None:
+            zero3.scatter_grads()
+            loss = all_reduce(loss, fsdp_group, ReduceOp.AVG, "xla" if loss.is_cpu else "ring")
+        grads = [t.grad for _, t in targets]
+        if dp_group is not None:
+            grads = bucketed_all_reduce(grads, dp_group, ReduceOp.AVG, "xla", None)
+            loss = all_reduce(loss, dp_group, ReduceOp.AVG, "xla" if loss.is_cpu else "ring")
+        for (_, t), g in zip(targets, grads):
+            t.grad = g
+        if clip_norm > 0:
+            if weights is None:
+                weights = [1.0 / _replication(model, mesh, n) for n, _ in targets]
+            _clip_sharded(grads, weights, clip_norm, mesh)
+        if lr is not None:
+            for g in optimizer.param_groups:
+                g["lr"] = lr
+        optimizer.step()
+        if first and ledger.enabled:
+            ledger.claim_tree("params", [t for _, t in targets], detail="hybrid")
+            ledger.claim_tree("optimizer", optimizer.state, detail="hybrid")
+        first = False
+        ledger.note_step_peak()
+        return loss
+
+    return step
+
+
+@torch.no_grad()
+def _clip_sharded(grads, weights, max_norm: float, mesh: Mesh) -> None:
+    """optax's ``clip_by_global_norm`` over a sharded model: each rank's
+    squares weighted by 1/(copies in the replica), summed over tp, pp and
+    fsdp — every element of the logical gradient counted once — then every
+    shard scaled by ``max_norm / norm`` when the norm reaches ``max_norm``."""
+    sq = sum(w * g.float().square().sum() for g, w in zip(grads, weights))
+    sq = sq.reshape(1)
+    for axis in ("tp", "pp", "fsdp"):
+        group = mesh.group(axis)
+        if group is not None:
+            sq = all_reduce(sq, group, ReduceOp.SUM, "xla" if sq.is_cpu else "ring")
+    norm = torch.sqrt(sq[0])
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
+
+
 @torch.no_grad()
 def hybrid_eval_loss(model, mesh: Mesh, attn_impl: str, x, y) -> torch.Tensor:
     """The global mean loss of the batch ``x``/``y`` [batch, seq] with no
     update: every rank's loss over its share, averaged over the group (the
-    JAX example's eval ``pmean``, through the process group)."""
+    JAX example's eval ``pmean``, through the process group). On a pp or
+    fsdp mesh the eval loss is not ported (a training-only path)."""
+    if mesh.shape.get("pp", 1) > 1 or mesh.shape.get("fsdp", 1) > 1:
+        raise NotImplementedError("the eval loss on a pp or fsdp mesh " + _NOT_PORTED.format(11))
     seq_group, dp_group = _seq_group(mesh), mesh.group("dp")
     x = rank_rows(_shard(x, seq_group), dp_group).to(model.device).long()
     y = rank_rows(_shard(y, seq_group), dp_group).to(model.device).long()

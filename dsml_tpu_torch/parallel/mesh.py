@@ -4,22 +4,27 @@ The JAX package names one mesh axis per strategy (pp, dp, fsdp, sp, cp,
 tp) over ``jax.devices()`` and runs one SPMD program over it. The port runs
 one process per rank and maps the spec onto ``torch.distributed`` process
 groups: :func:`build_mesh` joins the processes over gloo (rendezvous through
-a ``file://`` path, so nothing depends on a network port) and gives each
-sized axis a :class:`~dsml_tpu_torch.parallel.peer.RingGroup`.
+a ``file://`` path, so nothing depends on a network port), gives rank r the
+mesh coordinates that ``jax.devices()[r]`` takes in the JAX mesh (the
+devices reshaped in the axis order ``AXES``, ``tp`` innermost: rank r holds
+exactly the shard JAX device r holds), and gives each sized axis a
+:class:`~dsml_tpu_torch.parallel.peer.RingGroup` over the ranks that differ
+only in that axis' coordinate, in coordinate order.
 
-Two meshes are served so far: the data-parallel ring (``dp`` with every
-other axis 1; :func:`data_mesh`) and the context-parallel ring (``cp``
-with dp = 1). Every other sized axis, and dp composed with cp, raises and
-names the ROADMAP item that brings it. gloo carries the control messages
-(and the ``"xla"`` sync); the rings' CUDA payloads go through the ring's
-own CUDA IPC transport (``parallel/peer.py``). An NCCL route waits for a
-host with several cards: two NCCL ranks cannot share one card.
+Served: pp, dp, fsdp and tp and their compositions, and cp alone (the
+context-parallel ring). ``sp`` and cp composed with another sized axis
+raise and name the ROADMAP item that brings them. gloo carries the control
+messages (and the ``"xla"`` syncs); the rings' CUDA payloads go through each
+ring's own CUDA IPC transport (``parallel/peer.py``), one notice board and
+one set of slots per group. An NCCL route waits for a host with several
+cards: two NCCL ranks cannot share one card.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 
 import torch
@@ -29,13 +34,11 @@ from dsml_tpu_torch.parallel.peer import TIMEOUT_S, RingGroup
 from dsml_tpu_torch.utils.config import Config, field
 from dsml_tpu_torch.utils.platform import resolve_device
 
-__all__ = ["AXES", "Mesh", "MeshSpec", "build_mesh", "data_mesh"]
+__all__ = ["AXES", "Mesh", "MeshSpec", "axis_group_ranks", "build_mesh", "data_mesh",
+           "rank_coords"]
 
 AXES = ("pp", "dp", "fsdp", "sp", "cp", "tp")
 _NOT_PORTED = "comes with a later slice of the port (ROADMAP.md queue 1, item {})"
-# the item of ROADMAP.md queue 1 that serves each axis other than dp and cp
-_AXIS_ITEMS = {"pp": 11, "fsdp": 11, "sp": 12, "tp": 11}
-_RING_AXES = ("dp", "cp")  # the axes a mesh may size, one at a time
 
 
 @dataclasses.dataclass
@@ -76,15 +79,47 @@ class MeshSpec(Config):
         return {a: getattr(self, a) for a in AXES}
 
 
+def rank_coords(spec: MeshSpec, rank: int) -> dict:
+    """Rank ``rank``'s coordinate on every axis: the row-major unravel of
+    the rank over the ``AXES`` shape (``tp`` fastest), as ``build_mesh``
+    reshapes ``jax.devices()``."""
+    coords = {}
+    for axis in reversed(AXES):
+        size = getattr(spec, axis)
+        coords[axis] = rank % size
+        rank //= size
+    return {a: coords[a] for a in AXES}
+
+
+def _rank_of(spec: MeshSpec, coords: dict) -> int:
+    rank = 0
+    for axis in AXES:
+        rank = rank * getattr(spec, axis) + coords[axis]
+    return rank
+
+
+def axis_group_ranks(spec: MeshSpec, axis: str) -> list[list[int]]:
+    """Every group of ``axis``: the global ranks that share all other
+    coordinates, each list in ``axis``-coordinate order (the ring order);
+    the groups in the order of their first rank."""
+    groups: dict = {}
+    for rank in range(math.prod(spec.sizes_dict().values())):
+        c = rank_coords(spec, rank)
+        key = tuple(v for a, v in c.items() if a != axis)
+        groups.setdefault(key, []).append(rank)
+    return sorted(groups.values())
+
+
 @dataclasses.dataclass
 class Mesh:
-    """The resolved spec, this process's rank and device, and one
-    :class:`RingGroup` per sized axis (``dp`` or ``cp``)."""
+    """The resolved spec, this process's rank, device and mesh coordinates,
+    and one :class:`RingGroup` per sized axis."""
 
     spec: MeshSpec
     rank: int
     device: torch.device
     groups: dict
+    coords: dict = dataclasses.field(default_factory=dict)
 
     @property
     def shape(self) -> dict:
@@ -92,6 +127,13 @@ class Mesh:
 
     def group(self, axis: str) -> RingGroup | None:
         return self.groups.get(axis)
+
+    def coord(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    def slot_bytes(self) -> int:
+        """Device bytes of every open CUDA IPC slot of this rank's groups."""
+        return sum(g._ipc.slot_bytes for g in self.groups.values() if g._ipc is not None)
 
     def close(self) -> None:
         """Close every group's CUDA transport (a collective call)."""
@@ -111,13 +153,12 @@ def build_mesh(spec: MeshSpec, rank: int, world_size: int, init_file: str,
     raises instead of hanging."""
     spec = spec.resolved(world_size)
     spec.seq_axis()
-    for axis, item in _AXIS_ITEMS.items():
-        if getattr(spec, axis) > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis}={getattr(spec, axis)} " + _NOT_PORTED.format(item))
-    if spec.dp > 1 and spec.cp > 1:
-        raise NotImplementedError(
-            f"mesh axis dp={spec.dp} composed with cp={spec.cp} " + _NOT_PORTED.format(12))
+    if spec.sp > 1:
+        raise NotImplementedError(f"mesh axis sp={spec.sp} " + _NOT_PORTED.format(12))
+    for axis in ("pp", "dp", "fsdp", "tp"):
+        if spec.cp > 1 and getattr(spec, axis) > 1:
+            raise NotImplementedError(f"mesh axis {axis}={getattr(spec, axis)} composed with "
+                                      f"cp={spec.cp} " + _NOT_PORTED.format(12))
     dev = resolve_device(device)
     if dev.type == "cuda":
         if dev.index is None:
@@ -127,13 +168,21 @@ def build_mesh(spec: MeshSpec, rank: int, world_size: int, init_file: str,
         dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                                 world_size=world_size,
                                 timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    workdir = os.path.dirname(os.path.abspath(init_file))
+    coords = rank_coords(spec, rank)
     groups = {}
-    for axis in _RING_AXES:
-        if getattr(spec, axis) > 1:
-            # the only sized axis: its ring is the whole world, in rank order
-            groups[axis] = RingGroup(dist.group.WORLD, range(world_size), rank, dev,
-                                     os.path.dirname(os.path.abspath(init_file)))
-    return Mesh(spec, rank, dev, groups)
+    for axis in AXES:
+        if getattr(spec, axis) == 1:
+            continue
+        for ranks in axis_group_ranks(spec, axis):
+            if len(ranks) == world_size:  # the whole world, in rank order
+                pg = dist.group.WORLD
+            else:  # every rank creates every group, in the same order
+                pg = dist.new_group(ranks, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+            if rank in ranks:
+                groups[axis] = RingGroup(pg, ranks, ranks.index(rank), dev, workdir,
+                                         name=f"{axis}{ranks[0]}")
+    return Mesh(spec, rank, dev, groups, coords)
 
 
 def data_mesh(n: int, rank: int, init_file: str, device=None) -> Mesh:

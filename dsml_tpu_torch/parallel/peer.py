@@ -137,15 +137,19 @@ class RingGroup:
     this process's position. ``device`` is where its tensors live (the
     CUDA transport opens at the first CUDA payload); ``workdir`` is a
     directory every rank sees (the rendezvous file's), where the CUDA
-    transport keeps its notice board."""
+    transport keeps its notice board, in a file named after ``name`` (every
+    ring of one mesh has its own: ``parallel/mesh.py`` names them after the
+    axis and the group's first rank)."""
 
-    def __init__(self, pg, ranks, rank: int, device, workdir: str | None = None):
+    def __init__(self, pg, ranks, rank: int, device, workdir: str | None = None,
+                 name: str = "ring"):
         self.pg = pg
         self.ranks = list(ranks)
         self.rank = rank
         self.size = len(self.ranks)
         self.device = torch.device(device)
         self.workdir = workdir
+        self.name = name
         self._ipc = None
         self._side = None
 
@@ -193,6 +197,12 @@ class _IpcRing:
         self.slots: dict = {}
         self._open(_MIN_CAPACITY)
 
+    @property
+    def slot_bytes(self) -> int:
+        """Device bytes this rank's receive slots hold (``cudaMalloc``'d
+        outside PyTorch's allocator): 4 slots of ``capacity``."""
+        return len(self._keys()) * self.capacity
+
     # ---- set-up and tear-down (collective) -------------------------------------
 
     def _keys(self):
@@ -201,7 +211,7 @@ class _IpcRing:
     def _open(self, capacity: int) -> None:
         g, lib = self.g, _lib()
         n_handle = lib.peer_handle_size()
-        board = os.path.join(g.workdir, "ring_notices.bin")
+        board = os.path.join(g.workdir, f"{g.name}_notices.bin")
         if g.rank == 0:  # every counter 0; never truncated under another rank's mapping
             with open(board, "ab"):
                 pass

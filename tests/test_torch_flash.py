@@ -432,7 +432,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "obs/export.py", "obs/sentinels.py", "obs/hangwatch.py", "obs/memory.py",
             "checkpoint/__init__.py", "checkpoint/native.py", "checkpoint/async_writer.py",
             "checkpoint/manager.py", "checkpoint/iterator.py", "checkpoint/optim_state.py",
-            "utils/checkpoint.py"} <= names
+            "utils/checkpoint.py", "parallel/tp.py", "parallel/pp.py",
+            "parallel/fsdp.py"} <= names
     bad = []
     for path in files:
         for mod in _imported_modules(ast.parse(path.read_text(), str(path))):

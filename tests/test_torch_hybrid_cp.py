@@ -195,12 +195,12 @@ def test_default_attn_impl_matches_jax(devices8):
 
 
 @pytest.mark.parametrize("spec,world,axis", [
-    (MeshSpec(dp=2, cp=2), 4, "dp"), (MeshSpec(tp=2), 2, "tp"), (MeshSpec(pp=2), 2, "pp"),
-    (MeshSpec(fsdp=2, cp=2), 4, "fsdp"), (MeshSpec(sp=2), 2, "sp"),
+    (MeshSpec(dp=2, cp=2), 4, "dp"), (MeshSpec(tp=2, cp=2), 4, "tp"),
+    (MeshSpec(pp=2, cp=2), 4, "pp"), (MeshSpec(fsdp=2, cp=2), 4, "fsdp"), (MeshSpec(sp=2), 2, "sp"),
 ])
 def test_build_mesh_raises_for_unported_axes(spec, world, axis, tmp_path):
-    """Only dp and cp are served, one at a time: any other sized axis, and
-    dp composed with cp, raises (naming its ROADMAP item) before any
+    """pp, dp, fsdp and tp compose, and cp runs alone: sp, and cp composed
+    with any other sized axis, raise (naming ROADMAP item 12) before any
     process group is joined."""
     with pytest.raises(NotImplementedError, match=f"mesh axis {axis}=2 .*ROADMAP.md queue 1"):
         build_mesh(spec, 0, world, str(tmp_path / "rendezvous"), "cpu")
@@ -222,9 +222,11 @@ def test_hybrid_step_raises_for_unported_options():
     mesh = Mesh(MeshSpec(dp=1, cp=1).resolved(1), 0, torch.device("cpu"), {})
     model = tgpt2.GPT2(tgpt2.GPT2Config.tiny(), device="cpu")
     opt = torch.optim.Adam(model.parameters())
-    for kw, item in (({"schedule": "1f1b"}, 11), ({"n_microbatches": 2}, 11)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            thybrid.make_hybrid_train_step(model, opt, mesh, **kw)
+    # the pipeline schedules are ported: 1f1b without a pipeline raises as in
+    # the JAX package, and microbatches without one are ignored, as there
+    with pytest.raises(ValueError, match="pp > 1"):
+        thybrid.make_hybrid_train_step(model, opt, mesh, schedule="1f1b")
+    assert callable(thybrid.make_hybrid_train_step(model, opt, mesh, n_microbatches=2))
     # a quantized dp_sync is ported (item 10): it builds on a dp-only mesh
     assert callable(thybrid.make_hybrid_train_step(model, opt, mesh, dp_sync="q8"))
 
