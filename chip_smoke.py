@@ -67,7 +67,15 @@ before the path and read just after):
   schedule (and one remat="int8" step through kernel 8), GPT-2-small at
   fsdp = 2 under ZeRO-3 and ZeRO-2 (full precision, int8 + error feedback)
   against the dp = 2 ring, TinyLlama-1.1B at pp = 2 × tp = 2 on four
-  ranks, and ``train_gpt2 --tp 2`` / ``--pp 2 --schedule 1f1b``.
+  ranks, and ``train_gpt2 --tp 2`` / ``--pp 2 --schedule 1f1b`` (started
+  beside the Llama entry points);
+- expert parallelism: Mixtral-8x7B's full widths (d 4096, 32/8 heads of
+  128, 8 experts of d_ff 14336, top 2) at 2 of its 32 layers, weights from
+  seed 0 drawn once in a process of their own: kernels 1–3 and 5–6 at head
+  dim 128, bf16 train steps at 2 × 2048 through the expert layer, an f32
+  gradient check, two spawned ranks at ep = 2 (the token payloads over
+  ``all_to_all``), and ``ContinuousBatcher(paged_kv="int4")`` serving 16
+  requests.
 
 Each phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit and no result line. The line before the last is the card's
@@ -132,9 +140,9 @@ launches of kernels 1–3 a step, step ms, tokens/s, MFU, peak memory, a
 first loss within 0.5 of ln 32000 that falls, a traced step); llama_serve
 (tokens/s, verify ticks, acceptance and committed-token EWMAs, 22
 launches a dispatch, every request complete and every page back, the
-idle share of a plain and of a speculative tick; the same drain at f32,
-speculative tokens equal to plain ones wherever the top-2 margin exceeds
-1e-3); llama_ticks (identical tokens under turbo, adaptive and plain
+idle share of a plain and of a speculative tick; its first 16 requests
+at f32, speculative tokens equal to plain ones wherever the top-2 margin
+exceeds 1e-3); llama_ticks (identical tokens under turbo, adaptive and plain
 ticks, tokens/s, tick counts, host syncs a decode tick; the adaptive
 tick's EOS branch: tokens cut at the EOS, read-backs, dropped steps); obs
 (the 48-request paged drain off then on: tokens identical, launches,
@@ -164,10 +172,26 @@ losses agreeing, step ms, peak memory, f32 gradients at 4 layers, kernel
 8 launched 24 times in the int8-remat step; ZeRO-3 / ZeRO-2 / ZeRO-2
 int8 + EF losses against the dp = 2 ring's and optimizer-state bytes near
 half of dp's; pp × tp identical losses and replicas on four ranks; its
-phase_seconds); mp_cli (the two model-parallel ``train_gpt2`` runs);
+phase_seconds); mp_cli (the two model-parallel ``train_gpt2`` runs; in
+the full run cp_cli, dp_cli and mp_cli run as processes together, beside
+the Llama entry points);
+moe_weights, moe_kernel and a kernel_time line per kernel family (at the
+Mixtral shapes, beside the other kernel phases), moe_train (2 launches of
+kernels 1–3 a step, step ms, tokens/s, active MFU, peak memory, the first
+loss near ln 32000 + 0.02²·d/2 and falling, a traced step), moe_f32_grads
+(the expert leaves' and wq's f32 gradients through the kernels against
+the plain path), moe_ep (per rank: 4 all_to_all calls a MoE layer a step
+and their bytes, the dispatch and return exchanges' ms alone, the step-0
+loss against one device's, identical replicated leaves, f32 gradients of a
+1-layer cut against one device, step ms, peak memory, IPC slot bytes) and
+moe_serve (the pipelined kernel's launches, tokens/s, TTFT, median tick,
+the idle share of a steady tick; 4 requests at f32 through the
+single-buffer kernel against the gather path under the margin rule);
 kernels (one line for the run; kernel 8's entry counts its three paths,
-kernels 1–3, 5 and 6 their Llama, checkpoint and model-parallel paths
-too).
+kernels 1–3, 5 and 6 their Llama, checkpoint, model-parallel and MoE
+paths too).
+
+Every phase line carries ``t_s``, its seconds since the script started.
 
 Float32 matmuls stay in full f32 (TF32 off, PyTorch's default, set here
 explicitly): the f32 phases compare two paths at f32 tolerances.
@@ -227,7 +251,12 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 TOL_TRAIN_GRADS = 1e-4
 
 
+_T0 = time.perf_counter()  # the run's start: every phase line carries its seconds since
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -711,8 +740,11 @@ def device_events(fn) -> list[tuple[str, float]]:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # a record_function range on the device (Optimizer.step#AdamW.step) spans
+    # kernels already counted: user annotations are not device work
     return [(e.name[:80], e.time_range.elapsed_us() / 1e3) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def device_kernel_ms(fn) -> dict[str, float]:
@@ -2414,23 +2446,6 @@ def phase_cp_slice(card):
     return r0["launches"]
 
 
-def phase_cp_cli():
-    """``train_gpt2 --cp 2`` on GPT-2-small bf16 under DSML_RING_FUSED=dma:
-    two spawned ranks, a few steps, a finite loss."""
-    from dsml_tpu_torch.cli import train_gpt2
-
-    os.environ["DSML_RING_FUSED"] = "dma"
-    t0 = time.perf_counter()
-    out = train_gpt2.main(["--model", "small", "--cp", "2", "--dtype", "bfloat16", "--steps", "3",
-                           "--batch_size", "8", "--grad_accum", "1", "--log_every", "1",
-                           "--warmup_steps", "1"])
-    del os.environ["DSML_RING_FUSED"]
-    emit({"phase": "cp_cli", "entry": "python -m dsml_tpu_torch.cli.train_gpt2 --cp 2", **out,
-          "seconds_with_spawn": time.perf_counter() - t0})
-    check(np.isfinite(out["first_loss"]) and np.isfinite(out["last_loss"]),
-          f"the train_gpt2 --cp 2 entry point: {out}")
-
-
 # ---- data parallelism: the all-reduce family and the dp train step ------------------------
 
 ALLREDUCE_ALGS = ("ring", "ring2", "naive", "xla")
@@ -3009,28 +3024,13 @@ def phase_dp_slice(card):
     return r0["launches"], r0["quant"]["q8"]["launches"]["quantize_int8"]
 
 
-def phase_dp_cli():
-    """``train_gpt2 --dp 2`` on GPT-2-small bf16 with flash attention: two
-    spawned ranks, the JAX example's sync (the process group's all_reduce),
-    a few steps, a finite loss."""
-    from dsml_tpu_torch.cli import train_gpt2
-
-    t0 = time.perf_counter()
-    out = train_gpt2.main(["--model", "small", "--dp", "2", "--dtype", "bfloat16", "--attn", "flash",
-                           "--steps", "3", "--batch_size", "8", "--grad_accum", "1",
-                           "--log_every", "1", "--warmup_steps", "1"])
-    emit({"phase": "dp_cli", "entry": "python -m dsml_tpu_torch.cli.train_gpt2 --dp 2", **out,
-          "seconds_with_spawn": time.perf_counter() - t0})
-    check(np.isfinite(out["first_loss"]) and np.isfinite(out["last_loss"]),
-          f"the train_gpt2 --dp 2 entry point: {out}")
-
-
 # ---- Llama: TinyLlama-1.1B trained and served ------------------------------------
 
 LLAMA_HEADS, LLAMA_KV_HEADS = 32, 4  # TinyLlama-1.1B: head_dim 64, 8 query heads a kv head
 LLAMA_TRAIN_B, LLAMA_TRAIN_S = 2, 2048  # the JAX bench's llama1b row
 LLAMA_TRAIN_WARMUP, LLAMA_TRAIN_STEPS = 2, 4
 LLAMA_SPEC_WINDOW = 4
+LLAMA_F32_REQUESTS = 16  # the f32 drains: the first 16 of the 48 requests (the run's time)
 # the JAX bench's Llama serving row (bench.py::_bench_serving_llama_kvquant), at full width
 LLAMA_TICK_SLOTS, LLAMA_TICK_QUANTUM, LLAMA_TICK_PROMPT, LLAMA_TICK_NEW = 8, 8, 128, 64
 LLAMA_TURBO, LLAMA_ADAPTIVE = 4, 32
@@ -3103,19 +3103,19 @@ def phase_llama_cli(procs):
     check(not failed, "a Llama entry point failed: " + "\n".join(failed))
 
 
-def phase_llama_kernel(tflash, dev):
-    """Kernels 1–3 at TinyLlama-1.1B's train shape, [64, 2048, 64] bf16
-    causal (K/V repeated to the 32 query heads), and kernels 5–6 at its
-    serving shapes (16 slots, 4 kv heads under 32 query heads, hd 64, int4
-    pages, bf16 q: decode, the W = 4 verify window, a 256-row chunk; and
-    f32 q at decode and verify, the f32 drains' shape), each against its
-    plain version as the kernel, kernel_bwd and kernel_paged phases hold
-    them; then kernel_time lines beside the bounds."""
+def family_kernels(tflash, dev, path, heads, kv_heads, d, verify):
+    """Kernels 1–3 at a Llama-family train shape, [2·heads, 2048, d] bf16
+    causal, and kernels 5–6 at its serving shapes (16 slots, ``kv_heads``
+    under ``heads`` query heads, head_dim ``d``, int4 pages, bf16 q: decode,
+    with ``verify`` the W = 4 verify window, a 256-row chunk; f32 q at
+    decode (and verify), the f32 drains' shape), each against its plain
+    version; then kernel_time lines beside the bounds. ``path`` names the
+    lines ("llama", "moe")."""
     from dsml_tpu_torch.ops import paged_attention as tpa
 
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(12)
-    bh, s, d, dt = LLAMA_TRAIN_B * LLAMA_HEADS, LLAMA_TRAIN_S, D, torch.bfloat16
+    bh, s, dt = LLAMA_TRAIN_B * heads, LLAMA_TRAIN_S, torch.bfloat16
     q, k, v, do = (torch.randn(bh, s, d, generator=gen, device=dev).to(dt) for _ in range(4))
     tflash.flash_fwd_launches = 0
     out, lse = tflash.flash_fwd(q, k, v, True)
@@ -3125,9 +3125,9 @@ def phase_llama_kernel(tflash, dev):
             "lse": (lse - ref_lse).abs().max().item()}
     ok = (tflash.flash_fwd_launches == 1 and bool(torch.isfinite(out).all())
           and errs["out"] <= TOL[dt]["out"] and errs["lse"] <= TOL[dt]["lse"])
-    emit({"phase": "llama_kernel", "kernel": "flash_fwd", "shape": [bh, s, d], "dtype": "bfloat16",
-          "causal": True, "max_abs_err": errs, "tol": TOL[dt], "ok": ok})
-    check(ok, f"flash_fwd at the Llama train shape: {errs}")
+    emit({"phase": f"{path}_kernel", "kernel": "flash_fwd", "shape": [bh, s, d],
+          "dtype": "bfloat16", "causal": True, "max_abs_err": errs, "tol": TOL[dt], "ok": ok})
+    check(ok, f"flash_fwd at the {path} train shape: {errs}")
     before = bwd_counts(tflash)
     got = tflash.flash_bwd(q, k, v, ref_out, ref_lse, do)
     torch.cuda.synchronize()
@@ -3139,14 +3139,14 @@ def phase_llama_kernel(tflash, dev):
         rel = max(rel, bwd_errs[name] / max(w.float().abs().max().item(), 1e-30))
     ok = (launched == {name: int(name in BWD_KERNELS[dt]) for name in launched}
           and all(bool(torch.isfinite(g).all()) for g in got) and rel <= TOL_BWD[dt])
-    emit({"phase": "llama_kernel", "kernels": list(BWD_KERNELS[dt]), "shape": [bh, s, d],
+    emit({"phase": f"{path}_kernel", "kernels": list(BWD_KERNELS[dt]), "shape": [bh, s, d],
           "dtype": "bfloat16", "causal": True, "launched": launched, "max_abs_err": bwd_errs,
           "max_err_over_max_abs": rel, "tol": TOL_BWD[dt], "ok": ok})
-    check(ok, f"flash_bwd at the Llama train shape: launched {launched}, rel err {rel}")
+    check(ok, f"flash_bwd at the {path} train shape: launched {launched}, rel err {rel}")
     del got, want
 
     timing = {}
-    q4, k4, v4 = (t.view(LLAMA_TRAIN_B, LLAMA_HEADS, s, d) for t in (q, k, v))
+    q4, k4, v4 = (t.view(LLAMA_TRAIN_B, heads, s, d) for t in (q, k, v))
     fwd_bound, fwd_by = attention_bound_ms(bh, s, s, d, dt, True)
     timing["flash_fwd"] = {
         "ms": device_ms(functools.partial(tflash.flash_fwd, q, k, v, True), pattern="flash_fwd_kernel<"),
@@ -3158,7 +3158,7 @@ def phase_llama_kernel(tflash, dev):
     call = functools.partial(tflash.flash_bwd, q, k, v, ref_out, ref_lse, do)
     plain_bwd = cuda_ms(functools.partial(tflash._flash_bwd_reference, q, k, v, ref_out, ref_lse,
                                           do), reps=5, warmup=1)
-    qg, kg, vg, dog = (t.view(LLAMA_TRAIN_B, LLAMA_HEADS, s, d).detach().requires_grad_()
+    qg, kg, vg, dog = (t.view(LLAMA_TRAIN_B, heads, s, d).detach().requires_grad_()
                        for t in (q, k, v, do))
 
     def sdpa(backward):
@@ -3173,32 +3173,31 @@ def phase_llama_kernel(tflash, dev):
         timing[name] = {"ms": device_ms(call, reps=10, pattern=f"{name}_kernel<"),
                         "plain_ms": plain_bwd, "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": library_bwd}
-    emit({"phase": "kernel_time", "path": "llama", "shape": [bh, s, d], "dtype": "bfloat16",
+    emit({"phase": "kernel_time", "path": path, "shape": [bh, s, d], "dtype": "bfloat16",
           "causal": True, **timing, "note": "ms and library_ms profiler device time, plain_ms CUDA "
           "events (the plain versions' ~20 launches a call made whole profiler traces flaky); "
           "the backward's plain_ms and library_ms are whole backwards (dq, dk and dv), "
           "library_ms SDPA forward+backward minus forward"})
     del q, k, v, do, out, lse, ref_out, ref_lse, q4, k4, v4, qg, kg, vg, dog
 
-    # kernels 5 and 6 at the Llama serving shapes, through the kernel_paged checks
+    # kernels 5 and 6 at the serving shapes, through the kernel_paged checks
     rng = np.random.default_rng(12)
     n_pt = 2048 // PAGE
     depths = rng.integers(1, 2048, PAGED_SLOTS)
     decode_pos = (depths - 1)[:, None].copy()
     decode_pos[[5, 9]] = -1  # dead slots
-    shapes = {
-        "llama_decode": (PAGED_SLOTS, decode_pos),
-        "llama_verify": (PAGED_SLOTS, rng.integers(0, 2044, PAGED_SLOTS)[:, None]
-                         + np.arange(LLAMA_SPEC_WINDOW)[None, :]),
-        "llama_chunk": (1, (512 + np.arange(PAGED_CHUNK))[None, :]),
-    }
+    shapes = {f"{path}_decode": (PAGED_SLOTS, decode_pos)}
+    verify_pos = rng.integers(0, 2044, PAGED_SLOTS)[:, None] + np.arange(LLAMA_SPEC_WINDOW)[None, :]
+    if verify:
+        shapes[f"{path}_verify"] = (PAGED_SLOTS, verify_pos)
+    shapes[f"{path}_chunk"] = (1, (512 + np.arange(PAGED_CHUNK))[None, :])
     paged_err, paged_timing = 0.0, {}
     for shape, (b, positions) in shapes.items():
         for q_dtype in (torch.bfloat16, torch.float32):
-            if shape == "llama_chunk" and q_dtype == torch.float32:
+            if shape.endswith("_chunk") and q_dtype == torch.float32:
                 continue  # f32 drains prefill chunks too, but chunks are the bf16 path's shape
-            args = paged_case(dev, rng, gen, b, LLAMA_HEADS, LLAMA_KV_HEADS, D, n_pt, positions,
-                              q_dtype, "int4")
+            args = paged_case(dev, rng, gen, b, heads, kv_heads, d, n_pt, positions, q_dtype,
+                              "int4")
             err = paged_check(dev, tpa, shape, args, "int4", q_dtype, positions)
             if q_dtype == torch.bfloat16:
                 paged_err = max(paged_err, err)
@@ -3211,11 +3210,11 @@ def phase_llama_kernel(tflash, dev):
                         "ms": per_kernel[name], "call_device_ms": per_kernel[f"{name}_call"],
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None}
-    emit({"phase": "kernel_time", "path": "llama", "kernels": ["paged_attn", "paged_attn_pipelined"],
-          "shapes": {"llama_decode": "16 slots, depths 1-2047 (2 dead)",
-                     "llama_verify": f"16 slots, W = {LLAMA_SPEC_WINDOW}",
-                     "llama_chunk": f"{PAGED_CHUNK} rows from 512"},
-          "hq": LLAMA_HEADS, "hkv": LLAMA_KV_HEADS, "hd": D, "page": PAGE, "q": "bfloat16",
+    emit({"phase": "kernel_time", "path": path, "kernels": ["paged_attn", "paged_attn_pipelined"],
+          "shapes": {f"{path}_decode": "16 slots, depths 1-2047 (2 dead)",
+                     **({f"{path}_verify": f"16 slots, W = {LLAMA_SPEC_WINDOW}"} if verify else {}),
+                     f"{path}_chunk": f"{PAGED_CHUNK} rows from 512"},
+          "hq": heads, "hkv": kv_heads, "hd": d, "page": PAGE, "q": "bfloat16",
           "codec": "int4", **paged_timing, "phase_seconds": time.perf_counter() - t_phase})
     return {"flash_err": errs["out"], "bwd_err": bwd_errs, "paged_err": paged_err,
             "timing": timing, "paged_timing": paged_timing}
@@ -3295,8 +3294,9 @@ def phase_llama_serve(dev, card):
     tick (W = 4): tokens/s, verify ticks, acceptance and committed-token
     EWMAs, launches of the pipelined kernel (22 a chunk, tick or verify
     tick), every request complete, every page back, the idle share of one
-    steady tick of each kind. Then the same 48 requests, 16 slots and
-    budgets at f32 through the single-buffer kernel, plain and speculative:
+    steady tick of each kind. Then the first 16 of the requests, 16 slots
+    and their budgets at f32 through the single-buffer kernel, plain and
+    speculative:
     equal tokens wherever the top-2 margin exceeds 1e-3. The drain refills
     slots while others verify, so it also holds the speculative tick's slot
     reuse (the per-slot acceptance reset, dummy windows on the scratch page,
@@ -3357,11 +3357,12 @@ def phase_llama_serve(dev, card):
     # f32, single-buffer kernel: speculative against plain, the margin rule
     model32 = llama_model(dev)
     runs, f32_rows, before = {}, {}, paged_counts(tpa)
+    f32_prompts, f32_budgets = prompts[:LLAMA_F32_REQUESTS], budgets[:LLAMA_F32_REQUESTS]
     os.environ["DSML_PAGED_ATTN_PIPELINE"] = "0"
     try:
         for name, extra in (("plain", {}), ("speculative", dict(speculative_window=LLAMA_SPEC_WINDOW))):
             srv = ContinuousBatcher(model32, **kw, **extra)
-            runs[name], wall, _ = drain(srv, prompts, budgets)
+            runs[name], wall, _ = drain(srv, f32_prompts, f32_budgets)
             check(srv.free_pages == srv.n_pages - 1, "pages leaked by an f32 Llama drain")
             f32_rows[name] = {"wall_s": wall, "decode_ticks": srv.n_plain_ticks + srv.n_spec_ticks,
                               "prefill_chunks": srv.n_prefill_dispatches}
@@ -3374,17 +3375,17 @@ def phase_llama_serve(dev, card):
     for i, (a, w) in enumerate(zip(runs["speculative"], runs["plain"])):
         diff = [j for j, (x, y) in enumerate(zip(a, w)) if x != y]
         if diff:
-            m = first_divergence_margin(model32, prompts[i], w, diff[0])
+            m = first_divergence_margin(model32, f32_prompts[i], w, diff[0])
             near_ties.append({"request": i, "step": diff[0], "margin": m})
             mismatches += m >= MARGIN
-    row["f32"] = {"requests": PAGED_REQUESTS, "n_slots": PAGED_SLOTS, **f32_rows,
+    row["f32"] = {"requests": LLAMA_F32_REQUESTS, "n_slots": PAGED_SLOTS, **f32_rows,
                   "kernel": "paged_attn (single buffer)", "launches": f32_launches,
                   "tokens_equal": runs["speculative"] == runs["plain"], "near_ties": near_ties}
     row["phase_seconds"] = time.perf_counter() - t_phase
     emit(row)
     check(f32_launches["paged_attn"] > 0 and f32_launches["paged_attn_pipelined"] == 0,
           f"the f32 Llama drains launched {f32_launches}, expected the single-buffer kernel only")
-    check(all(len(t) == int(n) for name in runs for t, n in zip(runs[name], budgets)),
+    check(all(len(t) == int(n) for name in runs for t, n in zip(runs[name], f32_budgets)),
           "a request of an f32 Llama drain did not complete")
     check(mismatches == 0, f"f32 speculative tokens diverge from plain beyond the margin rule: "
                            f"{near_ties}")
@@ -4242,9 +4243,10 @@ def _param_sha(params) -> str:
     return h.hexdigest()
 
 
-def _shard_grad_err(model, ref, coords, sizes):
-    """max over this rank's parameters of |grad − its slice of the
-    single-device ``ref`` gradient| / max |ref gradient| (the dp_slice rule)."""
+def _shard_grad_err(model, ref, coords, sizes, names=None):
+    """max over this rank's parameters (those in ``names``, default all) of
+    |grad − its slice of the single-device ``ref`` gradient| / max |ref
+    gradient| (the dp_slice rule)."""
     from dsml_tpu_torch.models.common import shard_leaf
     from dsml_tpu_torch.parallel.hybrid import _global_name
 
@@ -4252,6 +4254,8 @@ def _shard_grad_err(model, ref, coords, sizes):
     full = dict(ref.named_parameters())
     worst = 0.0
     for name, p in model.named_parameters():
+        if names is not None and name not in names:
+            continue
         g_ref = full[_global_name(model, name)].grad
         want = shard_leaf(g_ref, specs[_global_name(model, name)], coords, sizes)
         scale = float(g_ref.abs().max()) or 1.0
@@ -4573,7 +4577,7 @@ def spawn_mesh(fn, kind, nprocs, *args):
     return ranks, seconds
 
 
-def phase_model_parallel(tflash, dev, card, with_cli: bool = False):
+def phase_model_parallel(tflash, dev, card):
     """(a) TinyLlama-1.1B bf16 at tp = 2, batch 2 × 2048, AdamW(3e-4,
     weight_decay=0.01): 22 launches of kernels 1–3 a step a rank over 16
     local heads, the step-0 loss against the single-device step's from the
@@ -4589,8 +4593,7 @@ def phase_model_parallel(tflash, dev, card, with_cli: bool = False):
     MiB buckets (full precision, int8 + error feedback) against the dp = 2
     ring step from the same weights, optimizer-state bytes a rank, step ms.
     (d) TinyLlama-1.1B at pp = 2 × tp = 2 (four ranks), 1F1B, ending with
-    identical replicas; with ``with_cli`` the ``mp_cli`` entry points run
-    beside it (its step ms is then not the mesh's alone). Ranks time-slice
+    identical replicas. Ranks time-slice
     the one card: the times are the cost of the collectives and the
     schedules, not a model-parallel speed-up. Returns rank 0's launches
     per path."""
@@ -4601,7 +4604,6 @@ def phase_model_parallel(tflash, dev, card, with_cli: bool = False):
     # (a file each rank maps), and the single-device step-0 loss from them
     wdir = tempfile.mkdtemp(prefix="chip_smoke_mp_")
     weights = os.path.join(wdir, "tinyllama_bf16.pt")
-    procs = None
     try:
         torch.save({k: v.to(torch.bfloat16) for k, v in llama_weights().items()}, weights)
         model = llama_model(dev, dtype="bfloat16", xent_chunk=8192)
@@ -4614,16 +4616,9 @@ def phase_model_parallel(tflash, dev, card, with_cli: bool = False):
         tp_ranks, tp_seconds = spawn_mesh(mp_tp_rank, "tp", 2, weights)
         pp_ranks, pp_seconds = spawn_mesh(mp_pp_rank, "pp", 2)
         zero_ranks, zero_seconds = spawn_mesh(mp_zero_rank, "fsdp", 2)
-        procs = mp_cli_start() if with_cli else None
         four, four_seconds = spawn_mesh(mp_4rank_rank, "pp_tp", 4, weights)
-    except BaseException:
-        for p in (procs or {}).values():
-            p.kill()
-        raise
     finally:
         shutil.rmtree(wdir, ignore_errors=True)
-    if procs is not None:
-        phase_mp_cli(procs)
     note = ("ranks time-slice one card: the times are the cost of the collectives and the "
             "schedule, not a model-parallel speed-up")
 
@@ -4721,36 +4716,456 @@ def phase_model_parallel(tflash, dev, card, with_cli: bool = False):
     return counts, pp_ranks[0]["int8_remat"]["quantize_int8"]
 
 
-def mp_cli_start():
-    """Start ``train_gpt2 --family llama --model tinyllama_1b --tp 2`` and
-    ``train_gpt2 --model small --pp 2 --schedule 1f1b`` on the card, a few
-    steps each, as processes (waited for by :func:`phase_mp_cli`)."""
-    entries = {
-        "tinyllama_tp2": ["--family", "llama", "--model", "tinyllama_1b", "--tp", "2",
-                          "--batch_size", "2"],
-        "small_pp2_1f1b": ["--model", "small", "--pp", "2", "--schedule", "1f1b", "--n_micro", "4",
-                           "--batch_size", "8"],
-    }
+# the train_gpt2 entry points run as processes, beside each other and the Llama
+# ones: {name: (phase line, arguments, environment)}
+TRAIN_CLI_RUNS = {
+    "cp2": ("cp_cli", ["--model", "small", "--cp", "2", "--batch_size", "8"],
+            {"DSML_RING_FUSED": "dma"}),
+    "dp2": ("dp_cli", ["--model", "small", "--dp", "2", "--attn", "flash", "--batch_size", "8"],
+            {}),
+    "tinyllama_tp2": ("mp_cli", ["--family", "llama", "--model", "tinyllama_1b", "--tp", "2",
+                                 "--attn", "flash", "--batch_size", "2"], {}),
+    "small_pp2_1f1b": ("mp_cli", ["--model", "small", "--pp", "2", "--schedule", "1f1b",
+                                  "--n_micro", "4", "--attn", "flash", "--batch_size", "8"], {}),
+}
+
+
+def train_cli_start(names):
+    """Start the ``train_gpt2`` runs ``names`` of :data:`TRAIN_CLI_RUNS` on
+    the card (bf16, 3 steps each) as processes: ``--cp 2`` on GPT-2-small
+    under DSML_RING_FUSED=dma, ``--dp 2`` on GPT-2-small with flash
+    attention, ``--family llama --model tinyllama_1b --tp 2`` and ``--model
+    small --pp 2 --schedule 1f1b``. Waited for by :func:`phase_train_cli_runs`."""
     root = os.path.dirname(os.path.abspath(__file__))
     return {name: subprocess.Popen(
-        [sys.executable, "-m", "dsml_tpu_torch.cli.train_gpt2", *args, "--attn", "flash",
+        [sys.executable, "-m", "dsml_tpu_torch.cli.train_gpt2", *TRAIN_CLI_RUNS[name][1],
          "--dtype", "bfloat16", "--steps", "3", "--grad_accum", "1", "--log_every", "1",
          "--warmup_steps", "1"], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for name, args in entries.items()}
+        text=True, env={**os.environ, **TRAIN_CLI_RUNS[name][2]}) for name in names}
 
 
-def phase_mp_cli(procs):
-    """The two model-parallel ``train_gpt2`` runs of :func:`mp_cli_start`:
-    exit 0 and the last step's log line."""
+def phase_train_cli_runs(procs):
+    """The ``train_gpt2`` runs of :func:`train_cli_start`: each exits 0 and
+    logs 3 steps of finite loss; one line per phase name (cp_cli, dp_cli,
+    mp_cli)."""
     t_phase = time.perf_counter()
     rows = {}
     for name, p in procs.items():
         out, _ = p.communicate(timeout=600)
-        lines = [l for l in out.splitlines() if "step 3: loss" in l]
-        rows[name] = {"rc": p.returncode, "last": lines[-1] if lines else out[-2000:]}
-    emit({"phase": "mp_cli", "runs": rows, "waited_seconds": time.perf_counter() - t_phase})
+        losses = [float(m) for m in re.findall(r"step \d+: loss = ([-+0-9.eEnaif]+)", out)]
+        rows[name] = {"rc": p.returncode, "losses": losses,
+                      "last": [line for line in out.splitlines() if "dsml." in line][-2:]
+                      if p.returncode == 0 else out[-2000:]}
+    for phase in dict.fromkeys(TRAIN_CLI_RUNS[name][0] for name in rows):
+        emit({"phase": phase, "entry": "python -m dsml_tpu_torch.cli.train_gpt2",
+              "runs": {n: r for n, r in rows.items() if TRAIN_CLI_RUNS[n][0] == phase},
+              "waited_seconds": time.perf_counter() - t_phase})
     for name, row in rows.items():
-        check(row["rc"] == 0 and "step 3: loss" in row["last"], f"mp_cli {name}: {row}")
+        check(row["rc"] == 0 and len(row["losses"]) == 3 and all(np.isfinite(row["losses"])),
+              f"train_gpt2 {name}: {row}")
+
+
+# Mixtral-8x7B at its full widths, depth cut for one card and the run's time
+MOE_LAYERS = 2  # of 32: 2.225B parameters (4.45 GB bf16); 32 layers are 31.7B (63 GB bf16)
+MOE_HEADS, MOE_KV_HEADS, MOE_HD = 32, 8, 128
+MOE_TRAIN_WARMUP, MOE_TRAIN_STEPS = 2, 4
+MOE_F32_B, MOE_F32_S = 1, 1024  # the f32 gradient checks' batch
+MOE_EP_WARMUP, MOE_EP_STEPS = 2, 3
+MOE_REQUESTS, MOE_F32_REQUESTS = 16, 4
+
+
+def moe_config(**replace):
+    """``LlamaConfig.mixtral_8x7b()`` at depth :data:`MOE_LAYERS`, with
+    ``replace`` applied."""
+    from dsml_tpu_torch.models.llama import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig.mixtral_8x7b(), **{"n_layer": MOE_LAYERS, **replace})
+
+
+def moe_weights_path():
+    from dsml_tpu_torch.ops import _build
+
+    return str(_build.BUILD_DIR.parent / "moe" / "mixtral_2l_bf16.pt")
+
+
+def moe_weights_child(path):
+    """The cut Mixtral's weights from seed 0 (``Llama.init``: the JAX init's
+    numpy draws, rounded to bf16), saved to ``path`` (its own process, run
+    beside the Llama entry points)."""
+    from dsml_tpu_torch.models.llama import Llama
+
+    t0 = time.perf_counter()
+    model = Llama(moe_config(dtype="bfloat16"), device="cpu").init(0)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(model.state_dict(), path + ".tmp")
+    os.replace(path + ".tmp", path)
+    print(json.dumps({"seconds": time.perf_counter() - t0, "params": model.n_params()}), flush=True)
+
+
+def moe_weights_start():
+    """Start :func:`moe_weights_child` as a process (the one numpy draw of
+    the phase: its ranks map the file it writes)."""
+    path = moe_weights_path()
+    if os.path.exists(path):
+        os.remove(path)
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, "-c",
+                             f"import chip_smoke; chip_smoke.moe_weights_child({path!r})"],
+                            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def moe_weights_wait(proc):
+    """Wait for :func:`moe_weights_start`'s process: {"seconds", "params",
+    "waited_s"} of its draw."""
+    t0 = time.perf_counter()
+    out, _ = proc.communicate(timeout=900)
+    check(proc.returncode == 0, f"the Mixtral weights process failed:\n{out[-3000:]}")
+    return {**json.loads(out.strip().splitlines()[-1]), "waited_s": time.perf_counter() - t0}
+
+
+def moe_model(dev, weights, **replace):
+    """The cut Mixtral on ``dev`` holding ``weights`` (cast to the config's type)."""
+    from dsml_tpu_torch.models.llama import Llama
+
+    model = Llama(moe_config(**replace), device=dev)
+    model.load_full(weights)
+    return model
+
+
+def moe_train_flops(cfg, tokens, seq):
+    """Active matmul FLOPs of one train step: ``transformer_train_flops``
+    with each token through its top-k experts' two GELU matmuls, plus the
+    gate (the capacity's padding rows not counted)."""
+    from dsml_tpu_torch.models.common import transformer_train_flops
+
+    active = dataclasses.replace(cfg, d_ff=cfg.d_ff * cfg.expert_top_k)
+    return (transformer_train_flops(active, tokens, seq)
+            + 3 * 2 * tokens * cfg.d_model * cfg.n_experts * cfg.n_layer)
+
+
+def _grad_err(got, want, names):
+    """max over ``names`` of |got − want| / max |want| (the dp_slice rule)."""
+    worst = 0.0
+    for n in names:
+        scale = float(want[n].abs().max()) or 1.0
+        worst = max(worst, float((got[n].float() - want[n].float()).abs().max()) / scale)
+    return worst
+
+
+def moe_ep_rank(rank, tmp, weights):
+    rank_main(lambda r, t, res, stage: moe_ep_run(r, t, res, stage, weights), "ep", rank, tmp)
+
+
+def moe_ep_run(rank, tmp, res, stage, weights):
+    """The cut Mixtral bf16 at ep = tp = 2 (one rank): 4 of the 8 experts a
+    layer, 16 of the 32 heads, half the vocabulary."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from dsml_tpu_torch.models.llama import Llama
+    from dsml_tpu_torch.ops import collectives as tcoll
+    from dsml_tpu_torch.ops import flash as tflash
+    from dsml_tpu_torch.parallel import tp as ttp
+    from dsml_tpu_torch.parallel.hybrid import make_hybrid_train_step
+    from dsml_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    mesh = build_mesh(MeshSpec(tp=2), rank, 2, os.path.join(tmp, "rendezvous"))
+    dev, group = mesh.device, mesh.group("tp")
+    res["device"] = str(dev)
+    stage("weights")
+    full = torch.load(weights, mmap=True)
+    cfg = moe_config(dtype="bfloat16", xent_chunk=8192)
+    model = Llama(cfg, device=dev, tp_group=group)
+    model.load_full(full)
+    res["local_experts"] = cfg.n_experts // group.size
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LLAMA_TRAIN_B, LLAMA_TRAIN_S)))
+    y = torch.roll(x, -1, 1)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+    step = make_hybrid_train_step(model, opt, mesh, attn_impl="flash")
+    stage("ep steps")
+    losses = [step(x, y) for _ in range(MOE_EP_WARMUP)]
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(tflash)
+    ttp.reset_stats()
+    tcoll.reset_stats()
+    t0 = time.perf_counter()
+    losses += [step(x, y) for _ in range(MOE_EP_STEPS)]
+    torch.cuda.synchronize()
+    res["step_ms"] = (time.perf_counter() - t0) * 1e3 / MOE_EP_STEPS
+    res["launches"] = train_counts(tflash)
+    res["all_to_all_per_step"] = tcoll.STATS["all_to_all"] / MOE_EP_STEPS
+    res["all_to_all_bytes_per_step"] = tcoll.STATS["all_to_all_bytes"] / MOE_EP_STEPS
+    res["tp_all_reduces_per_step"] = ttp.STATS["all_reduce"] / MOE_EP_STEPS
+    res["tp_all_reduce_bytes_per_step"] = ttp.STATS["bytes"] / MOE_EP_STEPS
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    res["ipc_slot_bytes"] = mesh.slot_bytes()
+    res["losses"] = [float(v) for v in losses]
+    specs = model.param_specs()
+    res["replicated_sha"] = _param_sha(
+        [p for n, p in model.named_parameters() if "tp" not in specs[n]])
+    stage("all_to_all alone")
+    t = LLAMA_TRAIN_B * LLAMA_TRAIN_S
+    capacity = int(cfg.capacity_factor * t * cfg.expert_top_k / cfg.n_experts) + 1
+    dispatch = torch.randn(cfg.n_experts, capacity, cfg.d_model, device=dev).to(torch.bfloat16)
+    back = torch.randn(2, t // 2, cfg.d_model, device=dev).to(torch.bfloat16)
+    res["dispatch_shape"] = list(dispatch.shape)
+    res["dispatch_ms"] = statistics.median(
+        collective_times(lambda: tcoll.all_to_all(dispatch, group, 0, 1), group.pg))
+    res["return_ms"] = statistics.median(
+        collective_times(lambda: tcoll.all_to_all(back, group, 0, 0), group.pg))
+    del model, opt, step, dispatch, back
+    torch.cuda.empty_cache()
+    stage("f32 gradient check")
+    cfg32 = moe_config(n_layer=1)
+    layer0 = {k: v for k, v in full.items() if not k.startswith("layers.") or
+              k.startswith("layers.0.")}
+    shard = Llama(cfg32, device=dev, tp_group=group).load_full(layer0)
+    ref = Llama(cfg32, device=dev).load_full(layer0)
+    xd, yd = x[:MOE_F32_B, :MOE_F32_S].to(dev), y[:MOE_F32_B, :MOE_F32_S].to(dev)
+    loss = shard.loss(xd, yd, attn_impl="flash")
+    loss.backward()
+    ref_loss = ref.loss(xd, yd, attn_impl="xla")
+    ref_loss.backward()
+    loss, ref_loss = float(loss.detach()), float(ref_loss.detach())
+    coords, sizes = {"tp": group.rank}, {"tp": group.size}
+    experts = [n for n, _ in shard.named_parameters() if ".moe." in n]
+    res["f32"] = {"layers": cfg32.n_layer, "batch": [MOE_F32_B, MOE_F32_S],
+                  "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+                  "expert_grads_max_err_over_max_abs": _shard_grad_err(shard, ref, coords, sizes,
+                                                                       experts),
+                  "grads_max_err_over_max_abs": _shard_grad_err(shard, ref, coords, sizes)}
+    mesh.close()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_moe(tflash, dev, card, draw, kernels):
+    """Mixtral-8x7B (``LlamaConfig.mixtral_8x7b``) at its full widths — d
+    4096, 32 query / 8 kv heads (head_dim 128), d_ff 14336, 8 experts top-2,
+    capacity 1.25, vocab 32000 — at depth 2 of 32, weights from seed 0 (one
+    numpy draw, :func:`moe_weights_start`'s process, whose ``draw`` record
+    this phase reports, to a bf16 file every part maps):
+
+    (a) ``kernels``: :func:`family_kernels` at its shapes — kernels 1–3 at
+    [64, 2048, 128] bf16 and kernels 5–6 at its serving shapes (8 kv heads
+    under 32, hd 128) against their plain versions, with times (run beside
+    the other kernel phases: late in a full run the profiler lost events);
+    (b) single-device bf16 training at 2 × 2048 (flash, the chunked
+    loss through lm_head, AdamW(3e-4, 0.01)): 2 launches of kernels 1–3 a
+    step, step ms, tokens/s, active MFU, peak memory, a first loss near ln
+    32000 that falls, a traced step; an f32 check at 1 × 1024: the expert
+    leaves' and wq's gradients through the kernels against the plain path;
+    (c) ep = 2: two spawned ranks (tp = 2: 4 experts each) through
+    ``make_hybrid_train_step``: the step-0 loss against (b)'s, 4
+    all_to_all calls a MoE layer a step, their bytes and time alone,
+    identical replicated leaves, step ms, peak memory, IPC slot bytes, and
+    f32 gradients of a 1-layer cut against one device; (d) serving:
+    ``ContinuousBatcher(paged_kv="int4")``, 16 slots, page 16, chunk 256,
+    16 greedy requests of 64–768 tokens (the GPT-2 row's mix) through the
+    pipelined kernel: tokens/s, TTFT, median tick, the idle share of a
+    steady tick; then 4 requests at f32 through the single-buffer kernel
+    against the gather path under the 1e-3 top-2 margin rule. The ranks
+    time-slice the card: (c) measures the exchange's cost, not a speed-up.
+    Returns the launches of kernels 1–3 (the bf16 train steps) and 5–6
+    (the drains)."""
+    from dsml_tpu_torch.ops import paged_attention as tpa
+    from dsml_tpu_torch.serving import ContinuousBatcher
+
+    t_phase = time.perf_counter()
+    cut = "depth 32 -> 2 layers: 2.225B parameters at full widths (32 layers are 31.7B)"
+    weights = moe_weights_path()
+    full = torch.load(weights, mmap=True)
+    emit({"phase": "moe_weights", **draw, "bytes": os.path.getsize(weights), "cut": cut,
+          "note": "the numpy draw of Llama.init(0), bf16, in its own process beside the Llama "
+                  "entry points (waited_s: how long it ran on after them)"})
+
+    # (b) single-device training, the main path counted
+    model = moe_model(dev, full, dtype="bfloat16", xent_chunk=8192)
+    cfg = model.config
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LLAMA_TRAIN_B, LLAMA_TRAIN_S)),
+                        device=dev)
+    y = torch.roll(x, -1, 1)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(x, y, attn_impl="flash")
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = [step() for _ in range(MOE_TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(tflash)
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(MOE_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / MOE_TRAIN_STEPS
+    train_launches = train_counts(tflash)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.stack(losses).float().tolist()
+    tokens = LLAMA_TRAIN_B * LLAMA_TRAIN_S
+    flops = moe_train_flops(cfg, tokens, LLAMA_TRAIN_S)
+    capacity = int(cfg.capacity_factor * tokens * cfg.expert_top_k / cfg.n_experts) + 1
+    # at d 4096 the initial logits are not near zero: an rms-normalised h against
+    # lm_head rows of std 0.02 gives logits of variance 0.02²·d, and a uniform
+    # guess's ln V rises by half of it (E[logsumexp] of Gaussian logits)
+    loss_at_init = LLAMA_LOSS_AT_INIT + 0.02 ** 2 * cfg.d_model / 2
+    emit({"phase": "moe_train", "model": "mixtral-8x7b", "cut": cut, "params": model.n_params(),
+          "dtype": "bfloat16", "batch": LLAMA_TRAIN_B, "seq": LLAMA_TRAIN_S, "attn_impl": "flash",
+          "xent_chunk": cfg.xent_chunk, "optimizer": "AdamW(3e-4, weight_decay=0.01)",
+          "experts": cfg.n_experts, "top_k": cfg.expert_top_k, "capacity": capacity,
+          "steps": MOE_TRAIN_STEPS, "launches": train_launches, "step_ms": step_ms,
+          "tokens_per_s": tokens * 1e3 / step_ms, "active_flops_per_step": flops,
+          "mfu_active": flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+          "peak_memory_gb": peak, "losses": losses, "loss_at_init": loss_at_init,
+          "card": card})
+    want = cfg.n_layer * MOE_TRAIN_STEPS
+    check(bf16_step_counts_ok(train_launches, want, want),
+          f"Mixtral train steps launched {train_launches}, expected {want} of the forward and of "
+          f"each tensor-core backward kernel and no FMA backward")
+    check(all(np.isfinite(losses)) and abs(losses[0] - loss_at_init) < 0.5
+          and losses[-1] < losses[0],
+          f"Mixtral train loss not finite, near {loss_at_init} at first and falling: {losses}")
+    phase_train_trace(step, label="moe_train_step")
+    single_loss = losses[0]
+    del model, opt
+    torch.cuda.empty_cache()
+
+    # the f32 gradient check: the kernels against the plain path, one device
+    model = moe_model(dev, full)
+    xs, ys = x[:MOE_F32_B, :MOE_F32_S], y[:MOE_F32_B, :MOE_F32_S]
+    names = [n for n, _ in model.named_parameters() if ".moe." in n or n.endswith("attn.wq")]
+    params = dict(model.named_parameters())
+    model.loss(xs, ys, attn_impl="flash").backward()
+    kernel_grads = {n: params[n].grad.clone() for n in names}
+    model.zero_grad(set_to_none=True)
+    model.loss(xs, ys, attn_impl="xla").backward()
+    f32_err = _grad_err(kernel_grads, {n: params[n].grad for n in names}, names)
+    emit({"phase": "moe_f32_grads", "batch": [MOE_F32_B, MOE_F32_S], "leaves": len(names),
+          "max_err_over_max_abs": f32_err, "tol": TOL_TRAIN_GRADS})
+    check(f32_err <= TOL_TRAIN_GRADS,
+          f"Mixtral f32 expert and wq gradients through the kernels: {f32_err}")
+    del model, params, kernel_grads
+    torch.cuda.empty_cache()
+
+    # (c) ep = 2
+    ranks, ep_seconds = spawn_mesh(moe_ep_rank, "ep", 2, weights)
+    t_a2a = sum(r["dispatch_ms"] + r["return_ms"] for r in ranks) / len(ranks)
+    emit({"phase": "moe_ep", "model": "mixtral-8x7b", "cut": cut, "ep": 2, "dtype": "bfloat16",
+          "batch": [LLAMA_TRAIN_B, LLAMA_TRAIN_S], "steps": MOE_EP_STEPS, "warmup": MOE_EP_WARMUP,
+          "single_device_step0_loss": single_loss, "seconds_with_spawn": ep_seconds,
+          "all_to_all_ms_per_step_est": 2 * cfg.n_layer * t_a2a,
+          "exchange_share_est": 2 * cfg.n_layer * t_a2a / (sum(r["step_ms"] for r in ranks) / 2),
+          "card": card, "ranks": ranks,
+          "note": "ranks time-slice one card: the step is the exchange's cost, not a speed-up; "
+                  "the all_to_all share estimates 2 dispatches and 2 returns a layer at the "
+                  "times measured alone"})
+    for r in ranks:
+        rk = r["rank"]
+        check(bf16_step_counts_ok(r["launches"], cfg.n_layer * MOE_EP_STEPS,
+                                  cfg.n_layer * MOE_EP_STEPS),
+              f"ep rank {rk}: flash launches {r['launches']}")
+        check(r["all_to_all_per_step"] == 4 * cfg.n_layer,
+              f"ep rank {rk}: {r['all_to_all_per_step']} all_to_all a step, expected "
+              f"{4 * cfg.n_layer} (2 a MoE layer forward, 2 backward): the a2a branch")
+        check(abs(r["losses"][0] - single_loss) <= MP_BF16_LOSS_RTOL * abs(single_loss),
+              f"ep rank {rk}: step-0 loss {r['losses'][0]} vs single-device {single_loss}")
+        check(all(np.isfinite(r["losses"])) and r["losses"][-1] < r["losses"][0],
+              f"ep rank {rk}: losses {r['losses']}")
+        check(r["f32"]["loss_rel_err"] <= 1e-5
+              and r["f32"]["grads_max_err_over_max_abs"] <= TOL_TRAIN_GRADS,
+              f"ep rank {rk}: f32 gradients against one device: {r['f32']}")
+    check(ranks[0]["losses"] == ranks[1]["losses"]
+          and ranks[0]["replicated_sha"] == ranks[1]["replicated_sha"],
+          "ep ranks: losses or replicated leaves differ")
+
+    # (d) serving: bf16 through the pipelined kernel, the main path counted
+    model = moe_model(dev, full, dtype="bfloat16")
+    rng = np.random.default_rng(2)
+    lengths = rng.integers(64, 769, MOE_REQUESTS)
+    budgets = rng.integers(16, 129, MOE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int64) for n in lengths]
+    kw = dict(paged_kv="int4", page_size=PAGE, prefill_chunk=PAGED_CHUNK, n_slots=PAGED_SLOTS)
+    srv = ContinuousBatcher(model, **kw)
+    drain(srv, prompts[:4], [8] * 4)  # warm-up: cuBLAS, the allocator
+    srv.reset_latency_stats()
+    pre0, ticks0 = srv.n_prefill_dispatches, srv.n_plain_ticks
+    tpa.paged_attn_launches = tpa.paged_attn_pipelined_launches = 0
+    toks, wall, tick_ms = drain(srv, prompts, budgets)
+    serve_launches = paged_counts(tpa)
+    n_chunks, n_ticks = srv.n_prefill_dispatches - pre0, srv.n_plain_ticks - ticks0
+    dispatches = n_chunks + n_ticks * srv.decode_quantum
+    lat = srv.latency_stats()
+    new_tokens = sum(len(t) for t in toks)
+    row = {"phase": "moe_serve", "model": "mixtral-8x7b", "cut": cut, "dtype": "bfloat16",
+           "paged_kv": "int4", "page_size": PAGE, "prefill_chunk": PAGED_CHUNK,
+           "n_slots": PAGED_SLOTS, "requests": MOE_REQUESTS, "prompt_tokens": int(lengths.sum()),
+           "launches": serve_launches, "dispatches": {"prefill_chunks": n_chunks,
+                                                      "decode_ticks": n_ticks},
+           "new_tokens": new_tokens, "wall_s": wall, "tokens_per_s": new_tokens / wall,
+           "ttft_p50_s": lat.get("ttft_p50_s"), "e2e_p50_s": lat.get("e2e_p50_s"),
+           "decode_tick_ms_median": statistics.median(tick_ms), "card": card}
+    check(serve_launches == {"paged_attn": 0,
+                             "paged_attn_pipelined": cfg.n_layer * dispatches},
+          f"the Mixtral drain launched {serve_launches}, expected {cfg.n_layer} x {dispatches} "
+          "pipelined launches")
+    check(all(len(t) == int(n) for t, n in zip(toks, budgets)),
+          "a request of the Mixtral drain did not complete its budget")
+    check(srv.free_pages == srv.n_pages - 1, "pages leaked by the Mixtral drain")
+    row["steady_tick"] = steady_tick(srv, prompts)
+    del srv, model
+    torch.cuda.empty_cache()
+
+    # f32: the single-buffer kernel against the gather path, the margin rule
+    model32 = moe_model(dev, full)
+    runs, before = {}, paged_counts(tpa)
+    f32_prompts, f32_budgets = prompts[:MOE_F32_REQUESTS], budgets[:MOE_F32_REQUESTS]
+    os.environ["DSML_PAGED_ATTN_PIPELINE"] = "0"
+    try:
+        for name, impl in (("kernel", "pallas"), ("gather", "xla")):
+            os.environ["DSML_PAGED_ATTN"] = impl
+            srv = ContinuousBatcher(model32, **kw)
+            runs[name], _, _ = drain(srv, f32_prompts, f32_budgets)
+            check(srv.free_pages == srv.n_pages - 1, "pages leaked by an f32 Mixtral drain")
+            del srv
+    finally:
+        del os.environ["DSML_PAGED_ATTN_PIPELINE"]
+        del os.environ["DSML_PAGED_ATTN"]
+    f32_launches = {key: n - before[key] for key, n in paged_counts(tpa).items()}
+    near_ties, mismatches = [], 0
+    for i, (a, w) in enumerate(zip(runs["kernel"], runs["gather"])):
+        diff = [j for j, (p, q) in enumerate(zip(a, w)) if p != q]
+        if diff:
+            m = first_divergence_margin(model32, f32_prompts[i], w, diff[0])
+            near_ties.append({"request": i, "step": diff[0], "margin": m})
+            mismatches += m >= MARGIN
+    row["f32"] = {"requests": MOE_F32_REQUESTS, "kernel": "paged_attn (single buffer)",
+                  "launches": f32_launches, "tokens_equal": runs["kernel"] == runs["gather"],
+                  "near_ties": near_ties}
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    check(f32_launches["paged_attn"] > 0 and f32_launches["paged_attn_pipelined"] == 0,
+          f"the f32 Mixtral drains launched {f32_launches}, expected the single-buffer kernel only")
+    check(all(len(t) == int(n) for t, n in zip(runs["kernel"], f32_budgets)),
+          "a request of the f32 Mixtral drain did not complete")
+    check(mismatches == 0, f"f32 Mixtral kernel tokens diverge from the gather path beyond the "
+                           f"margin rule: {near_ties}")
+    del model32, full
+    torch.cuda.empty_cache()
+    os.remove(weights)
+    return {**train_launches, "paged_attn": f32_launches["paged_attn"],
+            "paged_attn_pipelined": serve_launches["paged_attn_pipelined"],
+            "flash_err": kernels["flash_err"], "bwd_err": kernels["bwd_err"],
+            "paged_err": kernels["paged_err"], "timing": kernels["timing"],
+            "paged_timing": kernels["paged_timing"]}
 
 
 def main() -> None:
@@ -4796,20 +5211,26 @@ def main() -> None:
                   "kernel_stream": lambda: phase_kernel_stream(tflash, dev),
                   "kernel_head_dim": lambda: phase_kernel_head_dim(tflash, dev),
                   "cp_slice": lambda: phase_cp_slice(card),
-                  "cp_cli": phase_cp_cli,
+                  "cp_cli": lambda: phase_train_cli_runs(train_cli_start(["cp2"])),
                   "allreduce": lambda: phase_allreduce(card),
                   "quant_allreduce": lambda: phase_quant_allreduce(card),
                   "dp_slice": lambda: phase_dp_slice(card),
-                  "dp_cli": phase_dp_cli,
+                  "dp_cli": lambda: phase_train_cli_runs(train_cli_start(["dp2"])),
                   "llama_cli": lambda: phase_llama_cli(llama_cli_start()),
-                  "llama_kernel": lambda: phase_llama_kernel(tflash, dev),
+                  "llama_kernel": lambda: family_kernels(tflash, dev, "llama", LLAMA_HEADS,
+                                                         LLAMA_KV_HEADS, D, verify=True),
                   "llama_train": lambda: phase_llama_train(tflash, dev, card),
                   "llama_serve": lambda: phase_llama_serve(dev, card),
                   "llama_ticks": lambda: phase_llama_ticks(dev, card),
                   "obs": lambda: phase_obs(tflash, dev, card),
                   "checkpoint": lambda: phase_checkpoint(tflash, dev, card),
                   "model_parallel": lambda: phase_model_parallel(tflash, dev, card),
-                  "mp_cli": lambda: phase_mp_cli(mp_cli_start())}
+                  "mp_cli": lambda: phase_train_cli_runs(
+                      train_cli_start(["tinyllama_tp2", "small_pp2_1f1b"])),
+                  "moe": lambda: phase_moe(
+                      tflash, dev, card, moe_weights_wait(moe_weights_start()),
+                      family_kernels(tflash, dev, "moe", MOE_HEADS, MOE_KV_HEADS, MOE_HD,
+                                     verify=False))}
         for name in only:
             phases[name]()
         raise SystemExit(f"chip_smoke: ran only {only}; no result line")
@@ -4825,7 +5246,9 @@ def main() -> None:
     phase_kernel_head_dim(tflash, dev)
     # with the other kernel phases: late in a full run the profiler's traces
     # lost events twice in this phase (never in its own run)
-    llama_kernels = phase_llama_kernel(tflash, dev)
+    llama_kernels = family_kernels(tflash, dev, "llama", LLAMA_HEADS, LLAMA_KV_HEADS, D,
+                                   verify=True)
+    moe_kernels = family_kernels(tflash, dev, "moe", MOE_HEADS, MOE_KV_HEADS, MOE_HD, verify=False)
     launches, model, prompt = phase_slice(tflash, dev, card)
     phase_trace(model, prompt)
     del model
@@ -4846,25 +5269,41 @@ def main() -> None:
     remat_launches = phase_train_int8remat(tflash, dev, card)
     torch.cuda.empty_cache()
     cp_launches = phase_cp_slice(card)
-    phase_cp_cli()
     torch.cuda.empty_cache()
     phase_allreduce(card)
     phase_quant_allreduce(card)
     _, q8_launches = phase_dp_slice(card)
-    phase_dp_cli()
     torch.cuda.empty_cache()
-    # the Llama entry points run as processes while this one builds
-    # TinyLlama's weights on the host; every Llama phase is timed after them
+    # the Llama and the train_gpt2 entry points (cp, dp, tp, pp) run as
+    # processes while this one builds TinyLlama's weights on the host, and the
+    # cut Mixtral's numpy draw runs beside them in its own process: every
+    # Llama phase is timed after them, and no profiled phase runs until the
+    # draw is done (a busy host lost profiler events)
     procs = llama_cli_start()
-    t0 = time.perf_counter()
-    llama_weights()
-    emit({"phase": "llama_weights", "seconds": time.perf_counter() - t0,
-          "note": "TinyLlama-1.1B's f32 init from seed 0 on the host, while the entry points run"})
-    phase_llama_cli(procs)
+    cli_procs = train_cli_start(list(TRAIN_CLI_RUNS))
+    moe_proc = moe_weights_start()
+    try:
+        t0 = time.perf_counter()
+        llama_weights()
+        emit({"phase": "llama_weights", "seconds": time.perf_counter() - t0,
+              "note": "TinyLlama-1.1B's f32 init from seed 0 on the host, while the entry "
+                      "points run"})
+        phase_llama_cli(procs)
+        phase_train_cli_runs(cli_procs)
+        moe_draw = moe_weights_wait(moe_proc)
+    except BaseException:
+        for p in (*procs.values(), *cli_procs.values(), moe_proc):
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        raise
     llama_train_launches = phase_llama_train(tflash, dev, card)
     torch.cuda.empty_cache()
     llama_paged_launches = phase_llama_serve(dev, card)
     phase_llama_ticks(dev, card)
+    torch.cuda.empty_cache()
+    # expert parallelism: the cut Mixtral trained on one card and at ep = 2, then served
+    moe = phase_moe(tflash, dev, card, moe_draw, moe_kernels)
     torch.cuda.empty_cache()
     # the observability core on the serving and training paths (its launches
     # are in its own line: the kernels line reads the paths above)
@@ -4872,9 +5311,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     ckpt_launches = phase_checkpoint(tflash, dev, card)
     torch.cuda.empty_cache()
-    # model parallelism: tp, pp (three schedules), ZeRO-3/ZeRO-2 and pp x tp,
-    # the two model-parallel entry points beside the last
-    mp_launches, mp_quant8 = phase_model_parallel(tflash, dev, card, with_cli=True)
+    # model parallelism: tp, pp (three schedules), ZeRO-3/ZeRO-2 and pp x tp
+    mp_launches, mp_quant8 = phase_model_parallel(tflash, dev, card)
 
     # the backward's two routes: bf16 (tensor cores) with launches from the
     # bf16 train steps, f32 (FMAs) with launches from phase_train's f32
@@ -4892,27 +5330,30 @@ def main() -> None:
         err = bwd_err[dtype]
         llama = llama_train_launches if dtype == torch.bfloat16 else {dq_name: 0, dkv_name: 0}
         mp = mp_launches if dtype == torch.bfloat16 else {dq_name: 0, dkv_name: 0}
+        mx = moe if dtype == torch.bfloat16 else {dq_name: 0, dkv_name: 0}
         bwd_rows += [
             {"name": dq_name, "route": "cuda", "source": source, "replaces": "dsml_tpu/ops/flash.py:481",
-             "launches": counts[dq_name] + llama[dq_name] + ckpt_launches[dq_name] + mp[dq_name],
+             "launches": counts[dq_name] + llama[dq_name] + ckpt_launches[dq_name] + mp[dq_name]
+             + mx[dq_name],
              "launches_by_path": {"train": counts[dq_name], "llama_train": llama[dq_name],
                                   "checkpoint": ckpt_launches[dq_name],
-                                  "model_parallel": mp[dq_name]},
+                                  "model_parallel": mp[dq_name], "moe": mx[dq_name]},
              "max_abs_err": err["dq"], **bwd_timing[dq_name]},
             {"name": dkv_name, "route": "cuda", "source": source, "replaces": "dsml_tpu/ops/flash.py:526",
-             "launches": counts[dkv_name] + llama[dkv_name] + ckpt_launches[dkv_name] + mp[dkv_name],
+             "launches": counts[dkv_name] + llama[dkv_name] + ckpt_launches[dkv_name] + mp[dkv_name]
+             + mx[dkv_name],
              "launches_by_path": {"train": counts[dkv_name], "llama_train": llama[dkv_name],
                                   "checkpoint": ckpt_launches[dkv_name],
-                                  "model_parallel": mp[dkv_name]},
+                                  "model_parallel": mp[dkv_name], "moe": mx[dkv_name]},
              "max_abs_err": max(err["dk"], err["dv"]), **bwd_timing[dkv_name]}]
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": "dsml_tpu_torch/ops/csrc/flash_fwd.cu",
          "replaces": "dsml_tpu/ops/flash.py:198",
          "launches": launches + llama_train_launches["flash_fwd"] + ckpt_launches["flash_fwd"]
-         + mp_launches["flash_fwd"],
+         + mp_launches["flash_fwd"] + moe["flash_fwd"],
          "launches_by_path": {"slice": launches, "llama_train": llama_train_launches["flash_fwd"],
                               "checkpoint": ckpt_launches["flash_fwd"],
-                              "model_parallel": mp_launches["flash_fwd"]},
+                              "model_parallel": mp_launches["flash_fwd"], "moe": moe["flash_fwd"]},
          "max_abs_err": main_err, **timing},
         *bwd_rows,
         # times at the decode tick's shape (the chunk's are in the kernel_time line);
@@ -4920,20 +5361,22 @@ def main() -> None:
         {"name": "paged_attn", "route": "cuda", "source": PAGED_SOURCE,
          "replaces": "dsml_tpu/ops/paged_attention.py:169",
          "launches": single_launches["paged_attn"] + llama_paged_launches["paged_attn"]
-         + ckpt_launches["paged_attn"],
+         + ckpt_launches["paged_attn"] + moe["paged_attn"],
          "launches_by_path": {"paged_slice": single_launches["paged_attn"],
                               "llama_serve": llama_paged_launches["paged_attn"],
-                              "checkpoint": ckpt_launches["paged_attn"]},
-         "max_abs_err": max(paged_err, llama_kernels["paged_err"]),
+                              "checkpoint": ckpt_launches["paged_attn"], "moe": moe["paged_attn"]},
+         "max_abs_err": max(paged_err, llama_kernels["paged_err"], moe["paged_err"]),
          **paged_timing["paged_attn"]["decode"]},
         {"name": "paged_attn_pipelined", "route": "cuda", "source": PAGED_SOURCE,
          "replaces": "dsml_tpu/ops/paged_attention.py:259",
          "launches": paged_launches["paged_attn_pipelined"]
-         + llama_paged_launches["paged_attn_pipelined"] + ckpt_launches["paged_attn_pipelined"],
+         + llama_paged_launches["paged_attn_pipelined"] + ckpt_launches["paged_attn_pipelined"]
+         + moe["paged_attn_pipelined"],
          "launches_by_path": {"paged_slice": paged_launches["paged_attn_pipelined"],
                               "llama_serve": llama_paged_launches["paged_attn_pipelined"],
-                              "checkpoint": ckpt_launches["paged_attn_pipelined"]},
-         "max_abs_err": max(paged_err, llama_kernels["paged_err"]),
+                              "checkpoint": ckpt_launches["paged_attn_pipelined"],
+                              "moe": moe["paged_attn_pipelined"]},
+         "max_abs_err": max(paged_err, llama_kernels["paged_err"], moe["paged_err"]),
          **paged_timing["paged_attn_pipelined"]["decode"]},
         # times at the decode tick's shape of wqkv (16 rows, int4, bf16 x; the
         # other projections and the chunk are in the kernel_time line);

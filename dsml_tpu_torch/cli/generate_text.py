@@ -31,7 +31,7 @@ from dsml_tpu_torch.utils.config import Config, field
 class GenerateConfig(Config):
     device: str = field("cuda", help="torch device: cuda | cpu")
     family: str = field("gpt2", help="model family: gpt2 | llama")
-    model: str = field("tiny", help="preset (gpt2: tiny|small|medium|large|xl; llama: tiny|tinyllama_1b|llama2_7b|llama3_8b)")
+    model: str = field("tiny", help="preset (gpt2: tiny|small|medium|large|xl; llama: tiny|tinyllama_1b|llama2_7b|llama3_8b|mixtral_8x7b)")
     prompt: str = field("the cat ", help="prompt text (byte-tokenised)")
     prompt_len: int = field(0, help="repeat the prompt up to this many tokens (0 = as given; >= 512 reaches the flash kernel on the card)")
     n_samples: int = field(2, help="continuations to sample (the batch)")

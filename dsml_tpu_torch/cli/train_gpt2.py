@@ -74,7 +74,7 @@ OPT_STATE_KIND = "clip_adamw"
 @dataclasses.dataclass
 class GPT2TrainConfig(Config):
     device: str = field("cuda", help="torch device: cuda | cpu")
-    model: str = field("tiny", help="gpt2 family: tiny | small (124M) | medium | large | xl; llama family: tiny | tinyllama_1b | llama2_7b | llama3_8b")
+    model: str = field("tiny", help="gpt2 family: tiny | small (124M) | medium | large | xl; llama family: tiny | tinyllama_1b | llama2_7b | llama3_8b | mixtral_8x7b")
     family: str = field("gpt2", help="model family: gpt2 | llama (RMSNorm/RoPE/SwiGLU/GQA)")
     dtype: str = field("", help="params/activations dtype: float32 | bfloat16 ('' = model default)")
     remat: bool = field(False, help="rematerialize each block's activations in backward (less memory, more FLOPs)")

@@ -44,8 +44,16 @@ each rank holds its contiguous shard of the tokens, positions start at the
 shard's origin, attention is the bidirectional flash ring
 (``attn_impl="ring2"``, ``ops/ring_attention.py``) and the loss is this
 rank's mean over its own rows (``parallel/hybrid.py`` reduces it over the
-group). The other sequence-parallel attentions and MoE come with later
-slices.
+group). The other sequence-parallel attentions come with a later slice.
+
+Experts: with ``n_experts > 0`` every block's MLP is the top-k gated
+mixture of experts of the JAX ``_moe_block`` (:meth:`GPT2._moe_block`),
+GELU experts with biases, capacity-bounded sort/segment routing (overflow
+dropped), on every surface: training, ``generate`` and the batcher's dense
+and paged ticks. Under tp the experts are sharded over the tp group
+(expert parallelism, ep = tp): each rank routes its 1/ep slice of the
+tokens and the payloads ride ``ops.collectives.all_to_all`` to the
+experts' owners and back.
 
 Tensor and pipeline parallelism: a model built with ``tp_group`` (a
 ``RingGroup`` of the mesh's ``tp`` axis) holds this rank's Megatron shard
@@ -79,6 +87,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -88,12 +97,14 @@ from torch.utils.checkpoint import checkpoint
 
 from dsml_tpu_torch.models.common import fsdp_spec_fn, qmatmul, shard_leaf
 from dsml_tpu_torch.ops.attention import _NEG_INF, attention
+from dsml_tpu_torch.ops.collectives import all_gather, all_to_all
 from dsml_tpu_torch.ops.flash import flash_attention
 from dsml_tpu_torch.ops.paged_attention import paged_attention, paged_attn_impl
 from dsml_tpu_torch.ops.quantization import compressed_checkpoint, quantize_kv_rows, unpack_int4
 from dsml_tpu_torch.ops.ring_attention import ring_attention
 from dsml_tpu_torch.ops.xent import chunked_softmax_xent
-from dsml_tpu_torch.parallel.tp import (copy_to_tp, reduce_from_tp, tp_rank, tp_size,
+from dsml_tpu_torch.parallel.tp import (all_gather_tp, copy_to_tp, gather_from_tp,
+                                        reduce_from_tp, split_to_tp, tp_rank, tp_size,
                                         vocab_parallel_embed, vocab_parallel_xent)
 from dsml_tpu_torch.utils.platform import resolve_device
 
@@ -118,8 +129,11 @@ class GPT2Config:
     # loss: stream the unembedding in chunks of this many vocab rows
     # (ops/xent.py) when vocab_size > xent_chunk; 0 = dense logits
     xent_chunk: int = 8192
-    # MoE layers: kept so that a JAX config carries over; raises if set
+    # MoE: 0 experts = dense MLP; otherwise the top-k gated expert layer
+    # (GPT2._moe_block), experts sharded over tp
     n_experts: int = 0
+    expert_top_k: int = 2
+    capacity_factor: float = 1.25
     # interleaved virtual pipeline stages (Megatron PTD-P): each pp rank
     # holds this many non-contiguous layer chunks (parallel/pp.py); gpipe only
     pp_interleave: int = 1
@@ -132,11 +146,6 @@ class GPT2Config:
         if self.remat not in (False, True, "int8", "mlp"):
             raise ValueError(
                 f"unknown remat mode {self.remat!r}; choose False, True, 'int8', or 'mlp'")
-        if self.n_experts:
-            raise NotImplementedError(
-                "MoE layers (n_experts > 0) come with the model-parallel serving and expert "
-                "slice (ROADMAP.md queue 1, item 11)"
-            )
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -257,13 +266,24 @@ class GPT2(nn.Module):
                     "wqkv": param(d, 3, d // tp), "bqkv": param(3, d // tp),
                     "wo": param(d // tp, d), "bo": param(d),
                 }),
-                "mlp": nn.ParameterDict({
-                    "w_in": param(d, cfg.d_ff // tp), "b_in": param(cfg.d_ff // tp),
-                    "w_out": param(cfg.d_ff // tp, d), "b_out": param(d),
-                }),
+                **({"moe": self._moe_params(param)} if cfg.n_experts else {
+                    "mlp": nn.ParameterDict({
+                        "w_in": param(d, cfg.d_ff // tp), "b_in": param(cfg.d_ff // tp),
+                        "w_out": param(cfg.d_ff // tp, d), "b_out": param(d),
+                    })}),
             })
             for _ in self.layer_ids
         )
+
+    def _moe_params(self, param) -> nn.ParameterDict:
+        """One expert layer's parameters, this rank's experts of them (the
+        JAX ``_moe_param_init`` layout; the gate replicated): shared by
+        every family that mounts :meth:`_moe_block`."""
+        cfg = self.config
+        d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts // self.tp
+        return nn.ParameterDict({"gate": param(d, cfg.n_experts), "w_in": param(e, d, ff),
+                                 "b_in": param(e, ff), "w_out": param(e, ff, d),
+                                 "b_out": param(e, d)})
 
     def _set_parallel(self, tp_group, layer_ids) -> None:
         """The tensor-parallel group and the held layers, with the JAX
@@ -276,6 +296,8 @@ class GPT2(nn.Module):
             raise ValueError(f"n_head={cfg.n_head} not divisible by tp={self.tp}")
         if cfg.vocab_size % self.tp:
             raise ValueError(f"vocab_size={cfg.vocab_size} not divisible by tp={self.tp}")
+        if cfg.n_experts % self.tp:
+            raise ValueError(f"n_experts={cfg.n_experts} not divisible by tp={self.tp}")
         self.layer_ids = list(range(cfg.n_layer)) if layer_ids is None else list(layer_ids)
 
     @property
@@ -300,16 +322,30 @@ class GPT2(nn.Module):
             "attn.bqkv": F((None, "tp"), 3, d),
             "attn.wo": F(("tp", None), d, d),  # row-parallel
             "attn.bo": F((), d),
-            "mlp.w_in": F((None, "tp"), d, ff),
-            "mlp.b_in": F(("tp",), ff),
-            "mlp.w_out": F(("tp", None), ff, d),
-            "mlp.b_out": F((), d),
+            **(self._moe_specs(fsdp) if cfg.n_experts else {
+                "mlp.w_in": F((None, "tp"), d, ff),
+                "mlp.b_in": F(("tp",), ff),
+                "mlp.w_out": F(("tp", None), ff, d),
+                "mlp.b_out": F((), d),
+            }),
         }
         specs = {"wte": F(("tp", None), V, d), "wpe": F((), S, d),
                  "ln_f.scale": F((), d), "ln_f.bias": F((), d)}
         for i in range(cfg.n_layer):
             specs.update({f"layers.{i}.{k}": v for k, v in layer.items()})
         return specs
+
+    def _moe_specs(self, fsdp: int = 1) -> dict:
+        """The JAX ``_moe_specs``: experts sharded over tp (EP), the gate
+        replicated; fsdp on each leaf's first free divisible dim."""
+        cfg = self.config
+        d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+        F = fsdp_spec_fn(fsdp)
+        return {"moe.gate": F((), d, E),
+                "moe.w_in": F(("tp", None, None), E, d, ff),
+                "moe.b_in": F(("tp", None), E, ff),
+                "moe.w_out": F(("tp", None, None), E, ff, d),
+                "moe.b_out": F(("tp", None), E, d)}
 
     def local_name(self, name: str) -> str | None:
         """This model's parameter name for the whole model's ``name``
@@ -369,16 +405,29 @@ class GPT2(nn.Module):
         for i in range(cfg.n_layer):
             normal(f"layers.{i}.attn.wqkv", (d, 3, d))
             normal(f"layers.{i}.attn.wo", (d, d), std=res_std)
-            normal(f"layers.{i}.mlp.w_in", (d, ff))
-            normal(f"layers.{i}.mlp.w_out", (ff, d), std=res_std)
+            if cfg.n_experts:
+                self._moe_draw(normal, i, res_std)
+            else:
+                normal(f"layers.{i}.mlp.w_in", (d, ff))
+                normal(f"layers.{i}.mlp.w_out", (ff, d), std=res_std)
         for layer in self.layers:
             unit_norm(layer["ln_1"])
             unit_norm(layer["ln_2"])
             for key in ("bqkv", "bo"):
                 layer["attn"][key].zero_()
             for key in ("b_in", "b_out"):
-                layer["mlp"][key].zero_()
+                layer["moe" if cfg.n_experts else "mlp"][key].zero_()
         return self
+
+    def _moe_draw(self, normal, i: int, res_std: float) -> None:
+        """Layer ``i``'s expert draws in the JAX ``_moe_param_init`` order:
+        ``gate``, ``w_in``, then ``w_out`` at ``res_std`` (the biases are
+        zeros, not draws)."""
+        cfg = self.config
+        d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+        normal(f"layers.{i}.moe.gate", (d, E))
+        normal(f"layers.{i}.moe.w_in", (E, d, ff))
+        normal(f"layers.{i}.moe.w_out", (E, ff, d), std=res_std)
 
     def _drawer(self, seed: int):
         """``normal(name, full_shape, std)``: the next ``standard_normal``
@@ -388,8 +437,9 @@ class GPT2(nn.Module):
         rng = np.random.default_rng(seed)
 
         def normal(name, shape, std=0.02):
-            arr = (rng.standard_normal(shape) * std).astype(np.float32)
-            self.load_full({name: arr})
+            arr = rng.standard_normal(shape)
+            arr *= std  # in place: the same f64 products, without a second f64 array
+            self.load_full({name: arr.astype(np.float32)})
 
         return normal
 
@@ -436,8 +486,154 @@ class GPT2(nn.Module):
         return self._tp_out(qmatmul(hmid, mlp["w_out"])) + mlp["b_out"]
 
     def _ffn(self, layer, h):
-        return h + self._mlp_block(layer["mlp"], _layer_norm(h, layer["ln_2"]["scale"],
-                                                             layer["ln_2"]["bias"]))
+        x = _layer_norm(h, layer["ln_2"]["scale"], layer["ln_2"]["bias"])
+        if self.config.n_experts:
+            return h + self._moe_block(layer["moe"], x)
+        return h + self._mlp_block(layer["mlp"], x)
+
+    def _moe_route(self, gate, toks, dtype):
+        """(top_p [t', k] in ``dtype``, flat_e [t'·k], pos [t'·k], counts
+        [E]) of the tokens ``toks`` [t', d] under the gate weight ``gate``:
+        softmax in f32, the top k renormalised in f32, ``pos`` each
+        assignment's position in its expert's segment among THESE
+        assignments. The stable sorts keep the lower expert first on a tie
+        (``lax.top_k``) and the flattened token-major order within each
+        expert (``jnp.argsort(stable=True)``)."""
+        n_exp, k = self.config.n_experts, self.config.expert_top_k
+        probs = torch.softmax((toks @ gate.to(toks.dtype)).float(), dim=-1)
+        top_e = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :k]
+        top_p = probs.gather(-1, top_e)
+        top_p = (top_p / top_p.sum(-1, keepdim=True)).to(dtype)
+        flat_e = top_e.reshape(-1)
+        order = torch.sort(flat_e, stable=True).indices
+        counts = torch.zeros(n_exp, dtype=flat_e.dtype, device=toks.device).index_add_(
+            0, flat_e, torch.ones_like(flat_e))
+        starts = counts.cumsum(0) - counts  # exclusive prefix
+        pos = torch.empty_like(flat_e)
+        pos[order] = torch.arange(flat_e.shape[0], device=toks.device) - starts[flat_e[order]]
+        return top_p, flat_e, pos, counts
+
+    def _moe_block(self, moe, x):
+        """The top-k gated mixture of experts of ``x`` [b, s, d] (the JAX
+        ``_moe_block``), experts sharded over the tp group (ep = tp).
+
+        Routing is capacity-bounded over the block's T = b·s tokens, each
+        expert taking ``capacity = int(capacity_factor·T·k/E) + 1``
+        assignments and the overflow dropped, in the sort/segment form: the
+        T·k assignments stable-sorted by expert id, each one's position in
+        its expert's buffer its sorted index minus the expert's segment
+        start (an exclusive prefix of the counts), so the flattened
+        token-major order sets the priority; dispatch is a scatter-add of
+        token rows into the flat [E·C, d] buffer (dropped assignments land
+        in a dummy row), combine a gather of each assignment's expert
+        output weighted by its renormalised gate probability. Nothing of the
+        dense [T, E, C] one-hot is ever built.
+
+        Three branches, as in the JAX block: one device routes all T; under
+        ep > 1 with T % ep == 0 each rank routes its 1/ep token slice
+        (positions made global from an all-gather of the per-rank expert
+        counts), ``all_to_all`` ships the [E, C, d] slot payloads to the
+        experts' owners (the slots are disjoint, so summing what arrives is
+        exact), the resident experts run, a second ``all_to_all`` returns
+        each token slice's partial outputs to its rank and an all-gather
+        restores replication; otherwise every rank routes all T, runs its
+        own experts on their slots and the outputs are summed over the
+        group (with the JAX warning). Gradients follow the port's tp rule
+        (``parallel/tp.py``): the gate and the block input carry every
+        rank's share, the expert shards their own."""
+        cfg = self.config
+        b, s, d = x.shape
+        n_exp, k = cfg.n_experts, cfg.expert_top_k
+        group, ep = self.tp_group, self.tp
+        exp_local = n_exp // ep
+        tokens = x.reshape(-1, d)
+        t = tokens.shape[0]
+        capacity = int(cfg.capacity_factor * t * k / n_exp) + 1
+        n_slots = n_exp * capacity
+        gate = copy_to_tp(moe["gate"], group)  # used on per-rank tokens: its grads summed
+
+        def arange(n):
+            return torch.arange(n, device=x.device)
+
+        def route(toks):
+            return self._moe_route(gate, toks, x.dtype)
+
+        def scatter_tokens(slot, tok_idx, toks, n_rows):
+            """Flat [n_rows, d] buffer with ``toks[tok_idx]`` added at
+            ``slot``; slot ``n_rows`` is the dummy row of dropped
+            assignments."""
+            buf = toks.new_zeros((n_rows + 1, d))
+            return buf.index_add(0, slot, toks[tok_idx])[:-1]
+
+        use_a2a = ep > 1 and t % ep == 0
+        if ep > 1 and not use_a2a:
+            warnings.warn(
+                f"MoE a2a dispatch disabled: {t} tokens per rank do not split "
+                f"over ep={ep}; falling back to replicated dispatch + psum "
+                "(correct, but pays replicated expert FLOPs and a psum instead "
+                "of the all_to_all payload exchange)",
+                stacklevel=2,
+            )
+        r = tp_rank(group)
+        if use_a2a:
+            t_local = t // ep
+            n_loc = t_local * k
+            tok_r = split_to_tp(tokens, group)
+            top_p_r, flat_e_r, pos_loc, counts_r = route(tok_r)
+            counts_all = all_gather(counts_r, group, tiled=False)  # [ep, E]
+            rank_base = counts_all.cumsum(0) - counts_all  # exclusive over ranks
+            pos_r = pos_loc + rank_base[r][flat_e_r]  # the global capacity position
+            kept_r = pos_r < capacity
+            partial = scatter_tokens(torch.where(kept_r, flat_e_r * capacity + pos_r, n_slots),
+                                     arange(n_loc) // k, tok_r, n_slots).reshape(n_exp, capacity, d)
+            # our experts' slots from every rank, concatenated on the capacity
+            # axis: disjoint slots, so the sum is the exact buffer
+            recv = all_to_all(partial, group, 0, 1)
+            expert_in = recv.reshape(exp_local, ep, capacity, d).sum(1)
+            flat_e = all_gather(flat_e_r, group)
+            pos_flat = all_gather(pos_r, group)
+            top_p = all_gather_tp(top_p_r, group)  # [T, k]
+            kept = pos_flat < capacity
+            local_slot = torch.where(kept & (flat_e // exp_local == r),
+                                     (flat_e - r * exp_local) * capacity + pos_flat,
+                                     exp_local * capacity)
+        else:
+            tokens = copy_to_tp(tokens, group)  # the fallback's uses differ by rank
+            top_p, flat_e, pos_flat, _ = route(tokens)
+            flat_tok = arange(t * k) // k
+            kept = pos_flat < capacity
+            slot_flat = torch.where(kept, flat_e * capacity + pos_flat, n_slots)
+            if ep > 1:
+                local_slot = torch.where(kept & (flat_e // exp_local == r),
+                                         (flat_e - r * exp_local) * capacity + pos_flat,
+                                         exp_local * capacity)
+                expert_in = scatter_tokens(local_slot, flat_tok, tokens,
+                                           exp_local * capacity).reshape(exp_local, capacity, d)
+            else:
+                expert_in = scatter_tokens(slot_flat, flat_tok, tokens,
+                                           n_slots).reshape(n_exp, capacity, d)
+
+        hmid = F.gelu(torch.bmm(expert_in, moe["w_in"]) + moe["b_in"][:, None, :],
+                      approximate="tanh")
+        expert_out = torch.bmm(hmid, moe["w_out"]) + moe["b_out"][:, None, :]
+
+        def combine_from(buf_flat, slot):
+            """[T, d]: each token's k assignment outputs from the flat buffer
+            (+ a dummy zero row), weighted by ``top_p``."""
+            buf = torch.cat([buf_flat, buf_flat.new_zeros(1, d)])
+            return torch.einsum("tkd,tk->td", buf[slot].reshape(t, k, d), top_p)
+
+        if use_a2a:
+            partial_out = combine_from(expert_out.reshape(exp_local * capacity, d), local_slot)
+            # each token slice's partials to the rank that routed it
+            recv = all_to_all(partial_out.reshape(ep, t_local, d), group, 0, 0)
+            out = gather_from_tp(recv.sum(0), group)
+        elif ep > 1:
+            out = reduce_from_tp(
+                combine_from(expert_out.reshape(exp_local * capacity, d), local_slot), group)
+        else:
+            out = combine_from(expert_out.reshape(n_slots, d), slot_flat)
+        return out.reshape(b, s, d)
 
     def _norm1(self, layer, h):
         return _layer_norm(h, layer["ln_1"]["scale"], layer["ln_1"]["bias"])

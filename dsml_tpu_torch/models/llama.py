@@ -25,8 +25,14 @@ Weights keep the JAX tree's names and layouts (``state_dict`` keys such as
 ``lm_head``, ``rms_f.scale``, ``layers.0.attn.wq``, ``layers.0.mlp.w_gate``),
 so ``models.convert.params_from_jax`` carries JAX weights over unchanged, and
 :meth:`Llama.init` draws the JAX init's ``np.random.default_rng(seed)``
-sequence. Mixtral's expert layers (``n_experts > 0``) and Llama under a
-context-parallel ring raise, naming the ROADMAP items that bring them.
+sequence. Llama under a context-parallel ring raises, naming the ROADMAP
+item that brings it.
+
+Mixtral (``n_experts > 0``, :meth:`LlamaConfig.mixtral_8x7b`): the SwiGLU
+MLP becomes the inherited expert layer (``GPT2._moe_block``), with the JAX
+package's choices kept: GELU (tanh) experts with biases, the layer's
+``moe`` draws in the MLP's slot of the init, experts sharded over tp, and
+``remat="mlp"`` checkpointing the expert FFN.
 
 Tensor and pipeline parallelism as in ``models/gpt2.py`` (``tp_group``,
 ``layer_ids``), with the JAX ``Llama.param_specs``: column-parallel
@@ -66,8 +72,8 @@ class LlamaConfig:
     dtype: str = "float32"
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
-    # Mixtral-style expert layers: kept so that a JAX config carries over;
-    # raises if set
+    # Mixtral-style expert layers: >0 replaces the SwiGLU MLP by the
+    # inherited top-k expert layer (GPT2._moe_block: GELU experts)
     n_experts: int = 0
     expert_top_k: int = 2
     capacity_factor: float = 1.25
@@ -85,10 +91,6 @@ class LlamaConfig:
         if self.n_head % self.n_kv_head:
             raise ValueError(
                 f"n_head={self.n_head} is not a multiple of n_kv_head={self.n_kv_head}")
-        if self.n_experts:
-            raise NotImplementedError(
-                "Mixtral expert layers (n_experts > 0) come with the model-parallel serving and "
-                "expert slice (ROADMAP.md queue 1, item 11)")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -213,10 +215,11 @@ class Llama(GPT2):
                     "wq": param(d, d // tp), "wk": param(d, kv_d // tp),
                     "wv": param(d, kv_d // tp), "wo": param(d // tp, d),
                 }),
-                "mlp": nn.ParameterDict({
-                    "w_gate": param(d, cfg.d_ff // tp), "w_up": param(d, cfg.d_ff // tp),
-                    "w_down": param(cfg.d_ff // tp, d),
-                }),
+                **({"moe": self._moe_params(param)} if cfg.n_experts else {
+                    "mlp": nn.ParameterDict({
+                        "w_gate": param(d, cfg.d_ff // tp), "w_up": param(d, cfg.d_ff // tp),
+                        "w_down": param(cfg.d_ff // tp, d),
+                    })}),
             })
             for _ in self.layer_ids
         )
@@ -238,8 +241,10 @@ class Llama(GPT2):
             "rms_1.scale": F((), d), "rms_2.scale": F((), d),
             "attn.wq": F((None, "tp"), d, d), "attn.wk": F((None, "tp"), d, kv_d),
             "attn.wv": F((None, "tp"), d, kv_d), "attn.wo": F(("tp", None), d, d),
-            "mlp.w_gate": F((None, "tp"), d, ff), "mlp.w_up": F((None, "tp"), d, ff),
-            "mlp.w_down": F(("tp", None), ff, d),
+            **(self._moe_specs(fsdp) if cfg.n_experts else {
+                "mlp.w_gate": F((None, "tp"), d, ff), "mlp.w_up": F((None, "tp"), d, ff),
+                "mlp.w_down": F(("tp", None), ff, d),
+            }),
         }
         specs = {"wte": F(("tp", None), V, d), "lm_head": F(("tp", None), V, d),
                  "rms_f.scale": F((), d)}
@@ -253,8 +258,10 @@ class Llama(GPT2):
     def init(self, seed: int = 0) -> "Llama":
         """Fill the weights from ``np.random.default_rng(seed)`` in the JAX
         init's order and scales (``wte``, ``lm_head``, then per layer ``wq``,
-        ``wk``, ``wv``, ``wo``, ``w_gate``, ``w_up``, ``w_down``; the
-        residual projections ``wo`` and ``w_down`` at 0.02/sqrt(2·n_layer)):
+        ``wk``, ``wv``, ``wo``, ``w_gate``, ``w_up``, ``w_down`` — Mixtral:
+        the experts' ``gate``, ``w_in``, ``w_out`` in the MLP's place, their
+        biases zero; the residual projections ``wo``, ``w_down`` and
+        ``w_out`` at 0.02/sqrt(2·n_layer)):
         the same seed gives the same f32 weights in both packages (a bf16
         model rounds them from f32). Returns ``self``."""
         cfg = self.config
@@ -269,12 +276,18 @@ class Llama(GPT2):
             for key, shape in (("wq", (d, d)), ("wk", (d, kv_d)), ("wv", (d, kv_d))):
                 normal(f"layers.{i}.attn.{key}", shape)
             normal(f"layers.{i}.attn.wo", (d, d), std=res_std)
+            if cfg.n_experts:
+                self._moe_draw(normal, i, res_std)
+                continue
             normal(f"layers.{i}.mlp.w_gate", (d, ff))
             normal(f"layers.{i}.mlp.w_up", (d, ff))
             normal(f"layers.{i}.mlp.w_down", (ff, d), std=res_std)
         for layer in self.layers:
             layer["rms_1"]["scale"].fill_(1.0)
             layer["rms_2"]["scale"].fill_(1.0)
+            if cfg.n_experts:
+                layer["moe"]["b_in"].zero_()
+                layer["moe"]["b_out"].zero_()
         return self
 
     # ---- architecture hooks ---------------------------------------------------
@@ -338,8 +351,10 @@ class Llama(GPT2):
                                     mlp["w_down"]))
 
     def _ffn(self, layer, h):
-        return h + self._mlp_block(layer["mlp"], _rms_norm(h, layer["rms_2"]["scale"],
-                                                           self.config.rms_eps))
+        x = _rms_norm(h, layer["rms_2"]["scale"], self.config.rms_eps)
+        if self.config.n_experts:
+            return h + self._moe_block(layer["moe"], x)
+        return h + self._mlp_block(layer["mlp"], x)
 
     def _attend(self, attn_impl: str, sp_group=None):
         if sp_group is not None and sp_group.size > 1:

@@ -12,6 +12,10 @@
 - :func:`reduce_scatter`, :func:`flat_reduce_scatter`, :func:`all_gather`
   and :func:`flat_all_gather` are the ring's two halves on their own, so
   the schedule has one definition.
+- :func:`all_to_all` is the JAX ``lax.all_to_all(tiled=True)``: each rank's
+  chunks relayed around the ring (n − 1 passes, one at n = 2), with the
+  inverse exchange as its backward. The expert-parallel MoE block
+  dispatches and returns its token payloads through it.
 
 A group is a :class:`~dsml_tpu_torch.parallel.peer.RingGroup` where the
 JAX code takes an ``axis_name``. CPU tensors hop over gloo point-to-point;
@@ -24,7 +28,12 @@ through host memory; an NCCL route waits for a host with several cards).
 The combine order is the JAX ring's, so ring results equal the JAX
 package's bit for bit: the same segment indices, ``combine(resident,
 received)``, integers accumulated in ``promote_types(dtype, int32)``,
-floats (bf16 included) in their own type.
+floats (bf16 included) in their own type. XLA sums ``lax.psum`` and
+``lax.psum_scatter`` over ranks in rank order, ``((x0 + x1) + x2) + x3``:
+on CPU tensors the ``"xla"`` all-reduce of floats and :func:`reduce_scatter`
+SUM/AVG gather the ranks' rows and sum them in that order (bf16 in f32,
+rounded once), so they equal the JAX package's bit for bit at any n; CUDA
+tensors keep gloo and the IPC ring.
 """
 
 from __future__ import annotations
@@ -52,8 +61,19 @@ __all__ = [
     "flat_reduce_scatter",
     "flat_all_gather",
     "all_gather",
+    "all_to_all",
+    "STATS",
+    "reset_stats",
     "ring_wire_bytes",
 ]
+
+# all_to_all calls (the backward's inverse exchanges included) and the
+# bytes each rank sends to the others (the chip check reads them per step)
+STATS = {"all_to_all": 0, "all_to_all_bytes": 0}
+
+
+def reset_stats() -> None:
+    STATS.update(all_to_all=0, all_to_all_bytes=0)
 
 
 class ReduceOp(enum.IntEnum):
@@ -411,7 +431,10 @@ def all_reduce(x: torch.Tensor, group, op: ReduceOp = ReduceOp.SUM,
     # sum; the JAX package's psum rounds once
     low = x.dtype in (torch.bfloat16, torch.float16)
     out = x.float() if low else x
-    if group.size > 1:
+    if group.size > 1 and _rank_order_sum(out, op):
+        # gloo's summation order is not XLA's: the ranks' rows in rank order
+        out = all_gather(out, group, tiled=False).sum(0)
+    elif group.size > 1:
         out = out.clone() if out is x else out
         dist.all_reduce(out, _PG_OPS[op], group=group.pg)
     if low:
@@ -441,19 +464,35 @@ def _identity_pad_value(op: ReduceOp, dtype: torch.dtype):
     return 0
 
 
+def _rank_order_sum(x: torch.Tensor, op: ReduceOp) -> bool:
+    """Whether ``op`` over ``x`` takes the rank-order sum of XLA's psum: a
+    SUM or AVG of a floating CPU tensor (integer sums are exact in any
+    order; CUDA tensors keep their transports)."""
+    return x.device.type == "cpu" and x.dtype.is_floating_point and op in (ReduceOp.SUM,
+                                                                           ReduceOp.AVG)
+
+
 def reduce_scatter(x: torch.Tensor, group, op: ReduceOp = ReduceOp.SUM) -> torch.Tensor:
-    """Reduce across ranks, leaving rank i with shard i along axis 0: the
-    ring's scatter-reduce half, shifted one segment so each rank ends on
-    its own (every :class:`ReduceOp`; AVG scales by 1/n)."""
+    """Reduce across ranks, leaving rank i with shard i along axis 0 (every
+    :class:`ReduceOp`; AVG scales by 1/n). A float SUM or AVG on the CPU
+    sums every rank's segment i in rank order, as ``lax.psum_scatter``
+    (bf16 in f32, rounded once); otherwise the ring's scatter-reduce half,
+    shifted one segment so each rank ends on its own."""
     op = ReduceOp(op)
     n = group.size
     if x.shape[0] % n:
         raise ValueError(f"reduce_scatter: leading dim {x.shape[0]} not divisible by axis size {n}")
     if n == 1:
         return x
-    buf = x.to(_acc_dtype(x.dtype), copy=True).reshape(n, -1)
-    _scatter_reduce([buf], (+1,), group, op.combine, shift=1)
-    out = buf[group.rank]
+    if _rank_order_sum(x, op):
+        # every rank's segment for this rank, summed in rank order (XLA's)
+        acc = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
+        rows = _all_to_all(x.to(acc).reshape(n, -1), group, 0, 0)
+        out = rows.sum(0, dtype=acc)
+    else:
+        buf = x.to(_acc_dtype(x.dtype), copy=True).reshape(n, -1)
+        _scatter_reduce([buf], (+1,), group, op.combine, shift=1)
+        out = buf[group.rank]
     if op == ReduceOp.AVG:
         out = _avg(out, n)
     return out.reshape(x.shape[0] // n, *x.shape[1:]).to(x.dtype)
@@ -493,3 +532,55 @@ def all_gather(x: torch.Tensor, group, axis: int = 0, tiled: bool = True) -> tor
     if tiled:
         return torch.cat(list(stacked.unbind(0)), dim=axis)
     return stacked.movedim(0, axis)
+
+
+def _all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
+    """The exchange of :func:`all_to_all`: rank r's chunk for rank r + d
+    rides d ring passes. Step t sends the chunks still on their way (the
+    first for the neighbour, the rest for ranks beyond it) one hop on +1;
+    the rank keeps the first chunk it receives (from rank r − t) and
+    passes the others on."""
+    n, r = group.size, group.rank
+    chunks = [c.contiguous() for c in x.chunk(n, split_axis)]
+    recv = [None] * n
+    recv[r] = chunks[r]
+    carry = [chunks[(r + d) % n] for d in range(1, n)]
+    for t in range(1, n):
+        carry = list(ring_pass(carry, group, +1))
+        recv[(r - t) % n] = carry[0]
+        carry = carry[1:]
+    return torch.cat(recv, dim=concat_axis)
+
+
+def _counted_all_to_all(x, group, split_axis, concat_axis):
+    STATS["all_to_all"] += 1
+    STATS["all_to_all_bytes"] += x.numel() * x.element_size() * (group.size - 1) // group.size
+    return _all_to_all(x, group, split_axis, concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, split_axis, concat_axis)
+        return _counted_all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis = ctx.args
+        return _counted_all_to_all(g, group, concat_axis, split_axis), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``:
+    ``x`` split into ``group.size`` equal chunks along ``split_axis``, chunk
+    i sent to rank i, the chunks received concatenated along
+    ``concat_axis`` in source-rank order. Through the ring transport (gloo
+    for CPU tensors, the CUDA IPC slots for CUDA ones; one exchange at n =
+    2); differentiable, its backward the inverse exchange. Counted in
+    :data:`STATS`."""
+    if group is None or group.size == 1:
+        return x
+    if x.shape[split_axis] % group.size:
+        raise ValueError(f"all_to_all: dim {split_axis} of size {x.shape[split_axis]} not "
+                         f"divisible by axis size {group.size}")
+    return _AllToAll.apply(x, group, split_axis, concat_axis)

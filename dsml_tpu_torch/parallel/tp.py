@@ -29,6 +29,16 @@ own, ``softmax − onehot`` on the rank's vocab shard, that needs no
 communication. :func:`vocab_parallel_embed` is ``_embed_spmd``'s masked
 gather.
 
+The expert-parallel MoE block (``models/gpt2.py::GPT2._moe_block``) routes
+each rank's 1/tp slice of the replicated tokens, so it adds three pairs
+over a token axis: :func:`split_to_tp` (the rank's slice forward, an
+all-gather of the slices' cotangents backward: each rank's block input
+gets every rank's share), :func:`gather_from_tp` (an all-gather forward,
+the rank's slice of the replicated cotangent backward, never a sum) and
+:func:`all_gather_tp` (an all-gather forward whose uses differ by rank, so
+its backward is the JAX transpose, a reduce-scatter of the partial
+cotangents).
+
 Routing follows the tensors' device: CPU tensors reduce through gloo
 (``all_reduce(..., "xla")``), CUDA tensors through the group's CUDA IPC
 ring (``"auto"``: the gather-and-sum at tp ≤ 3, the ring above). bf16 sums
@@ -40,10 +50,11 @@ from __future__ import annotations
 
 import torch
 
-from dsml_tpu_torch.ops.collectives import ReduceOp, all_reduce
+from dsml_tpu_torch.ops.collectives import ReduceOp, all_gather, all_reduce, reduce_scatter
 
-__all__ = ["STATS", "copy_to_tp", "reduce_from_tp", "reset_stats", "tp_all_reduce",
-           "vocab_parallel_embed", "vocab_parallel_xent", "tp_size", "tp_rank"]
+__all__ = ["STATS", "all_gather_tp", "copy_to_tp", "gather_from_tp", "reduce_from_tp",
+           "reset_stats", "split_to_tp", "tp_all_reduce", "vocab_parallel_embed",
+           "vocab_parallel_xent", "tp_size", "tp_rank"]
 
 STATS = {"all_reduce": 0, "bytes": 0}
 
@@ -99,6 +110,68 @@ def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
 def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
     """Megatron ``g``: all-reduce forward, identity backward."""
     return x if tp_size(group) == 1 else _ReduceFromTP.apply(x, group)
+
+
+def _slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = x.shape[dim] // group.size
+    return x.narrow(dim, group.rank * n, n)
+
+
+class _SplitToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return _slice(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.args
+        return all_gather(g.contiguous(), group, axis=dim), None, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return all_gather(x.contiguous(), group, axis=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.args
+        return _slice(g, group, dim), None, None
+
+
+class _AllGatherTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return all_gather(x.contiguous(), group, axis=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.args
+        return reduce_scatter(g.movedim(dim, 0).contiguous(), group).movedim(0, dim), None, None
+
+
+def split_to_tp(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's contiguous 1/tp slice of the replicated ``x`` along
+    ``dim``; backward all-gathers the slices' cotangents (each rank's
+    share of the replicated input's gradient)."""
+    return x if tp_size(group) == 1 else _SplitToTP.apply(x, group, dim)
+
+
+def gather_from_tp(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` into a replicated
+    tensor; backward hands each rank its own slice of the (replicated)
+    cotangent."""
+    return x if tp_size(group) == 1 else _GatherFromTP.apply(x, group, dim)
+
+
+def all_gather_tp(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``, for uses that differ
+    by rank: backward reduce-scatters the per-rank partial cotangents (the
+    JAX ``all_gather``'s transpose, ``psum_scatter``)."""
+    return x if tp_size(group) == 1 else _AllGatherTP.apply(x, group, dim)
 
 
 def vocab_parallel_embed(wte_shard: torch.Tensor, tokens: torch.Tensor, group) -> torch.Tensor:

@@ -90,22 +90,25 @@ def jax_side(devices8, tmp_path_factory):
     for i in range(STEPS):
         params, ostate, loss = step(params, ostate, *_batch(i))
         out["zero2"].append(float(loss))
-    # the ZeRO-2 sync on exact gradients: SGD(1) from zeros, two steps
+    # the ZeRO-2 sync on exact gradients: SGD(1) from zeros, two steps, at
+    # fsdp = 2 and 4 (four rows summed in rank order, as psum_scatter sums)
     sync = {k: np.zeros(s, np.float32) for k, s in SYNC_SHAPES.items()}
-    for quant in QUANTS:
-        opt = optax.sgd(1.0)
-        p = jax.device_put(sync)
-        o = opt.init(p)
-        ef = init_error_feedback(p, mesh2, "fsdp") if quant else None
-        zstep = make_zero2_train_step(_jax_sync_loss, opt, mesh2, bucket_size_mb=SYNC_MB,
-                                      donate=False, quant=quant, error_feedback=bool(quant))
-        for i in range(2):
-            if quant:
-                p, o, ef, _ = zstep(p, o, ef, *_sync_batch(i))
-            else:
-                p, o, _ = zstep(p, o, *_sync_batch(i))
-        out[f"sync_{quant}"] = {"params": jax.tree.map(np.asarray, p),
-                                "ef": None if ef is None else jax.tree.map(np.asarray, ef)}
+    mesh4 = jax_build_mesh(JaxMeshSpec(dp=1, fsdp=4), devices8[:4])
+    for n, mesh_n, key in ((2, mesh2, "sync"), (4, mesh4, "sync4")):
+        for quant in QUANTS:
+            opt = optax.sgd(1.0)
+            p = jax.device_put(sync)
+            o = opt.init(p)
+            ef = init_error_feedback(p, mesh_n, "fsdp") if quant else None
+            zstep = make_zero2_train_step(_jax_sync_loss, opt, mesh_n, bucket_size_mb=SYNC_MB,
+                                          donate=False, quant=quant, error_feedback=bool(quant))
+            for i in range(2):
+                if quant:
+                    p, o, ef, _ = zstep(p, o, ef, *_sync_batch(i, n))
+                else:
+                    p, o, _ = zstep(p, o, *_sync_batch(i, n))
+            out[f"{key}_{quant}"] = {"params": jax.tree.map(np.asarray, p),
+                                     "ef": None if ef is None else jax.tree.map(np.asarray, ef)}
     # a ZeRO-2 AdamW checkpoint at fsdp = 2, and the next step's loss
     opt = optax.adamw(optax.constant_schedule(ADAMW_LR), weight_decay=ADAMW_WD)
     zstep = make_zero2_train_step(model.loss, opt, mesh2, bucket_size_mb=BUCKET_MB, donate=False)
@@ -179,6 +182,25 @@ def _zero2_obs_series(mesh):
     return out
 
 
+def _sync_runs(mesh, n):
+    """The ZeRO-2 sync on the exact-gradient tree at fsdp = ``n``: SGD(1)
+    from zeros, two steps, full precision and int8/int4 + error feedback."""
+    res = {}
+    for quant in QUANTS:
+        tree = _SyncTree()
+        state = tfsdp.init_zero2(tree, torch.optim.SGD(tree.parameters(), lr=1.0), mesh,
+                                 None, bucket_size_mb=SYNC_MB)
+        step = tfsdp.make_zero2_train_step(tree, state, mesh, bucket_size_mb=SYNC_MB,
+                                           quant=quant, error_feedback=bool(quant),
+                                           loss_fn=tree.sync_loss)
+        for i in range(2):
+            step(*(torch.from_numpy(t) for t in _sync_batch(i, n)))
+        res[f"sync_{quant}"] = {"params": {k: p.detach().clone()
+                                           for k, p in tree.named_parameters()},
+                                "ef": state.ef}
+    return res
+
+
 def _fsdp_worker(rank, tmp, spec, payload):
     torch.set_num_threads(1)
     n = int(np.prod(list(spec.values())))
@@ -197,18 +219,7 @@ def _fsdp_worker(rank, tmp, spec, payload):
         res["zero2_opt_bytes"] = sum(t.numel() * t.element_size()
                                      for st in state.optimizer.state.values()
                                      for t in st.values() if t.ndim)
-        for quant in QUANTS:
-            tree = _SyncTree()
-            state = tfsdp.init_zero2(tree, torch.optim.SGD(tree.parameters(), lr=1.0), mesh,
-                                     None, bucket_size_mb=SYNC_MB)
-            step = tfsdp.make_zero2_train_step(tree, state, mesh, bucket_size_mb=SYNC_MB,
-                                               quant=quant, error_feedback=bool(quant),
-                                               loss_fn=tree.sync_loss)
-            for i in range(2):
-                step(*(torch.from_numpy(t) for t in _sync_batch(i)))
-            res[f"sync_{quant}"] = {"params": {k: p.detach().clone()
-                                               for k, p in tree.named_parameters()},
-                                    "ef": state.ef}
+        res.update(_sync_runs(mesh, 2))
         # a port ZeRO-2 AdamW checkpoint at fsdp = 2, and the next step
         model = _tiny()
         opt = torch.optim.AdamW(model.parameters(), lr=ADAMW_LR, weight_decay=ADAMW_WD)
@@ -228,6 +239,7 @@ def _fsdp_worker(rank, tmp, spec, payload):
             res["restored_count"] = tfsdp.restore_zero2(m, model, state)
         step = tfsdp.make_zero2_train_step(model, state, mesh, bucket_size_mb=BUCKET_MB)
         res["restored_next"] = float(step(*_batch(2)))
+        res.update(_sync_runs(mesh, 4))
     torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
     mesh.close()
     dist.destroy_process_group()
@@ -243,6 +255,13 @@ def _spawn(spec, tmp, payload=None):
 def fsdp2_run(tmp_path_factory, jax_side):
     tmp = tmp_path_factory.mktemp("fsdp2")
     return tmp, _spawn({"fsdp": 2}, tmp)
+
+
+@pytest.fixture(scope="module")
+def fsdp4_run(tmp_path_factory, jax_side):
+    """fsdp = 4: the JAX fsdp = 2 checkpoint restored at width 4, and the
+    ZeRO-2 sync runs."""
+    return _spawn({"fsdp": 4}, tmp_path_factory.mktemp("fsdp4"), jax_side["ckpt"])
 
 
 MESHES = {"fsdp2": {"fsdp": 2}, "dp2_fsdp2": {"dp": 2, "fsdp": 2},
@@ -292,8 +311,20 @@ def test_zero2_sync_bit_for_bit(fsdp2_run, jax_side, quant):
     and under int8/int4 + error feedback the same residual bits — the
     reduce-scatter (quantized or not), the residual and the update are the
     JAX package's, bit for bit."""
-    _, ranks = fsdp2_run
-    want = jax_side[f"sync_{quant}"]
+    _assert_sync_bits(fsdp2_run[1], jax_side[f"sync_{quant}"], quant)
+
+
+@pytest.mark.parametrize("quant", QUANTS, ids=["fp", "int8_ef", "int4_ef"])
+def test_zero2_sync_bit_for_bit_at_fsdp4(fsdp4_run, jax_side, quant):
+    """The same sync at fsdp = 4: each bucket's four gradient rows summed in
+    rank order, as the JAX ``psum_scatter`` sums them (ROADMAP queue 3,
+    fault 4: the ring's order left 34–46% of the parameters different),
+    and 1/4 exact, so the mean's multiply and the update agree however XLA
+    fuses them."""
+    _assert_sync_bits(fsdp4_run, jax_side[f"sync4_{quant}"], quant)
+
+
+def _assert_sync_bits(ranks, want, quant):
     for rank, r in enumerate(ranks):
         got = r[f"sync_{quant}"]
         for k in SYNC_SHAPES:
@@ -343,7 +374,7 @@ def test_zero2_obs_matches_jax(fsdp2_run, devices8):
         assert r["obs"] == want
 
 
-def test_zero2_checkpoint_crosses_packages_and_widths(fsdp2_run, jax_side, tmp_path_factory,
+def test_zero2_checkpoint_crosses_packages_and_widths(fsdp2_run, fsdp4_run, jax_side,
                                                       devices8):
     """A JAX ZeRO-2 checkpoint at fsdp = 2 restores in the port at fsdp = 4,
     and the port's at fsdp = 2 in the JAX package at fsdp = 4; the next
@@ -356,8 +387,7 @@ def test_zero2_checkpoint_crosses_packages_and_widths(fsdp2_run, jax_side, tmp_p
     from dsml_tpu.parallel.mesh import MeshSpec as JaxMeshSpec
     from dsml_tpu.parallel.mesh import build_mesh as jax_build_mesh
 
-    ranks = _spawn({"fsdp": 4}, tmp_path_factory.mktemp("fsdp4"), jax_side["ckpt"])
-    for r in ranks:
+    for r in fsdp4_run:
         assert r["restored_count"] == 2
         np.testing.assert_allclose(r["restored_next"], jax_side["ckpt_next"], rtol=ZERO2_RTOL)
     tmp, port = fsdp2_run

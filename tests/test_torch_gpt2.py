@@ -169,18 +169,22 @@ def test_config_presets_match_and_unported_options_raise():
     with pytest.raises(ValueError, match="unknown kv_quant mode"):
         tgpt2.GPT2(dataclasses.replace(tgpt2.GPT2Config.tiny(), kv_quant="int2"),
                    device="cpu").init_cache(1)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tgpt2.GPT2Config.tiny(n_experts=4)
+    # the expert layer is ported (tests/test_torch_moe.py): its fields are the JAX config's
+    moe = dataclasses.asdict(tgpt2.GPT2Config.tiny(n_experts=4))
+    assert moe == {k: v for k, v in dataclasses.asdict(jgpt2.GPT2Config.tiny(n_experts=4)).items()
+                   if k in moe}
+    assert (moe["n_experts"], moe["expert_top_k"], moe["capacity_factor"]) == (4, 2, 1.25)
 
 
 def test_model_by_family():
     model, cfg = model_by_family("gpt2", "tiny", device="cpu", vocab_size=256)
     assert isinstance(model, tgpt2.GPT2) and cfg.vocab_size == 256
-    # the llama family is ported (tests/test_torch_llama.py); Mixtral's experts are not
+    # the llama family is ported (tests/test_torch_llama.py), Mixtral's experts too
+    # (tests/test_torch_moe.py): built on the meta device, 31.7B parameters
     llama, lcfg = model_by_family("llama", "tiny", device="cpu")
     assert type(llama).__name__ == "Llama" and lcfg.n_kv_head == 2
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model_by_family("llama", "mixtral_8x7b", device="cpu")
+    mixtral, mcfg = model_by_family("llama", "mixtral_8x7b", device="meta")
+    assert mcfg.n_experts == 8 and tuple(mixtral.layers[0]["moe"]["w_out"].shape) == (8, 14336, 4096)
     with pytest.raises(ValueError, match="unknown family"):
         model_by_family("bert", "tiny", device="cpu")
 

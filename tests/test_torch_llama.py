@@ -99,10 +99,11 @@ def test_config_presets_match_and_unported_options_raise():
     tl = tllama.LlamaConfig.tinyllama_1b()
     assert (tl.n_layer, tl.d_model, tl.n_head, tl.n_kv_head, tl.d_ff, tl.vocab_size) == \
         (22, 2048, 32, 4, 5632, 32000)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tllama.LlamaConfig.by_name("mixtral_8x7b")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tllama.LlamaConfig.tiny(n_experts=4)
+    # Mixtral's experts are ported (tests/test_torch_moe.py): the JAX presets' fields
+    assert dataclasses.asdict(tllama.LlamaConfig.by_name("mixtral_8x7b")) == \
+        dataclasses.asdict(jllama.LlamaConfig.by_name("mixtral_8x7b"))
+    assert dataclasses.asdict(tllama.LlamaConfig.tiny(n_experts=4)) == \
+        dataclasses.asdict(jllama.LlamaConfig.tiny(n_experts=4))
     with pytest.raises(ValueError, match="unknown Llama preset"):
         tllama.LlamaConfig.by_name("huge")
     with pytest.raises(ValueError, match="unknown kv_quant mode"):

@@ -104,8 +104,8 @@ def test_remat_gives_the_same_grads(remat):
 
 def test_unported_config_options_raise():
     assert tgpt2.GPT2Config(remat="int8").remat == "int8"  # compressed remat is ported
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tgpt2.GPT2Config(n_experts=4)
+    moe = tgpt2.GPT2Config(n_experts=4)  # the expert layer is ported (tests/test_torch_moe.py)
+    assert (moe.n_experts, moe.expert_top_k, moe.capacity_factor) == (4, 2, 1.25)
     with pytest.raises(ValueError, match="unknown remat"):
         tgpt2.GPT2Config(remat="int4")
 
