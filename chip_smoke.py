@@ -66,7 +66,7 @@ before the path and read just after):
   heads), GPT-2-small at pp = 2 under gpipe, 1f1b and the interleaved
   schedule (and one remat="int8" step through kernel 8), GPT-2-small at
   fsdp = 2 under ZeRO-3 and ZeRO-2 (full precision, int8 + error feedback)
-  against the dp = 2 ring, TinyLlama-1.1B at pp = 2 × tp = 2 on four
+  against the dp = 2 ring, TinyLlama-1.1B (8 of its 22 layers) at pp = 2 × tp = 2 on four
   ranks, and ``train_gpt2 --tp 2`` / ``--pp 2 --schedule 1f1b`` (started
   beside the Llama entry points);
 - expert parallelism: Mixtral-8x7B's full widths (d 4096, 32/8 heads of
@@ -75,7 +75,14 @@ before the path and read just after):
   dim 128, bf16 train steps at 2 × 2048 through the expert layer, an f32
   gradient check, two spawned ranks at ep = 2 (the token payloads over
   ``all_to_all``), and ``ContinuousBatcher(paged_kv="int4")`` serving 16
-  requests.
+  requests;
+- tensor-parallel serving: TinyLlama-1.1B at full width and depth on two
+  spawned ranks at tp = 2 (16 query and 2 kv heads, half the vocabulary
+  and the KV shard a rank): ``GPT2.generate_spmd`` at 2 × 512 + 32 tokens
+  (the prefill through kernel 1) and ``ContinuousBatcher(mesh=...,
+  paged_kv="int4")`` on 16 requests (kernels 5 and 6 over the rank's pool),
+  f32 tokens (unquantized pages) held to the single-device port's, bf16
+  for the times.
 
 Each phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit and no result line. The line before the last is the card's
@@ -145,7 +152,7 @@ at f32, speculative tokens equal to plain ones wherever the top-2 margin
 exceeds 1e-3); llama_ticks (identical tokens under turbo, adaptive and plain
 ticks, tokens/s, tick counts, host syncs a decode tick; the adaptive
 tick's EOS branch: tokens cut at the EOS, read-backs, dropped steps); obs
-(the 48-request paged drain off then on: tokens identical, launches,
+(the paged drain of the first 24 requests off then on: tokens identical, launches,
 serving_tokens_total = tokens emitted, 48 admissions and retirements, the
 pool gauges, the kv_pages source = the pool's bytes, serving_memory_pressure
 = bytes_in_use / bytes_limit of torch.cuda.memory_stats, the decode_tick
@@ -187,9 +194,18 @@ loss against one device's, identical replicated leaves, f32 gradients of a
 moe_serve (the pipelined kernel's launches, tokens/s, TTFT, median tick,
 the idle share of a steady tick; 4 requests at f32 through the
 single-buffer kernel against the gather path under the margin rule);
+tp_serve (kernels 1, 5 and 6 at a tp = 2 rank's shapes against their plain
+versions, with CUDA-event times; f32 ``generate_spmd`` and 4-request drain
+(unquantized pages) tokens against the single-device port's under the margin rule, both ranks'
+tokens and prefill logits identical, the rank's cache and pool holding 2
+kv heads, 22 kernel-1 launches a generate, 22 kernel-5/6 launches a chunk
+or tick, 45 all-reduces and one all-gather a decode step; bf16 prefill
+ms, decode ms a step, tokens/s, the 16-request drain's tokens/s, TTFT and
+median tick, a steady tick's wall and device-busy ms with its collectives,
+their bytes and ms alone, peak memory and IPC slot bytes a rank);
 kernels (one line for the run; kernel 8's entry counts its three paths,
 kernels 1–3, 5 and 6 their Llama, checkpoint, model-parallel and MoE
-paths too).
+paths too; kernels 1, 5 and 6 their tp_serve path).
 
 Every phase line carries ``t_s``, its seconds since the script started.
 
@@ -199,6 +215,7 @@ explicitly): the f32 phases compare two paths at f32 tolerances.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -252,6 +269,52 @@ TOL_TRAIN_GRADS = 1e-4
 
 
 _T0 = time.perf_counter()  # the run's start: every phase line carries its seconds since
+
+
+GPT2_SHAPE = ("vocab_size", "max_seq", "n_layer", "n_head", "d_model", "d_ff", "n_experts")
+GPT2_WEIGHTS_ENV = "CHIP_SMOKE_GPT2_WEIGHTS"  # the file spawned ranks read them from
+
+
+@functools.lru_cache(maxsize=1)
+def gpt2_small_weights():
+    """GPT-2-small's f32 weights from seed 0 (``GPT2.init``: the JAX init's
+    numpy draws) on the host, once a process: read from the file
+    :func:`share_gpt2_small_weights` wrote when the environment names one
+    (spawned ranks inherit it), else drawn."""
+    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+
+    path = os.environ.get(GPT2_WEIGHTS_ENV)
+    if path:
+        return torch.load(path, mmap=True)
+    return GPT2(GPT2Config.small(), device="cpu").init(0).state_dict()
+
+
+def share_gpt2_small_weights() -> None:
+    """Write :func:`gpt2_small_weights` to a file (deleted at exit) and name
+    it in the environment, so that every spawned rank reads the weights
+    instead of drawing them again."""
+    import atexit
+    import tempfile
+
+    wdir = tempfile.mkdtemp(prefix="chip_smoke_gpt2_")
+    atexit.register(shutil.rmtree, wdir, True)
+    path = os.path.join(wdir, "gpt2_small_f32.pt")
+    torch.save(gpt2_small_weights(), path)
+    os.environ[GPT2_WEIGHTS_ENV] = path
+
+
+def gpt2_small(cfg, dev):
+    """``GPT2(cfg)`` on ``dev`` with seed 0's weights: a config of
+    GPT-2-small's shapes loads :func:`gpt2_small_weights` (rounded to its
+    dtype as ``init`` rounds them), any other draws its own."""
+    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+
+    model = GPT2(cfg, device=dev)
+    small = GPT2Config.small()
+    if any(getattr(cfg, key) != getattr(small, key) for key in GPT2_SHAPE):
+        return model.init(0)
+    model.load_state_dict(gpt2_small_weights())
+    return model
 
 
 def emit(obj) -> None:
@@ -649,10 +712,10 @@ def greedy_trace(model, prompt, n, forced=None):
 
 
 def phase_slice(tflash, dev, card):
-    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.models.gpt2 import GPT2Config
 
     cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16")
-    model = GPT2(cfg, device=dev).init(0)
+    model = gpt2_small(cfg, dev)
     prompt_np = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
     prompt = torch.as_tensor(prompt_np, device=dev)
     model.generate(prompt, 2)  # warm-up: cuBLAS handles, the kernel's library
@@ -690,7 +753,7 @@ def phase_slice(tflash, dev, card):
     check(finite and logits_flash.shape == (B, cfg.vocab_size), "bf16 prefill logits")
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    model32 = GPT2(cfg32, device=dev).init(0)
+    model32 = gpt2_small(cfg32, dev)
     logits32_flash, _ = model32.prefill(prompt)
     model32._prefill_use_flash = lambda t: False
     toks_plain, logs_plain = greedy_trace(model32, prompt, F32_TOKENS)
@@ -839,10 +902,10 @@ def phase_train(tflash, dev, card):
     then f32 gradients of the kernel path against the plain-attention
     path at batch 2."""
     from dsml_tpu_torch.models.common import transformer_train_flops
-    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.models.gpt2 import GPT2Config
 
     cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
-    model = GPT2(cfg, device=dev).init(0)
+    model = gpt2_small(cfg, dev)
     opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
     rng = np.random.default_rng(2)
     x = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)), device=dev)
@@ -884,7 +947,7 @@ def phase_train(tflash, dev, card):
 
     # f32, batch 2: gradients through the kernels against plain attention
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    model32 = GPT2(cfg32, device=dev).init(0)
+    model32 = gpt2_small(cfg32, dev)
     grads = {}
     for impl in ("flash", "xla"):
         model32.zero_grad(set_to_none=True)
@@ -1298,12 +1361,12 @@ def phase_paged_slice(dev, card):
     identical tokens; f32 fp-page greedy tokens of the kernel against the
     gather path; a pool snapshot through both kernels against the plain
     version."""
-    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.models.gpt2 import GPT2Config
     from dsml_tpu_torch.ops import paged_attention as tpa
     from dsml_tpu_torch.serving import ContinuousBatcher
 
     cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16")
-    model = GPT2(cfg, device=dev).init(0)
+    model = gpt2_small(cfg, dev)
     rng = np.random.default_rng(2)
     lengths = rng.integers(64, 769, PAGED_REQUESTS)
     budgets = rng.integers(16, 129, PAGED_REQUESTS)
@@ -1368,7 +1431,7 @@ def phase_paged_slice(dev, card):
 
     # f32, fp pages, 8 requests: kernel against the gather path, greedy
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    model32 = GPT2(cfg32, device=dev).init(0)
+    model32 = gpt2_small(cfg32, dev)
     sub = slice(0, PAGED_F32_REQUESTS)
     runs = {}
     for impl in ("pallas", "xla"):
@@ -1802,13 +1865,13 @@ def phase_wq_slice(dev, card):
     tokens/s, TTFT, tick ms, the idle share of a steady tick and the twin's
     bytes; a 16-request int8 drain; f32 int4 greedy tokens against a dense
     model whose projections are the same codes dequantized."""
-    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.models.gpt2 import GPT2Config
     from dsml_tpu_torch.ops import paged_attention as tpa
     from dsml_tpu_torch.ops import quantization as tq
     from dsml_tpu_torch.serving import ContinuousBatcher
 
     cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16")
-    model = GPT2(cfg, device=dev).init(0)
+    model = gpt2_small(cfg, dev)
     rng = np.random.default_rng(2)
     lengths = rng.integers(64, 769, PAGED_REQUESTS)
     budgets = rng.integers(16, 129, PAGED_REQUESTS)
@@ -1856,7 +1919,7 @@ def phase_wq_slice(dev, card):
 
     # f32: the int4 twin against a dense model holding the same codes dequantized
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    model32 = GPT2(cfg32, device=dev).init(0)
+    model32 = gpt2_small(cfg32, dev)
     f32kw = dict(paged_kv="fp", page_size=PAGE, prefill_chunk=PAGED_CHUNK, n_slots=PAGED_F32_REQUESTS)
     srv_q = ContinuousBatcher(model32, weight_quant="int4", **f32kw)
     with torch.no_grad():
@@ -1929,17 +1992,17 @@ def phase_train_int8remat(tflash, dev, card):
     loss, step ms, tokens/s, MFU, peak memory of the three remat modes;
     f32 gradients at batch 2 within 0.1 of remat=False's."""
     from dsml_tpu_torch.models.common import transformer_train_flops
-    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.models.gpt2 import GPT2Config
     from dsml_tpu_torch.ops import quantization as tq
 
     base = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
     cfg = dataclasses.replace(base, remat="int8")
-    model = GPT2(cfg, device=dev).init(0)
+    model = gpt2_small(cfg, dev)
     rng = np.random.default_rng(2)
     x = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)), device=dev)
     y = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)), device=dev)
     with torch.no_grad():
-        plain = GPT2(base, device=dev).init(0)
+        plain = gpt2_small(base, dev)
         loss_plain = plain.loss(x, y, attn_impl="flash").item()
         del plain
     opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
@@ -2004,7 +2067,7 @@ def phase_train_int8remat(tflash, dev, card):
     # f32, batch 2: int8-remat gradients against remat=False's
     grads = {}
     for mode in (False, "int8"):
-        m32 = GPT2(dataclasses.replace(base, dtype="float32", remat=mode), device=dev).init(0)
+        m32 = gpt2_small(dataclasses.replace(base, dtype="float32", remat=mode), dev)
         m32.loss(x[:TRAIN_F32_B], y[:TRAIN_F32_B], attn_impl="flash").backward()
         grads[mode] = {n: p.grad for n, p in m32.named_parameters()}
         del m32
@@ -2031,7 +2094,7 @@ STREAM_SOURCE = "dsml_tpu_torch/ops/csrc/flash_stream.cu"
 # both start at global position 512, so SDPA's top-left causal mask is
 # the same mask)
 HOP_BH, HOP_SQ, HOP_SKV, HOP_START = B * H, TRAIN_S // 2, TRAIN_S // 4, TRAIN_S // 2
-CP_STEPS, CP_WARMUP = 5, 2
+CP_STEPS, CP_WARMUP = 3, 1  # 5, 2 until PR 17 (the run's time)
 CP_F32_B = 2
 # bf16 losses of the cp = 2 step against the single-device step: the ring
 # merges each layer's two halves in f32 and rounds once, the single-device
@@ -2196,7 +2259,8 @@ def rank_main(run, kind, rank, tmp):
 
 def stage_note(kind, rank, res, name):
     res["stage"] = name
-    print(f"chip_smoke: {kind} rank {rank}: {name}", file=sys.stderr, flush=True)
+    print(f"chip_smoke: {kind} rank {rank}: {name} (t = {time.perf_counter() - _T0:.1f} s)",
+          file=sys.stderr, flush=True)
 
 
 def spawn_ranks(fn, kind):
@@ -2217,6 +2281,37 @@ def spawn_ranks(fn, kind):
     return ranks, seconds
 
 
+def spawn_programs(programs, kind, nprocs=2):
+    """Run several rank programs one after another in the same ``nprocs``
+    spawned processes (each joins and leaves its own process group, in a
+    directory of its own), which saves each later program the processes'
+    start-up: ``programs`` is {name: (rank function, extra arguments)}, as
+    :func:`spawn_mesh` takes them. Returns ({name: each rank's JSON}, the
+    seconds the spawn took)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{kind}_") as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(_run_programs, args=(tmp, programs), nprocs=nprocs, join=True)
+        seconds = time.perf_counter() - t0
+        out = {}
+        for name in programs:
+            out[name] = []
+            for r in range(nprocs):
+                with open(os.path.join(tmp, name, f"rank{r}.json")) as f:
+                    out[name].append(json.load(f))
+    return out, seconds
+
+
+def _run_programs(rank, tmp, programs):
+    for name, (fn, args) in programs.items():
+        sub = os.path.join(tmp, name)
+        os.makedirs(sub, exist_ok=True)
+        fn(rank, sub, *args)
+
+
 def cp_rank(rank, tmp):
     """One rank of phase_cp_slice (spawned): GPT-2-small over a cp = 2 ring
     on cuda:{rank % device_count}. Writes its results to tmp/rank{rank}.json."""
@@ -2228,7 +2323,7 @@ def cp_rank_run(rank, tmp, res, stage):
     torch.backends.cudnn.allow_tf32 = False
     import torch.distributed as dist
 
-    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.models.gpt2 import GPT2Config
     from dsml_tpu_torch.ops import flash as tflash
     from dsml_tpu_torch.parallel.hybrid import init_hybrid, make_hybrid_train_step
     from dsml_tpu_torch.parallel.mesh import MeshSpec, build_mesh
@@ -2250,7 +2345,7 @@ def cp_rank_run(rank, tmp, res, stage):
     cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
     # (a) loss and backward under each schedule: dma's losses bit-identical
     # to off's, kernel 4 launched n_layer × 2 directions × 1 hop per forward
-    model = GPT2(cfg, device=dev).init(0)
+    model = gpt2_small(cfg, dev)
     losses, grads, stream_counts = {}, {}, {}
     for mode in ("off", "dma", "sendahead"):
         stage(f"loss and backward under {mode}")
@@ -2298,7 +2393,7 @@ def cp_rank_run(rank, tmp, res, stage):
     stage("f32 ring loss and gradients")
     os.environ["DSML_RING_FUSED"] = "dma"
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    m32 = GPT2(cfg32, device=dev).init(0)
+    m32 = gpt2_small(cfg32, dev)
     loss32 = m32.loss(x[:CP_F32_B], y[:CP_F32_B], attn_impl="ring2", sp_group=group)
     (loss32 / 2).backward()
     flat = torch.cat([p.grad.reshape(-1) for p in m32.parameters()])
@@ -2382,7 +2477,7 @@ def cp_rank_run(rank, tmp, res, stage):
     torch.cuda.empty_cache()
     if rank == 0:
         stage("single-device train steps")
-        single = GPT2(cfg, device=dev).init(0)
+        single = gpt2_small(cfg, dev)
         sopt = torch.optim.AdamW(single.parameters(), lr=3e-4, weight_decay=0.01)
         xs, ys = x_all.to(dev), y_all.to(dev)
         single_losses = []
@@ -2449,7 +2544,7 @@ def phase_cp_slice(card):
 # ---- data parallelism: the all-reduce family and the dp train step ------------------------
 
 ALLREDUCE_ALGS = ("ring", "ring2", "naive", "xla")
-ALLREDUCE_REPS, ALLREDUCE_WARMUP = 10, 2
+ALLREDUCE_REPS, ALLREDUCE_WARMUP = 5, 1  # 10, 2 until PR 17 (the run's time)
 DP_WARMUP, DP_STEPS = 1, 3  # the first step grows the IPC slots
 DP_BUCKET_MB = 4.0
 DP_F32_B = 2  # global rows of the f32 gradient check (one a rank)
@@ -2584,14 +2679,16 @@ def allreduce_rank_run(rank, tmp, res, stage):
         json.dump(res, f)
 
 
-def phase_allreduce(card):
+def phase_allreduce(card, spawned=None):
     """The all-reduce family on two spawned ranks sharing the card: ring,
     ring2 and naive through the CUDA IPC ring, xla through gloo (host
     memory), at 4 KiB, 4 MiB, 64 MiB and GPT-2-small's whole gradient, f32
     and bf16. Checks: the IPC results bit-identical to each other and to
     a + b (n = 2: addition commutes), gloo within one ulp, the routes,
-    and int8 SUM, MIN, MAX and PROD through every IPC algorithm."""
-    ranks, seconds = spawn_ranks(allreduce_rank, "allreduce")
+    and int8 SUM, MIN, MAX and PROD through every IPC algorithm.
+    ``spawned`` is (ranks, seconds) of a spawn shared with other programs
+    (:func:`spawn_collectives`); None spawns the ranks here."""
+    ranks, seconds = spawned or spawn_ranks(allreduce_rank, "allreduce")
     # one line per payload and type: every algorithm, rank 0's row with rank
     # 1's times beside it
     lines = {}
@@ -2715,7 +2812,16 @@ def quant_allreduce_rank_run(rank, tmp, res, stage):
         json.dump(res, f)
 
 
-def phase_quant_allreduce(card):
+def spawn_collectives():
+    """The all-reduce family's and the compressed all-reduces' rank programs
+    in one spawn: ((allreduce ranks, seconds), (quant ranks, seconds)),
+    the seconds those of the shared spawn."""
+    out, seconds = spawn_programs({"allreduce": (allreduce_rank, ()),
+                                   "quant_allreduce": (quant_allreduce_rank, ())}, "collectives")
+    return (out["allreduce"], seconds), (out["quant_allreduce"], seconds)
+
+
+def phase_quant_allreduce(card, spawned=None):
     """The compressed all-reduces on two spawned ranks sharing the card,
     bf16 SUM at 4 MiB, 64 MiB and GPT-2-small's whole gradient passed
     straight to the function: the q8 gather (kernel 8, then the int8 values
@@ -2723,8 +2829,9 @@ def phase_quant_allreduce(card):
     the deterministic q8_ring, beside the full-precision ring. Checks per
     rank: every algorithm on the IPC route; one kernel-8 launch per q8 call
     and none otherwise; each result within the JAX suite's error bound of
-    the exact f32 sum; both ranks' results bit-identical."""
-    ranks, seconds = spawn_ranks(quant_allreduce_rank, "quant_allreduce")
+    the exact f32 sum; both ranks' results bit-identical. ``spawned`` as
+    :func:`phase_allreduce` takes it."""
+    ranks, seconds = spawned or spawn_ranks(quant_allreduce_rank, "quant_allreduce")
     lines = {}
     for row0, row1 in zip(ranks[0]["rows"], ranks[1]["rows"]):
         line = lines.setdefault(row0["payload"], {
@@ -2775,7 +2882,7 @@ def dp_rank_run(rank, tmp, res, stage):
     x_all = torch.as_tensor(rng.integers(0, 50257, (TRAIN_B, TRAIN_S)))
     y_all = torch.as_tensor(rng.integers(0, 50257, (TRAIN_B, TRAIN_S)))
     cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
-    model = GPT2(cfg, device=dev).init(0)
+    model = gpt2_small(cfg, dev)
     init_state = {k: v.clone() for k, v in model.state_dict().items()}
 
     def flash_loss(m):
@@ -2908,7 +3015,7 @@ def dp_rank_run(rank, tmp, res, stage):
     # single-device flash gradients of the same global rows
     stage("f32 dp gradients")
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    m32 = GPT2(cfg32, device=dev).init(0)
+    m32 = gpt2_small(cfg32, dev)
     sgd = torch.optim.SGD(m32.parameters(), lr=0.0)
     step32 = make_dp_train_step(m32, sgd, mesh, "ring", bucket_size_mb=DP_BUCKET_MB,
                                 loss_fn=flash_loss(m32))
@@ -3463,10 +3570,11 @@ def phase_llama_ticks(dev, card):
 
 # ---- observability -------------------------------------------------------------------
 
+OBS_REQUESTS = 24  # the drains off and on: the paged slice's first 24 (the run's time)
 OBS_SPEC_REQUESTS = 16  # the speculative drain with obs on: the paged slice's first 16
 OBS_AB_TICKS = 60  # steady ticks, the registry switched off and on in turns
 # obs off / on in turns (off, on, on, off twice), each from the same weights
-OBS_TRAIN_TURNS = (False, True, True, False, False, True, True, False)
+OBS_TRAIN_TURNS = (False, True, True, False)
 OBS_ENABLED_CALLS = 10_000  # calls of the enabled hooks timed
 OBS_DP_WARMUP, OBS_DP_STEPS = 1, 3
 OBS_BUNDLE_CALLS = 100_000  # calls of the disabled hook bundle timed (bench.py's count)
@@ -3648,7 +3756,7 @@ def obs_dp_rank_run(rank, tmp, res, stage):
     import torch.distributed as dist
 
     from dsml_tpu_torch import obs
-    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.models.gpt2 import GPT2Config
     from dsml_tpu_torch.ops import quantization as tq
     from dsml_tpu_torch.parallel.bucketing import plan_buckets
     from dsml_tpu_torch.parallel.dp import make_dp_train_step, named_params
@@ -3660,7 +3768,7 @@ def obs_dp_rank_run(rank, tmp, res, stage):
     x_all = torch.as_tensor(rng.integers(0, 50257, (TRAIN_B, TRAIN_S)))
     y_all = torch.as_tensor(rng.integers(0, 50257, (TRAIN_B, TRAIN_S)))
     cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
-    model = GPT2(cfg, device=mesh.device).init(0)
+    model = gpt2_small(cfg, mesh.device)
     opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
     step = make_dp_train_step(model, opt, mesh, "q8", bucket_size_mb=DP_BUCKET_MB,
                               loss_fn=lambda x, y: model.loss(x, y, attn_impl="flash"))
@@ -3693,7 +3801,7 @@ def obs_dp_rank_run(rank, tmp, res, stage):
 
 def phase_obs(tflash, dev, card):
     """The observability core on the card, GPT-2-small at full width from
-    seed 0: the paged serving drain with obs off, then on (identical tokens;
+    seed 0: the paged serving drain (the first 24 requests) with obs off, then on (identical tokens;
     the tick's counters, the admission histogram, the retirements, the
     pool's gauges and ledger source, the memory pressure from
     torch.cuda.memory_stats; the decode_tick spans' Chrome trace under
@@ -3703,7 +3811,7 @@ def phase_obs(tflash, dev, card):
     the wire bytes); the three forensic bundles; and the disabled hooks'
     cost against the tick and the step."""
     from dsml_tpu_torch import obs
-    from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from dsml_tpu_torch.models.gpt2 import GPT2Config
     from dsml_tpu_torch.ops import _build
     from dsml_tpu_torch.ops import paged_attention as tpa
     from dsml_tpu_torch.parallel.hybrid import make_hybrid_train_step
@@ -3731,13 +3839,14 @@ def phase_obs(tflash, dev, card):
     serving_labels = {"replica": "0", "role": "decode"}
     labels2 = ("replica", "role")
 
-    # (1) serving: the paged slice's 48 requests, obs off then on
+    # (1) serving: the paged slice's first 24 requests, obs off then on
     cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16")
-    model = GPT2(cfg, device=dev).init(0)
+    model = gpt2_small(cfg, dev)
     rng = np.random.default_rng(2)
     lengths = rng.integers(64, 769, PAGED_REQUESTS)
     budgets = rng.integers(16, 129, PAGED_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int64) for n in lengths]
+    drained = (prompts[:OBS_REQUESTS], budgets[:OBS_REQUESTS])
     kw = dict(paged_kv="int4", page_size=PAGE, prefill_chunk=PAGED_CHUNK, n_slots=PAGED_SLOTS)
     fresh(False)
     srv = ContinuousBatcher(model, **kw)
@@ -3765,7 +3874,7 @@ def phase_obs(tflash, dev, card):
         fresh(on)
         tpa.paged_attn_launches = tpa.paged_attn_pipelined_launches = 0
         ticks0, pre0 = srv.n_plain_ticks, srv.n_prefill_dispatches
-        toks, wall, tick_ms = drain(srv, prompts, budgets, probe=full_pool_probe if on else None)
+        toks, wall, tick_ms = drain(srv, *drained, probe=full_pool_probe if on else None)
         serving["on" if on else "off"] = {
             "toks": toks, "wall_s": wall, "tick_ms_median": statistics.median(tick_ms),
             "launches": paged_counts(tpa),
@@ -3795,10 +3904,10 @@ def phase_obs(tflash, dev, card):
           f"{on_run['dispatches']} pipelined launches")
     check(serving_row["serving_tokens_total"] == emitted,
           f"serving_tokens_total {serving_row['serving_tokens_total']} != {emitted} emitted")
-    check(serving_row["serving_admission_ms_count"] == PAGED_REQUESTS
-          and serving_row["serving_retire_events"] == PAGED_REQUESTS,
+    check(serving_row["serving_admission_ms_count"] == OBS_REQUESTS
+          and serving_row["serving_retire_events"] == OBS_REQUESTS,
           f"admissions / retirements recorded: {serving_row['serving_admission_ms_count']} / "
-          f"{serving_row['serving_retire_events']}, expected {PAGED_REQUESTS}")
+          f"{serving_row['serving_retire_events']}, expected {OBS_REQUESTS}")
     check(probe and probe["gauges"] == probe["pool"], f"pool gauges vs the pool: {probe}")
     check(probe["kv_pages_source"] == probe["pool_bytes"],
           f"kv_pages ledger source {probe['kv_pages_source']} != pool bytes {probe['pool_bytes']}")
@@ -3847,7 +3956,7 @@ def phase_obs(tflash, dev, card):
 
     # (2) the hybrid train step, obs off and on in turns from the same weights
     cfg_t = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
-    model = GPT2(cfg_t, device=dev).init(0)
+    model = gpt2_small(cfg_t, dev)
     init_state = {k: v.clone() for k, v in model.state_dict().items()}
     mesh = Mesh(MeshSpec(dp=1).resolved(1), 0, dev, {})
     xy_rng = np.random.default_rng(2)
@@ -4220,11 +4329,12 @@ def phase_checkpoint(tflash, dev, card):
 
 MP_TP_WARMUP, MP_TP_STEPS = 2, 3
 MP_PP_B, MP_PP_S, MP_PP_MICRO = 8, 1024, 4
-MP_PP_WARMUP, MP_PP_STEPS = 1, 3
+MP_PP_WARMUP, MP_PP_STEPS = 1, 2
 MP_F32_LAYERS = 2  # the f32 gradient checks' depth (TinyLlama's and GPT-2-small's width)
 MP_PP_F32_LAYERS = 4
 MP_ZERO_BUCKET_MB = 4.0
-MP_4RANK_STEPS = 3
+MP_4RANK_STEPS = 2
+MP_4RANK_LAYERS = 8  # TinyLlama's depth cut 22 -> 8 at pp = 2 x tp = 2 (the run's time)
 # bf16: losses of two schedules (or two ZeRO layouts) from the same weights
 # agree within this share (f32 sums in another order under bf16 rounding)
 MP_BF16_LOSS_RTOL = 2e-3
@@ -4320,8 +4430,9 @@ def mp_tp_run(rank, tmp, res, stage, weights):
     torch.cuda.empty_cache()
     stage("f32 gradient check")
     cfg32 = dataclasses.replace(LlamaConfig.tinyllama_1b(), n_layer=MP_F32_LAYERS)
-    shard = Llama(cfg32, device=dev, tp_group=group).init(0)
     ref = Llama(cfg32, device=dev).init(0)
+    # the same seed's weights: init draws the whole model on every rank
+    shard = Llama(cfg32, device=dev, tp_group=group).load_full(ref.state_dict())
     xd, yd = x.to(dev), y.to(dev)
     loss = shard.loss(xd, yd, attn_impl="flash")
     loss.backward()
@@ -4364,7 +4475,7 @@ def mp_pp_run(rank, tmp, res, stage):
     y = torch.as_tensor(rng.integers(0, 50257, (MP_PP_B, MP_PP_S)))
     cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
     # the weights of seed 0, drawn once (each stage keeps its layers of them)
-    full = GPT2(dataclasses.replace(cfg, dtype="float32"), device="cpu").init(0).state_dict()
+    full = gpt2_small(dataclasses.replace(cfg, dtype="float32"), "cpu").state_dict()
     res["schedules"] = {}
     for name, (schedule, v) in MP_SCHEDULES.items():
         stage(f"pp steps under {name}")
@@ -4400,7 +4511,7 @@ def mp_pp_run(rank, tmp, res, stage):
     torch.cuda.empty_cache()
     stage("f32 gradient check")
     cfg32 = dataclasses.replace(GPT2Config.small(), n_layer=MP_PP_F32_LAYERS, xent_chunk=0)
-    ref = GPT2(cfg32, device=dev).init(0)
+    ref = gpt2_small(cfg32, dev)
     xd, yd = x.to(dev), y.to(dev)
     ref_loss = ref.loss(xd, yd, attn_impl="xla")
     ref_loss.backward()
@@ -4477,7 +4588,7 @@ def mp_zero_run(rank, tmp, res, stage):
                      "optimizer_state_bytes": _opt_bytes(opt),
                      "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
-    model = GPT2(cfg, device=dev).init(0)
+    model = gpt2_small(cfg, dev)
     init_state = {k: v.clone() for k, v in model.state_dict().items()}
     opt = adamw(model.parameters())
     run("dp_ring", make_dp_train_step(model, opt, dp_mesh, "ring", bucket_size_mb=MP_ZERO_BUCKET_MB,
@@ -4527,9 +4638,10 @@ def mp_4rank_run(rank, tmp, res, stage, weights):
     dev = mesh.device
     res.update(device=str(dev), coords=mesh.coords)
     stage("weights")
-    cfg = dataclasses.replace(LlamaConfig.tinyllama_1b(), dtype="bfloat16")
+    cfg = dataclasses.replace(LlamaConfig.tinyllama_1b(), dtype="bfloat16",
+                              n_layer=MP_4RANK_LAYERS)
     model = hybrid_model(Llama, cfg, mesh)
-    model.load_full(torch.load(weights, mmap=True))
+    model.load_full(torch.load(weights, mmap=True))  # the layers the cut model holds
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LLAMA_TRAIN_B, LLAMA_TRAIN_S)))
     y = torch.roll(x, -1, 1)
@@ -4577,7 +4689,7 @@ def spawn_mesh(fn, kind, nprocs, *args):
     return ranks, seconds
 
 
-def phase_model_parallel(tflash, dev, card):
+def phase_model_parallel(tflash, dev, card, weights, serve=False):
     """(a) TinyLlama-1.1B bf16 at tp = 2, batch 2 × 2048, AdamW(3e-4,
     weight_decay=0.01): 22 launches of kernels 1–3 a step a rank over 16
     local heads, the step-0 loss against the single-device step's from the
@@ -4592,33 +4704,34 @@ def phase_model_parallel(tflash, dev, card):
     (c) GPT-2-small bf16 at fsdp = 2: the hybrid ZeRO-3 step and ZeRO-2 in 4
     MiB buckets (full precision, int8 + error feedback) against the dp = 2
     ring step from the same weights, optimizer-state bytes a rank, step ms.
-    (d) TinyLlama-1.1B at pp = 2 × tp = 2 (four ranks), 1F1B, ending with
+    (d) TinyLlama-1.1B at pp = 2 × tp = 2 (four ranks; 8 of its 22 layers), 1F1B, ending with
     identical replicas. Ranks time-slice
     the one card: the times are the cost of the collectives and the
-    schedules, not a model-parallel speed-up. Returns rank 0's launches
-    per path."""
-    import tempfile
-
+    schedules, not a model-parallel speed-up. ``weights`` is the TinyLlama
+    bf16 file the tp and pp × tp ranks map (:func:`tinyllama_bf16_weights`).
+    The pp and fsdp programs share one spawn of two ranks; with ``serve``
+    the tp ranks go on to the tp_serve program (:func:`tp_serve_run`, whose
+    references run here first). Returns rank 0's launches per path, kernel
+    8's launches, and with ``serve`` the tp_serve references and (ranks,
+    seconds of the shared spawn)."""
     t_phase = time.perf_counter()
-    # the TinyLlama weights, bf16, once for the tp and the pp x tp ranks
-    # (a file each rank maps), and the single-device step-0 loss from them
-    wdir = tempfile.mkdtemp(prefix="chip_smoke_mp_")
-    weights = os.path.join(wdir, "tinyllama_bf16.pt")
-    try:
-        torch.save({k: v.to(torch.bfloat16) for k, v in llama_weights().items()}, weights)
-        model = llama_model(dev, dtype="bfloat16", xent_chunk=8192)
-        rng = np.random.default_rng(0)
-        x = torch.as_tensor(rng.integers(0, 32000, (LLAMA_TRAIN_B, LLAMA_TRAIN_S)), device=dev)
-        with torch.no_grad():
-            single_loss = float(model.loss(x, torch.roll(x, -1, 1), attn_impl="flash"))
-        del model
-        torch.cuda.empty_cache()
-        tp_ranks, tp_seconds = spawn_mesh(mp_tp_rank, "tp", 2, weights)
-        pp_ranks, pp_seconds = spawn_mesh(mp_pp_rank, "pp", 2)
-        zero_ranks, zero_seconds = spawn_mesh(mp_zero_rank, "fsdp", 2)
-        four, four_seconds = spawn_mesh(mp_4rank_rank, "pp_tp", 4, weights)
-    finally:
-        shutil.rmtree(wdir, ignore_errors=True)
+    serve_ref = tp_serve_reference(tflash, dev, weights) if serve else None
+    # the single-device step-0 loss from the weights
+    model = llama_model(dev, dtype="bfloat16", xent_chunk=8192)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.integers(0, 32000, (LLAMA_TRAIN_B, LLAMA_TRAIN_S)), device=dev)
+    with torch.no_grad():
+        single_loss = float(model.loss(x, torch.roll(x, -1, 1), attn_impl="flash"))
+    del model
+    torch.cuda.empty_cache()
+    tp_programs = {"tp": (mp_tp_rank, (weights,))}
+    if serve:
+        tp_programs["tp_serve"] = (tp_serve_rank, (weights, serve_ref["inputs"]))
+    tp_out, tp_seconds = spawn_programs(tp_programs, "tp")
+    tp_ranks = tp_out["tp"]
+    two, pp_seconds = spawn_programs({"pp": (mp_pp_rank, ()), "fsdp": (mp_zero_rank, ())}, "pp")
+    pp_ranks, zero_ranks, zero_seconds = two["pp"], two["fsdp"], pp_seconds
+    four, four_seconds = spawn_mesh(mp_4rank_rank, "pp_tp", 4, weights)
     note = ("ranks time-slice one card: the times are the cost of the collectives and the "
             "schedule, not a model-parallel speed-up")
 
@@ -4692,13 +4805,13 @@ def phase_model_parallel(tflash, dev, card):
 
     # (d) pp x tp
     emit({"phase": "model_parallel_pp_tp", "model": "tinyllama-1.1b", "dtype": "bfloat16",
-          "pp": 2, "tp": 2, "schedule": "1f1b", "n_micro": 2,
+          "pp": 2, "tp": 2, "schedule": "1f1b", "n_micro": 2, "n_layer": MP_4RANK_LAYERS,
           "batch": [LLAMA_TRAIN_B, LLAMA_TRAIN_S], "steps": MP_4RANK_STEPS,
           "seconds_with_spawn": four_seconds, "card": card, "note": note, "ranks": four})
     for r in four:
         check(all(np.isfinite(r["losses"])) and r["losses"] == four[0]["losses"],
               f"pp x tp rank {r['rank']}: losses {r['losses']} vs rank 0's {four[0]['losses']}")
-        per = 11 * 2 * MP_4RANK_STEPS
+        per = MP_4RANK_LAYERS // 2 * 2 * MP_4RANK_STEPS
         check(bf16_step_counts_ok(r["launches"], per, per),
               f"pp x tp rank {r['rank']}: flash launches {r['launches']}, expected {per}")
         for s in four:
@@ -4709,11 +4822,413 @@ def phase_model_parallel(tflash, dev, card):
                 check(s["non_layer_sha"] == r["non_layer_sha"],
                       f"ranks {r['rank']} and {s['rank']}: non-layer leaves differ across stages")
     emit({"phase": "model_parallel", "phase_seconds": time.perf_counter() - t_phase,
-          "seconds": {"tp": tp_seconds, "pp": pp_seconds, "zero": zero_seconds,
-                      "pp_tp": four_seconds}, "card": card})
+          "seconds": {"tp" + (" + tp_serve" if serve else ""): tp_seconds,
+                      "pp + zero": pp_seconds, "pp_tp": four_seconds}, "card": card})
     counts = {k: tp_ranks[0]["launches"][k] + pp_ranks[0]["schedules"]["gpipe"]["launches"][k]
               for k in tp_ranks[0]["launches"]}
-    return counts, pp_ranks[0]["int8_remat"]["quantize_int8"]
+    served = (serve_ref, (tp_out["tp_serve"], tp_seconds)) if serve else None
+    return counts, pp_ranks[0]["int8_remat"]["quantize_int8"], served
+
+
+# ---- tensor-parallel serving: TinyLlama-1.1B at tp = 2 (port slice 17) -------------
+
+TP_SERVE_B, TP_SERVE_PROMPT, TP_SERVE_NEW = 2, 512, 32  # generate_spmd's batch and lengths
+TP_SERVE_REQUESTS, TP_SERVE_F32_REQUESTS = 16, 4  # of llama_prompts: the bf16 and f32 drains
+TP_SERVE_HEADS, TP_SERVE_KV_HEADS = LLAMA_HEADS // 2, LLAMA_KV_HEADS // 2  # a rank's
+TP_SERVE_STEADY_TICKS = 5
+# the f32 drains' pages: unquantized, so that the tp ranks' f32 rounding
+# (row-parallel partial sums, one all-reduce) cannot flip an int4 code; an
+# int4 flip moves the logits by a quantum's share, not by rounding noise
+# (the first chip run: request 2 parted at step 114 with a top-2 margin of
+# 0.036), which no margin rule meant for f32 noise admits
+TP_SERVE_F32_PAGES = "fp"
+
+
+def with_tinyllama_weights(fn):
+    """``fn(path)`` with the :func:`tinyllama_bf16_weights` file."""
+    with tinyllama_bf16_weights() as path:
+        return fn(path)
+
+
+@contextlib.contextmanager
+def tinyllama_bf16_weights():
+    """TinyLlama-1.1B's weights (:func:`llama_weights`) rounded to bf16 in a
+    file the spawned ranks map (``torch.load(mmap=True)``), deleted after."""
+    import tempfile
+
+    wdir = tempfile.mkdtemp(prefix="chip_smoke_tinyllama_")
+    try:
+        path = os.path.join(wdir, "tinyllama_bf16.pt")
+        torch.save({k: v.to(torch.bfloat16) for k, v in llama_weights().items()}, path)
+        yield path
+    finally:
+        shutil.rmtree(wdir, ignore_errors=True)
+
+
+def tp_serve_inputs():
+    """The generate prompt [2, 512] and the drains' requests (the first
+    :data:`TP_SERVE_REQUESTS` of the Llama serving row's, ``llama_prompts``
+    at seed 2)."""
+    prompt = np.random.default_rng(17).integers(0, 32000, (TP_SERVE_B, TP_SERVE_PROMPT))
+    prompts, budgets, _ = llama_prompts(np.random.default_rng(2), PAGED_REQUESTS)
+    return (prompt, [p.tolist() for p in prompts[:TP_SERVE_REQUESTS]],
+            [int(n) for n in budgets[:TP_SERVE_REQUESTS]])
+
+
+def tp_serve_kernels(tflash, dev):
+    """Kernel 1 at the tp prefill's shape [2·16, 512, 64] (bf16 and f32) and
+    kernels 5 and 6 at a rank's decode and chunk shapes (16 query heads over
+    2 kv heads, int4 pages; bf16 and f32 q at decode), each against its plain
+    version; their times by CUDA events. Returns (max errors, times)."""
+    from dsml_tpu_torch.ops import paged_attention as tpa
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    bh, s, d = TP_SERVE_B * TP_SERVE_HEADS, TP_SERVE_PROMPT, D
+    errs, times = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(bh, s, d, generator=gen, device=dev).to(dt) for _ in range(3))
+        out, lse = tflash.flash_fwd(q, k, v, True)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = tflash._flash_fwd_reference(q, k, v, True)
+        err = {"out": (out.float() - ref_out.float()).abs().max().item(),
+               "lse": (lse - ref_lse).abs().max().item()}
+        ok = (bool(torch.isfinite(out).all()) and err["out"] <= TOL[dt]["out"]
+              and err["lse"] <= TOL[dt]["lse"])
+        emit({"phase": "tp_serve_kernel", "kernel": "flash_fwd", "shape": [bh, s, d],
+              "dtype": str(dt)[6:], "causal": True, "max_abs_err": err, "tol": TOL[dt], "ok": ok})
+        check(ok, f"flash_fwd at the tp = 2 prefill shape ({dt}): {err}")
+        errs[f"flash_fwd_{str(dt)[6:]}"] = err["out"]
+        bound_ms, bound_by = attention_bound_ms(bh, s, s, d, dt, True)
+        q4, k4, v4 = (t.view(TP_SERVE_B, TP_SERVE_HEADS, s, d) for t in (q, k, v))
+        times[f"flash_fwd_{str(dt)[6:]}"] = {
+            "ms": cuda_ms(functools.partial(tflash.flash_fwd, q, k, v, True)),
+            "plain_ms": cuda_ms(functools.partial(tflash._flash_fwd_reference, q, k, v, True),
+                                reps=5, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": cuda_ms(functools.partial(F.scaled_dot_product_attention, q4, k4, v4,
+                                                    is_causal=True))}
+    rng = np.random.default_rng(17)
+    n_pt = 2048 // PAGE
+    decode_pos = (rng.integers(1, 1024, PAGED_SLOTS) - 1)[:, None]
+    shapes = {"tp_decode": (PAGED_SLOTS, decode_pos),
+              "tp_chunk": (1, (512 + np.arange(PAGED_CHUNK))[None, :])}
+    for shape, (b, positions) in shapes.items():
+        for q_dtype in (torch.bfloat16, torch.float32):
+            if shape == "tp_chunk" and q_dtype == torch.float32:
+                continue
+            args = paged_case(dev, rng, gen, b, TP_SERVE_HEADS, TP_SERVE_KV_HEADS, D, n_pt,
+                              positions, q_dtype, "int4")
+            errs[f"paged_{shape}_{str(q_dtype)[6:]}"] = paged_check(dev, tpa, shape, args, "int4",
+                                                                    q_dtype, positions)
+            if q_dtype == torch.bfloat16:
+                call = (*args, "int4")
+                bound_ms, bound_by = paged_bound_ms(*args)
+                plain_ms = cuda_ms(lambda: tpa._paged_attention_reference(*call))
+                for name, pipe in (("paged_attn", False), ("paged_attn_pipelined", True)):
+                    times.setdefault(name, {})[shape] = {
+                        "ms": cuda_ms(lambda: tpa.paged_attention(*call, pipeline=pipe)),
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None}
+    emit({"phase": "kernel_time", "path": "tp_serve", "hq": TP_SERVE_HEADS,
+          "hkv": TP_SERVE_KV_HEADS, "hd": D, "page": PAGE, "codec": "int4", **times,
+          "note": "CUDA events around one wrapper call (host time between launches included), "
+                  "at a tp = 2 rank's shapes: flash [2·16, 512, 64] causal, paged decode "
+                  "16 slots at depths 1-1023 and a 256-row chunk from 512"})
+    return errs, times
+
+
+def tp_serve_rank(rank, tmp, weights, inputs):
+    rank_main(lambda r, t, res, stage: tp_serve_run(r, t, res, stage, weights, inputs),
+              "tp_serve", rank, tmp)
+
+
+def _logits_sha(logits) -> str:
+    import hashlib
+
+    return hashlib.sha256(logits.float().cpu().numpy().tobytes()).hexdigest()
+
+
+def tp_serve_run(rank, tmp, res, stage, weights, inputs):
+    """TinyLlama-1.1B at tp = 2 (one rank): ``generate_spmd`` and the int4
+    paged batcher on a mesh, f32 (tokens for the margin rule) then bf16
+    (times, launches, collectives)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from dsml_tpu_torch.models.llama import Llama, LlamaConfig
+    from dsml_tpu_torch.ops import flash as tflash
+    from dsml_tpu_torch.ops import paged_attention as tpa
+    from dsml_tpu_torch.parallel import tp as ttp
+    from dsml_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from dsml_tpu_torch.serving import ContinuousBatcher
+
+    prompt, prompts, budgets = inputs
+    prompts = [np.asarray(p, np.int64) for p in prompts]
+    mesh = build_mesh(MeshSpec(tp=2), rank, 2, os.path.join(tmp, "rendezvous"))
+    dev, group = mesh.device, mesh.group("tp")
+    res["device"] = str(dev)
+    torch.cuda.reset_peak_memory_stats(dev)  # the process may have trained before (tp)
+    state = torch.load(weights, mmap=True)
+    kw = dict(paged_kv="int4", page_size=PAGE, prefill_chunk=PAGED_CHUNK, n_slots=PAGED_SLOTS)
+    x = torch.as_tensor(prompt, device=dev)
+
+    def shard(dtype):
+        cfg = dataclasses.replace(LlamaConfig.tinyllama_1b(), dtype=dtype)
+        return Llama(cfg, device=dev, tp_group=group).load_full(state)
+
+    stage("f32 generate_spmd")
+    model = shard("float32")
+    res["local_heads"] = {"q": model.config.n_head // group.size,
+                          "kv": model.config.n_kv_head // group.size}
+    logits, cache = model.prefill(x)
+    res["f32_cache_heads"] = cache[0]["k"].shape[1]
+    res["f32_prefill_logits_sha"] = _logits_sha(logits)
+    del logits, cache
+    reset_counts(tflash)
+    res["f32_tokens"] = model.generate_spmd(x, TP_SERVE_NEW, mesh).tolist()
+    res["f32_generate_launches"] = train_counts(tflash)
+    stage("f32 batcher")
+    os.environ["DSML_PAGED_ATTN_PIPELINE"] = "0"  # the single-buffer kernel (5)
+    try:
+        srv = ContinuousBatcher(model, mesh=mesh, **{**kw, "paged_kv": TP_SERVE_F32_PAGES})
+        tpa.paged_attn_launches = tpa.paged_attn_pipelined_launches = 0
+        toks, wall, _ = drain(srv, prompts[:TP_SERVE_F32_REQUESTS], budgets[:TP_SERVE_F32_REQUESTS])
+        res["f32_batcher"] = {"tokens": toks, "launches": paged_counts(tpa), "wall_s": wall,
+                              "pool_heads": srv._pool[0]["k"].shape[1],
+                              "pages_back": srv.free_pages == srv.n_pages - 1}
+    finally:
+        del os.environ["DSML_PAGED_ATTN_PIPELINE"]
+    del srv, model
+    torch.cuda.empty_cache()
+
+    stage("bf16 generate_spmd")
+    model = shard("bfloat16")
+    model.generate_spmd(x, 4, mesh)  # warm-up: cuBLAS, the allocator, the IPC slots
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(x)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    reset_counts(tflash)
+    torch.cuda.synchronize()
+    dist.barrier(group=group.pg)
+    t0 = time.perf_counter()
+    toks = model.generate_spmd(x, TP_SERVE_NEW, mesh)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = train_counts(tflash)
+    _, cache = model.prefill(x)
+    ttp.reset_stats()
+    model.decode_step(cache, toks[:, 0], TP_SERVE_PROMPT)
+    res["bf16_generate"] = {
+        "tokens": toks.tolist(), "seconds": gen_s, "prefill_ms": statistics.median(prefill_ms),
+        "decode_ms_per_step": (gen_s * 1e3 - statistics.median(prefill_ms)) / (TP_SERVE_NEW - 1),
+        "tokens_per_s": TP_SERVE_B * TP_SERVE_NEW / gen_s, "launches": launches,
+        "decode_step_collectives": dict(ttp.STATS)}
+    del cache
+
+    stage("bf16 batcher")
+    srv = ContinuousBatcher(model, mesh=mesh, **kw)
+    drain(srv, prompts[:4], [8] * 4)  # warm-up
+    srv.reset_latency_stats()
+    plain0, pre0 = srv.n_plain_ticks, srv.n_prefill_dispatches
+    tpa.paged_attn_launches = tpa.paged_attn_pipelined_launches = 0  # the main path, counted
+    ttp.reset_stats()
+    toks, wall, tick_ms = drain(srv, prompts, budgets)
+    stats = dict(ttp.STATS)
+    lat = srv.latency_stats()
+    n_ticks, n_chunks = srv.n_plain_ticks - plain0, srv.n_prefill_dispatches - pre0
+    res["bf16_batcher"] = {
+        "tokens": toks, "launches": paged_counts(tpa), "wall_s": wall,
+        "new_tokens": sum(len(t) for t in toks), "tokens_per_s": sum(len(t) for t in toks) / wall,
+        "decode_ticks": n_ticks, "prefill_chunks": n_chunks,
+        "ttft_p50_s": lat.get("ttft_p50_s"), "e2e_p50_s": lat.get("e2e_p50_s"),
+        "decode_tick_ms_median": statistics.median(tick_ms), "drain_collectives": stats,
+        "complete": all(len(t) == n for t, n in zip(toks, budgets)),
+        "pages_back": srv.free_pages == srv.n_pages - 1}
+    stage("steady tick")
+    for i in range(srv.n_slots):
+        srv.submit(prompts[i % len(prompts)][:64], 64)
+    while srv.n_queued or srv.n_pending or srv.n_active < srv.n_slots:
+        srv.step()
+    walls = []
+    ttp.reset_stats()
+    for _ in range(TP_SERVE_STEADY_TICKS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        srv.step()
+        walls.append((time.perf_counter() - t) * 1e3)
+    per_tick = {k: v / TP_SERVE_STEADY_TICKS for k, v in ttp.STATS.items()}
+    busy, top = device_busy_ms(srv.step)
+    srv.abandon()
+    # the tick's collectives alone, at its payloads: the all-reduce of the
+    # [16, 1, 2048] hidden states and the all-gather of [16, 16000] logits
+    hidden = torch.randn(PAGED_SLOTS, 1, model.config.d_model, device=dev).to(torch.bfloat16)
+    shard_logits = torch.randn(PAGED_SLOTS, model.config.vocab_size // 2,
+                               device=dev).to(torch.bfloat16)
+    ar_ms = statistics.median(collective_times(lambda: ttp.tp_all_reduce(hidden, group),
+                                               group.pg))
+    ag_ms = statistics.median(collective_times(
+        lambda: ttp.all_gather_tp(shard_logits, group, dim=-1), group.pg))
+    wall = statistics.median(walls)
+    res["steady_tick"] = {
+        "slots": srv.n_slots, "wall_ms": wall, "device_busy_ms": busy,
+        "device_idle_share": None if busy is None else 1 - busy / wall, "top_kernels_ms": top,
+        "collectives": per_tick, "all_reduce_ms": ar_ms, "all_gather_ms": ag_ms,
+        "collective_ms_est": per_tick["all_reduce"] * ar_ms + per_tick["all_gather"] * ag_ms,
+        "pages_back": srv.free_pages == srv.n_pages - 1}
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    res["ipc_slot_bytes"] = mesh.slot_bytes()
+    del srv, model
+    mesh.close()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def tp_serve_reference(tflash, dev, weights):
+    """The tp_serve phase's work in this process before its ranks: kernels
+    1, 5 and 6 at a rank's shapes, the inputs, and the single-device f32
+    references from the same bf16-rounded weights (``generate`` at 2 × 512 +
+    32 and the paged batcher on 4 requests over :data:`TP_SERVE_F32_PAGES`)."""
+    from dsml_tpu_torch.models.llama import Llama, LlamaConfig
+    from dsml_tpu_torch.serving import ContinuousBatcher
+
+    t0 = time.perf_counter()
+    errs, times = tp_serve_kernels(tflash, dev)
+    prompt, prompts, budgets = inputs = tp_serve_inputs()
+    ref = Llama(LlamaConfig.tinyllama_1b(), device=dev)
+    ref.load_state_dict(torch.load(weights, mmap=True))
+    tokens = ref.generate(torch.as_tensor(prompt, device=dev), TP_SERVE_NEW).tolist()
+    kw = dict(paged_kv=TP_SERVE_F32_PAGES, page_size=PAGE, prefill_chunk=PAGED_CHUNK,
+              n_slots=PAGED_SLOTS)
+    os.environ["DSML_PAGED_ATTN_PIPELINE"] = "0"
+    try:
+        srv = ContinuousBatcher(ref, **kw)
+        drained, _, _ = drain(srv, [np.asarray(p, np.int64) for p in prompts[:TP_SERVE_F32_REQUESTS]],
+                              budgets[:TP_SERVE_F32_REQUESTS])
+        del srv
+    finally:
+        del os.environ["DSML_PAGED_ATTN_PIPELINE"]
+    del ref
+    torch.cuda.empty_cache()
+    return {"errs": errs, "times": times, "inputs": inputs, "tokens": tokens, "drain": drained,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_tp_serve(tflash, dev, card, weights, ref=None, spawned=None):
+    """TinyLlama-1.1B at full width and depth served at tp = 2 (two spawned
+    ranks sharing the card, each holding 16 query and 2 kv heads of every
+    layer, half the vocabulary and its KV shard). Kernels 1, 5 and 6 at a
+    rank's shapes against their plain versions. The single-device f32
+    references in this process: ``generate`` at 2 × 512 + 32 and the paged
+    batcher on 4 requests over unquantized pages (:data:`TP_SERVE_F32_PAGES`).
+    Per rank: ``generate_spmd`` and that batcher (16 slots, page 16, chunk
+    256) at f32, whose tokens must equal the references' under the top-2
+    margin rule, and both ranks' bit-identical; then bf16 for the times,
+    the batcher over int4 pages: prefill ms, decode ms a step, tokens/s, the
+    16-request drain's tokens/s and median tick, a steady tick's wall and
+    device-busy ms, its tp collectives with their bytes and ms, peak memory
+    and IPC slot bytes. Launches of kernel 1 (22 a generate: the 512-token
+    prefill) and kernels 5 and 6 (22 a chunk or tick) counted on the path.
+    ``ref`` is :func:`tp_serve_reference`'s and ``spawned`` (ranks, seconds)
+    of a spawn shared with other programs (the full run's model-parallel
+    tp ranks); None does either here. Returns the launches by kernel, the
+    kernels' max errors and their times."""
+    from dsml_tpu_torch.models.llama import Llama, LlamaConfig
+
+    t_phase = time.perf_counter()
+    ref = ref or tp_serve_reference(tflash, dev, weights)
+    errs, times, inputs = ref["errs"], ref["times"], ref["inputs"]
+    prompt, prompts, budgets = inputs
+    kw = dict(paged_kv="int4", page_size=PAGE, prefill_chunk=PAGED_CHUNK, n_slots=PAGED_SLOTS)
+    n_layer = LlamaConfig.tinyllama_1b().n_layer
+    ranks, seconds = spawned or spawn_mesh(tp_serve_rank, "tp_serve", 2, weights, inputs)
+    single = []  # the f32 model of the margin rule, built only at a divergence
+
+    def mismatches(got, want, prompt_rows):
+        near, bad = [], 0
+        for i, (a, w) in enumerate(zip(got, want)):
+            diff = [j for j, (u, v) in enumerate(zip(a, w)) if u != v]
+            if diff:
+                if not single:
+                    single.append(Llama(LlamaConfig.tinyllama_1b(), device=dev))
+                    single[0].load_state_dict(torch.load(weights, mmap=True))
+                m = first_divergence_margin(single[0], np.asarray(prompt_rows[i], np.int64), w,
+                                            diff[0])
+                near.append({"row": i, "step": diff[0], "margin": m})
+                bad += m >= MARGIN
+        return near, bad
+
+    r0 = ranks[0]
+    ref_tokens, ref_drain = ref["tokens"], ref["drain"]
+    gen_near, gen_bad = mismatches(r0["f32_tokens"], ref_tokens, prompt)
+    drain_near, drain_bad = mismatches(r0["f32_batcher"]["tokens"], ref_drain, prompts)
+    del single
+    torch.cuda.empty_cache()
+    identical = all(r[key] == r0[key] for r in ranks for key in (
+        "f32_tokens", "f32_prefill_logits_sha")) and all(
+        r["f32_batcher"]["tokens"] == r0["f32_batcher"]["tokens"]
+        and r["bf16_generate"]["tokens"] == r0["bf16_generate"]["tokens"]
+        and r["bf16_batcher"]["tokens"] == r0["bf16_batcher"]["tokens"] for r in ranks)
+    row = {"phase": "tp_serve", "model": "tinyllama-1.1b", "tp": 2,
+           "local_heads": r0["local_heads"], "generate": {
+               "batch": TP_SERVE_B, "prompt": TP_SERVE_PROMPT, "new_tokens": TP_SERVE_NEW},
+           "batcher": {**kw, "requests": TP_SERVE_REQUESTS,
+                       "f32_requests": TP_SERVE_F32_REQUESTS, "f32_pages": TP_SERVE_F32_PAGES},
+           "f32_generate_tokens_equal": r0["f32_tokens"] == ref_tokens,
+           "f32_generate_near_ties": gen_near,
+           "f32_batcher_tokens_equal": r0["f32_batcher"]["tokens"] == ref_drain,
+           "f32_batcher_near_ties": drain_near,
+           "ranks_tokens_and_logits_identical": identical, "kernel_max_abs_err": errs,
+           "reference_seconds": ref["seconds"], "seconds_with_spawn": seconds,
+           "spawn_shared": spawned is not None, "card": card,
+           "note": "two ranks time-slice one card: the times are the cost of the tp "
+                   "collectives and the host, not a tensor-parallel speed-up",
+           "ranks": [{k: v for k, v in r.items() if k not in ("f32_tokens",)}
+                     | {"f32_batcher": {k: v for k, v in r["f32_batcher"].items()
+                                        if k != "tokens"},
+                        "bf16_generate": {k: v for k, v in r["bf16_generate"].items()
+                                          if k != "tokens"},
+                        "bf16_batcher": {k: v for k, v in r["bf16_batcher"].items()
+                                         if k != "tokens"}} for r in ranks],
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(row)
+    check(identical, "tp_serve: the two ranks' tokens or logits differ")
+    check(gen_bad == 0, f"tp_serve: f32 generate_spmd diverges from generate beyond the margin "
+                        f"rule: {gen_near}")
+    check(drain_bad == 0, f"tp_serve: the f32 tp batcher diverges from the single-device one "
+                          f"beyond the margin rule: {drain_near}")
+    for r in ranks:
+        rk = r["rank"]
+        check(r["f32_cache_heads"] == TP_SERVE_KV_HEADS
+              and r["f32_batcher"]["pool_heads"] == TP_SERVE_KV_HEADS,
+              f"tp_serve rank {rk}: cache/pool heads {r['f32_cache_heads']}, "
+              f"{r['f32_batcher']['pool_heads']}")
+        check(r["f32_generate_launches"]["flash_fwd"] == n_layer
+              and r["bf16_generate"]["launches"]["flash_fwd"] == n_layer,
+              f"tp_serve rank {rk}: flash_fwd launches {r['f32_generate_launches']}, "
+              f"{r['bf16_generate']['launches']}; expected {n_layer} a generate")
+        f32l, bfb = r["f32_batcher"]["launches"], r["bf16_batcher"]
+        check(f32l["paged_attn"] > 0 and f32l["paged_attn_pipelined"] == 0,
+              f"tp_serve rank {rk}: the f32 drain launched {f32l}")
+        check(bfb["launches"] == {"paged_attn": 0, "paged_attn_pipelined": n_layer * (
+            bfb["decode_ticks"] + bfb["prefill_chunks"])},
+            f"tp_serve rank {rk}: the bf16 drain launched {bfb['launches']}, expected {n_layer} "
+            f"x {bfb['decode_ticks'] + bfb['prefill_chunks']} pipelined launches")
+        check(bfb["complete"] and bfb["pages_back"] and r["f32_batcher"]["pages_back"]
+              and r["steady_tick"]["pages_back"], f"tp_serve rank {rk}: incomplete or leaked")
+        st = r["bf16_generate"]["decode_step_collectives"]
+        check(st["all_reduce"] == 1 + 2 * n_layer and st["all_gather"] == 1,
+              f"tp_serve rank {rk}: a decode step's collectives {st}")
+    return ({"flash_fwd": r0["bf16_generate"]["launches"]["flash_fwd"]
+             + r0["f32_generate_launches"]["flash_fwd"],
+             "paged_attn": r0["f32_batcher"]["launches"]["paged_attn"],
+             "paged_attn_pipelined": r0["bf16_batcher"]["launches"]["paged_attn_pipelined"]},
+            errs, times)
 
 
 # the train_gpt2 entry points run as processes, beside each other and the Llama
@@ -5184,7 +5699,8 @@ def main() -> None:
 
     t0 = time.perf_counter()
     reports = _build.build()
-    emit({"phase": "build", "sources": sorted(reports), "seconds": time.perf_counter() - t0,
+    reports_seconds = time.perf_counter() - t0
+    emit({"phase": "build", "sources": sorted(reports), "seconds": reports_seconds,
           "ptxas": {name: [line.strip() for line in log.splitlines()
                            if "registers" in line or "spill" in line]
                     for name, log in reports.items()},
@@ -5192,6 +5708,9 @@ def main() -> None:
                             if props.get("spill_stores") or props.get("spill_loads")}
                      for name, log in reports.items()}})
 
+    share_gpt2_small_weights()
+    emit({"phase": "gpt2_weights", "seconds": time.perf_counter() - t0 - reports_seconds,
+          "note": "GPT-2-small's f32 init from seed 0, drawn once and read by every phase and rank"})
     only = sys.argv[1:]  # a debugging run of some phases: no result line
     if only:
         phases = {"sass": lambda: phase_sass(_build, reports),
@@ -5224,7 +5743,10 @@ def main() -> None:
                   "llama_ticks": lambda: phase_llama_ticks(dev, card),
                   "obs": lambda: phase_obs(tflash, dev, card),
                   "checkpoint": lambda: phase_checkpoint(tflash, dev, card),
-                  "model_parallel": lambda: phase_model_parallel(tflash, dev, card),
+                  "model_parallel": lambda: with_tinyllama_weights(
+                      lambda w: phase_model_parallel(tflash, dev, card, w)),
+                  "tp_serve": lambda: with_tinyllama_weights(
+                      lambda w: phase_tp_serve(tflash, dev, card, w)),
                   "mp_cli": lambda: phase_train_cli_runs(
                       train_cli_start(["tinyllama_tp2", "small_pp2_1f1b"])),
                   "moe": lambda: phase_moe(
@@ -5270,8 +5792,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     cp_launches = phase_cp_slice(card)
     torch.cuda.empty_cache()
-    phase_allreduce(card)
-    phase_quant_allreduce(card)
+    allreduce_ranks, quant_ranks = spawn_collectives()  # one spawn, both programs
+    phase_allreduce(card, allreduce_ranks)
+    phase_quant_allreduce(card, quant_ranks)
     _, q8_launches = phase_dp_slice(card)
     torch.cuda.empty_cache()
     # the Llama and the train_gpt2 entry points (cp, dp, tp, pp) run as
@@ -5311,8 +5834,16 @@ def main() -> None:
     torch.cuda.empty_cache()
     ckpt_launches = phase_checkpoint(tflash, dev, card)
     torch.cuda.empty_cache()
-    # model parallelism: tp, pp (three schedules), ZeRO-3/ZeRO-2 and pp x tp
-    mp_launches, mp_quant8 = phase_model_parallel(tflash, dev, card)
+    # model parallelism: tp, pp (three schedules), ZeRO-3/ZeRO-2 and pp x tp;
+    # then tensor-parallel serving, from the same TinyLlama weights file
+    with tinyllama_bf16_weights() as weights:
+        # the tp ranks serve too (tp_serve), after their training program
+        mp_launches, mp_quant8, (serve_ref, serve_spawned) = phase_model_parallel(
+            tflash, dev, card, weights, serve=True)
+        torch.cuda.empty_cache()
+        tp_launches, tp_errs, _ = phase_tp_serve(tflash, dev, card, weights, serve_ref,
+                                                 serve_spawned)
+    tp_paged_err = max(v for k, v in tp_errs.items() if k.startswith("paged_"))
 
     # the backward's two routes: bf16 (tensor cores) with launches from the
     # bf16 train steps, f32 (FMAs) with launches from phase_train's f32
@@ -5350,10 +5881,11 @@ def main() -> None:
         {"name": "flash_fwd", "route": "cuda", "source": "dsml_tpu_torch/ops/csrc/flash_fwd.cu",
          "replaces": "dsml_tpu/ops/flash.py:198",
          "launches": launches + llama_train_launches["flash_fwd"] + ckpt_launches["flash_fwd"]
-         + mp_launches["flash_fwd"] + moe["flash_fwd"],
+         + mp_launches["flash_fwd"] + moe["flash_fwd"] + tp_launches["flash_fwd"],
          "launches_by_path": {"slice": launches, "llama_train": llama_train_launches["flash_fwd"],
                               "checkpoint": ckpt_launches["flash_fwd"],
-                              "model_parallel": mp_launches["flash_fwd"], "moe": moe["flash_fwd"]},
+                              "model_parallel": mp_launches["flash_fwd"], "moe": moe["flash_fwd"],
+                              "tp_serve": tp_launches["flash_fwd"]},
          "max_abs_err": main_err, **timing},
         *bwd_rows,
         # times at the decode tick's shape (the chunk's are in the kernel_time line);
@@ -5361,22 +5893,24 @@ def main() -> None:
         {"name": "paged_attn", "route": "cuda", "source": PAGED_SOURCE,
          "replaces": "dsml_tpu/ops/paged_attention.py:169",
          "launches": single_launches["paged_attn"] + llama_paged_launches["paged_attn"]
-         + ckpt_launches["paged_attn"] + moe["paged_attn"],
+         + ckpt_launches["paged_attn"] + moe["paged_attn"] + tp_launches["paged_attn"],
          "launches_by_path": {"paged_slice": single_launches["paged_attn"],
                               "llama_serve": llama_paged_launches["paged_attn"],
-                              "checkpoint": ckpt_launches["paged_attn"], "moe": moe["paged_attn"]},
-         "max_abs_err": max(paged_err, llama_kernels["paged_err"], moe["paged_err"]),
+                              "checkpoint": ckpt_launches["paged_attn"], "moe": moe["paged_attn"],
+                              "tp_serve": tp_launches["paged_attn"]},
+         "max_abs_err": max(paged_err, llama_kernels["paged_err"], moe["paged_err"], tp_paged_err),
          **paged_timing["paged_attn"]["decode"]},
         {"name": "paged_attn_pipelined", "route": "cuda", "source": PAGED_SOURCE,
          "replaces": "dsml_tpu/ops/paged_attention.py:259",
          "launches": paged_launches["paged_attn_pipelined"]
          + llama_paged_launches["paged_attn_pipelined"] + ckpt_launches["paged_attn_pipelined"]
-         + moe["paged_attn_pipelined"],
+         + moe["paged_attn_pipelined"] + tp_launches["paged_attn_pipelined"],
          "launches_by_path": {"paged_slice": paged_launches["paged_attn_pipelined"],
                               "llama_serve": llama_paged_launches["paged_attn_pipelined"],
                               "checkpoint": ckpt_launches["paged_attn_pipelined"],
-                              "moe": moe["paged_attn_pipelined"]},
-         "max_abs_err": max(paged_err, llama_kernels["paged_err"], moe["paged_err"]),
+                              "moe": moe["paged_attn_pipelined"],
+                              "tp_serve": tp_launches["paged_attn_pipelined"]},
+         "max_abs_err": max(paged_err, llama_kernels["paged_err"], moe["paged_err"], tp_paged_err),
          **paged_timing["paged_attn_pipelined"]["decode"]},
         # times at the decode tick's shape of wqkv (16 rows, int4, bf16 x; the
         # other projections and the chunk are in the kernel_time line);

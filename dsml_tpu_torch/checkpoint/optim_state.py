@@ -35,7 +35,7 @@ import torch
 from dsml_tpu_torch.checkpoint.native import tree_leaves_with_path
 
 __all__ = ["KINDS", "flat_paths", "load_optax_state", "load_param_tree", "nest_paths",
-           "optax_state", "param_tree"]
+           "optax_state", "param_tree", "restore_params"]
 
 KINDS = ("sgd", "momentum", "adam", "adamw", "clip_adamw")
 
@@ -77,6 +77,25 @@ def load_param_tree(model, tree) -> None:
     """Copy a parameter tree into ``model`` (every key, in place, onto the
     module's devices and dtypes)."""
     model.load_state_dict(flat_paths(tree))
+
+
+def restore_params(manager, model, step: int | None = None) -> None:
+    """The weights-only partial restore of a checkpoint's ``params``
+    subtree (either package's; ``manager`` a ``CheckpointManager`` or a
+    ``utils.checkpoint.Checkpointer``) into ``model``, cast to its dtype. A
+    whole model is its own template and restores in place; a tp shard or a
+    pipeline stage reads the whole model's arrays on the host and keeps its
+    own blocks of them (``load_full``), the JAX restore onto a
+    ``shard_params`` template."""
+    if not model.is_partial:
+        load_param_tree(model, manager.restore(step, template={"params": param_tree(model)},
+                                               partial=True)["params"])
+        return
+    whole = type(model)(model.config, device="meta")
+    template = nest_paths({name: torch.empty(p.shape, dtype=p.dtype)
+                           for name, p in whole.state_dict().items()})
+    model.load_full(flat_paths(manager.restore(step, template={"params": template},
+                                               partial=True)["params"]))
 
 
 def _named_state(optimizer, model) -> list:

@@ -67,8 +67,17 @@ in the order ``parallel.pp`` runs them: the JAX stacked and
 interleave-permuted layer axis, cut by rank); its blocks run through
 ``parallel.pp``'s schedules, not :meth:`GPT2.loss`. :meth:`GPT2.init` draws
 the whole model's ``np.random.default_rng(seed)`` sequence and keeps this
-rank's blocks, so every rank holds the shard of the same weights. Serving
-under tp or pp is the next slice's and raises.
+rank's blocks, so every rank holds the shard of the same weights.
+
+Serving on a tp shard (the JAX ``generate_spmd`` and the batcher's
+``mesh``): every serving surface runs head-parallel, the cache and the page
+pool holding this rank's ``n_head/tp`` heads (Llama: ``n_kv_head/tp``), one
+all-reduce after each row-parallel projection, and the logits row rebuilt
+whole on every rank (:meth:`GPT2._unembed_full`, an all-gather of the vocab
+shards), so every rank samples the same token from bit-identical logits.
+:meth:`GPT2.generate_spmd` is :meth:`GPT2.generate` on such a shard, with
+the batch optionally split over the mesh's ``dp`` axis. A pipeline stage
+does not serve: the JAX package has no pipeline-parallel serving either.
 
 The model-family hooks (``models/llama.py`` overrides them, as the JAX
 ``Llama`` overrides ``GPT2``'s): every surface turns its token positions
@@ -106,6 +115,7 @@ from dsml_tpu_torch.ops.xent import chunked_softmax_xent
 from dsml_tpu_torch.parallel.tp import (all_gather_tp, copy_to_tp, gather_from_tp,
                                         reduce_from_tp, split_to_tp, tp_rank, tp_size,
                                         vocab_parallel_embed, vocab_parallel_xent)
+from dsml_tpu_torch.utils.hash32 import request_key, request_uniform
 from dsml_tpu_torch.utils.platform import resolve_device
 
 __all__ = ["GPT2Config", "GPT2", "sample_token_logits"]
@@ -375,11 +385,23 @@ class GPT2(nn.Module):
                                                 if isinstance(cut, np.ndarray) else cut))
         return self
 
-    def _check_whole(self, what: str) -> None:
-        if self.is_partial:
+    def _check_servable(self, what: str) -> None:
+        """Serving runs on the whole model or on a tp shard; a pipeline
+        stage raises (the JAX package has no pipeline-parallel serving)."""
+        if self.layer_ids != list(range(self.config.n_layer)):
             raise NotImplementedError(
-                f"{what} on a tensor-parallel shard or a pipeline stage comes with the "
-                "model-parallel serving slice (ROADMAP.md queue 1, item 11)")
+                f"{what} on a pipeline stage: serving runs on the whole model or on a "
+                "tensor-parallel shard, and there is no pipeline-parallel serving")
+
+    def shard(self, tp_group, device=None) -> "GPT2":
+        """A new model of this class and config holding this rank's tp shard
+        of this WHOLE model's weights (the JAX ``shard_params`` placement),
+        on ``device`` (default: this model's device)."""
+        if self.is_partial:
+            raise ValueError("shard() cuts a whole model; this one is already a shard or a stage")
+        model = type(self)(self.config, device=self.device if device is None else device,
+                           tp_group=tp_group)
+        return model.load_full(self.state_dict())
 
     # ---- params ---------------------------------------------------------------
 
@@ -649,6 +671,13 @@ class GPT2(nn.Module):
         """Logits of ``h``: the rank's vocab shard under tp."""
         return self._tp_in(h) @ self._unembed_matrix().T
 
+    def _unembed_full(self, h):
+        """FULL-vocab logits of ``h`` [..., d], the serving read: under tp
+        the rank's [..., vocab/tp] shard all-gathered along the vocabulary
+        (``parallel.tp.all_gather_tp``), so every rank holds the same row
+        to sample from."""
+        return all_gather_tp(self._unembed(h), self.tp_group, dim=-1)
+
     def _rotary(self, positions, length):
         """What :meth:`_serving_qkv` needs of the token positions, computed
         once for every layer: ``positions`` is an int start (the positions
@@ -783,10 +812,11 @@ class GPT2(nn.Module):
 
     def init_cache(self, batch: int) -> list[dict[str, torch.Tensor]]:
         """KV cache, one entry per layer, allocated at max_seq, with
-        :attr:`_n_cache_heads` heads. With ``config.kv_quant`` the entries
+        :attr:`_n_cache_heads` heads (this rank's ``1/tp`` of them on a tp
+        shard). With ``config.kv_quant`` the entries
         are int8 (or int4 packed in uint8) rows plus one f32 scale per row
         (:meth:`_cache_write`)."""
-        self._check_whole("a KV cache")
+        self._check_servable("a KV cache")
         return [self._cache_entry(batch) for _ in range(self.config.n_layer)]
 
     def _kv_mode(self) -> str | None:
@@ -803,7 +833,7 @@ class GPT2(nn.Module):
 
     def _cache_entry(self, batch: int) -> dict[str, torch.Tensor]:
         cfg = self.config
-        hd, heads = cfg.d_model // cfg.n_head, self._n_cache_heads
+        hd, heads = cfg.d_model // cfg.n_head, self._n_cache_heads // self.tp
         mode = self._kv_mode()
 
         def zeros(shape, dtype):
@@ -900,12 +930,12 @@ class GPT2(nn.Module):
             q, kc, vc = self._serving_qkv(layer, self._norm1(layer, h), rot)
             attn_out = qmatmul(self._merge_heads(attend(q, *self._attn_kv(kc, vc), causal=True)),
                                layer["attn"]["wo"])
-            h = self._add_attn_out(layer, h, attn_out)
+            h = self._add_attn_out(layer, h, self._tp_out(attn_out))
             h = self._ffn(layer, h)
             self._cache_write(c, kc, vc, lambda arr, new: arr[:, :, :t].copy_(new))
         h = self._final_norm(h)
         h_last = h[:, -1] if last_index is None else h[:, last_index]
-        return self._unembed(h_last), cache
+        return self._unembed_full(h_last), cache
 
     def _read_logits(self, h, read_index):
         """Final norm and unembedding of ``h`` [b, C, d] at ``read_index``:
@@ -913,8 +943,8 @@ class GPT2(nn.Module):
         int that chunk-local row."""
         h = self._final_norm(h)
         if isinstance(read_index, str) and read_index == "all":
-            return self._unembed(h)
-        return self._unembed(h[:, 0 if read_index is None else int(read_index)])
+            return self._unembed_full(h)
+        return self._unembed_full(h[:, 0 if read_index is None else int(read_index)])
 
     def _decode_core(self, cache, h, positions, valid, write, read_index=None):
         """The decode layer loop for the tokens ``h`` [b, C, d] at
@@ -931,7 +961,7 @@ class GPT2(nn.Module):
             ck, cv, k_s, v_s = self._cache_attn_inputs(c)
             out = self._decode_attention(q, ck, cv, valid, k_s, v_s)
             attn_out = qmatmul(self._merge_heads(out), layer["attn"]["wo"])
-            h = self._add_attn_out(layer, h, attn_out)
+            h = self._add_attn_out(layer, h, self._tp_out(attn_out))
             h = self._ffn(layer, h)
         return self._read_logits(h, read_index), cache
 
@@ -1027,18 +1057,20 @@ class GPT2(nn.Module):
         """Per-layer page pool: ``n_pages`` physical pages of ``page_size``
         token rows, ``k``/``v`` [n_pages, H, page_size, hd (hd/2 for int4)]
         plus f32 ``k_s``/``v_s`` [n_pages, H, page_size, 1] when quantized,
-        H = :attr:`_n_cache_heads`. ``page_size`` must divide max_seq, so a slot's table has
+        H = :attr:`_n_cache_heads` (``1/tp`` of them on a tp shard: the page
+        and row axes, and so the page table, are the same on every rank).
+        ``page_size`` must divide max_seq, so a slot's table has
         ``max_seq // page_size`` entries. Page 0 is the SCRATCH page: dead
         slots and unallocated entries name it, so their masked writes land
         nowhere that is read."""
-        self._check_whole("a page pool")
+        self._check_servable("a page pool")
         cfg = self.config
         if page_size < 1 or cfg.max_seq % page_size:
             raise ValueError(f"page_size must divide max_seq={cfg.max_seq}, got {page_size}")
         if n_pages < 2:
             raise ValueError(f"need n_pages >= 2 (page 0 is the scratch page), got {n_pages}")
         mode = self._page_mode(quant)
-        hd, n_heads = cfg.d_model // cfg.n_head, self._n_cache_heads
+        hd, n_heads = cfg.d_model // cfg.n_head, self._n_cache_heads // self.tp
         if mode == "int4":
             if hd % 2:
                 raise ValueError(f"int4 pages need an even head_dim, got {hd}")
@@ -1111,7 +1143,7 @@ class GPT2(nn.Module):
                 ck, cv, k_s, v_s = self._paged_attn_inputs(c, page_table, mode)
                 out = self._decode_attention(q, ck, cv, valid, k_s, v_s)
             attn_out = qmatmul(self._merge_heads(out), layer["attn"]["wo"])
-            h = self._add_attn_out(layer, h, attn_out)
+            h = self._add_attn_out(layer, h, self._tp_out(attn_out))
             h = self._ffn(layer, h)
         return self._read_logits(h, read_index), pool
 
@@ -1221,23 +1253,89 @@ class GPT2(nn.Module):
         ``torch.Generator`` seeded with ``seed``. With ``eos_id`` a row that
         emits it keeps emitting ``eos_id`` for its remaining positions."""
         prompt = torch.as_tensor(prompt, device=self.device).long()
-        t = prompt.shape[1]
-        self._check_generate_args(t, max_new_tokens, temperature, top_k, top_p)
+        self._check_generate_args(prompt.shape[1], max_new_tokens, temperature, top_k, top_p)
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        return self._generate_loop(
+            prompt, max_new_tokens,
+            lambda logits, i: sample_token_logits(logits, gen, temperature, top_k, top_p), eos_id)
 
-        def sample(logits):
-            return sample_token_logits(logits, gen, temperature, top_k, top_p)
-
+    def _generate_loop(self, prompt: torch.Tensor, max_new_tokens: int, sample,
+                       eos_id: int | None) -> torch.Tensor:
+        """One prefill, then the decode loop; ``sample(logits, i)`` picks the
+        tokens of step ``i`` (0 = from the prefill's logits)."""
+        t = prompt.shape[1]
         logits, cache = self.prefill(prompt)
-        tok = sample(logits)
+        tok = sample(logits, 0)
         done = tok == eos_id if eos_id is not None else None
         out = [tok]
         for i in range(max_new_tokens - 1):
             logits, cache = self.decode_step(cache, tok, t + i)
-            tok = sample(logits)
+            tok = sample(logits, i + 1)
             if done is not None:
                 # rows past their EOS keep emitting eos_id
                 tok = torch.where(done, eos_id, tok)
                 done = done | (tok == eos_id)
             out.append(tok)
         return torch.stack(out, dim=1)
+
+    @torch.no_grad()
+    def generate_spmd(
+        self,
+        prompt,  # [batch, T] integer ids (tensor or numpy), the same on every rank
+        max_new_tokens: int,
+        mesh,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 0.0,
+        seed: int = 0,
+        dp_shard: bool = False,
+        eos_id: int | None = None,
+    ) -> torch.Tensor:
+        """Tensor-parallel serving, the JAX ``generate_spmd``: this model is
+        the rank's shard of ``mesh``'s ``tp`` group (built with
+        ``tp_group=mesh.group("tp")``), every rank calls it with the same
+        arguments, and the prefill and decode run head-parallel with the
+        rank's cache shard. Every rank rebuilds the whole logits row
+        (:meth:`_unembed_full`) and samples it with the same noise, so the
+        tokens equal :meth:`generate`'s on one device (greedy, and sampled
+        from the same ``torch.Generator`` draws). Returns [batch,
+        max_new_tokens] int64 on every rank.
+
+        ``dp_shard=True`` also splits the batch over the mesh's ``dp``
+        axis: each dp group decodes its own rows and the rows are gathered
+        back over ``dp``. The sampler noise then comes from (seed, global
+        row, step) (``utils.hash32.request_uniform``), so a dp = N run
+        equals a dp = 1 one with ``dp_shard`` and a row's tokens do not
+        depend on the split; greedy tokens equal :meth:`generate`'s. Other
+        mesh axes replicate."""
+        prompt = torch.as_tensor(prompt, device=self.device).long()
+        b, t = prompt.shape
+        self._check_generate_args(t, max_new_tokens, temperature, top_k, top_p)
+        tp = mesh.shape.get("tp", 1)
+        if self.config.n_head % tp:
+            raise ValueError(f"n_head={self.config.n_head} not divisible by tp={tp}")
+        if self.tp != tp or self.tp_group is not mesh.group("tp"):
+            raise ValueError(f"generate_spmd runs on this rank's shard of the mesh's tp = {tp} "
+                             "group: build the model with tp_group=mesh.group('tp')")
+        dp = mesh.shape.get("dp", 1) if dp_shard else 1
+        if dp_shard and b % dp:
+            raise ValueError(f"batch {b} not divisible by dp={dp} for dp_shard")
+        if not dp_shard:
+            gen = torch.Generator(device=self.device).manual_seed(int(seed))
+            return self._generate_loop(
+                prompt, max_new_tokens,
+                lambda logits, i: sample_token_logits(logits, gen, temperature, top_k, top_p),
+                eos_id)
+        rows = b // dp
+        row0 = mesh.coord("dp") * rows
+        keys = torch.tensor([request_key(int(seed), row0 + r) for r in range(rows)],
+                            device=self.device)
+
+        def sample(logits, i):
+            if temperature <= 0.0:
+                return logits.argmax(-1)
+            noise = request_uniform(keys, torch.full_like(keys, i), logits.shape[-1])
+            return sample_token_logits(logits, None, temperature, top_k, top_p, uniform=noise)
+
+        out = self._generate_loop(prompt[row0:row0 + rows], max_new_tokens, sample, eos_id)
+        return out if dp == 1 else all_gather(out, mesh.group("dp"))

@@ -38,7 +38,11 @@ Tensor and pipeline parallelism as in ``models/gpt2.py`` (``tp_group``,
 ``layer_ids``), with the JAX ``Llama.param_specs``: column-parallel
 ``wq``/``wk``/``wv``/``w_gate``/``w_up``, row-parallel ``wo``/``w_down``,
 vocab-sharded ``wte`` and ``lm_head``, and ``n_kv_head/tp`` local kv heads
-repeated inside the rank to its ``n_head/tp`` query heads.
+repeated inside the rank to its ``n_head/tp`` query heads. Served on a tp
+shard (``GPT2.generate_spmd``, the batcher's ``mesh``), the cache and the
+page pool hold the rank's ``n_kv_head/tp`` kv heads in every codec, RoPE
+rotates the local heads as it rotates all of them, and the untied
+``lm_head``'s vocab shards are all-gathered into the logits row.
 """
 
 from __future__ import annotations

@@ -37,13 +37,15 @@ gets every rank's share), :func:`gather_from_tp` (an all-gather forward,
 the rank's slice of the replicated cotangent backward, never a sum) and
 :func:`all_gather_tp` (an all-gather forward whose uses differ by rank, so
 its backward is the JAX transpose, a reduce-scatter of the partial
-cotangents).
+cotangents). Serving gathers the vocab-sharded logits with it too.
 
 Routing follows the tensors' device: CPU tensors reduce through gloo
 (``all_reduce(..., "xla")``), CUDA tensors through the group's CUDA IPC
 ring (``"auto"``: the gather-and-sum at tp ≤ 3, the ring above). bf16 sums
 round once, as ``lax.psum`` does. :data:`STATS` counts the all-reduces and
-their payload bytes (the chip check reads them per step).
+their payload bytes, and the :func:`all_gather_tp` calls and the bytes of
+the shards they gather (the serving logits' all-gather among them); the
+chip check reads them per step and per tick.
 """
 
 from __future__ import annotations
@@ -56,11 +58,11 @@ __all__ = ["STATS", "all_gather_tp", "copy_to_tp", "gather_from_tp", "reduce_fro
            "reset_stats", "split_to_tp", "tp_all_reduce", "vocab_parallel_embed",
            "vocab_parallel_xent", "tp_size", "tp_rank"]
 
-STATS = {"all_reduce": 0, "bytes": 0}
+STATS = {"all_reduce": 0, "bytes": 0, "all_gather": 0, "gather_bytes": 0}
 
 
 def reset_stats() -> None:
-    STATS.update(all_reduce=0, bytes=0)
+    STATS.update(all_reduce=0, bytes=0, all_gather=0, gather_bytes=0)
 
 
 def tp_size(group) -> int:
@@ -171,7 +173,11 @@ def all_gather_tp(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim``, for uses that differ
     by rank: backward reduce-scatters the per-rank partial cotangents (the
     JAX ``all_gather``'s transpose, ``psum_scatter``)."""
-    return x if tp_size(group) == 1 else _AllGatherTP.apply(x, group, dim)
+    if tp_size(group) == 1:
+        return x
+    STATS["all_gather"] += 1
+    STATS["gather_bytes"] += x.numel() * x.element_size()
+    return _AllGatherTP.apply(x, group, dim)
 
 
 def vocab_parallel_embed(wte_shard: torch.Tensor, tokens: torch.Tensor, group) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Continuous-batching serving on one device — the counterpart of
-``dsml_tpu/serving/batcher.py``'s ``ContinuousBatcher``.
+"""Continuous-batching serving on one device or on a tensor-parallel mesh
+— the counterpart of ``dsml_tpu/serving/batcher.py``'s ``ContinuousBatcher``.
 
 Requests arrive at different times with different prompt and output
 lengths; a static batch would idle every slot until the longest request
@@ -55,12 +55,27 @@ pool's bytes (``kv_pages``) and the quantized weights' (``weights_quant``)
 as live sources. Metrics carry ``replica`` and ``role`` labels
 (``obs_replica = "0"``, ``obs_role = "decode"``).
 
-:meth:`ContinuousBatcher.from_checkpoint` serves a training checkpoint of
-either package (a weights-only partial restore).
+``mesh`` (a ``parallel.mesh.Mesh``, one process per rank) makes the
+replica tensor-parallel, as the JAX batcher's ``mesh`` does: the model is
+this rank's Megatron shard over the mesh's ``tp`` group (a whole model is
+cut into it), the slot cache or the page pool holds the rank's heads, and
+every rank runs the same host scheduler on the same requests, so only the
+device work is split. Each tick's collectives (an all-reduce after every
+row-parallel projection, the all-gather of the logits' vocab shards) run
+inside the model's serving surfaces; every rank samples the same tokens
+from bit-identical logits. The ranks stay in lockstep because every host
+decision (admission, preemption victims, the adaptive stop, the
+speculative window) is a function of tokens and counters only: the
+wall-clock EWMA ``spec_tick_s_ewma`` is reported and steers nothing. Mesh
+axes other than ``tp`` replicate. :meth:`ContinuousBatcher.for_devices`
+builds such a replica over a list of devices.
 
-Left for later slices, each raising where a caller can reach it:
-tensor-parallel serving over a mesh (item 11) and the fleet's handoff
-admission ``inject`` (item 13).
+:meth:`ContinuousBatcher.from_checkpoint` serves a training checkpoint of
+either package (a weights-only partial restore), on a mesh into this
+rank's shard.
+
+Left for a later slice, raising where a caller can reach it: the fleet's
+handoff admission ``inject`` (item 13).
 """
 
 from __future__ import annotations
@@ -88,7 +103,7 @@ from dsml_tpu_torch.serving.paging import (
     plan_admission,
     prefill_prefix_into_pages,
 )
-from dsml_tpu_torch.utils.hash32 import M32, mix32, mul32
+from dsml_tpu_torch.utils.hash32 import request_key, request_uniform
 
 __all__ = ["ContinuousBatcher", "QueueFull", "Request", "request_key", "request_uniform"]
 
@@ -132,25 +147,6 @@ def _bucket(n: int, buckets: tuple) -> int:
         if n <= b:
             return b
     raise ValueError(f"prompt length {n} exceeds the largest bucket {buckets[-1]}")
-
-
-def request_key(seed: int, rid: int) -> int:
-    """A request's 32-bit sampler key from (seed, rid)."""
-    k = 0
-    for part in (seed & M32, (seed >> 32) & M32, rid & M32, (rid >> 32) & M32):
-        k = mix32(k ^ part)
-    return k
-
-
-def request_uniform(keys: torch.Tensor, steps: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Uniform noise in (0, 1), [B, vocab] f32, for request keys [B] at
-    sampler steps [B] (int64 tensors on one device): a counter-based hash
-    of (key, step, token id), so each (request, step) draws its own noise
-    whatever batch it rides in, and the CPU and the card draw the same."""
-    h = mix32(keys ^ mul32(steps + 1, 0x9E3779B9))
-    ids = torch.arange(vocab, device=keys.device)
-    x = mix32(mix32(h[:, None] ^ mul32(ids + 1, 0x632BE5AB)))
-    return ((x >> 8).float() + 0.5) * 2.0 ** -24
 
 
 _NOT_PORTED = "comes with a later slice of the port (ROADMAP.md queue 1, item {})"
@@ -225,7 +221,14 @@ class ContinuousBatcher:
     ``quantize_weights_blocked(model, weight_quant)`` (``self.model``),
     whose projections run the dequant-fused kernel. The caller's dense
     model stays resident; ``_wq_bytes`` holds the twin's packed and scale
-    bytes.
+    bytes. Single-device replicas only: with ``mesh`` it raises, as in the
+    JAX package.
+
+    ``mesh`` — a ``parallel.mesh.Mesh`` this process is a rank of: serving
+    becomes tensor-parallel over its ``tp`` group (see the module
+    docstring). ``model`` is the WHOLE model (cut into this rank's shard
+    on ``mesh.device``) or already the shard of that group; the cache's
+    (or pool's) head count must divide by tp. ``self.model`` is the shard.
     """
 
     def __init__(
@@ -255,8 +258,6 @@ class ContinuousBatcher:
         weight_quant: str | None = "env",
     ):
         cfg = model.config
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh) " + _NOT_PORTED.format(11))
         self._obs = get_registry()  # no-op unless observability is enabled
         # serving metrics are labeled per replica and worker kind, as the
         # JAX batcher's: a standalone batcher is replica "0", role "decode"
@@ -273,6 +274,10 @@ class ContinuousBatcher:
             if weight_quant not in ("int8", "int4"):
                 raise ValueError(
                     f"weight_quant must be 'int8', 'int4', or None, got {weight_quant!r}")
+            if mesh is not None:
+                raise ValueError(
+                    "weight_quant serves single-device replicas; a mesh's tp shard runs its "
+                    "projections unquantized")
             model = quantize_weights_blocked(model, weight_quant)
             leaves = [m for m in model.modules() if isinstance(m, QuantizedWeight)]
             self._wq_bytes = {"packed": sum(q.qw.nbytes for q in leaves),
@@ -280,6 +285,9 @@ class ContinuousBatcher:
             get_memory_ledger(self._obs).register_source(
                 "weights_quant", self._ledger_weight_quant_bytes, name=self._ledger_name())
         self.weight_quant = weight_quant
+        self.mesh = mesh
+        if mesh is not None:
+            model = self._mesh_model(model, mesh, bool(paged_kv))
         self.model = model
         self.device = model.device
         self.n_slots = n_slots
@@ -434,18 +442,51 @@ class ContinuousBatcher:
         self.n_prefill_dispatches = 0
         self.n_insert_dispatches = 0
 
+    @staticmethod
+    def _mesh_model(model, mesh, paged: bool):
+        """This rank's model on ``mesh``: the whole ``model`` cut into its
+        shard over the mesh's tp group (on ``mesh.device``), or ``model``
+        itself when it already is that shard or tp is 1. The cache's or
+        pool's head count must divide by tp (the JAX batcher's check)."""
+        tp = mesh.shape.get("tp", 1)
+        heads = model._n_cache_heads
+        if heads % tp:
+            raise ValueError(
+                f"{'pool' if paged else 'cache'} head count {heads} not divisible by tp={tp}")
+        group = mesh.group("tp")
+        if tp > 1 and not model.is_partial:
+            return model.shard(group, mesh.device)
+        if model.tp != tp or model.tp_group is not group:
+            raise ValueError(f"the model is a tp = {model.tp} shard, not one of this mesh's "
+                             f"tp = {tp} group")
+        return model
+
     @classmethod
-    def for_devices(cls, model, devices, **kwargs):
-        """A batcher whose replica spans ``devices``: one device is the plain
-        batcher (the model's weights must live there); more is
-        tensor-parallel serving, not ported yet."""
+    def for_devices(cls, model, devices, rank: int = 0, init_file: str | None = None, **kwargs):
+        """A batcher whose replica spans ``devices``, the JAX ``for_devices``.
+        One device is the plain batcher (the model's weights must live
+        there). More is a tensor-parallel replica over a ``MeshSpec(tp=
+        len(devices))`` mesh: one process per device, each calling this
+        with its ``rank`` (its device is ``devices[rank]``) and the same
+        ``init_file`` (the mesh's rendezvous path, ``parallel.mesh.
+        build_mesh``); ``model`` is the WHOLE model, of which this process
+        keeps its shard. ``len(devices)`` must divide the cache's head
+        count."""
         devices = list(devices)
-        if len(devices) > 1:
-            raise NotImplementedError(
-                "a replica over several devices (tensor-parallel serving) " + _NOT_PORTED.format(11))
-        if devices and torch.device(devices[0]) != model.device:
-            raise ValueError(f"the model's weights are on {model.device}, not {devices[0]}")
-        return cls(model, **kwargs)
+        if len(devices) <= 1:
+            if devices and torch.device(devices[0]) != model.device:
+                raise ValueError(f"the model's weights are on {model.device}, not {devices[0]}")
+            return cls(model, **kwargs)
+        if init_file is None or not 0 <= rank < len(devices):
+            raise ValueError(
+                f"a replica over {len(devices)} devices runs one process per device: pass this "
+                f"process's rank (0..{len(devices) - 1}, got {rank}) and the init_file every "
+                "rank shares")
+        from dsml_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+        mesh = build_mesh(MeshSpec(tp=len(devices)), rank, len(devices), init_file,
+                          devices[rank])
+        return cls(model, mesh=mesh, **kwargs)
 
     @classmethod
     def from_checkpoint(cls, model, directory, step: int | None = None, mesh=None,
@@ -460,26 +501,30 @@ class ContinuousBatcher:
         casts (e.g. a bf16-trained checkpoint served as f32). Every
         parameter is restored, so the module's own tensors are the
         template (the JAX package's ``init_seed`` template has no use
-        here). Remaining kwargs go to the constructor."""
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh) " + _NOT_PORTED.format(11))
+        here). With ``mesh`` the weights land in this rank's tp shard
+        (built on ``mesh.device``; ``model`` only names the class and the
+        config): the whole arrays are read on the host and the rank keeps
+        its blocks (``checkpoint.optim_state.restore_params``). Remaining
+        kwargs go to the constructor."""
         from dsml_tpu_torch.checkpoint import CheckpointManager
-        from dsml_tpu_torch.checkpoint.optim_state import load_param_tree, param_tree
+        from dsml_tpu_torch.checkpoint.optim_state import restore_params
 
         name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}.get(param_dtype, param_dtype)
-        if name is not None and name != model.config.dtype:
-            model = type(model)(dataclasses.replace(model.config, dtype=name),
-                                device=model.device)
+        config = model.config
+        if name is not None and name != config.dtype:
+            config = dataclasses.replace(config, dtype=name)
+        if mesh is not None and mesh.shape.get("tp", 1) > 1:
+            model = type(model)(config, device=mesh.device, tp_group=mesh.group("tp"))
+        elif config is not model.config:
+            model = type(model)(config, device=model.device)
         own = not hasattr(directory, "restore")
         manager = CheckpointManager(directory) if own else directory
         try:
-            params = manager.restore(step, template={"params": param_tree(model)},
-                                     partial=True)["params"]
+            restore_params(manager, model, step)
         finally:
             if own:
                 manager.close()
-        load_param_tree(model, params)
-        return cls(model, **kwargs)
+        return cls(model, mesh=mesh, **kwargs)
 
     # ---- device steps ----------------------------------------------------------
 
@@ -1460,6 +1505,8 @@ class ContinuousBatcher:
         wall = time.monotonic() - t0
         self.n_spec_ticks += 1
         self.spec_window_used[w] = self.spec_window_used.get(w, 0) + 1
+        # wall-clock: reported (predicted_tpot_s), never read by a tick's
+        # decision, so the ranks of a mesh cannot diverge on it
         self.spec_tick_s_ewma = (wall if self.spec_tick_s_ewma is None
                                  else 0.8 * self.spec_tick_s_ewma + 0.2 * wall)
         committed_total = 0

@@ -20,6 +20,7 @@ import filecmp
 import os
 import shutil
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -835,9 +836,12 @@ def test_batcher_from_a_jax_checkpoint_matches_the_jax_batcher(tmp_path):
         done = srv.run()
         results.append([list(map(int, done[r])) for r in rids])
     assert results[1] == results[0]
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # restored onto a mesh (tests/test_torch_tp_serving.py), the weights stay
+    # unquantized, as in the JAX batcher: a tp = 1 mesh stands in here
+    one = types.SimpleNamespace(shape={"tp": 1}, group=lambda axis: None, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="single-device replicas"):
         ContinuousBatcher.from_checkpoint(tgpt2.GPT2(tgpt2.GPT2Config.tiny(), device="cpu"),
-                                          str(tmp_path / "ck"), mesh=object())
+                                          str(tmp_path / "ck"), mesh=one, weight_quant="int8")
 
 
 # ---------------------------------------------------------------------------

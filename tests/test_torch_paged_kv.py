@@ -312,8 +312,10 @@ def test_queue_cap_abandon_and_latency_stats(setup):
 
 def test_constructor_and_submit_validation(setup, monkeypatch):
     cfg, model, _ = setup
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ContinuousBatcher(model, mesh=object())
+    # a mesh serves tensor-parallel (tests/test_torch_tp_serving.py); quantized
+    # weights stay single-device, as in the JAX batcher
+    with pytest.raises(ValueError, match="single-device replicas"):
+        ContinuousBatcher(model, mesh=object(), weight_quant="int8")
     # the turbo, adaptive and speculative ticks (item 5) are ported, with the
     # JAX validation (tests/test_torch_speculative.py holds every message)
     assert ContinuousBatcher(model, turbo_factor=2).turbo_factor == 2
@@ -331,8 +333,8 @@ def test_constructor_and_submit_validation(setup, monkeypatch):
         ContinuousBatcher(model, weight_quant="int3")
     with pytest.raises(NotImplementedError, match="item 13"):
         srv.inject(np.ones(3), 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ContinuousBatcher.for_devices(model, ["cpu", "cpu"])
+    with pytest.raises(ValueError, match="one process per device"):
+        ContinuousBatcher.for_devices(model, ["cpu", "cpu"])  # no rank, no rendezvous
     assert ContinuousBatcher.for_devices(model, ["cpu"]).n_slots == 8
     with pytest.raises(ValueError, match="preemption is a paged_kv"):
         ContinuousBatcher(model, preemption=True)

@@ -167,11 +167,13 @@ def test_tp_divisibility_raises():
         tgpt2.GPT2(tgpt2.GPT2Config.tiny(vocab_size=510), device="meta", tp_group=group)
     with pytest.raises(ValueError, match="n_head=8/n_kv_head=2 not divisible by tp=4"):
         tllama.Llama(tllama.LlamaConfig.tiny(), device="meta", tp_group=group)
-    # serving on a shard is the next slice's
+    # a tp shard serves with its 1/tp of the heads; a pipeline stage does not serve
     shard = tgpt2.GPT2(tgpt2.GPT2Config.tiny(), device="meta", tp_group=RingGroup(None, [0, 1], 0,
                                                                                   "cpu"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        shard.init_cache(1)
+    assert shard.init_cache(1)[0]["k"].shape[1] == tgpt2.GPT2Config.tiny().n_head // 2
+    stage = tgpt2.GPT2(tgpt2.GPT2Config.tiny(), device="meta", layer_ids=[1])
+    with pytest.raises(NotImplementedError, match="pipeline stage"):
+        stage.init_cache(1)
 
 
 @pytest.mark.parametrize("spec", [dict(tp=2, pp=2), dict(pp=2, dp=2, fsdp=2), dict(dp=2, tp=4),
