@@ -179,9 +179,18 @@ losses agreeing, step ms, peak memory, f32 gradients at 4 layers, kernel
 8 launched 24 times in the int8-remat step; ZeRO-3 / ZeRO-2 / ZeRO-2
 int8 + EF losses against the dp = 2 ring's and optimizer-state bytes near
 half of dp's; pp × tp identical losses and replicas on four ranks; its
-phase_seconds); mp_cli (the two model-parallel ``train_gpt2`` runs; in
-the full run cp_cli, dp_cli and mp_cli run as processes together, beside
-the Llama entry points);
+phase_seconds; the pp and fsdp eval losses against one device's in f32
+and bf16, the fsdp mesh from ``plan_mesh``, and at pp = 2 × tp = 2 a
+checkpoint after step 1 whose restore into fresh objects takes step 2 to
+the same loss and leaf bytes, read back at pp = 4 and refused at tp = 2:
+the mp_checkpoint line); plan (the card's memory as ``plan_mesh`` reads
+it, provenance memory_stats, and the plans of TinyLlama-1.1B, Llama-2-7B
+and Mixtral-8x7B on 1, 2, 4 and 8 cards); activation_measurement
+(``measured_activation_bytes`` of the TinyLlama step beside its peak less
+its resident state, after llama_train); mp_cli (the two model-parallel
+``train_gpt2`` runs, the pp = 2 one with an eval and a checkpoint at step
+3 and a one-step resume from it; in the full run cp_cli, dp_cli and mp_cli
+run as processes together, beside the Llama entry points);
 moe_weights, moe_kernel and a kernel_time line per kernel family (at the
 Mixtral shapes, beside the other kernel phases), moe_train (2 launches of
 kernels 1–3 a step, step ms, tokens/s, active MFU, peak memory, the first
@@ -205,7 +214,8 @@ median tick, a steady tick's wall and device-busy ms with its collectives,
 their bytes and ms alone, peak memory and IPC slot bytes a rank);
 kernels (one line for the run; kernel 8's entry counts its three paths,
 kernels 1–3, 5 and 6 their Llama, checkpoint, model-parallel and MoE
-paths too; kernels 1, 5 and 6 their tp_serve path).
+paths too; kernels 1, 5 and 6 their tp_serve path; kernels 1–3 the
+resumed pp × tp step and the pp eval, ``mp_resume_eval``).
 
 Every phase line carries ``t_s``, its seconds since the script started.
 
@@ -222,6 +232,7 @@ import gc
 import json
 import os
 import re
+import shlex
 import shutil
 import statistics
 import subprocess
@@ -3359,6 +3370,10 @@ def phase_llama_train(tflash, dev, card):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / LLAMA_TRAIN_STEPS
     counts = train_counts(tflash)
+    peak = torch.cuda.max_memory_allocated()
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()  # weights, AdamW state, the batch
     losses = torch.stack(losses).float().tolist()
     tokens = LLAMA_TRAIN_B * LLAMA_TRAIN_S
     flops = transformer_train_flops(cfg, tokens, LLAMA_TRAIN_S, gated_mlp=True)
@@ -3380,6 +3395,24 @@ def phase_llama_train(tflash, dev, card):
           f"Llama train loss not finite, near ln 32000 at first and falling: {losses}")
     phase_train_trace(step, label="llama_train_step")
     del model, opt
+    # the planner's activation measurement of this step, from shapes alone
+    from dsml_tpu_torch.models.llama import Llama
+    from dsml_tpu_torch.parallel.auto import measured_activation_bytes
+
+    meta = Llama(cfg, device="meta")
+    xm = torch.empty(LLAMA_TRAIN_B, LLAMA_TRAIN_S, dtype=torch.long, device="meta")
+    t0 = time.perf_counter()
+    act = measured_activation_bytes(lambda a, b: meta.loss(a, b, attn_impl="xla"), xm, xm)
+    emit({"phase": "activation_measurement", "model": "tinyllama-1.1b", "dtype": "bfloat16",
+          "batch": [LLAMA_TRAIN_B, LLAMA_TRAIN_S], "measured_activation_bytes": act,
+          "measured_seconds": time.perf_counter() - t0,
+          "step_peak_bytes": peak, "resident_bytes": resident,
+          "peak_less_resident_bytes": peak - resident,
+          "ratio": act / (peak - resident) if peak > resident else None,
+          "note": "measured_activation_bytes: the bytes autograd saves for the backward on the "
+                  "meta device, with plain attention (the flash kernel does not run on meta); "
+                  "the peak: the flash step's max_memory_allocated",
+          "card": card})
     return counts
 
 
@@ -4333,7 +4366,10 @@ MP_PP_WARMUP, MP_PP_STEPS = 1, 2
 MP_F32_LAYERS = 2  # the f32 gradient checks' depth (TinyLlama's and GPT-2-small's width)
 MP_PP_F32_LAYERS = 4
 MP_ZERO_BUCKET_MB = 4.0
-MP_4RANK_STEPS = 2
+MP_4RANK_STEPS = 2  # step 1, the checkpoint, step 2 (and step 2 again from the checkpoint)
+# the planner's per-chip memory for GPT-2-small at fsdp: its 1.49 GB of
+# training state needs two shards of the 1.2 GB state budget
+MP_PLAN_HBM = 3e9
 MP_4RANK_LAYERS = 8  # TinyLlama's depth cut 22 -> 8 at pp = 2 x tp = 2 (the run's time)
 # bf16: losses of two schedules (or two ZeRO layouts) from the same weights
 # agree within this share (f32 sums in another order under bf16 rounding)
@@ -4464,7 +4500,8 @@ def mp_pp_run(rank, tmp, res, stage):
     from dsml_tpu_torch.models.gpt2 import GPT2, GPT2Config
     from dsml_tpu_torch.ops import flash as tflash
     from dsml_tpu_torch.ops import quantization as tq
-    from dsml_tpu_torch.parallel.hybrid import hybrid_model, make_hybrid_train_step
+    from dsml_tpu_torch.parallel.hybrid import (hybrid_eval_loss, hybrid_model,
+                                                make_hybrid_train_step)
     from dsml_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 
     mesh = build_mesh(MeshSpec(pp=2), rank, 2, os.path.join(tmp, "rendezvous"))
@@ -4499,6 +4536,19 @@ def mp_pp_run(rank, tmp, res, stage):
         del model, opt, step
         torch.cuda.empty_cache()
     res["ipc_slot_bytes"] = mesh.slot_bytes()
+    stage("pp eval loss")
+    model = hybrid_model(GPT2, cfg, mesh).load_full(full)
+    reset_counts(tflash)  # the pp eval, counted
+    ev = float(hybrid_eval_loss(model, mesh, "flash", x, y, n_microbatches=MP_PP_MICRO))
+    res["eval"] = {"bf16": ev, "launches": train_counts(tflash)}
+    del model
+    single = GPT2(cfg, device=dev)
+    single.load_state_dict(full)
+    with torch.no_grad():
+        res["eval"]["bf16_single_device"] = float(
+            single.loss(x.to(dev), y.to(dev), attn_impl="flash"))
+    del single
+    torch.cuda.empty_cache()
     stage("int8 remat step")
     model = hybrid_model(GPT2, dataclasses.replace(cfg, remat="int8"), mesh).load_full(full)
     opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
@@ -4518,6 +4568,11 @@ def mp_pp_run(rank, tmp, res, stage):
     ref_loss = float(ref_loss.detach())
     res["f32"] = {}
     full32 = ref.state_dict()
+    model = hybrid_model(GPT2, cfg32, mesh).load_full(full32)
+    res["eval"]["f32"] = float(hybrid_eval_loss(model, mesh, "flash", x, y,
+                                                n_microbatches=MP_PP_MICRO))
+    res["eval"]["f32_single_device"] = ref_loss
+    del model
     for name, (schedule, v) in MP_SCHEDULES.items():
         model = hybrid_model(GPT2, dataclasses.replace(cfg32, pp_interleave=v), mesh)
         model.load_full(full32)
@@ -4556,10 +4611,19 @@ def mp_zero_run(rank, tmp, res, stage):
     from dsml_tpu_torch.ops import flash as tflash
     from dsml_tpu_torch.parallel.dp import make_dp_train_step
     from dsml_tpu_torch.parallel.fsdp import init_zero2, make_zero2_train_step
-    from dsml_tpu_torch.parallel.hybrid import hybrid_model, init_hybrid, make_hybrid_train_step
+    from dsml_tpu_torch.models.common import spec_dim
+    from dsml_tpu_torch.parallel.auto import plan_mesh
+    from dsml_tpu_torch.parallel.fsdp import Zero3
+    from dsml_tpu_torch.parallel.hybrid import (hybrid_eval_loss, hybrid_model, init_hybrid,
+                                                make_hybrid_train_step)
     from dsml_tpu_torch.parallel.mesh import Mesh, MeshSpec, build_mesh
 
-    mesh = build_mesh(MeshSpec(fsdp=2), rank, 2, os.path.join(tmp, "rendezvous"))
+    # the planner's mesh: GPT-2-small's state against a small per-chip budget
+    plan = plan_mesh(n_devices=2, n_params=gpt2_small_n_params(), n_head=12,
+                     hbm_bytes=MP_PLAN_HBM)
+    res["plan"] = {"spec": plan.spec.sizes_dict(), "reasons": list(plan.reasons),
+                   "hbm_source": plan.hbm_source}
+    mesh = build_mesh(plan.spec, rank, 2, os.path.join(tmp, "rendezvous"))
     dev = mesh.device
     # the same two ranks as a dp = 2 mesh: the reference step's
     dp_mesh = Mesh(MeshSpec(dp=2).resolved(2), rank, dev, {"dp": mesh.group("fsdp")},
@@ -4590,12 +4654,16 @@ def mp_zero_run(rank, tmp, res, stage):
 
     model = gpt2_small(cfg, dev)
     init_state = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        res["eval"] = {"bf16_single_device": float(
+            model.loss(x.to(dev), y.to(dev), attn_impl="flash"))}
     opt = adamw(model.parameters())
     run("dp_ring", make_dp_train_step(model, opt, dp_mesh, "ring", bucket_size_mb=MP_ZERO_BUCKET_MB,
                                       loss_fn=lambda a, b: model.loss(a, b, attn_impl="flash")), opt)
     del model, opt
     model = hybrid_model(GPT2, cfg, mesh)
     model, opt = init_hybrid(model, adamw(model.parameters()), mesh, 0)
+    res["eval"]["bf16"] = float(hybrid_eval_loss(model, mesh, "flash", x, y))
     run("zero3", make_hybrid_train_step(model, opt, mesh, attn_impl="flash"), opt)
     res["zero3"]["param_shard_bytes"] = sum(s.numel() * s.element_size()
                                             for s in model.fsdp.shards)
@@ -4612,6 +4680,17 @@ def mp_zero_run(rank, tmp, res, stage):
         res[name]["weights_sha"] = _param_sha(model.parameters())
         del model, state
         torch.cuda.empty_cache()
+    stage("f32 eval loss")
+    cfg32 = dataclasses.replace(GPT2Config.small(), n_layer=MP_PP_F32_LAYERS, xent_chunk=0)
+    ref = gpt2_small(cfg32, dev)
+    model = hybrid_model(GPT2, cfg32, mesh).load_full(ref.state_dict())
+    specs = model.param_specs(fsdp=2)
+    model.fsdp = Zero3(model, mesh.group("fsdp"),  # init_hybrid's shards of these weights
+                       {n: d for n, v in specs.items() if (d := spec_dim(v, "fsdp")) is not None})
+    res["eval"]["f32"] = float(hybrid_eval_loss(model, mesh, "flash", x, y))
+    with torch.no_grad():
+        res["eval"]["f32_single_device"] = float(ref.loss(x.to(dev), y.to(dev), attn_impl="xla"))
+    del model, ref
     res["ipc_slot_bytes"] = mesh.slot_bytes()
     mesh.close()
     dist.destroy_process_group()
@@ -4623,16 +4702,92 @@ def mp_4rank_rank(rank, tmp, weights):
     rank_main(lambda r, t, res, stage: mp_4rank_run(r, t, res, stage, weights), "pp_tp", rank, tmp)
 
 
+def _state_sha(tree) -> str:
+    """sha256 of every leaf of a ``mesh_state`` tree (a rank's blocks and
+    the counts), in the tree's order."""
+    from dsml_tpu_torch.checkpoint.native import MeshShard, tree_leaves_with_path
+
+    return _param_sha([leaf.tensor if isinstance(leaf, MeshShard) else leaf
+                       for _, leaf in tree_leaves_with_path(tree)])
+
+
+def _owned_bytes(tree) -> int:
+    """Bytes of the blocks of a ``mesh_state`` tree this rank writes."""
+    from dsml_tpu_torch.checkpoint.native import MeshShard, tree_leaves_with_path
+
+    return sum(leaf.tensor.numel() * leaf.tensor.element_size()
+               for _, leaf in tree_leaves_with_path(tree)
+               if isinstance(leaf, MeshShard) and leaf.owner)
+
+
+def _cross_layout_restore(step_dir, cfg, rank):
+    """The pp = 2 × tp = 2 checkpoint read by rank ``rank`` of other
+    layouts of the same four ranks, with meshes of sizes and coordinates
+    alone (a restore communicates nothing), on the host: at pp = 4 (the JAX
+    restore accepts another pp of the stacked axis) the weights-only
+    restore's every block equals the slice of that leaf reassembled whole
+    from its pieces; at
+    tp = 2 × dp = 2 (a layer list, not a stacked axis) the restore raises
+    KeyError, as the JAX restore does."""
+    import types
+
+    from dsml_tpu_torch.checkpoint import native
+    from dsml_tpu_torch.checkpoint.optim_state import mesh_state
+    from dsml_tpu_torch.models.llama import Llama
+    from dsml_tpu_torch.parallel.hybrid import hybrid_model
+    from dsml_tpu_torch.parallel.mesh import Mesh, MeshSpec, rank_coords
+
+    def layout(spec, device):
+        spec = spec.resolved(4)
+        coords = rank_coords(spec, rank)
+        groups = {a: types.SimpleNamespace(size=n, rank=coords[a])
+                  for a, n in spec.sizes_dict().items() if n > 1}
+        mesh = Mesh(spec, rank, torch.device(device), groups, coords)
+        model = hybrid_model(Llama, cfg, mesh)
+        return mesh, model, torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+
+    t0 = time.perf_counter()
+    mesh, model, opt = layout(MeshSpec(pp=4), "cpu")
+    template = {"params": mesh_state(model, opt, mesh, "clip_adamw", 0)["params"]}
+    state = native.restore_tree(step_dir, template=template, partial=True)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    entries = {e["path"]: e for e in native.read_manifest(step_dir)["leaves"]}
+    restored, bad = dict(native.tree_leaves_with_path(state)), []
+    for path, leaf in native.tree_leaves_with_path(template):
+        whole = native._assemble(step_dir, entries[path])
+        want = whole[tuple(slice(a, b) for a, b in leaf.index)]
+        got = restored[path]
+        got = (got.view(torch.int16) if got.dtype == torch.bfloat16 else got).numpy()
+        if not np.array_equal(got, want):
+            bad.append(path)
+    layers = model.layer_ids
+    del model, opt, state, template
+    mesh, model, opt = layout(MeshSpec(tp=2), "meta")
+    try:
+        native.restore_tree(step_dir, template=mesh_state(model, opt, mesh, "clip_adamw", 0))
+        refused = None
+    except KeyError as e:
+        refused = str(e)[:120]
+    return {"pp4": {"layers": layers, "params_restore_ms": restore_ms, "mismatched": bad},
+            "tp2_dp2_refused": refused}
+
+
 def mp_4rank_run(rank, tmp, res, stage, weights):
-    """TinyLlama-1.1B bf16 at pp = 2 × tp = 2 (one of four ranks)."""
+    """TinyLlama-1.1B bf16 at pp = 2 × tp = 2 (one of four ranks): step 1,
+    a checkpoint of every rank's blocks, step 2; then fresh model and
+    optimizer objects restored from the checkpoint take step 2 again (the
+    same loss and every leaf's bytes), and the checkpoint is read at
+    another layout (:func:`_cross_layout_restore`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import torch.distributed as dist
 
+    from dsml_tpu_torch.checkpoint.optim_state import load_mesh_state, mesh_state
     from dsml_tpu_torch.models.llama import Llama, LlamaConfig
     from dsml_tpu_torch.ops import flash as tflash
     from dsml_tpu_torch.parallel.hybrid import _global_name, hybrid_model, make_hybrid_train_step
     from dsml_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from dsml_tpu_torch.utils.checkpoint import Checkpointer
 
     mesh = build_mesh(MeshSpec(pp=2, tp=2), rank, 4, os.path.join(tmp, "rendezvous"))
     dev = mesh.device
@@ -4640,20 +4795,42 @@ def mp_4rank_run(rank, tmp, res, stage, weights):
     stage("weights")
     cfg = dataclasses.replace(LlamaConfig.tinyllama_1b(), dtype="bfloat16",
                               n_layer=MP_4RANK_LAYERS)
-    model = hybrid_model(Llama, cfg, mesh)
+
+    def fresh():
+        model = hybrid_model(Llama, cfg, mesh)
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+        return model, opt, make_hybrid_train_step(model, opt, mesh, attn_impl="flash",
+                                                  n_microbatches=2, schedule="1f1b")
+
+    model, opt, step = fresh()
     model.load_full(torch.load(weights, mmap=True))  # the layers the cut model holds
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LLAMA_TRAIN_B, LLAMA_TRAIN_S)))
     y = torch.roll(x, -1, 1)
-    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
-    step = make_hybrid_train_step(model, opt, mesh, attn_impl="flash", n_microbatches=2,
-                                  schedule="1f1b")
-    stage("pp x tp steps")
+    stage("pp x tp steps, a checkpoint after the first")
     reset_counts(tflash)
-    t0 = time.perf_counter()
-    res["losses"] = [float(step(x, y)) for _ in range(MP_4RANK_STEPS)]
-    torch.cuda.synchronize()
-    res["step_ms"] = (time.perf_counter() - t0) * 1e3 / MP_4RANK_STEPS
+    ms, losses = [], []
+    ckdir = os.path.join(tmp, "ckpt")
+    ckpt = Checkpointer(ckdir, mesh=mesh)
+    for i in range(MP_4RANK_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(x, y)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            state = mesh_state(model, opt, mesh, "clip_adamw", 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save(1, **state, wait=False)  # the step loop pays the host snapshot
+            stall_ms = (time.perf_counter() - t0) * 1e3
+            ckpt.wait_until_finished()
+            res["checkpoint"] = {"snapshot_stall_ms": stall_ms,
+                                 "commit_ms": (time.perf_counter() - t0) * 1e3 - stall_ms,
+                                 "bytes_this_rank": _owned_bytes(state)}
+            del state
+    ckpt.close()
+    res["losses"] = losses
+    res["step_ms"] = statistics.mean(ms)
     res["launches"] = train_counts(tflash)
     res["layers"] = model.layer_ids
     res["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -4665,10 +4842,79 @@ def mp_4rank_run(rank, tmp, res, stage, weights):
     res["tp_replicated_sha"] = _param_sha(
         [p for n, p in named if "tp" not in specs[_global_name(model, n)]])
     res["non_layer_sha"] = _param_sha([p for n, p in named if not n.startswith("layers.")])
+    res["state_sha"] = _state_sha(mesh_state(model, opt, mesh, "clip_adamw", MP_4RANK_STEPS))
+    del model, opt, step, named
+    torch.cuda.empty_cache()
+    stage("resume from the checkpoint: step 2 again")
+    model, opt, step = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt = Checkpointer(ckdir, mesh=mesh)
+    restored = ckpt.restore(1, template=mesh_state(model, opt, mesh, "clip_adamw", 0))
+    ckpt.close()
+    count = load_mesh_state(model, opt, mesh, "clip_adamw", restored)
+    torch.cuda.synchronize()
+    res["checkpoint"]["restore_ms"] = (time.perf_counter() - t0) * 1e3
+    del restored
+    reset_counts(tflash)  # the resumed step, counted
+    resumed = float(step(x, y))
+    res["resume"] = {"count": count, "loss": resumed, "launches": train_counts(tflash),
+                     "state_sha": _state_sha(mesh_state(model, opt, mesh, "clip_adamw",
+                                                        MP_4RANK_STEPS))}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    stage("the checkpoint at other layouts")
+    res["cross_layout"] = _cross_layout_restore(
+        os.path.join(ckdir, "step_00000001"), cfg, rank)
     mesh.close()
     dist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
+
+
+PLAN_MODELS = ("tinyllama_1b", "llama2_7b", "mixtral_8x7b")
+PLAN_DEVICES = (1, 2, 4, 8)
+
+
+def phase_plan(card):
+    """The mesh planner on the card: the per-chip memory ``plan_mesh``
+    reads (provenance ``memory_stats``, the card's total memory) and its
+    plans (spec, reasons, ``pp_interleave``) for TinyLlama-1.1B,
+    Llama-2-7B and Mixtral-8x7B at their published widths, bf16 weights,
+    2 sequences of their training length a device, on 1, 2, 4 and 8 cards."""
+    from dsml_tpu_torch.models.llama import Llama, LlamaConfig
+    from dsml_tpu_torch.parallel import auto
+
+    t_phase = time.perf_counter()
+    hbm, detail = auto._device_hbm_bytes()
+    plans = {}
+    for name in PLAN_MODELS:
+        cfg = getattr(LlamaConfig, name)()
+        n_params = Llama(cfg, device="meta").n_params()
+        for n in PLAN_DEVICES:
+            plan = auto.plan_mesh(n_devices=n, n_params=n_params, n_head=cfg.n_head,
+                                  seq_len=cfg.max_seq, d_model=cfg.d_model, n_layer=cfg.n_layer,
+                                  batch_per_device=2)
+            plans[f"{name}@{n}"] = {"n_params": n_params, "spec": {
+                a: v for a, v in plan.spec.sizes_dict().items() if v > 1},
+                "pp_interleave": plan.pp_interleave, "hbm_source": plan.hbm_source,
+                "reasons": list(plan.reasons)}
+    emit({"phase": "plan", "hbm_bytes": hbm, "hbm_detail": detail,
+          "total_memory": torch.cuda.get_device_properties(0).total_memory, "plans": plans,
+          "card": card, "phase_seconds": time.perf_counter() - t_phase})
+    check(hbm == torch.cuda.get_device_properties(0).total_memory
+          and all(p["hbm_source"] == "memory_stats" for p in plans.values()),
+          f"plan_mesh read {hbm} bytes ({detail}), not the card's memory_stats")
+
+
+def check_eval(who, ev):
+    """The eval loss of a model-parallel mesh against the single-device
+    eval loss of the same weights: 1e-5 relative in f32, the bf16 loss
+    checks' share in bf16."""
+    check(abs(ev["f32"] - ev["f32_single_device"]) <= 1e-5 * abs(ev["f32_single_device"])
+          and abs(ev["bf16"] - ev["bf16_single_device"])
+          <= MP_BF16_LOSS_RTOL * abs(ev["bf16_single_device"]),
+          f"{who}: eval loss against the single-device eval loss: {ev}")
 
 
 def spawn_mesh(fn, kind, nprocs, *args):
@@ -4705,15 +4951,25 @@ def phase_model_parallel(tflash, dev, card, weights, serve=False):
     MiB buckets (full precision, int8 + error feedback) against the dp = 2
     ring step from the same weights, optimizer-state bytes a rank, step ms.
     (d) TinyLlama-1.1B at pp = 2 × tp = 2 (four ranks; 8 of its 22 layers), 1F1B, ending with
-    identical replicas. Ranks time-slice
+    identical replicas; a checkpoint of every rank's blocks after step 1
+    (snapshot stall, commit and restore ms, bytes a rank), from which fresh
+    model and optimizer objects take step 2 again with the same loss and
+    the same bytes in every leaf, and which ranks of a pp = 4 layout read
+    back (a tp = 2 layout, a layer list, is refused, as in the JAX
+    package). The pp ranks also take the eval loss (the pipelined forward,
+    4 microbatches: 24 kernel-1 launches a rank), the fsdp ranks build
+    their mesh from ``plan_mesh`` and take the eval loss of the gathered
+    weights, each in bf16 and f32 against the single-device eval loss of
+    the same weights. Ranks time-slice
     the one card: the times are the cost of the collectives and the
     schedules, not a model-parallel speed-up. ``weights`` is the TinyLlama
     bf16 file the tp and pp × tp ranks map (:func:`tinyllama_bf16_weights`).
     The pp and fsdp programs share one spawn of two ranks; with ``serve``
     the tp ranks go on to the tp_serve program (:func:`tp_serve_run`, whose
     references run here first). Returns rank 0's launches per path, kernel
-    8's launches, and with ``serve`` the tp_serve references and (ranks,
-    seconds of the shared spawn)."""
+    8's launches, with ``serve`` the tp_serve references and (ranks,
+    seconds of the shared spawn), and rank 0's launches of the resumed
+    step and the pp eval."""
     t_phase = time.perf_counter()
     serve_ref = tp_serve_reference(tflash, dev, weights) if serve else None
     # the single-device step-0 loss from the weights
@@ -4780,6 +5036,11 @@ def phase_model_parallel(tflash, dev, card, weights, serve=False):
         check(r["int8_remat"]["quantize_int8"] == 6 * MP_PP_MICRO
               and abs(r["int8_remat"]["loss"] - base[0]) <= MP_BF16_LOSS_RTOL * abs(base[0]),
               f"pp rank {rk}: int8 remat step {r['int8_remat']}")
+        check_eval(f"pp rank {rk}", r["eval"])
+        check(r["eval"]["launches"]["flash_fwd"] == 6 * MP_PP_MICRO
+              and sum(r["eval"]["launches"].values()) == 6 * MP_PP_MICRO,
+              f"pp rank {rk}: the pp eval launched {r['eval']['launches']}, expected "
+              f"{6 * MP_PP_MICRO} of the flash forward and nothing else")
     check(all(pp_ranks[0]["schedules"][k]["losses"] == pp_ranks[1]["schedules"][k]["losses"]
               for k in MP_SCHEDULES), "pp ranks report different losses")
 
@@ -4790,6 +5051,9 @@ def phase_model_parallel(tflash, dev, card, weights, serve=False):
           "ranks": zero_ranks})
     for r in zero_ranks:
         rk, ref = r["rank"], r["dp_ring"]
+        check(r["plan"]["spec"] == {"pp": 1, "dp": 1, "fsdp": 2, "sp": 1, "cp": 1, "tp": 1},
+              f"fsdp rank {rk}: the planner's mesh {r['plan']}")
+        check_eval(f"fsdp rank {rk}", r["eval"])
         for name in ("zero3", "zero2", "zero2_int8_ef"):
             row = r[name]
             check(bf16_step_counts_ok(row["launches"], 12 * MP_PP_STEPS, 12 * MP_PP_STEPS),
@@ -4811,6 +5075,19 @@ def phase_model_parallel(tflash, dev, card, weights, serve=False):
     for r in four:
         check(all(np.isfinite(r["losses"])) and r["losses"] == four[0]["losses"],
               f"pp x tp rank {r['rank']}: losses {r['losses']} vs rank 0's {four[0]['losses']}")
+        res = r["resume"]
+        check(res["count"] == 1 and res["loss"] == r["losses"][1]
+              and res["state_sha"] == r["state_sha"],
+              f"pp x tp rank {r['rank']}: step 2 resumed from the checkpoint (count "
+              f"{res['count']}, loss {res['loss']}, state {res['state_sha'][:12]}) differs from "
+              f"the straight step 2 (loss {r['losses'][1]}, state {r['state_sha'][:12]})")
+        per = MP_4RANK_LAYERS // 2 * 2
+        check(bf16_step_counts_ok(res["launches"], per, per),
+              f"pp x tp rank {r['rank']}: the resumed step launched {res['launches']}, "
+              f"expected {per}")
+        cross = r["cross_layout"]
+        check(not cross["pp4"]["mismatched"] and cross["tp2_dp2_refused"] is not None,
+              f"pp x tp rank {r['rank']}: the checkpoint at other layouts: {cross}")
         per = MP_4RANK_LAYERS // 2 * 2 * MP_4RANK_STEPS
         check(bf16_step_counts_ok(r["launches"], per, per),
               f"pp x tp rank {r['rank']}: flash launches {r['launches']}, expected {per}")
@@ -4821,13 +5098,23 @@ def phase_model_parallel(tflash, dev, card, weights, serve=False):
             if s["coords"]["tp"] == r["coords"]["tp"]:
                 check(s["non_layer_sha"] == r["non_layer_sha"],
                       f"ranks {r['rank']} and {s['rank']}: non-layer leaves differ across stages")
+    emit({"phase": "mp_checkpoint", "model": "tinyllama-1.1b", "n_layer": MP_4RANK_LAYERS,
+          "dtype": "bfloat16", "pp": 2, "tp": 2, "optimizer": "AdamW(3e-4, weight_decay=0.01)",
+          "note": "each rank writes and restores its own blocks of the JAX init_hybrid tree",
+          "ranks": [{"rank": r["rank"], "coords": r["coords"], **r["checkpoint"],
+                     "resumed_loss_equal": r["resume"]["loss"] == r["losses"][1],
+                     "resumed_state_equal": r["resume"]["state_sha"] == r["state_sha"],
+                     "cross_layout": r["cross_layout"]} for r in four], "card": card})
     emit({"phase": "model_parallel", "phase_seconds": time.perf_counter() - t_phase,
           "seconds": {"tp" + (" + tp_serve" if serve else ""): tp_seconds,
                       "pp + zero": pp_seconds, "pp_tp": four_seconds}, "card": card})
     counts = {k: tp_ranks[0]["launches"][k] + pp_ranks[0]["schedules"]["gpipe"]["launches"][k]
               for k in tp_ranks[0]["launches"]}
+    # the path of this slice: rank 0's resumed pp x tp step and pp eval
+    resume_eval = {k: four[0]["resume"]["launches"][k] + pp_ranks[0]["eval"]["launches"][k]
+                   for k in counts}
     served = (serve_ref, (tp_out["tp_serve"], tp_seconds)) if serve else None
-    return counts, pp_ranks[0]["int8_remat"]["quantize_int8"], served
+    return counts, pp_ranks[0]["int8_remat"]["quantize_int8"], served, resume_eval
 
 
 # ---- tensor-parallel serving: TinyLlama-1.1B at tp = 2 (port slice 17) -------------
@@ -5233,51 +5520,95 @@ def phase_tp_serve(tflash, dev, card, weights, ref=None, spawned=None):
 
 # the train_gpt2 entry points run as processes, beside each other and the Llama
 # ones: {name: (phase line, arguments, environment)}
+MP_CLI_CKPT = os.path.join("build", "mp_cli_ckpt")  # the pp = 2 run's checkpoint directory
+# the pp = 2 run first: its one-step resume starts as soon as it ends
 TRAIN_CLI_RUNS = {
+    "small_pp2_1f1b": ("mp_cli", ["--model", "small", "--pp", "2", "--schedule", "1f1b",
+                                  "--n_micro", "4", "--attn", "flash", "--batch_size", "8",
+                                  "--eval_every", "3", "--checkpoint_dir", MP_CLI_CKPT], {}),
     "cp2": ("cp_cli", ["--model", "small", "--cp", "2", "--batch_size", "8"],
             {"DSML_RING_FUSED": "dma"}),
     "dp2": ("dp_cli", ["--model", "small", "--dp", "2", "--attn", "flash", "--batch_size", "8"],
             {}),
     "tinyllama_tp2": ("mp_cli", ["--family", "llama", "--model", "tinyllama_1b", "--tp", "2",
                                  "--attn", "flash", "--batch_size", "2"], {}),
-    "small_pp2_1f1b": ("mp_cli", ["--model", "small", "--pp", "2", "--schedule", "1f1b",
-                                  "--n_micro", "4", "--attn", "flash", "--batch_size", "8"], {}),
 }
+TRAIN_CLI_RESUMED = {"small_pp2_1f1b"}  # runs followed by a one-step resume from their checkpoint
+RESUME_MARK = "chip_smoke: resuming"
 
 
 def train_cli_start(names):
     """Start the ``train_gpt2`` runs ``names`` of :data:`TRAIN_CLI_RUNS` on
-    the card (bf16, 3 steps each) as processes: ``--cp 2`` on GPT-2-small
-    under DSML_RING_FUSED=dma, ``--dp 2`` on GPT-2-small with flash
-    attention, ``--family llama --model tinyllama_1b --tp 2`` and ``--model
-    small --pp 2 --schedule 1f1b``. Waited for by :func:`phase_train_cli_runs`."""
+    the card (bf16, 3 steps each) as processes: ``--model small --pp 2
+    --schedule 1f1b`` with an eval and a checkpoint at step 3, then (in the
+    same shell, as soon as it ends) its one-step resume; ``--cp 2`` on
+    GPT-2-small under DSML_RING_FUSED=dma, ``--dp 2`` on GPT-2-small with
+    flash attention and ``--family llama --model tinyllama_1b --tp 2``.
+    Waited for by :func:`phase_train_cli_runs`."""
     root = os.path.dirname(os.path.abspath(__file__))
-    return {name: subprocess.Popen(
-        [sys.executable, "-m", "dsml_tpu_torch.cli.train_gpt2", *TRAIN_CLI_RUNS[name][1],
-         "--dtype", "bfloat16", "--steps", "3", "--grad_accum", "1", "--log_every", "1",
-         "--warmup_steps", "1"], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True, env={**os.environ, **TRAIN_CLI_RUNS[name][2]}) for name in names}
+    shutil.rmtree(os.path.join(root, MP_CLI_CKPT), ignore_errors=True)  # no earlier run's
+
+    def command(name, steps):
+        return shlex.join([sys.executable, "-m", "dsml_tpu_torch.cli.train_gpt2",
+                           *TRAIN_CLI_RUNS[name][1], "--dtype", "bfloat16", "--steps", str(steps),
+                           "--grad_accum", "1", "--log_every", "1", "--warmup_steps", "1"])
+
+    procs = {}
+    for name in names:
+        cmd = command(name, 3)
+        if name in TRAIN_CLI_RESUMED:
+            cmd += f" && echo {shlex.quote(RESUME_MARK)} && {command(name, 1)}"
+        procs[name] = subprocess.Popen(
+            ["bash", "-c", cmd], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env={**os.environ, **TRAIN_CLI_RUNS[name][2]})
+    return procs
+
+
+def _cli_row(rc, out):
+    losses = [float(m) for m in re.findall(r"step \d+: loss = ([-+0-9.eEnaif]+)", out)]
+    evals = [float(m) for m in re.findall(r"step \d+: eval loss = ([-+0-9.eEnaif]+)", out)]
+    return {"rc": rc, "losses": losses, "eval_losses": evals,
+            "resumed": "resumed from checkpoint at step 3" in out,
+            "last": [line for line in out.splitlines() if "dsml." in line][-3:]
+            if rc == 0 else out[-2000:]}
 
 
 def phase_train_cli_runs(procs):
     """The ``train_gpt2`` runs of :func:`train_cli_start`: each exits 0 and
-    logs 3 steps of finite loss; one line per phase name (cp_cli, dp_cli,
-    mp_cli)."""
+    logs 3 steps of finite loss (the pp = 2 run an eval loss at step 3 too);
+    the resume of a run of :data:`TRAIN_CLI_RESUMED` logs "resumed from
+    checkpoint at step 3" and one finite loss; one line per phase name
+    (cp_cli, dp_cli, mp_cli)."""
     t_phase = time.perf_counter()
     rows = {}
-    for name, p in procs.items():
-        out, _ = p.communicate(timeout=600)
-        losses = [float(m) for m in re.findall(r"step \d+: loss = ([-+0-9.eEnaif]+)", out)]
-        rows[name] = {"rc": p.returncode, "losses": losses,
-                      "last": [line for line in out.splitlines() if "dsml." in line][-2:]
-                      if p.returncode == 0 else out[-2000:]}
-    for phase in dict.fromkeys(TRAIN_CLI_RUNS[name][0] for name in rows):
+    try:
+        for name, p in procs.items():
+            out, _ = p.communicate(timeout=600)
+            first, marked, resumed = out.partition(RESUME_MARK)
+            rows[name] = _cli_row(p.returncode if not marked else 0, first)
+            if name in TRAIN_CLI_RESUMED:
+                rows[f"{name}_resumed"] = _cli_row(p.returncode if marked else None, resumed)
+    finally:
+        shutil.rmtree(os.path.join(os.path.dirname(os.path.abspath(__file__)), MP_CLI_CKPT),
+                      ignore_errors=True)
+
+    def phase_of(name):
+        return TRAIN_CLI_RUNS[name.removesuffix("_resumed")][0]
+
+    for phase in dict.fromkeys(phase_of(name) for name in rows):
         emit({"phase": phase, "entry": "python -m dsml_tpu_torch.cli.train_gpt2",
-              "runs": {n: r for n, r in rows.items() if TRAIN_CLI_RUNS[n][0] == phase},
+              "runs": {n: r for n, r in rows.items() if phase_of(n) == phase},
               "waited_seconds": time.perf_counter() - t_phase})
     for name, row in rows.items():
-        check(row["rc"] == 0 and len(row["losses"]) == 3 and all(np.isfinite(row["losses"])),
+        steps = 1 if name.endswith("_resumed") else 3
+        check(row["rc"] == 0 and len(row["losses"]) == steps and all(np.isfinite(row["losses"])),
               f"train_gpt2 {name}: {row}")
+        if name in TRAIN_CLI_RESUMED:
+            check(len(row["eval_losses"]) == 1 and np.isfinite(row["eval_losses"][0]),
+                  f"train_gpt2 {name}: no finite eval loss at step 3: {row}")
+            check(rows[f"{name}_resumed"]["resumed"],
+                  f"train_gpt2 {name}: the one-step run did not resume from step 3: "
+                  f"{rows[name + '_resumed']}")
 
 
 # Mixtral-8x7B at its full widths, depth cut for one card and the run's time
@@ -5743,6 +6074,7 @@ def main() -> None:
                   "llama_ticks": lambda: phase_llama_ticks(dev, card),
                   "obs": lambda: phase_obs(tflash, dev, card),
                   "checkpoint": lambda: phase_checkpoint(tflash, dev, card),
+                  "plan": lambda: phase_plan(card),
                   "model_parallel": lambda: with_tinyllama_weights(
                       lambda w: phase_model_parallel(tflash, dev, card, w)),
                   "tp_serve": lambda: with_tinyllama_weights(
@@ -5834,11 +6166,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     ckpt_launches = phase_checkpoint(tflash, dev, card)
     torch.cuda.empty_cache()
-    # model parallelism: tp, pp (three schedules), ZeRO-3/ZeRO-2 and pp x tp;
-    # then tensor-parallel serving, from the same TinyLlama weights file
+    # the mesh planner on the card; model parallelism: tp, pp (three
+    # schedules, the eval), ZeRO-3/ZeRO-2 on the planner's mesh and pp x tp
+    # (its checkpoint and resume); then tensor-parallel serving, from the
+    # same TinyLlama weights file
+    phase_plan(card)
     with tinyllama_bf16_weights() as weights:
         # the tp ranks serve too (tp_serve), after their training program
-        mp_launches, mp_quant8, (serve_ref, serve_spawned) = phase_model_parallel(
+        mp_launches, mp_quant8, (serve_ref, serve_spawned), resume_eval = phase_model_parallel(
             tflash, dev, card, weights, serve=True)
         torch.cuda.empty_cache()
         tp_launches, tp_errs, _ = phase_tp_serve(tflash, dev, card, weights, serve_ref,
@@ -5862,30 +6197,35 @@ def main() -> None:
         llama = llama_train_launches if dtype == torch.bfloat16 else {dq_name: 0, dkv_name: 0}
         mp = mp_launches if dtype == torch.bfloat16 else {dq_name: 0, dkv_name: 0}
         mx = moe if dtype == torch.bfloat16 else {dq_name: 0, dkv_name: 0}
+        ra = resume_eval if dtype == torch.bfloat16 else {dq_name: 0, dkv_name: 0}
         bwd_rows += [
             {"name": dq_name, "route": "cuda", "source": source, "replaces": "dsml_tpu/ops/flash.py:481",
              "launches": counts[dq_name] + llama[dq_name] + ckpt_launches[dq_name] + mp[dq_name]
-             + mx[dq_name],
+             + mx[dq_name] + ra[dq_name],
              "launches_by_path": {"train": counts[dq_name], "llama_train": llama[dq_name],
                                   "checkpoint": ckpt_launches[dq_name],
-                                  "model_parallel": mp[dq_name], "moe": mx[dq_name]},
+                                  "model_parallel": mp[dq_name], "moe": mx[dq_name],
+                                  "mp_resume_eval": ra[dq_name]},
              "max_abs_err": err["dq"], **bwd_timing[dq_name]},
             {"name": dkv_name, "route": "cuda", "source": source, "replaces": "dsml_tpu/ops/flash.py:526",
              "launches": counts[dkv_name] + llama[dkv_name] + ckpt_launches[dkv_name] + mp[dkv_name]
-             + mx[dkv_name],
+             + mx[dkv_name] + ra[dkv_name],
              "launches_by_path": {"train": counts[dkv_name], "llama_train": llama[dkv_name],
                                   "checkpoint": ckpt_launches[dkv_name],
-                                  "model_parallel": mp[dkv_name], "moe": mx[dkv_name]},
+                                  "model_parallel": mp[dkv_name], "moe": mx[dkv_name],
+                                  "mp_resume_eval": ra[dkv_name]},
              "max_abs_err": max(err["dk"], err["dv"]), **bwd_timing[dkv_name]}]
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": "dsml_tpu_torch/ops/csrc/flash_fwd.cu",
          "replaces": "dsml_tpu/ops/flash.py:198",
          "launches": launches + llama_train_launches["flash_fwd"] + ckpt_launches["flash_fwd"]
-         + mp_launches["flash_fwd"] + moe["flash_fwd"] + tp_launches["flash_fwd"],
+         + mp_launches["flash_fwd"] + moe["flash_fwd"] + tp_launches["flash_fwd"]
+         + resume_eval["flash_fwd"],
          "launches_by_path": {"slice": launches, "llama_train": llama_train_launches["flash_fwd"],
                               "checkpoint": ckpt_launches["flash_fwd"],
                               "model_parallel": mp_launches["flash_fwd"], "moe": moe["flash_fwd"],
-                              "tp_serve": tp_launches["flash_fwd"]},
+                              "tp_serve": tp_launches["flash_fwd"],
+                              "mp_resume_eval": resume_eval["flash_fwd"]},
          "max_abs_err": main_err, **timing},
         *bwd_rows,
         # times at the decode tick's shape (the chunk's are in the kernel_time line);

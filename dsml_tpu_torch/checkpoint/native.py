@@ -26,6 +26,14 @@ and piece bytes).
   ``init_zero2`` layout): every rank writes its segment as one piece, and a
   restore reassembles the buckets, re-pads them to the template's width and
   keeps the rank's segment.
+  A :class:`MeshShard` leaf is one rank's block of a global leaf laid out
+  over a process mesh (the JAX package's ``NamedSharding`` leaf of the
+  ``init_hybrid`` tree: tp-sharded dims, the stacked pp layer axis, fsdp
+  shards): the manifest lists every distinct block of the layout, in the
+  JAX package's order, the lowest rank holding a block writes it, and a
+  restore into a ``MeshShard`` template reads the rank's block back from
+  whatever pieces the checkpoint holds (those of any mesh, or one whole
+  piece), touching only the bytes of the block.
   ``commit`` waits on a barrier for every rank's pieces before rank 0
   writes the manifest and publishes the step.
 - **Atomic**: files land in ``.tmp.step_N`` (fsynced, the manifest last)
@@ -54,8 +62,8 @@ import torch
 
 from dsml_tpu_torch.utils.logging import get_logger
 
-__all__ = ["FlatShard", "RankShard", "Snapshot", "commit", "read_manifest", "restore_tree", "snapshot",
-           "step_dirname", "tree_leaves_with_path"]
+__all__ = ["FlatShard", "MeshShard", "RankShard", "Snapshot", "commit", "read_manifest",
+           "restore_tree", "snapshot", "step_dirname", "tree_leaves_with_path"]
 
 log = get_logger("checkpoint.native")
 
@@ -101,6 +109,24 @@ class FlatShard:
     rank: int
     n: int
     axis: str = "fsdp"
+
+
+@dataclasses.dataclass
+class MeshShard:
+    """This rank's block ``tensor`` of a global leaf of ``shape`` over a
+    process mesh: ``index`` is the block's ``[[start, stop], ...]``,
+    ``pieces`` every distinct block of the layout in the order the JAX
+    package numbers them (sorted by index), ``owner`` whether this rank
+    writes its block (it is the lowest rank holding it) and ``sharding``
+    the manifest's description of the layout. As a template leaf it
+    restores this rank's block, as a tensor like ``tensor``."""
+
+    tensor: torch.Tensor
+    shape: tuple
+    index: list
+    pieces: list
+    owner: bool
+    sharding: dict | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +265,16 @@ def snapshot(state: Any, step: int, extra: dict | None = None, rank: int = 0,
             })
             blobs.append((pieces[leaf.rank]["file"], _host_array(t)))
             continue
+        if isinstance(leaf, MeshShard):
+            pieces = [{"file": f"L{li:05d}_P{pi:03d}.bin", "index": idx}
+                      for pi, idx in enumerate(leaf.pieces)]
+            entries.append({"path": path, "shape": list(leaf.shape),
+                            "dtype": _torch_dtype_name(leaf.tensor.dtype),
+                            "sharding": leaf.sharding, "pieces": pieces})
+            if leaf.owner:
+                blobs.append((pieces[leaf.pieces.index(leaf.index)]["file"],
+                              _host_array(leaf.tensor)))
+            continue
         if isinstance(leaf, torch.Tensor):
             shape, dtype = list(leaf.shape), _torch_dtype_name(leaf.dtype)
             arr = _host_array(leaf) if rank == 0 else None
@@ -341,6 +377,39 @@ def _assemble(ckpt_dir: str, entry: dict) -> np.ndarray:
     return out
 
 
+def _read_region(ckpt_dir: str, entry: dict, index: list) -> np.ndarray:
+    """The block ``index`` (``[[start, stop], ...]``) of a saved leaf, read
+    from the parts of its pieces that overlap it (memory-mapped: only the
+    block's bytes are read)."""
+    dtype = _raw_dtype(entry["dtype"])
+    out = np.empty([b - a for a, b in index], dtype)
+    filled = 0
+    for piece in entry["pieces"]:
+        lo = [max(a, pa) for (a, _), (pa, _) in zip(index, piece["index"])]
+        hi = [min(b, pb) for (_, b), (_, pb) in zip(index, piece["index"])]
+        if any(a >= b for a, b in zip(lo, hi)):
+            continue
+        sub_shape = tuple(b - a for a, b in piece["index"])
+        if not sub_shape:
+            src = _read_piece(ckpt_dir, entry, piece)
+        else:
+            path = os.path.join(ckpt_dir, piece["file"])
+            expect = int(np.prod(sub_shape)) * dtype.itemsize
+            if os.path.getsize(path) != expect:
+                raise ValueError(f"checkpoint piece {piece['file']} for {entry['path']!r} has "
+                                 f"{os.path.getsize(path)} bytes, expected {expect} — "
+                                 "truncated file?")
+            src = np.memmap(path, dtype=dtype, mode="r", shape=sub_shape)
+        src_at = tuple(slice(a - pa, b - pa) for a, b, (pa, _) in zip(lo, hi, piece["index"]))
+        out_at = tuple(slice(a - ia, b - ia) for a, b, (ia, _) in zip(lo, hi, index))
+        out[out_at] = src[src_at]
+        filled += int(np.prod([b - a for a, b in zip(lo, hi)]))
+    if filled != out.size:
+        raise ValueError(f"the pieces of {entry['path']!r} cover {filled} of the {out.size} "
+                         f"elements of block {index}")
+    return out
+
+
 def _rank_row(ckpt_dir: str, entry: dict, tleaf: RankShard) -> np.ndarray:
     """Row ``tleaf.rank`` of a leaf saved sharded over ``tleaf.n`` ranks,
     read from that row's piece alone."""
@@ -386,12 +455,24 @@ def _to_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 def _materialize(ckpt_dir: str, entry: dict, tleaf) -> Any:
     """Restore one leaf with the shape, dtype and device of the template
     leaf: a tensor, a :class:`RankShard` (this rank's row), a
-    :class:`FlatShard` (this rank's segment), a numpy array
-    or a Python scalar."""
+    :class:`FlatShard` (this rank's segment), a :class:`MeshShard` (this
+    rank's block), a numpy array or a Python scalar."""
     if "inline" in entry or entry.get("kind"):
         return entry.get("inline")
     if isinstance(tleaf, RankShard):
         t = _to_tensor(_rank_row(ckpt_dir, entry, tleaf), entry["dtype"])
+        return t.to(device=tleaf.tensor.device, dtype=tleaf.tensor.dtype)
+    if isinstance(tleaf, MeshShard):
+        saved = tuple(entry["shape"])
+        if saved == tuple(tleaf.shape):
+            arr = _read_region(ckpt_dir, entry, tleaf.index)
+        elif len(saved) == 1 and len(tleaf.shape) == 1 and _saved_dim0_sharded(entry):
+            (a, b), = tleaf.index
+            arr = _resize_flat(_assemble(ckpt_dir, entry), int(tleaf.shape[0]), entry["path"])[a:b]
+        else:
+            raise ValueError(f"template shape {tuple(tleaf.shape)} != saved shape {saved} "
+                             f"for {entry['path']!r}")
+        t = _to_tensor(np.ascontiguousarray(arr), entry["dtype"])
         return t.to(device=tleaf.tensor.device, dtype=tleaf.tensor.dtype)
     arr = _assemble(ckpt_dir, entry)
     if isinstance(tleaf, FlatShard):

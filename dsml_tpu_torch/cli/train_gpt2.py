@@ -44,13 +44,18 @@ parameters and the optimizer's state in the JAX package's trees, so a
 checkpoint of ``examples/train_gpt2.py`` resumes here and the reverse),
 runs ``--steps`` more updates on the cosine horizon ``start + steps`` with
 the batch stream seeded ``seed + start``, and saves step ``start +
-steps`` at the end (under ``--dp``/``--cp`` every rank saves: rank 0
-writes the replicated state, all ranks wait for the commit).
+steps`` at the end. On a mesh every rank saves and restores its own
+blocks of the JAX ``init_hybrid`` tree (``checkpoint.optim_state.
+mesh_state``: tp shards, the stacked pp layer axis; the lowest rank
+holding a block writes it), and all ranks wait for the commit.
+``--eval_every K`` logs the held-out loss and perplexity every K steps on
+every mesh (under ``--pp`` the pipelined forward over ``--n_micro``
+microbatches).
 
 Runs on the CUDA card unless ``--device cpu``. The other sequence
-parallelisms, cp composed with another axis, Llama under cp, checkpoints
-under tp or pp, BPE, the prose corpus, profiles and adafactor come with
-later slices and raise here.
+parallelisms, cp composed with another axis, Llama under cp, BPE, the
+prose corpus, profiles and adafactor come with later slices and raise
+here.
 """
 
 from __future__ import annotations
@@ -131,8 +136,6 @@ def _generated_stories(n_chars: int, seed: int) -> bytes:
 def _check_supported(cfg: GPT2TrainConfig) -> None:
     later = {
         "--sp > 1 (the rest of the long-context slice)": cfg.sp > 1,
-        "--checkpoint_dir with --tp/--pp > 1 (checkpoints of sharded models, ROADMAP.md queue 1, "
-        "item 11: checkpointing under tp/pp)": bool(cfg.checkpoint_dir) and (cfg.pp > 1 or cfg.tp > 1),
         "--cp > 1 with --tp/--pp > 1 (cp composed with another axis, the rest of the long-context "
         "slice)": cfg.cp > 1 and (cfg.pp > 1 or cfg.tp > 1),
         f"--attn {cfg.attn} (the rest of the long-context slice)":
@@ -262,9 +265,10 @@ def _rank(rank: int, cfg: GPT2TrainConfig, tmp: str) -> None:
 
 def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
     """The training loop on one device, or as one rank of ``mesh`` (the
-    hybrid step on a dp or a cp mesh; rank 0 logs)."""
-    from dsml_tpu_torch.checkpoint.optim_state import (load_optax_state, load_param_tree,
-                                                       optax_state, param_tree)
+    hybrid step on its mesh; rank 0 logs)."""
+    from dsml_tpu_torch.checkpoint.optim_state import (load_mesh_state, load_optax_state,
+                                                       load_param_tree, mesh_state, optax_state,
+                                                       param_tree)
     from dsml_tpu_torch.models import model_by_family
     from dsml_tpu_torch.utils.data import carve_lm_eval_split, lm_window_batches, prefetch_batches
     from dsml_tpu_torch.utils.logging import get_logger
@@ -289,7 +293,6 @@ def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
         model = hybrid_model(type(model), model_cfg, mesh)  # this rank's tp shard / pp stage
     else:
         model = type(model)(model_cfg, device=device)
-    model.init(cfg.seed)
     seq = cfg.seq_len or model_cfg.max_seq
 
     if cfg.data:
@@ -321,17 +324,29 @@ def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
 
         ckpt = Checkpointer(cfg.checkpoint_dir, mesh=mesh)
         start_step = ckpt.latest_step() or 0
+    if start_step == 0:  # a resume restores every weight: no draw to overwrite
+        model.init(cfg.seed)
     # the same pieces as the JAX example's optax.chain(clip_by_global_norm,
     # adamw(schedule)): adamw's default weight decay there is 1e-4
     schedule = make_schedule("cosine", cfg.lr, start_step + cfg.steps, cfg.warmup_steps)
     optimizer = torch.optim.AdamW(model.parameters(), lr=0.0, weight_decay=1e-4)
     count = 0  # updates done: the schedule's argument
+
+    def state_tree(n: int) -> dict:
+        """The checkpointed trees after ``n`` updates (this rank's blocks
+        on a mesh)."""
+        if mesh is not None:
+            return mesh_state(model, optimizer, mesh, OPT_STATE_KIND, n)
+        return {"params": param_tree(model),
+                "opt_state": optax_state(optimizer, model, OPT_STATE_KIND, n)}
+
     if start_step > 0:
-        template = {"params": param_tree(model),
-                    "opt_state": optax_state(optimizer, model, OPT_STATE_KIND, 0)}
-        state = ckpt.restore(template=template)
-        load_param_tree(model, state["params"])
-        count = load_optax_state(optimizer, model, OPT_STATE_KIND, state["opt_state"])
+        state = ckpt.restore(template=state_tree(0))
+        if mesh is not None:
+            count = load_mesh_state(model, optimizer, mesh, OPT_STATE_KIND, state)
+        else:
+            load_param_tree(model, state["params"])
+            count = load_optax_state(optimizer, model, OPT_STATE_KIND, state["opt_state"])
         if not quiet:
             log.info("resumed from checkpoint at step %d", start_step)
     if mesh is None:
@@ -355,7 +370,7 @@ def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
             return hybrid_step(x, y, lr)
 
         def eval_loss(x, y):
-            return hybrid_eval_loss(model, mesh, attn_impl, x, y)
+            return hybrid_eval_loss(model, mesh, attn_impl, x, y, cfg.n_micro)
     if not quiet:
         log.info("%s %s on %s: %.1fM params, %s, attn=%s, seq=%d, batch=%d x accum=%d%s",
                  "Llama" if cfg.family == "llama" else "GPT-2", cfg.model, model.device,
@@ -396,8 +411,7 @@ def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
             if not quiet:
                 log.info("step %d: eval loss = %.4f, perplexity = %.2f", i, el, float(np.exp(el)))
     if ckpt is not None:
-        ckpt.save(start_step + cfg.steps, param_tree(model),
-                  optax_state(optimizer, model, OPT_STATE_KIND, count))
+        ckpt.save(start_step + cfg.steps, **state_tree(count))
         ckpt.close()
     return {"first_loss": first_loss, "last_loss": float(loss)}
 

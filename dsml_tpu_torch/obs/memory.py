@@ -218,6 +218,8 @@ class MemoryLedger:
         # (subsystem, name, weakref-to-callable); pruned on read
         self._sources: list[tuple[str, str, object]] = []
         self._watermarks: collections.deque = collections.deque(maxlen=WATERMARK_CAP)
+        # (bytes, batch) of the last measured activation footprint
+        self._act_measurement: tuple[float, int] | None = None
         # gauges refresh at scrape time, not write time — derived values
         # (unattributed, headroom) depend on the live measure
         self.registry.add_collect_hook(self._refresh_gauges)
@@ -254,6 +256,29 @@ class MemoryLedger:
         nbytes = tree_nbytes(tree, per_device=True)
         self.set_claim(subsystem, nbytes, detail=detail)
         return nbytes
+
+    def record_activation_measurement(self, nbytes: float, batch: int) -> None:
+        """Record a MEASURED activation footprint with the batch it was
+        measured at (the Trainer's ``DSML_MEASURE_ACT``): the claim of the
+        ``activations`` subsystem, and the per-sample figure that
+        ``parallel.auto.plan_mesh`` rescales to its own
+        ``batch_per_device``. No-op when disabled."""
+        if not self.registry.enabled:
+            return
+        self.set_claim("activations", nbytes, detail="measured_step_temp")
+        with self._lock:
+            self._act_measurement = (float(nbytes), max(int(batch), 1))
+
+    def activation_bytes_for(self, batch_per_device: int) -> float | None:
+        """The measured activation footprint rescaled linearly (the
+        first-order batch dependence) to ``batch_per_device``; None when
+        nothing was measured."""
+        with self._lock:
+            m = self._act_measurement
+        if m is None:
+            return None
+        nbytes, batch = m
+        return nbytes / batch * max(int(batch_per_device), 1)
 
     def register_source(self, subsystem: str, fn, name: str = "0") -> None:
         """Register a live byte source re-read at every scrape/snapshot.
@@ -431,11 +456,13 @@ class MemoryLedger:
             return list(self._watermarks)
 
     def clear(self) -> None:
-        """Drop claims + watermarks (tests; a fresh bench section). Sources survive — their owners are still
+        """Drop claims, watermarks and the activation measurement (tests; a
+        fresh bench section). Sources survive — their owners are still
         alive."""
         with self._lock:
             self._claims.clear()
             self._watermarks.clear()
+            self._act_measurement = None
 
     # -- exposition --------------------------------------------------------
 

@@ -103,6 +103,12 @@ class Zero3:
                 else shard.detach()
             p.grad = None
 
+    def release(self) -> None:
+        """The gathered full weights dropped again (after a forward with no
+        backward: the eval loss)."""
+        for _, p, _, _ in self.entries:
+            p.data = p.data.new_empty(0)
+
     @torch.no_grad()
     def scatter_grads(self) -> None:
         """Each full gradient averaged over the group into its shard's

@@ -60,8 +60,10 @@ from dsml_tpu_torch.parallel.bucketing import (bucketed_all_reduce, default_buck
                                                is_quantized_algorithm)
 from dsml_tpu_torch.parallel.dp import named_params, rank_rows
 from dsml_tpu_torch.parallel.fsdp import Zero3, rebuild_optimizer
-from dsml_tpu_torch.parallel.mesh import _NOT_PORTED, Mesh
-from dsml_tpu_torch.parallel.pp import pipeline_train, pipeline_train_1f1b, stage_layer_ids
+from dsml_tpu_torch.parallel.mesh import Mesh
+from dsml_tpu_torch.parallel.pp import _check as _check_pp
+from dsml_tpu_torch.parallel.pp import (_forward_ticks, pipeline_train, pipeline_train_1f1b,
+                                        stage_layer_ids)
 
 __all__ = ["default_attn_impl", "gather_fsdp", "hybrid_eval_loss", "hybrid_loss_fn",
            "hybrid_model", "init_hybrid", "make_hybrid_train_step"]
@@ -265,30 +267,22 @@ def _sum_over(tensors, group) -> None:
         t.copy_(part.view_as(t))
 
 
-def _pp_loss_backward(model, x, y, group, n_micro: int, schedule: str, attn_impl: str):
-    """This stage's share of the pipelined loss of ``x``/``y`` and its
-    backward (gradients accumulate in ``.grad``): stage 0 embeds and feeds
-    ``n_micro`` microbatches, the stages run ``parallel.pp``'s schedule,
-    the last stage runs the head (:meth:`GPT2.head_loss`), and stage 0
-    pulls the feed's cotangent back through the embedding. ``remat=True``
-    recomputes each stage (each chunk) in the backward and ``"int8"``
-    each layer from an int8 stash, as the JAX ``_blocks_spmd`` does for
-    GPipe; ``"mlp"`` is inside the block. Returns the loss on the last
-    stage, 0 elsewhere."""
-    cfg = model.config
-    b, s = x.shape
-    if b % n_micro:
-        raise ValueError(f"per-rank batch {b} not divisible by n_micro={n_micro}")
-    mb, v = b // n_micro, cfg.pp_interleave
+def _pp_chunks(model, attn_impl: str, s: int, remat=False) -> list:
+    """This stage's chunk functions ``h -> h`` (one per interleave chunk:
+    its layers in order) at sequence length ``s``; ``remat=True`` recomputes
+    each chunk in the backward and ``"int8"`` each layer from an int8
+    stash, as the JAX ``_blocks_spmd`` does for GPipe (``"mlp"`` is inside
+    the block)."""
     attend = model._attend(attn_impl)
     rot = model._rotary(0, s)
     layers = list(model.layers)
+    v = model.config.pp_interleave
     per_chunk = len(layers) // v
 
     def layer_fn(layer, h):
         return model._block(layer, h, attend, rot)
 
-    if cfg.remat == "int8":
+    if remat == "int8":
         layer_fn = compressed_checkpoint(layer_fn)
 
     def chunk(chunk_layers):
@@ -297,17 +291,40 @@ def _pp_loss_backward(model, x, y, group, n_micro: int, schedule: str, attn_impl
                 h = layer_fn(layer, h)
             return h
 
-        if cfg.remat is True:
+        if remat is True:
             return lambda h: checkpoint(run, h, use_reentrant=False)
         return run
 
-    chunks = [chunk(layers[j * per_chunk:(j + 1) * per_chunk]) for j in range(v)]
-    like = (n_micro, (mb, s, cfg.d_model), cfg.torch_dtype, model.device)
+    return [chunk(layers[j * per_chunk:(j + 1) * per_chunk]) for j in range(v)]
+
+
+def _pp_feed(model, x, y, group, n_micro: int):
+    """Stage 0's embedded microbatches (None elsewhere, with the embedding's
+    output kept for its backward), the targets by microbatch and the
+    pipeline's ``micros_like``."""
+    cfg = model.config
+    b, s = x.shape
+    if b % n_micro:
+        raise ValueError(f"per-rank batch {b} not divisible by n_micro={n_micro}")
+    mb = b // n_micro
     micros = h = None
     if group.rank == 0:
         h = model._embed(x)
         micros = h.detach().view(n_micro, mb, s, cfg.d_model)
-    targets = y.view(n_micro, mb, s)
+    like = (n_micro, (mb, s, cfg.d_model), cfg.torch_dtype, model.device)
+    return h, micros, y.view(n_micro, mb, s), like
+
+
+def _pp_loss_backward(model, x, y, group, n_micro: int, schedule: str, attn_impl: str):
+    """This stage's share of the pipelined loss of ``x``/``y`` and its
+    backward (gradients accumulate in ``.grad``): stage 0 embeds and feeds
+    ``n_micro`` microbatches, the stages run ``parallel.pp``'s schedule over
+    :func:`_pp_chunks` (with the config's ``remat``), the last stage runs
+    the head (:meth:`GPT2.head_loss`), and stage 0 pulls the feed's
+    cotangent back through the embedding. Returns the loss on the last
+    stage, 0 elsewhere."""
+    chunks = _pp_chunks(model, attn_impl, x.shape[1], model.config.remat)
+    h, micros, targets, like = _pp_feed(model, x, y, group, n_micro)
     if schedule == "1f1b":
         loss, d_micros = pipeline_train_1f1b(chunks[0], model.head_loss, micros, targets, group,
                                              like)
@@ -442,18 +459,53 @@ def _clip_sharded(grads, weights, max_norm: float, mesh: Mesh) -> None:
 
 
 @torch.no_grad()
-def hybrid_eval_loss(model, mesh: Mesh, attn_impl: str, x, y) -> torch.Tensor:
+def _pp_eval_loss(model, x, y, group, n_micro: int, attn_impl: str) -> torch.Tensor:
+    """The pipelined forward alone (``parallel.pp``'s forward ticks, GPipe
+    or interleaved as the model's ``pp_interleave`` says, no graph kept)
+    over ``n_micro`` microbatches, the head over all of them on the last
+    stage: the loss there, 0 elsewhere."""
+    _check_pp(group.size, n_micro, model.config.pp_interleave)
+    chunks = _pp_chunks(model, attn_impl, x.shape[1])
+    _, micros, targets, like = _pp_feed(model, x, y, group, n_micro)
+    _, outputs = _forward_ticks(chunks, like, micros, group, len(chunks), False)
+    if group.rank != group.size - 1:
+        return torch.zeros((), dtype=torch.float32, device=model.device)
+    out = torch.cat([outputs[m] for m in range(n_micro)])
+    return model.head_loss(out, targets.reshape(-1, targets.shape[2])).float()
+
+
+@torch.no_grad()
+def hybrid_eval_loss(model, mesh: Mesh, attn_impl: str, x, y,
+                     n_microbatches: int = 1) -> torch.Tensor:
     """The global mean loss of the batch ``x``/``y`` [batch, seq] with no
-    update: every rank's loss over its share, averaged over the group (the
-    JAX example's eval ``pmean``, through the process group). On a pp or
-    fsdp mesh the eval loss is not ported (a training-only path)."""
-    if mesh.shape.get("pp", 1) > 1 or mesh.shape.get("fsdp", 1) > 1:
-        raise NotImplementedError("the eval loss on a pp or fsdp mesh " + _NOT_PORTED.format(11))
+    update (the JAX example's eval: ``pmean`` of ``hybrid_loss_fn`` over the
+    batch and sequence axes): every rank's loss over its rows (dp × fsdp)
+    or its sequence shard (cp), averaged over those groups. With fsdp the
+    weights are the gathered ZeRO-3 shards (:func:`gather_fsdp`), released
+    again after the forward; with pp the loss is the pipelined forward over
+    ``n_microbatches`` microbatches (:func:`_pp_eval_loss`), summed over the
+    stages (the JAX masked-head psum). Returns a device scalar, identical on
+    every rank."""
+    if attn_impl == "ring" and mesh.shape.get("cp", 1) == 1:
+        attn_impl = "xla"  # the XLA ring on an unsharded sequence is plain attention
     seq_group, dp_group = _seq_group(mesh), mesh.group("dp")
-    x = rank_rows(_shard(x, seq_group), dp_group).to(model.device).long()
-    y = rank_rows(_shard(y, seq_group), dp_group).to(model.device).long()
-    loss = hybrid_loss_fn(model, attn_impl, seq_group)(x, y).float()
-    group = seq_group or dp_group
-    if group is not None:
-        loss = all_reduce(loss, group, ReduceOp.AVG, "xla")
+    pp_group, fsdp_group = mesh.group("pp"), mesh.group("fsdp")
+    x, y = _shard(x, seq_group), _shard(y, seq_group)
+    for g in (dp_group, fsdp_group):
+        x, y = rank_rows(x, g), rank_rows(y, g)
+    x, y = x.to(model.device).long(), y.to(model.device).long()
+    gather_fsdp(model)
+    try:
+        if pp_group is not None:
+            loss = _pp_eval_loss(model, x, y, pp_group, n_microbatches, attn_impl)
+            loss = all_reduce(loss, pp_group, ReduceOp.SUM, "xla" if loss.is_cpu else "ring")
+        else:
+            loss = hybrid_loss_fn(model, attn_impl, seq_group)(x, y).float()
+    finally:
+        zero3 = getattr(model, "fsdp", None)
+        if zero3 is not None:
+            zero3.release()
+    for group in (seq_group, fsdp_group, dp_group):
+        if group is not None:
+            loss = all_reduce(loss, group, ReduceOp.AVG, "xla" if loss.is_cpu else "ring")
     return loss

@@ -12,7 +12,8 @@ exactly the shard JAX device r holds), and gives each sized axis a
 only in that axis' coordinate, in coordinate order.
 
 Served: pp, dp, fsdp and tp and their compositions, and cp alone (the
-context-parallel ring). ``sp`` and cp composed with another sized axis
+context-parallel ring). A plan of ``parallel.auto.plan_mesh`` is a spec
+like any other (``build_mesh(plan.spec, ...)``). ``sp`` and cp composed with another sized axis
 raise and name the ROADMAP item that brings them. gloo carries the control
 messages (and the ``"xla"`` syncs); the rings' CUDA payloads go through each
 ring's own CUDA IPC transport (``parallel/peer.py``), one notice board and

@@ -48,7 +48,11 @@ residuals, and a peak watermark at every loss sync;
 ``quant_error_feedback_norm`` (the global L2
 norm of ``step.error_feedback``, f32) at loss syncs; an OOM postmortem on
 the way out. ``DSML_SENTINELS`` checks the synced loss; ``DSML_HANGWATCH``
-arms a deadline per sync window (disarmed on every exit). Either knob
+arms a deadline per sync window (disarmed on every exit).
+``DSML_MEASURE_ACT=1`` measures the step's activation footprint before
+training (``parallel.auto.measured_activation_bytes``) into the ledger's
+``activations`` claim, an ``activation_measured`` event and a log line,
+where ``parallel.auto.plan_mesh`` reads it. Each of the three knobs
 implies ``obs.enable()``. With a checkpoint: the ``checkpoint_stall``
 breakdown phase (the save's synchronous part), the goodput marks
 ``restore`` and ``checkpoint_save``, a ``checkpoint_save`` event.
@@ -240,7 +244,11 @@ class Trainer:
         sentinels = TrainingSentinels.maybe_from_env()
         hw_cfg = hangwatch.config_from_env()
         hw = hangwatch.get_hangwatch() if hw_cfg is not None else None
-        if sentinels is not None or hw is not None:
+        measure_act = os.environ.get("DSML_MEASURE_ACT") == "1"
+        if sentinels is not None or hw is not None or measure_act:
+            # a forensic knob (or a measured activation claim, which a
+            # disabled registry would drop) implies the registry, the ring
+            # log handler and the flight recorder's hooks
             obs.enable()
         track = obs_reg.enabled
         goodput = GoodputTracker(registry=obs_reg) if track else None
@@ -250,6 +258,9 @@ class Trainer:
             ledger.claim_tree("params", model)
             if step.error_feedback is not None:
                 ledger.claim_tree("error_feedback", step.error_feedback)
+        if measure_act:
+            self._measure_activation_footprint(data.train_x[: cfg.batch_size],
+                                               data.train_y[: cfg.batch_size], ledger, recorder)
         if track and start_epoch > 1:
             goodput.mark("restore", epoch=start_epoch - 1)
         step_deadline = (hangwatch.TrailingDeadline.from_config(hw_cfg)
@@ -418,6 +429,32 @@ class Trainer:
             final["obs_step_breakdown"] = breakdown.summary()
         self.metrics.log(**final)
         return model.state_dict(), history, test_acc
+
+    def _measure_activation_footprint(self, x, y, ledger, recorder) -> None:
+        """``DSML_MEASURE_ACT=1``: the bytes the step saves for its backward
+        at the global batch, from shapes alone
+        (``parallel.auto.measured_activation_bytes`` on the model's meta
+        twin), recorded as the ledger's ``activations`` claim with its batch
+        (``plan_mesh`` rescales it), an ``activation_measured`` event and a
+        log line. A failed measurement logs and training goes on."""
+        from dsml_tpu_torch.parallel.auto import measured_activation_bytes, meta_twin
+
+        def meta(a):
+            return torch.empty_like(torch.as_tensor(a), device="meta")
+
+        try:
+            measured = measured_activation_bytes(meta_twin(self.model).loss, meta(x), meta(y))
+        except Exception:
+            log.warning("DSML_MEASURE_ACT: activation measurement failed", exc_info=True)
+            return
+        if measured is None:
+            log.warning("DSML_MEASURE_ACT: the loss builds no graph — activation "
+                        "footprint stays analytic")
+            return
+        ledger.record_activation_measurement(measured, x.shape[0])
+        recorder.record("activation_measured", bytes=int(measured), batch=int(x.shape[0]))
+        log.info("measured activation footprint: %.2f MB (bytes autograd saves for the "
+                 "step's backward)", measured / 1e6)
 
     @torch.no_grad()
     def evaluate(self, x: np.ndarray, y: np.ndarray, batch_size: int = 2048,

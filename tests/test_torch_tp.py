@@ -197,10 +197,22 @@ def test_rank_coords_match_jax_device_order(devices8, spec):
             assert [rank_coords(tspec, r)[axis] for r in ranks] == list(range(len(ranks)))
 
 
-def test_train_gpt2_cli_tp():
-    """``train_gpt2 --tp 2`` spawns two tensor-parallel ranks and trains."""
-    out = train_gpt2.main(["--device", "cpu", "--model", "tiny", "--steps", "3", "--tp", "2",
-                           "--batch_size", "4", "--seq_len", "64", "--log_every", "1"])
+def test_train_gpt2_cli_tp(tmp_path):
+    """``train_gpt2 --tp 2`` spawns two tensor-parallel ranks and trains;
+    with ``--checkpoint_dir`` each rank saves its shards in the JAX
+    ``init_hybrid`` layout, and a second run resumes from them (its
+    checkpoint's update count goes on from 3)."""
+    from dsml_tpu_torch.checkpoint import native
+
+    ck = str(tmp_path / "ck")
+    args = ["--device", "cpu", "--model", "tiny", "--tp", "2", "--batch_size", "4",
+            "--seq_len", "64", "--log_every", "1", "--checkpoint_dir", ck]
+    out = train_gpt2.main(args + ["--steps", "3"])
     assert np.isfinite(out["first_loss"]) and np.isfinite(out["last_loss"])
-    with pytest.raises(NotImplementedError, match="checkpointing under tp/pp"):
-        train_gpt2.main(["--device", "cpu", "--tp", "2", "--checkpoint_dir", "unused"])
+    wte = [e for e in native.read_manifest(os.path.join(ck, native.step_dirname(3)))["leaves"]
+           if e["path"] == "params/wte"][0]
+    assert wte["shape"] == [256, 64] and len(wte["pieces"]) == 2  # vocab rows, one piece a rank
+    out = train_gpt2.main(args + ["--steps", "1"])
+    assert np.isfinite(out["last_loss"])
+    state = native.restore_tree(os.path.join(ck, native.step_dirname(4)))
+    assert int(state["opt_state"]["1"]["2"]["count"]) == 4

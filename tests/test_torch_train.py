@@ -387,9 +387,9 @@ def test_train_gpt2_cli_runs_and_logs():
 
 
 @pytest.mark.parametrize("flag", [
-    # --pp and --tp are ported: what stays unported with them is a checkpoint
-    # under pp or tp and cp composed with either
-    ["--pp", "2", "--checkpoint_dir", "ck"], ["--tp", "2", "--cp", "2"], ["--sp", "2"], ["--cp", "2", "--attn", "flash"], ["--dp", "2", "--cp", "2"],
+    # --pp and --tp are ported, with their checkpoints: what stays unported
+    # with them is cp composed with either
+    ["--pp", "2", "--cp", "2"], ["--tp", "2", "--cp", "2"], ["--sp", "2"], ["--cp", "2", "--attn", "flash"], ["--dp", "2", "--cp", "2"],
     ["--family", "llama", "--cp", "2"],
     ["--tokenizer", "bpe"], ["--data", "prose"],
     ["--profile_dir", "prof"], ["--optimizer", "adafactor"],
