@@ -66,7 +66,7 @@ before the path and read just after):
   heads), GPT-2-small at pp = 2 under gpipe, 1f1b and the interleaved
   schedule (and one remat="int8" step through kernel 8), GPT-2-small at
   fsdp = 2 under ZeRO-3 and ZeRO-2 (full precision, int8 + error feedback)
-  against the dp = 2 ring, TinyLlama-1.1B (8 of its 22 layers) at pp = 2 × tp = 2 on four
+  against the dp = 2 ring, TinyLlama-1.1B (4 of its 22 layers) at pp = 2 × tp = 2 on four
   ranks, and ``train_gpt2 --tp 2`` / ``--pp 2 --schedule 1f1b`` (started
   beside the Llama entry points);
 - expert parallelism: Mixtral-8x7B's full widths (d 4096, 32/8 heads of
@@ -82,7 +82,15 @@ before the path and read just after):
   (the prefill through kernel 1) and ``ContinuousBatcher(mesh=...,
   paged_kv="int4")`` on 16 requests (kernels 5 and 6 over the rank's pool),
   f32 tokens (unquantized pages) held to the single-device port's, bf16
-  for the times.
+  for the times;
+- long context (``ops.attention``'s XLA ring and Ulysses,
+  ``ops.flash.ring_flash_attention``, ``attention_2d``, the ``sp`` axis):
+  GPT-2-small at sp = 2 through ``ring``, ``ulysses``, ``ulysses_flash``
+  and ``ring_flash`` on the cp slice's two ranks, TinyLlama-1.1B at full
+  width and depth at cp = 2 × tp = 2 through ring2 (kernel 4), GPT-2-small
+  at cp = 2 × dp = 2 and ``attention_2d(flash=True)`` on sp = 2 × tp = 2
+  on the pp × tp program's four ranks, and kernels 1–3 at the ring_flash
+  hops' and ulysses_flash's shapes.
 
 Each phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit and no result line. The line before the last is the card's
@@ -120,7 +128,17 @@ two-call SDPA + copy yardstick); kernel_head_dim (head_dim 8, 32, 96
 through flash_fwd/flash_bwd); cp_slice (per rank: off, dma and sendahead
 losses bit-identical, 24 kernel-4 launches per forward, ring_pass values,
 f32 ring gradients against single-device flash, bf16 steps tracking the
-single-device step, identical replicas, step ms and peak memory);
+single-device step, identical replicas, step ms and peak memory;
+then sp_impls: GPT-2-small at sp = 2 through each of ring, ulysses,
+ulysses_flash and ring_flash from the same weights, the step-0 loss
+against ring2's and one device's within TOL_CP_BF16_LOSS, 0 / 0 / 12 / 24
+launches of kernels 1–3 a step, step ms and peak memory a rank);
+kernel_long_context (kernels 1–3, bf16, with an lse cotangent, at the sp
+= 2 ring_flash hops of GPT-2-small 8 × 1024 — the diagonal, the visible
+and the fully masked one, whose out is zero, lse at the −1e20 floor and
+gradients zero — and at ulysses_flash's [48, 1024, 64], each against its
+plain version, then a kernel_time line with device ms, bounds, plain
+times and SDPA under the global positions' mask);
 cp_cli (``train_gpt2 --cp 2``); allreduce (ring, ring2 and naive through
 the IPC ring bit-identical to a + b and xla through gloo within one ulp,
 at 4 KiB, 4 MiB, 64 MiB and GPT-2-small's gradient in f32 and bf16, with times,
@@ -145,24 +163,24 @@ bf16 causal and kernels 5–6 at the Llama decode, W = 4 verify and
 version, then kernel_time lines beside the bounds); llama_train (22
 launches of kernels 1–3 a step, step ms, tokens/s, MFU, peak memory, a
 first loss within 0.5 of ln 32000 that falls, a traced step); llama_serve
-(tokens/s, verify ticks, acceptance and committed-token EWMAs, 22
-launches a dispatch, every request complete and every page back, the
-idle share of a plain and of a speculative tick; its first 16 requests
+(the first 24 of the 48 requests: tokens/s, verify ticks, acceptance
+and committed-token EWMAs, 22 launches a dispatch, every request complete and every page back, the
+idle share of a plain and of a speculative tick; its first 8 requests
 at f32, speculative tokens equal to plain ones wherever the top-2 margin
 exceeds 1e-3); llama_ticks (identical tokens under turbo, adaptive and plain
 ticks, tokens/s, tick counts, host syncs a decode tick; the adaptive
 tick's EOS branch: tokens cut at the EOS, read-backs, dropped steps); obs
-(the paged drain of the first 24 requests off then on: tokens identical, launches,
-serving_tokens_total = tokens emitted, 48 admissions and retirements, the
+(the paged drain of the first 16 requests off then on: tokens identical, launches,
+serving_tokens_total = tokens emitted, 16 admissions and retirements, the
 pool gauges, the kv_pages source = the pool's bytes, serving_memory_pressure
 = bytes_in_use / bytes_limit of torch.cuda.memory_stats, the decode_tick
-Chrome trace saved under build/obs, median tick wall off and on; a
-16-request speculative drain whose acceptance gauge = accept_ewma; the
+Chrome trace saved under build/obs, median tick wall off and on; an
+8-request speculative drain whose acceptance gauge = accept_ewma; the
 hybrid step (8 x 1024, flash, dp_sync ring on one rank) off / on / on / off
 from the same weights: equal losses, one watermark a step from
 memory_stats equal to max_memory_allocated, one plan; dp = 2 under q8 at
-4 MiB: the buckets gauge = the plan, wire bytes = steps x the plan's, one
-plan; a sentinel halt, a hang-watch expiry and an OOM bundle from child
+4 MiB (in dp_slice's spawn): the buckets gauge = the plan, wire bytes =
+steps x the plan's, one plan; a sentinel halt, a hang-watch expiry and an OOM bundle from child
 processes; obs_disabled_overhead_pct of a tick and a step); checkpoint
 (the snapshot stall, the commit ms, bytes written, GB/s and step ms
 beside the card; the restored state bit for bit with the in-memory copy,
@@ -183,7 +201,12 @@ phase_seconds; the pp and fsdp eval losses against one device's in f32
 and bf16, the fsdp mesh from ``plan_mesh``, and at pp = 2 × tp = 2 a
 checkpoint after step 1 whose restore into fresh objects takes step 2 to
 the same loss and leaf bytes, read back at pp = 4 and refused at tp = 2:
-the mp_checkpoint line); plan (the card's memory as ``plan_mesh`` reads
+the mp_checkpoint line; and the long-context program on the pp × tp
+ranks: TinyLlama at cp = 2 × tp = 2, 44 kernel-4 launches a step a rank,
+its step-0 loss against the tp = 2 step's, 2-layer f32 gradients within
+TOL_TRAIN_GRADS of one device's; GPT-2-small at cp = 2 × dp = 2 against
+one device's loss; attention_2d(flash=True) blocks and gradients against
+the f32 plain attention: the long_context_* lines); plan (the card's memory as ``plan_mesh`` reads
 it, provenance memory_stats, and the plans of TinyLlama-1.1B, Llama-2-7B
 and Mixtral-8x7B on 1, 2, 4 and 8 cards); activation_measurement
 (``measured_activation_bytes`` of the TinyLlama step beside its peak less
@@ -215,7 +238,9 @@ their bytes and ms alone, peak memory and IPC slot bytes a rank);
 kernels (one line for the run; kernel 8's entry counts its three paths,
 kernels 1–3, 5 and 6 their Llama, checkpoint, model-parallel and MoE
 paths too; kernels 1, 5 and 6 their tp_serve path; kernels 1–3 the
-resumed pp × tp step and the pp eval, ``mp_resume_eval``).
+resumed pp × tp step and the pp eval, ``mp_resume_eval``; kernels 1–3
+the sp = 2 impls (``sp_impls``) and, with kernel 4, the long-context
+program's ``cp_tp_llama``, ``cp_dp`` and ``attention_2d``).
 
 Every phase line carries ``t_s``, its seconds since the script started.
 
@@ -360,27 +385,32 @@ def attention_bound_ms(bh, s_q, s_kv, d, dtype, causal, q_start=0, k_start=0):
     read once, out and the f32 lse written once) over the memory rate and
     its operations (2·d multiply-adds per kept score in each of q·kᵀ and
     p·v, counting only the scores the mask keeps) over the peak rate of the
-    inputs' type. Returns (ms, "bytes" | "operations")."""
+    inputs' type. Where the mask keeps no score (a fully masked ring hop)
+    no input is needed: the bytes are the outputs'. Returns (ms, "bytes" |
+    "operations")."""
     elt = torch.tensor([], dtype=dtype).element_size()
-    nbytes = bh * (s_q * d * 2 + s_kv * d * 2) * elt + bh * s_q * 4
     rows = q_start + np.arange(s_q) - k_start + 1
     kept = np.clip(rows, 0, s_kv).sum() if causal else s_q * s_kv
+    inputs = bh * (s_q * d + s_kv * d * 2) * elt if kept else 0
+    nbytes = inputs + bh * s_q * d * elt + bh * s_q * 4
     flops = 4.0 * d * bh * float(kept)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def backward_bound_ms(bh, s_q, s_kv, d, dtype, causal, products, n_out):
+def backward_bound_ms(bh, s_q, s_kv, d, dtype, causal, products, n_out, q_start=0, k_start=0):
     """Least time for one backward kernel: the larger of its bytes (q, k, v
     and do read once, the f32 lse and delta read once, ``n_out`` gradient
     tensors of the inputs' shape written once) over the memory rate and its
-    operations (``products`` products of 2·d operations per kept score)
-    over the peak rate of the inputs' type."""
+    operations (``products`` products of 2·d operations per kept score,
+    the mask comparing global positions from ``q_start``/``k_start``)
+    over the peak rate of the inputs' type. Where the mask keeps no score
+    no input is needed: the bytes are the (zero) gradients'."""
     elt = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (bh * (2 * s_q * d + 2 * s_kv * d) * elt + bh * s_q * 4 * 2
-              + n_out * bh * s_kv * d * elt)
-    rows = np.arange(s_q) + 1
+    rows = q_start + np.arange(s_q) - k_start + 1
     kept = np.clip(rows, 0, s_kv).sum() if causal else s_q * s_kv
+    inputs = bh * (2 * s_q * d + 2 * s_kv * d) * elt + bh * s_q * 4 * 2 if kept else 0
+    nbytes = inputs + n_out * bh * s_kv * d * elt
     flops = products * 2.0 * d * bh * float(kept)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -844,26 +874,39 @@ def device_busy_ms(fn):
 def device_ms(fn, reps: int = 20, pattern: str | None = None) -> float:
     """Device ms per call of ``fn`` from a profiler trace of ``reps`` calls
     after one warm-up: every kernel, memset and copy the calls launch, or
-    only the launches of the one kernel whose name holds ``pattern``.
-    Unlike ``cuda_ms`` it leaves out the host's time between launches,
-    which exceeds the device time of a ~0.02 ms kernel behind a Python
-    wrapper. The card's traces sometimes miss events (none at all, or
-    part of a run of calls): a trace counts only when it holds ``reps``
-    launches of the kernel, or a whole multiple of ``reps`` events, and is
-    taken again otherwise, up to 3 times."""
+    only the launches of the one kernel whose name holds ``pattern``
+    (:func:`device_ms_by`). Unlike ``cuda_ms`` it leaves out the host's
+    time between launches, which exceeds the device time of a ~0.02 ms
+    kernel behind a Python wrapper. The card's traces sometimes miss
+    events (none at all, or part of a run of calls): a trace counts only
+    when it holds a whole multiple of ``reps`` events, and is taken again
+    otherwise, up to 3 times."""
+    if pattern is not None:
+        return device_ms_by(fn, (pattern,), reps)[pattern]
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
         events = device_events(lambda: [fn() for _ in range(reps)])
-        if pattern is not None:
-            events = [(name, ms) for name, ms in events if pattern in name]
-            complete = len(events) == reps and len({name for name, _ in events}) == 1
-        else:
-            complete = bool(events) and len(events) % reps == 0
-        if complete:
+        if events and len(events) % reps == 0:
             return sum(ms for _, ms in events) / reps
     check(False, f"3 profiler traces of {reps} calls held no complete set of device events "
-                 f"({len(events)} events{'' if pattern is None else ' named ' + pattern})")
+                 f"({len(events)} events)")
+
+
+def device_ms_by(fn, patterns, reps: int = 10) -> dict:
+    """{pattern: device ms per call} of the kernels named by ``patterns``
+    from one profiler trace of ``reps`` calls of ``fn`` (after a warm-up):
+    a trace counts when it holds ``reps`` launches of one kernel for each
+    pattern, and is taken again otherwise, up to 3 times."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        events = device_events(lambda: [fn() for _ in range(reps)])
+        found = {p: [(name, ms) for name, ms in events if p in name] for p in patterns}
+        if all(len(v) == reps and len({name for name, _ in v}) == 1 for v in found.values()):
+            return {p: sum(ms for _, ms in v) / reps for p, v in found.items()}
+    check(False, f"3 profiler traces of {reps} calls held no complete set of launches of "
+                 f"{list(patterns)}")
 
 
 def phase_trace(model, prompt):
@@ -2250,6 +2293,117 @@ def phase_kernel_head_dim(tflash, dev):
                       "versions")
 
 
+# ---- long context: the sequence-parallel paths' kernel shapes ---------------------------
+
+# GPT-2-small's 8 × 1024 at sp = 2: the ring_flash hops a rank runs (s_local
+# 512, b·h = 96) and ulysses_flash's head-sharded full sequence (6 of 12
+# heads a rank); name -> (b·h, s_q, s_kv, q_start, k_start)
+LC_SHAPES = {
+    "ring_flash_hop_diagonal": (B * H, TRAIN_S // 2, TRAIN_S // 2, TRAIN_S // 2, TRAIN_S // 2),
+    "ring_flash_hop_visible": (B * H, TRAIN_S // 2, TRAIN_S // 2, TRAIN_S // 2, 0),
+    "ring_flash_hop_masked": (B * H, TRAIN_S // 2, TRAIN_S // 2, 0, TRAIN_S // 2),
+    "ulysses_flash": (B * H // 2, TRAIN_S, TRAIN_S, 0, 0),
+}
+
+
+def _sdpa_mask(s_q, s_kv, q_start, k_start, dev):
+    """The boolean SDPA mask (True = attend) of global positions, or None
+    where every pair is kept."""
+    keep = (q_start + torch.arange(s_q, device=dev))[:, None] >= (
+        k_start + torch.arange(s_kv, device=dev))[None, :]
+    return None if bool(keep.all()) else keep
+
+
+def phase_kernel_long_context(tflash, dev):
+    """Kernels 1–3 (bf16: the tensor-core bodies) at the long-context
+    paths' shapes (:data:`LC_SHAPES`) against their plain versions: the
+    ring_flash hops with their global offsets, the fully masked one (rank
+    0's second hop: zero out, lse at the −1e20 floor, zero and finite
+    gradients) included, and ulysses_flash's [b·h/2, 1024, 64]; the
+    backward with an lse cotangent, as ring_flash's merge gives it. Then
+    each one's device time beside its bound, its plain version and SDPA
+    (with the mask of the global positions; none for the masked hop, where
+    SDPA's all-masked rows are NaN; the backward's SDPA has no lse term).
+    Returns {shape: {kernel: timing}}."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    dtype, tol, tol_bwd = torch.bfloat16, TOL[torch.bfloat16], TOL_BWD[torch.bfloat16]
+    dq_name, dkv_name = BWD_KERNELS[dtype]
+    timings = {}
+    for name, (bh, s_q, s_kv, q_start, k_start) in LC_SHAPES.items():
+        q, do = (torch.randn(bh, s_q, D, generator=gen, device=dev).to(dtype) for _ in range(2))
+        k, v = (torch.randn(bh, s_kv, D, generator=gen, device=dev).to(dtype) for _ in range(2))
+        g_lse = torch.randn(bh, s_q, generator=gen, device=dev)
+        before = train_counts(tflash)
+        out, lse = tflash.flash_fwd(q, k, v, True, q_start, k_start)
+        grads = tflash.flash_bwd(q, k, v, out, lse, do, g_lse, True, q_start, k_start)
+        torch.cuda.synchronize()
+        launched = {key: n - before[key] for key, n in train_counts(tflash).items()}
+        ref_out, ref_lse = tflash._flash_fwd_reference(q, k, v, True, q_start, k_start)
+        ref_grads = tflash._flash_bwd_reference(q, k, v, out, lse, do, g_lse, True, q_start,
+                                                k_start)
+        err_out = (out.float() - ref_out.float()).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        rel = max((g.float() - w.float()).abs().max().item() / max(w.float().abs().max().item(),
+                                                                    1e-30)
+                  for g, w in zip(grads, ref_grads))
+        masked = name == "ring_flash_hop_masked"
+        ok = (err_out <= tol["out"] and err_lse <= tol["lse"] and rel <= tol_bwd
+              and all(bool(torch.isfinite(g).all()) for g in grads))
+        if masked:  # zero weight in the merge, nothing back
+            ok = ok and not out.any() and bool((lse <= -1e19).all()) and not any(
+                g.any() for g in grads)
+        emit({"phase": "kernel_long_context", "shape": name, "dtype": "bfloat16", "bh": bh,
+              "s_q": s_q, "s_kv": s_kv, "d": D, "q_start": q_start, "k_start": k_start,
+              "causal": True, "g_lse": True, "launched": launched, "max_abs_err_out": err_out,
+              "max_abs_err_lse": err_lse, "bwd_max_err_over_max_abs": rel, "lse_max":
+              lse.max().item(), "tol_out": tol["out"], "tol_lse": tol["lse"],
+              "tol_bwd": tol_bwd, "ok": ok})
+        check(launched == {"flash_fwd": 1, dq_name: 1, dkv_name: 1, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0},
+              f"kernels at {name} launched {launched}, expected one each of kernels 1-3")
+        check(ok, f"kernels 1-3 at {name} disagree with their plain versions (out {err_out}, "
+                  f"lse {err_lse}, gradients {rel}{', not zero on the masked hop' if masked else ''})")
+
+        # times: the forward, then the two backward kernels from one trace
+        mask = _sdpa_mask(s_q, s_kv, q_start, k_start, dev)
+        q4, k4, v4, do4 = (t.view(B, bh // B, -1, D).detach().requires_grad_()
+                           for t in (q, k, v, do))
+
+        def sdpa(backward, mask=mask, q4=q4, k4=k4, v4=v4, do4=do4):
+            o = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+            if backward:
+                torch.autograd.grad(o, (q4, k4, v4), do4)
+
+        fwd_ms = device_ms(functools.partial(tflash.flash_fwd, q, k, v, True, q_start, k_start),
+                           reps=10, pattern="flash_fwd_kernel<")
+        fwd_bound, fwd_by = attention_bound_ms(bh, s_q, s_kv, D, dtype, True, q_start, k_start)
+        fwd_lib = None if masked else device_ms(functools.partial(sdpa, False), reps=10)
+        timings[name] = {"flash_fwd": {
+            "ms": fwd_ms, "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": fwd_lib,
+            "plain_ms": device_ms(functools.partial(tflash._flash_fwd_reference, q, k, v, True,
+                                                    q_start, k_start), reps=10)}}
+        bwd = device_ms_by(functools.partial(tflash.flash_bwd, q, k, v, out, lse, do, g_lse, True,
+                                             q_start, k_start),
+                           (f"{dq_name}_kernel<", f"{dkv_name}_kernel<"))
+        plain_bwd = device_ms(functools.partial(tflash._flash_bwd_reference, q, k, v, out, lse,
+                                                do, g_lse, True, q_start, k_start), reps=10)
+        lib_bwd = None if masked else (device_ms(functools.partial(sdpa, True), reps=10) - fwd_lib)
+        for kernel, products, n_out in ((dq_name, 3, 1), (dkv_name, 4, 2)):
+            b_ms, b_by = backward_bound_ms(bh, s_q, s_kv, D, dtype, True, products, n_out,
+                                           q_start, k_start)
+            timings[name][kernel] = {"ms": bwd[f"{kernel}_kernel<"], "bound_ms": b_ms,
+                                     "bound_by": b_by, "plain_ms": plain_bwd,
+                                     "library_ms": lib_bwd}
+        emit({"phase": "kernel_time", "path": "long_context", "shape_name": name,
+              "shape": [bh, s_q, s_kv, D], "q_start": q_start, "k_start": k_start,
+              "dtype": "bfloat16", "causal": True, "g_lse": True, **timings[name],
+              "note": "profiler device ms a call; the backward's plain_ms and library_ms are "
+              "whole backwards (SDPA forward+backward minus forward, no lse term); SDPA takes "
+              "the boolean mask of the global positions; null where SDPA has no such call"})
+        del q, k, v, do, out, lse, grads, ref_grads, q4, k4, v4, do4
+    return timings
+
+
 def rank_main(run, kind, rank, tmp):
     """One spawned rank: ``run(rank, tmp, res, stage)`` with the rank's traceback
     on stderr when it fails (torch's spawn reports only one rank's), and
@@ -2336,7 +2490,7 @@ def cp_rank_run(rank, tmp, res, stage):
 
     from dsml_tpu_torch.models.gpt2 import GPT2Config
     from dsml_tpu_torch.ops import flash as tflash
-    from dsml_tpu_torch.parallel.hybrid import init_hybrid, make_hybrid_train_step
+    from dsml_tpu_torch.parallel.hybrid import make_hybrid_train_step
     from dsml_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 
     mesh = build_mesh(MeshSpec(dp=1, cp=2), rank, 2, os.path.join(tmp, "rendezvous"))
@@ -2434,7 +2588,7 @@ def cp_rank_run(rank, tmp, res, stage):
     # runs the single-device flash step from the same weights and batch
     stage("hybrid train steps")
     opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
-    init_hybrid(model, opt, mesh, seed=0)
+    # the model holds seed 0's weights (gpt2_small): init_hybrid would draw them again
     step = make_hybrid_train_step(model, opt, mesh)
     cp_losses = [float(step(x_all, y_all)) for _ in range(CP_WARMUP)]
     torch.cuda.synchronize()
@@ -2486,6 +2640,7 @@ def cp_rank_run(rank, tmp, res, stage):
         res[name] = (time.perf_counter() - t0) * 1e3 / 3
     del opt, step, model, flat
     torch.cuda.empty_cache()
+    res["sp"] = sp_impl_steps(rank, tmp, stage, x_all, y_all, cfg)
     if rank == 0:
         stage("single-device train steps")
         single = gpt2_small(cfg, dev)
@@ -2505,6 +2660,49 @@ def cp_rank_run(rank, tmp, res, stage):
     dist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
+
+
+SP_IMPLS = ("ring", "ulysses", "ulysses_flash", "ring_flash")
+SP_WARMUP, SP_STEPS = 1, 2
+
+
+def sp_impl_steps(rank, tmp, stage, x_all, y_all, cfg):
+    """GPT-2-small bf16 at sp = 2 (a second mesh on the cp ranks' process
+    group) through each sequence impl of :data:`SP_IMPLS` from the same
+    weights: SP_WARMUP + SP_STEPS hybrid steps on the cp slice's batch, the
+    timed steps' ms, launches of kernels 1–3 and peak memory a rank."""
+    from dsml_tpu_torch.ops import flash as tflash
+    from dsml_tpu_torch.parallel.hybrid import make_hybrid_train_step
+    from dsml_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    mesh = build_mesh(MeshSpec(dp=1, sp=2), rank, 2, os.path.join(tmp, "rendezvous"))
+    dev = mesh.device
+    out = {}
+    for impl in SP_IMPLS:
+        stage(f"sp = 2 steps through {impl}")
+        model = gpt2_small(cfg, dev)
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+        step = make_hybrid_train_step(model, opt, mesh, attn_impl=impl)
+        losses = [float(step(x_all, y_all)) for _ in range(SP_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts(tflash)
+        t0 = time.perf_counter()
+        losses += [step(x_all, y_all) for _ in range(SP_STEPS)]
+        torch.cuda.synchronize()
+        out[impl] = {"step_ms": (time.perf_counter() - t0) * 1e3 / SP_STEPS,
+                     "launches": train_counts(tflash), "losses": [float(v) for v in losses],
+                     "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        del model, opt, step, losses
+        torch.cuda.empty_cache()
+    mesh.close()
+    return out
+
+
+# kernel-1 calls a layer's forward under each sequence impl at sp = 2 (one
+# flash call on the full sequence, or one a ring hop); the backward makes
+# as many of each of kernels 2 and 3
+SP_FLASH_CALLS = {"ring": 0, "ulysses": 0, "ulysses_flash": 1, "ring_flash": 2}
 
 
 def phase_cp_slice(card):
@@ -2549,13 +2747,44 @@ def phase_cp_slice(card):
           "single_losses": r0["single_losses"], "max_rel_diff": rel, "tol": TOL_CP_BF16_LOSS})
     check(rel <= TOL_CP_BF16_LOSS and r0["cp_losses"][-1] < r0["cp_losses"][0],
           f"cp = 2 bf16 steps do not track the single-device steps: {rel}")
-    return r0["launches"]
+
+    # sp = 2 through each sequence impl: the step-0 loss against the ring2
+    # step's and one device's, from the same weights and batch
+    n_layer = 12
+    rows = {}
+    for impl in SP_IMPLS:
+        r = [rk["sp"][impl] for rk in ranks]
+        loss0 = r[0]["losses"][0]
+        rows[impl] = {"step_ms_a_rank": [x["step_ms"] for x in r], "losses": r[0]["losses"],
+                      "launches_rank0": r[0]["launches"],
+                      "peak_memory_gb": [x["peak_memory_gb"] for x in r],
+                      "rel_to_ring2": abs(loss0 - r0["cp_losses"][0]) / abs(r0["cp_losses"][0]),
+                      "rel_to_single": abs(loss0 - r0["single_losses"][0])
+                      / abs(r0["single_losses"][0])}
+        calls = SP_FLASH_CALLS[impl] * n_layer * SP_STEPS
+        for x in r:
+            check(bf16_step_counts_ok(x["launches"], calls, calls),
+                  f"sp = 2 {impl}: kernels 1-3 launched {x['launches']}, expected {calls} each")
+            check(x["losses"] == r[0]["losses"] and all(np.isfinite(x["losses"])),
+                  f"sp = 2 {impl}: the ranks' losses differ or are not finite: {x['losses']}")
+        check(rows[impl]["rel_to_ring2"] <= TOL_CP_BF16_LOSS
+              and rows[impl]["rel_to_single"] <= TOL_CP_BF16_LOSS
+              and r[0]["losses"][-1] < loss0,
+              f"sp = 2 {impl}: step-0 loss {loss0} against ring2's {r0['cp_losses'][0]} and one "
+              f"device's {r0['single_losses'][0]}: {rows[impl]}")
+    emit({"phase": "sp_impls", "model": "gpt2-small", "dtype": "bfloat16", "sp": 2,
+          "global_batch": [TRAIN_B, TRAIN_S], "per_rank": [TRAIN_B, TRAIN_S // 2],
+          "warmup": SP_WARMUP, "steps": SP_STEPS, "tol": TOL_CP_BF16_LOSS, "card": card,
+          "note": "ranks time-slice one card; the same spawn as cp_slice", "impls": rows})
+    sp_launches = {k: sum(ranks[0]["sp"][impl]["launches"][k] for impl in SP_IMPLS)
+                   for k in ranks[0]["sp"]["ring"]["launches"]}
+    return r0["launches"], sp_launches
 
 
 # ---- data parallelism: the all-reduce family and the dp train step ------------------------
 
 ALLREDUCE_ALGS = ("ring", "ring2", "naive", "xla")
-ALLREDUCE_REPS, ALLREDUCE_WARMUP = 5, 1  # 10, 2 until PR 17 (the run's time)
+ALLREDUCE_REPS, ALLREDUCE_WARMUP = 3, 1  # cut from 10, 2 and then 5, 1 (the run's time)
 DP_WARMUP, DP_STEPS = 1, 3  # the first step grows the IPC slots
 DP_BUCKET_MB = 4.0
 DP_F32_B = 2  # global rows of the f32 gradient check (one a rank)
@@ -3077,7 +3306,9 @@ def phase_dp_slice(card):
     ring, ring2 and naive losses bit-identical; identical replicas; an f32
     step's gradients within TOL_TRAIN_GRADS of single-device flash; the bf16
     steps tracking the single-device steps within TOL_CP_BF16_LOSS."""
-    ranks, seconds = spawn_ranks(dp_rank, "dp")
+    # the obs phase's dp = 2 q8 program rides this spawn (read by phase_obs)
+    out, seconds = spawn_programs({"dp": (dp_rank, ()), "obs_dp": (obs_dp_rank, ())}, "dp")
+    ranks = out["dp"]
     n_layer = 12
     r0 = ranks[0]
     busy = r0["trace"]["device_busy_ms"]
@@ -3139,7 +3370,7 @@ def phase_dp_slice(card):
         for name, m in r["mnist"].items():
             check(np.isfinite(m["avg_loss"]) and m["test_accuracy"] > 0.5,
                   f"rank {r['rank']}: the MNIST trainer under {name}: {m}")
-    return r0["launches"], r0["quant"]["q8"]["launches"]["quantize_int8"]
+    return r0["launches"], r0["quant"]["q8"]["launches"]["quantize_int8"], (out["obs_dp"], seconds)
 
 
 # ---- Llama: TinyLlama-1.1B trained and served ------------------------------------
@@ -3148,7 +3379,8 @@ LLAMA_HEADS, LLAMA_KV_HEADS = 32, 4  # TinyLlama-1.1B: head_dim 64, 8 query head
 LLAMA_TRAIN_B, LLAMA_TRAIN_S = 2, 2048  # the JAX bench's llama1b row
 LLAMA_TRAIN_WARMUP, LLAMA_TRAIN_STEPS = 2, 4
 LLAMA_SPEC_WINDOW = 4
-LLAMA_F32_REQUESTS = 16  # the f32 drains: the first 16 of the 48 requests (the run's time)
+LLAMA_F32_REQUESTS = 8  # the f32 drains: the first 8 of the 48 (cut from 16: the run's time)
+LLAMA_SERVE_REQUESTS = 24  # the bf16 drains: the first 24 of the 48 (cut from 48: the run's time)
 # the JAX bench's Llama serving row (bench.py::_bench_serving_llama_kvquant), at full width
 LLAMA_TICK_SLOTS, LLAMA_TICK_QUANTUM, LLAMA_TICK_PROMPT, LLAMA_TICK_NEW = 8, 8, 128, 64
 LLAMA_TURBO, LLAMA_ADAPTIVE = 4, 32
@@ -3429,12 +3661,12 @@ def llama_prompts(rng, n):
 
 def phase_llama_serve(dev, card):
     """TinyLlama-1.1B bf16 through ContinuousBatcher(paged_kv="int4",
-    page_size=16, prefill_chunk=256, n_slots=16) on 48 greedy requests
+    page_size=16, prefill_chunk=256, n_slots=16) on 24 greedy requests
     submitted at once, a plain drain and then a drain with the speculative
     tick (W = 4): tokens/s, verify ticks, acceptance and committed-token
     EWMAs, launches of the pipelined kernel (22 a chunk, tick or verify
     tick), every request complete, every page back, the idle share of one
-    steady tick of each kind. Then the first 16 of the requests, 16 slots
+    steady tick of each kind. Then the first 8 of the requests, 16 slots
     and their budgets at f32 through the single-buffer kernel, plain and
     speculative:
     equal tokens wherever the top-2 margin exceeds 1e-3. The drain refills
@@ -3451,11 +3683,13 @@ def phase_llama_serve(dev, card):
     model = llama_model(dev, dtype="bfloat16")
     n_layer = model.config.n_layer
     prompts, budgets, lengths = llama_prompts(np.random.default_rng(2), PAGED_REQUESTS)
+    # the drains serve the first LLAMA_SERVE_REQUESTS of the 48 (the run's time)
+    prompts, budgets, lengths = (t[:LLAMA_SERVE_REQUESTS] for t in (prompts, budgets, lengths))
     kw = dict(paged_kv="int4", page_size=PAGE, prefill_chunk=PAGED_CHUNK, n_slots=PAGED_SLOTS)
     row = {"phase": "llama_serve", "model": "tinyllama-1.1b", "dtype": "bfloat16",
            "paged_kv": "int4", "page_size": PAGE, "prefill_chunk": PAGED_CHUNK,
-           "n_slots": PAGED_SLOTS, "requests": PAGED_REQUESTS, "prompt_tokens": int(lengths.sum()),
-           "card": card}
+           "n_slots": PAGED_SLOTS, "requests": LLAMA_SERVE_REQUESTS,
+           "prompt_tokens": int(lengths.sum()), "card": card}
     counts = {"paged_attn": 0, "paged_attn_pipelined": 0}
     drains = {}
     for name, extra in (("plain", {}), ("speculative", dict(speculative_window=LLAMA_SPEC_WINDOW))):
@@ -3603,8 +3837,10 @@ def phase_llama_ticks(dev, card):
 
 # ---- observability -------------------------------------------------------------------
 
-OBS_REQUESTS = 24  # the drains off and on: the paged slice's first 24 (the run's time)
-OBS_SPEC_REQUESTS = 16  # the speculative drain with obs on: the paged slice's first 16
+# the drains off and on: the paged slice's first 16 (cut from 24: the run's time)
+OBS_REQUESTS = 16
+# the speculative drain with obs on: the paged slice's first 8 (cut from 16)
+OBS_SPEC_REQUESTS = 8
 OBS_AB_TICKS = 60  # steady ticks, the registry switched off and on in turns
 # obs off / on in turns (off, on, on, off twice), each from the same weights
 OBS_TRAIN_TURNS = (False, True, True, False)
@@ -3832,7 +4068,7 @@ def obs_dp_rank_run(rank, tmp, res, stage):
         json.dump(res, f)
 
 
-def phase_obs(tflash, dev, card):
+def phase_obs(tflash, dev, card, obs_dp=None):
     """The observability core on the card, GPT-2-small at full width from
     seed 0: the paged serving drain (the first 24 requests) with obs off, then on (identical tokens;
     the tick's counters, the admission histogram, the retirements, the
@@ -4046,8 +4282,9 @@ def phase_obs(tflash, dev, card):
     torch.cuda.empty_cache()
     fresh(False)
 
-    # (3) dp = 2 under q8, 4 MiB buckets
-    ranks, dp_seconds = spawn_ranks(obs_dp_rank, "obs_dp")
+    # (3) dp = 2 under q8, 4 MiB buckets: the ranks of phase_dp_slice's
+    # spawn (``obs_dp``: (ranks, the spawn's seconds)), or a spawn of their own
+    ranks, dp_seconds = obs_dp or spawn_ranks(obs_dp_rank, "obs_dp")
     for r in ranks:
         check(r["collective_sync_buckets"] == r["plan_buckets"]
               and r["collective_sync_compiles_total"] == 1,
@@ -4370,7 +4607,8 @@ MP_4RANK_STEPS = 2  # step 1, the checkpoint, step 2 (and step 2 again from the 
 # the planner's per-chip memory for GPT-2-small at fsdp: its 1.49 GB of
 # training state needs two shards of the 1.2 GB state budget
 MP_PLAN_HBM = 3e9
-MP_4RANK_LAYERS = 8  # TinyLlama's depth cut 22 -> 8 at pp = 2 x tp = 2 (the run's time)
+# TinyLlama's depth cut 22 -> 4 at pp = 2 x tp = 2 (cut from 8: the run's time)
+MP_4RANK_LAYERS = 4
 # bf16: losses of two schedules (or two ZeRO layouts) from the same weights
 # agree within this share (f32 sums in another order under bf16 rounding)
 MP_BF16_LOSS_RTOL = 2e-3
@@ -4872,6 +5110,223 @@ def mp_4rank_run(rank, tmp, res, stage, weights):
         json.dump(res, f)
 
 
+LC_LLAMA_WARMUP, LC_LLAMA_STEPS = 1, 2  # TinyLlama at cp = 2 x tp = 2
+LC_2D_SHAPE = (B, H, TRAIN_S, D)  # attention_2d's global q/k/v: GPT-2-small's train attention
+
+
+def lc_rank(rank, tmp, weights):
+    rank_main(lambda r, t, res, stage: lc_run(r, t, res, stage, weights), "long_context", rank,
+              tmp)
+
+
+def _lc_llama(rank, mesh, res, stage, weights):
+    """TinyLlama-1.1B bf16 at cp = 2 × tp = 2 (22 layers, 16 query and 2 kv
+    heads a rank, the kv heads repeated to 16), the tp step's batch, ring2
+    under DSML_RING_FUSED=dma: the steps' losses, ms, launches of kernels
+    1–4; then a 2-layer f32 model at TinyLlama's width: the synced
+    gradients (SGD at lr 0 leaves them) against one device's plain path."""
+    from dsml_tpu_torch.models.llama import Llama, LlamaConfig
+    from dsml_tpu_torch.ops import flash as tflash
+    from dsml_tpu_torch.parallel.hybrid import hybrid_model, make_hybrid_train_step
+
+    dev = mesh.device
+    os.environ["DSML_RING_FUSED"] = "dma"
+    cfg = dataclasses.replace(LlamaConfig.tinyllama_1b(), dtype="bfloat16")
+    model = hybrid_model(Llama, cfg, mesh)
+    model.load_full(torch.load(weights, mmap=True))
+    rng = np.random.default_rng(0)  # the tp = 2 step's batch
+    x = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LLAMA_TRAIN_B, LLAMA_TRAIN_S)))
+    y = torch.roll(x, -1, 1)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+    step = make_hybrid_train_step(model, opt, mesh)  # ring2, the cp default
+    stage("cp x tp TinyLlama steps")
+    losses = [float(step(x, y)) for _ in range(LC_LLAMA_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(tflash)
+    tflash.flash_stream_launches = 0
+    t0 = time.perf_counter()
+    losses += [step(x, y) for _ in range(LC_LLAMA_STEPS)]
+    torch.cuda.synchronize()
+    res["llama"] = {"step_ms": (time.perf_counter() - t0) * 1e3 / LC_LLAMA_STEPS,
+                    "losses": [float(v) for v in losses],
+                    "launches": {**train_counts(tflash),
+                                 "flash_stream": tflash.flash_stream_launches},
+                    "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                    "ipc_slot_bytes": mesh.slot_bytes()}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    stage("cp x tp f32 gradient check")
+    cfg32 = dataclasses.replace(LlamaConfig.tinyllama_1b(), n_layer=MP_F32_LAYERS)
+    # the bf16 file's first layers in f32 (no host draw on four ranks at once)
+    ref = Llama(cfg32, device=dev).load_full(torch.load(weights, mmap=True))
+    shard = hybrid_model(Llama, cfg32, mesh).load_full(ref.state_dict())
+    sgd = torch.optim.SGD(shard.parameters(), lr=0.0)
+    loss = float(make_hybrid_train_step(shard, sgd, mesh)(x, y))
+    ref_loss = ref.loss(x.to(dev), y.to(dev), attn_impl="xla")
+    ref_loss.backward()
+    ref_loss = float(ref_loss.detach())
+    res["llama_f32"] = {"loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+                        "grads_max_err_over_max_abs": _shard_grad_err(
+                            shard, ref, mesh.coords, mesh.shape)}
+    del ref, shard, sgd
+    torch.cuda.empty_cache()
+
+
+def _lc_gpt2_cp_dp(rank, mesh, res, stage):
+    """GPT-2-small bf16 at cp = 2 × dp = 2, one hybrid step (ring2 under
+    dma) on the cp slice's batch: its loss, launches and ms; rank 0 also
+    the single-device flash loss of the same weights and batch."""
+    from dsml_tpu_torch.models.gpt2 import GPT2Config
+    from dsml_tpu_torch.ops import flash as tflash
+    from dsml_tpu_torch.parallel.hybrid import make_hybrid_train_step
+
+    dev = mesh.device
+    rng = np.random.default_rng(2)  # the cp slice's batch
+    x = torch.as_tensor(rng.integers(0, 50257, (TRAIN_B, TRAIN_S)))
+    y = torch.as_tensor(rng.integers(0, 50257, (TRAIN_B, TRAIN_S)))
+    cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16", xent_chunk=0)
+    model = gpt2_small(cfg, dev)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+    step = make_hybrid_train_step(model, opt, mesh)
+    stage("cp x dp GPT-2 step")
+    reset_counts(tflash)
+    tflash.flash_stream_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(step(x, y))
+    res["gpt2_cp_dp"] = {"loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3,
+                         "launches": {**train_counts(tflash),
+                                      "flash_stream": tflash.flash_stream_launches}}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    if rank == 0:
+        with torch.no_grad():
+            single = gpt2_small(cfg, dev)
+            res["gpt2_cp_dp"]["single_loss"] = float(single.loss(x.to(dev), y.to(dev),
+                                                                 attn_impl="flash"))
+        del single
+        torch.cuda.empty_cache()
+
+
+def _lc_attention_2d(rank, mesh, res, stage):
+    """``attention_2d(flash=True)`` on sp = 2 (outer ring) × tp = 2 (inner
+    all-to-all), bf16, causal: rank (o, i) holds sub-block o·2 + i of
+    GPT-2-small's [8, 12, 1024, 64] train attention; its output block and
+    the gradients of <out, do> against the f32 plain attention of the
+    whole sequence on the same inputs; kernel launches."""
+    from dsml_tpu_torch.ops import flash as tflash
+    from dsml_tpu_torch.ops.attention import attention, attention_2d
+
+    dev = mesh.device
+    stage("attention_2d(flash=True)")
+    gen = torch.Generator(device=dev).manual_seed(20)  # the same tensors on every rank
+    q, k, v, do = (torch.randn(*LC_2D_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    block = mesh.coord("sp") * 2 + mesh.coord("tp")
+    s = LC_2D_SHAPE[2] // 4
+    rows = slice(block * s, (block + 1) * s)
+    mine = [t[:, :, rows].detach().clone().requires_grad_() for t in (q, k, v)]
+    reset_counts(tflash)
+    out = attention_2d(*mine, mesh.group("tp"), mesh.group("sp"), True, flash=True)
+    out.backward(do[:, :, rows])
+    torch.cuda.synchronize()
+    launches = train_counts(tflash)
+    full = [t.float().requires_grad_() for t in (q, k, v)]
+    want = attention(*full, causal=True)
+    want.backward(do.float())
+    err_out = (out.float() - want[:, :, rows]).abs().max().item()
+    rel = max((m.grad.float() - f.grad[:, :, rows]).abs().max().item()
+              / max(f.grad.abs().max().item(), 1e-30) for m, f in zip(mine, full))
+    res["attention_2d"] = {"block": block, "max_abs_err_out": err_out,
+                           "grads_max_err_over_max_abs": rel, "launches": launches,
+                           "finite": bool(torch.isfinite(out).all())
+                           and all(bool(torch.isfinite(m.grad).all()) for m in mine)}
+
+
+def lc_run(rank, tmp, res, stage, weights):
+    """The long-context paths on four ranks (one card: they time-slice
+    it), each on its own mesh over one process group: TinyLlama at cp = 2
+    × tp = 2 (:func:`_lc_llama`), GPT-2-small at cp = 2 × dp = 2
+    (:func:`_lc_gpt2_cp_dp`), ``attention_2d(flash=True)`` on sp = 2 ×
+    tp = 2 (:func:`_lc_attention_2d`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from dsml_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    rendezvous = os.path.join(tmp, "rendezvous")
+    for spec, run in ((MeshSpec(cp=2, tp=2), lambda m: _lc_llama(rank, m, res, stage, weights)),
+                      (MeshSpec(dp=2, cp=2), lambda m: _lc_gpt2_cp_dp(rank, m, res, stage)),
+                      (MeshSpec(sp=2, tp=2), lambda m: _lc_attention_2d(rank, m, res, stage))):
+        mesh = build_mesh(spec, rank, 4, rendezvous)
+        res.setdefault("coords", {})[str(mesh.spec.sizes_dict())] = mesh.coords
+        run(mesh)
+        mesh.close()
+    res["device"] = str(torch.cuda.current_device())
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def check_long_context(lc, tp_ranks, card):
+    """The long-context 4-rank program's lines (see :func:`lc_run`), all
+    emitted before any check. Returns rank 0's launches by path."""
+    n_layer = 22
+    tp_losses = tp_ranks[0]["losses"]
+    llama, g, a2d = ([r[key] for r in lc] for key in ("llama", "gpt2_cp_dp", "attention_2d"))
+    single = g[0]["single_loss"]
+    emit({"phase": "long_context_cp_tp", "model": "tinyllama-1.1b", "dtype": "bfloat16",
+          "cp": 2, "tp": 2, "attn_impl": "ring2", "fused": "dma",
+          "batch": [LLAMA_TRAIN_B, LLAMA_TRAIN_S], "warmup": LC_LLAMA_WARMUP,
+          "steps": LC_LLAMA_STEPS, "tp2_losses": tp_losses, "card": card,
+          "note": "four ranks time-slice one card",
+          "ranks": [{"rank": r["rank"], "coords": r["coords"], **r["llama"],
+                     "f32": r["llama_f32"]} for r in lc]})
+    emit({"phase": "long_context_cp_dp", "model": "gpt2-small", "dtype": "bfloat16", "cp": 2,
+          "dp": 2, "attn_impl": "ring2", "fused": "dma", "global_batch": [TRAIN_B, TRAIN_S],
+          "single_device_loss": single, "tol": TOL_CP_BF16_LOSS, "card": card,
+          "ranks": [{"rank": r["rank"], **r["gpt2_cp_dp"]} for r in lc]})
+    emit({"phase": "long_context_attention_2d", "shape": list(LC_2D_SHAPE), "dtype": "bfloat16",
+          "outer": "sp = 2", "inner": "tp = 2", "flash": True, "causal": True,
+          "tol_out": TOL[torch.bfloat16]["out"], "tol_grads": TOL_BWD[torch.bfloat16],
+          "card": card, "ranks": a2d})
+    for r, x in zip(lc, llama):
+        cp = r["coords"][str({"pp": 1, "dp": 1, "fsdp": 1, "sp": 1, "cp": 2, "tp": 2})]["cp"]
+        # dma: hop 0's two halves through kernel 4; hop 1 kept on cp rank 1
+        # only (rank 0's visiting keys are all later), kernel 1 a half
+        per = n_layer * LC_LLAMA_STEPS
+        want = {"flash_stream": 2 * per, "flash_fwd": 2 * cp * per,
+                "flash_bwd_dq_tc": 2 * (1 + cp) * per, "flash_bwd_dkv_tc": 2 * (1 + cp) * per,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        check(x["launches"] == want, f"cp x tp rank {r['rank']}: launches {x['launches']}, "
+                                     f"expected {want}")
+        # the tp = 2 step from the same weights, batch and optimizer: step 0
+        # within the bf16 bound, the later steps within the drift bound
+        check(x["losses"] == llama[0]["losses"] and all(np.isfinite(x["losses"]))
+              and abs(x["losses"][0] - tp_losses[0]) <= MP_BF16_LOSS_RTOL * abs(tp_losses[0])
+              and max(abs(a - b) for a, b in zip(x["losses"], tp_losses)) <= MP_LOSS_DRIFT,
+              f"cp x tp rank {r['rank']}: losses {x['losses']} vs the tp = 2 step's {tp_losses}")
+        f32 = r["llama_f32"]
+        check(f32["loss_rel_err"] <= 1e-5 and f32["grads_max_err_over_max_abs"] <= TOL_TRAIN_GRADS,
+              f"cp x tp rank {r['rank']}: f32 gradients against one device's: {f32}")
+    for x in g:
+        check(x["loss"] == g[0]["loss"] and abs(x["loss"] - single) <= TOL_CP_BF16_LOSS * abs(single),
+              f"cp x dp: loss {x['loss']} vs one device's {single}")
+        check(x["launches"]["flash_stream"] == 2 * 12,
+              f"cp x dp: kernel 4 launched {x['launches']['flash_stream']}, expected 24")
+    for x in a2d:
+        check(x["finite"] and x["max_abs_err_out"] <= TOL[torch.bfloat16]["out"]
+              and x["grads_max_err_over_max_abs"] <= TOL_BWD[torch.bfloat16],
+              f"attention_2d(flash=True) block {x['block']} against one device: {x}")
+        check(bf16_step_counts_ok(x["launches"], 2, 2),
+              f"attention_2d(flash=True): kernels 1-3 launched {x['launches']}, expected 2 each")
+    r0 = lc[0]
+    return {"cp_tp_llama": r0["llama"]["launches"], "cp_dp": r0["gpt2_cp_dp"]["launches"],
+            "attention_2d": {**r0["attention_2d"]["launches"], "flash_stream": 0}}
+
+
 PLAN_MODELS = ("tinyllama_1b", "llama2_7b", "mixtral_8x7b")
 PLAN_DEVICES = (1, 2, 4, 8)
 
@@ -4960,7 +5415,11 @@ def phase_model_parallel(tflash, dev, card, weights, serve=False):
     4 microbatches: 24 kernel-1 launches a rank), the fsdp ranks build
     their mesh from ``plan_mesh`` and take the eval loss of the gathered
     weights, each in bf16 and f32 against the single-device eval loss of
-    the same weights. Ranks time-slice
+    the same weights. (e) The long-context program in the pp × tp ranks'
+    spawn (:func:`lc_run`): TinyLlama-1.1B at cp = 2 × tp = 2 through
+    ring2 (kernel 4) against the tp = 2 step-0 loss, with a 2-layer f32
+    gradient check; GPT-2-small at cp = 2 × dp = 2; attention_2d(flash=
+    True) on sp = 2 × tp = 2 (:func:`check_long_context`). Ranks time-slice
     the one card: the times are the cost of the collectives and the
     schedules, not a model-parallel speed-up. ``weights`` is the TinyLlama
     bf16 file the tp and pp × tp ranks map (:func:`tinyllama_bf16_weights`).
@@ -4968,8 +5427,8 @@ def phase_model_parallel(tflash, dev, card, weights, serve=False):
     the tp ranks go on to the tp_serve program (:func:`tp_serve_run`, whose
     references run here first). Returns rank 0's launches per path, kernel
     8's launches, with ``serve`` the tp_serve references and (ranks,
-    seconds of the shared spawn), and rank 0's launches of the resumed
-    step and the pp eval."""
+    seconds of the shared spawn), rank 0's launches of the resumed
+    step and the pp eval, and rank 0's launches on the long-context paths."""
     t_phase = time.perf_counter()
     serve_ref = tp_serve_reference(tflash, dev, weights) if serve else None
     # the single-device step-0 loss from the weights
@@ -4987,7 +5446,10 @@ def phase_model_parallel(tflash, dev, card, weights, serve=False):
     tp_ranks = tp_out["tp"]
     two, pp_seconds = spawn_programs({"pp": (mp_pp_rank, ()), "fsdp": (mp_zero_rank, ())}, "pp")
     pp_ranks, zero_ranks, zero_seconds = two["pp"], two["fsdp"], pp_seconds
-    four, four_seconds = spawn_mesh(mp_4rank_rank, "pp_tp", 4, weights)
+    # the long-context program rides the pp x tp ranks' spawn
+    fours, four_seconds = spawn_programs({"pp_tp": (mp_4rank_rank, (weights,)),
+                                          "long_context": (lc_rank, (weights,))}, "pp_tp", 4)
+    four, lc = fours["pp_tp"], fours["long_context"]
     note = ("ranks time-slice one card: the times are the cost of the collectives and the "
             "schedule, not a model-parallel speed-up")
 
@@ -5105,16 +5567,19 @@ def phase_model_parallel(tflash, dev, card, weights, serve=False):
                      "resumed_loss_equal": r["resume"]["loss"] == r["losses"][1],
                      "resumed_state_equal": r["resume"]["state_sha"] == r["state_sha"],
                      "cross_layout": r["cross_layout"]} for r in four], "card": card})
+    # (e) the long-context paths
+    lc_launches = check_long_context(lc, tp_ranks, card)
     emit({"phase": "model_parallel", "phase_seconds": time.perf_counter() - t_phase,
           "seconds": {"tp" + (" + tp_serve" if serve else ""): tp_seconds,
-                      "pp + zero": pp_seconds, "pp_tp": four_seconds}, "card": card})
+                      "pp + zero": pp_seconds, "pp_tp + long_context": four_seconds},
+          "card": card})
     counts = {k: tp_ranks[0]["launches"][k] + pp_ranks[0]["schedules"]["gpipe"]["launches"][k]
               for k in tp_ranks[0]["launches"]}
     # the path of this slice: rank 0's resumed pp x tp step and pp eval
     resume_eval = {k: four[0]["resume"]["launches"][k] + pp_ranks[0]["eval"]["launches"][k]
                    for k in counts}
     served = (serve_ref, (tp_out["tp_serve"], tp_seconds)) if serve else None
-    return counts, pp_ranks[0]["int8_remat"]["quantize_int8"], served, resume_eval
+    return counts, pp_ranks[0]["int8_remat"]["quantize_int8"], served, resume_eval, lc_launches
 
 
 # ---- tensor-parallel serving: TinyLlama-1.1B at tp = 2 (port slice 17) -------------
@@ -6060,6 +6525,7 @@ def main() -> None:
                   "train_int8remat": lambda: phase_train_int8remat(tflash, dev, card),
                   "kernel_stream": lambda: phase_kernel_stream(tflash, dev),
                   "kernel_head_dim": lambda: phase_kernel_head_dim(tflash, dev),
+                  "kernel_long_context": lambda: phase_kernel_long_context(tflash, dev),
                   "cp_slice": lambda: phase_cp_slice(card),
                   "cp_cli": lambda: phase_train_cli_runs(train_cli_start(["cp2"])),
                   "allreduce": lambda: phase_allreduce(card),
@@ -6098,6 +6564,7 @@ def main() -> None:
     quant8_err, quant8_timing = phase_kernel_quant8(dev)
     stream_err, stream_timing = phase_kernel_stream(tflash, dev)
     phase_kernel_head_dim(tflash, dev)
+    phase_kernel_long_context(tflash, dev)
     # with the other kernel phases: late in a full run the profiler's traces
     # lost events twice in this phase (never in its own run)
     llama_kernels = family_kernels(tflash, dev, "llama", LLAMA_HEADS, LLAMA_KV_HEADS, D,
@@ -6122,12 +6589,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     remat_launches = phase_train_int8remat(tflash, dev, card)
     torch.cuda.empty_cache()
-    cp_launches = phase_cp_slice(card)
+    cp_launches, sp_launches = phase_cp_slice(card)
     torch.cuda.empty_cache()
     allreduce_ranks, quant_ranks = spawn_collectives()  # one spawn, both programs
     phase_allreduce(card, allreduce_ranks)
     phase_quant_allreduce(card, quant_ranks)
-    _, q8_launches = phase_dp_slice(card)
+    _, q8_launches, obs_dp = phase_dp_slice(card)
     torch.cuda.empty_cache()
     # the Llama and the train_gpt2 entry points (cp, dp, tp, pp) run as
     # processes while this one builds TinyLlama's weights on the host, and the
@@ -6162,7 +6629,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     # the observability core on the serving and training paths (its launches
     # are in its own line: the kernels line reads the paths above)
-    phase_obs(tflash, dev, card)
+    phase_obs(tflash, dev, card, obs_dp)
     torch.cuda.empty_cache()
     ckpt_launches = phase_checkpoint(tflash, dev, card)
     torch.cuda.empty_cache()
@@ -6173,8 +6640,8 @@ def main() -> None:
     phase_plan(card)
     with tinyllama_bf16_weights() as weights:
         # the tp ranks serve too (tp_serve), after their training program
-        mp_launches, mp_quant8, (serve_ref, serve_spawned), resume_eval = phase_model_parallel(
-            tflash, dev, card, weights, serve=True)
+        mp_launches, mp_quant8, (serve_ref, serve_spawned), resume_eval, lc_launches = (
+            phase_model_parallel(tflash, dev, card, weights, serve=True))
         torch.cuda.empty_cache()
         tp_launches, tp_errs, _ = phase_tp_serve(tflash, dev, card, weights, serve_ref,
                                                  serve_spawned)
@@ -6198,34 +6665,42 @@ def main() -> None:
         mp = mp_launches if dtype == torch.bfloat16 else {dq_name: 0, dkv_name: 0}
         mx = moe if dtype == torch.bfloat16 else {dq_name: 0, dkv_name: 0}
         ra = resume_eval if dtype == torch.bfloat16 else {dq_name: 0, dkv_name: 0}
+        # the long-context paths (bf16): sp = 2's impls, cp x tp, cp x dp, attention_2d
+        lcp = ({"sp_impls": sp_launches, **lc_launches} if dtype == torch.bfloat16 else
+               {p: {dq_name: 0, dkv_name: 0} for p in ("sp_impls", *lc_launches)})
         bwd_rows += [
             {"name": dq_name, "route": "cuda", "source": source, "replaces": "dsml_tpu/ops/flash.py:481",
              "launches": counts[dq_name] + llama[dq_name] + ckpt_launches[dq_name] + mp[dq_name]
-             + mx[dq_name] + ra[dq_name],
+             + mx[dq_name] + ra[dq_name] + sum(v[dq_name] for v in lcp.values()),
              "launches_by_path": {"train": counts[dq_name], "llama_train": llama[dq_name],
                                   "checkpoint": ckpt_launches[dq_name],
                                   "model_parallel": mp[dq_name], "moe": mx[dq_name],
-                                  "mp_resume_eval": ra[dq_name]},
+                                  "mp_resume_eval": ra[dq_name],
+                                  **{p: v[dq_name] for p, v in lcp.items()}},
              "max_abs_err": err["dq"], **bwd_timing[dq_name]},
             {"name": dkv_name, "route": "cuda", "source": source, "replaces": "dsml_tpu/ops/flash.py:526",
              "launches": counts[dkv_name] + llama[dkv_name] + ckpt_launches[dkv_name] + mp[dkv_name]
-             + mx[dkv_name] + ra[dkv_name],
+             + mx[dkv_name] + ra[dkv_name] + sum(v[dkv_name] for v in lcp.values()),
              "launches_by_path": {"train": counts[dkv_name], "llama_train": llama[dkv_name],
                                   "checkpoint": ckpt_launches[dkv_name],
                                   "model_parallel": mp[dkv_name], "moe": mx[dkv_name],
-                                  "mp_resume_eval": ra[dkv_name]},
+                                  "mp_resume_eval": ra[dkv_name],
+                                  **{p: v[dkv_name] for p, v in lcp.items()}},
              "max_abs_err": max(err["dk"], err["dv"]), **bwd_timing[dkv_name]}]
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": "dsml_tpu_torch/ops/csrc/flash_fwd.cu",
          "replaces": "dsml_tpu/ops/flash.py:198",
          "launches": launches + llama_train_launches["flash_fwd"] + ckpt_launches["flash_fwd"]
          + mp_launches["flash_fwd"] + moe["flash_fwd"] + tp_launches["flash_fwd"]
-         + resume_eval["flash_fwd"],
+         + resume_eval["flash_fwd"] + sp_launches["flash_fwd"]
+         + sum(v["flash_fwd"] for v in lc_launches.values()),
          "launches_by_path": {"slice": launches, "llama_train": llama_train_launches["flash_fwd"],
                               "checkpoint": ckpt_launches["flash_fwd"],
                               "model_parallel": mp_launches["flash_fwd"], "moe": moe["flash_fwd"],
                               "tp_serve": tp_launches["flash_fwd"],
-                              "mp_resume_eval": resume_eval["flash_fwd"]},
+                              "mp_resume_eval": resume_eval["flash_fwd"],
+                              "sp_impls": sp_launches["flash_fwd"],
+                              **{p: v["flash_fwd"] for p, v in lc_launches.items()}},
          "max_abs_err": main_err, **timing},
         *bwd_rows,
         # times at the decode tick's shape (the chunk's are in the kernel_time line);
@@ -6270,9 +6745,14 @@ def main() -> None:
          "max_abs_err": quant8_err, **{k: quant8_timing[k] for k in KERNEL_TIMES}},
         # times at the cp = 2 hop's shape (q [96, 512, 64], K/V half [96, 256,
         # 64], bf16; library_ms the two-call yardstick SDPA + copy_); launches
-        # from rank 0 of the cp = 2 slice's counted train steps
+        # from rank 0 of the cp = 2 slice's counted train steps and of the
+        # long-context program's cp x tp TinyLlama steps and cp x dp step
         {"name": "flash_stream", "route": "cuda", "source": STREAM_SOURCE,
-         "replaces": "dsml_tpu/ops/flash.py:306", "launches": cp_launches["flash_stream"],
+         "replaces": "dsml_tpu/ops/flash.py:306",
+         "launches": cp_launches["flash_stream"] + sum(v["flash_stream"]
+                                                       for v in lc_launches.values()),
+         "launches_by_path": {"cp_slice": cp_launches["flash_stream"],
+                              **{p: v["flash_stream"] for p, v in lc_launches.items()}},
          "max_abs_err": stream_err, **{k: stream_timing[k] for k in KERNEL_TIMES}},
     ]})
     print(card, flush=True)

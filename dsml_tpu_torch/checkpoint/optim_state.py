@@ -33,9 +33,9 @@ On a process mesh (``parallel.mesh``; one process a rank),
 ``native.MeshShard`` holding this rank's block (its tp shard, its fsdp
 shard, and under pp its stage's block of the layer list stacked on a
 leading axis in the ``parallel.pp.stage_layer_ids`` order, which is
-``interleave_layer_order`` when ``pp_interleave > 1``), so every rank
-writes only the blocks it is the lowest rank to hold and restores only its
-own; :func:`load_mesh_state` puts a restored tree back into the model (or
+``interleave_layer_order`` when ``pp_interleave > 1``; replicated over
+dp and the sequence axis, sp or cp), so every rank writes only the blocks
+it is the lowest rank to hold and restores only its own; :func:`load_mesh_state` puts a restored tree back into the model (or
 its ZeRO-3 shards) and the optimizer. As the JAX restore, a restore
 needs the template's paths and global shapes: any tp, fsdp or dp width
 restores (where the model's splits divide), pp = 1 (a list of layers) and

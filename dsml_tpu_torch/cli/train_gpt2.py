@@ -1,6 +1,5 @@
-"""Train GPT-2 or Llama on byte tokens — the single-device, data-parallel,
-context-parallel, tensor-parallel and pipeline-parallel paths of
-``examples/train_gpt2.py``.
+"""Train GPT-2 or Llama on byte tokens — ``examples/train_gpt2.py`` on one
+device or on a pp × dp × fsdp × (sp or cp) × tp mesh.
 
 Tokens are the bytes of ``--data FILE`` or, without one, of a generated
 story corpus (simple grammatical sentences, so the loss measures sequence
@@ -23,21 +22,30 @@ tokens/s".
         --attn flash --dtype bfloat16 --steps 3 --batch_size 2 --grad_accum 1
     python -m dsml_tpu_torch.cli.train_gpt2 --model small --pp 2 --schedule 1f1b --n_micro 4 \\
         --attn flash --dtype bfloat16 --steps 3 --batch_size 8 --grad_accum 1
+    python -m dsml_tpu_torch.cli.train_gpt2 --model small --sp 2 --attn ulysses_flash \\
+        --dtype bfloat16 --steps 3 --grad_accum 1
+    python -m dsml_tpu_torch.cli.train_gpt2 --family llama --model tinyllama_1b --cp 2 --tp 2 \\
+        --dtype bfloat16 --steps 3 --batch_size 2 --grad_accum 1
 
-``--dp N``, ``--cp N``, ``--tp N`` or ``--pp N`` spawns one rank
-(``torch.multiprocessing``) per mesh position, joined over gloo through a
-rendezvous file in a temporary directory; they run
+``--dp N``, ``--fsdp N``, ``--sp N``, ``--cp N``, ``--tp N`` or ``--pp N``
+spawns one rank (``torch.multiprocessing``) per mesh position, joined over
+gloo through a rendezvous file in a temporary directory; they run
 ``parallel.hybrid.make_hybrid_train_step``: with ``--dp`` each rank trains
 on its rows of the global batch and the gradients are averaged through the
 process group's own ``all_reduce`` (``dp_sync="xla"``, as the JAX example);
-with ``--cp`` the sequence is sharded over the context-parallel ring
-(``--attn ring2``, the default there); with ``--tp`` each rank holds its
-Megatron shard of the model; with ``--pp`` its pipeline stage, running
-``--schedule gpipe|1f1b`` over ``--n_micro`` microbatches (lowered to the
-largest count that divides a dp rank's rows, with a note, as the JAX
-example does). dp, tp and pp compose. Rank r runs on ``cuda:{r % device_count}`` (logged per rank: with
-fewer cards than ranks, ranks share a card), or on the CPU with
-``--device cpu``. Rank 0 logs the steps; a failing rank fails the run.
+with ``--fsdp`` the rows split further and each rank holds ZeRO-3 shards of
+the weights; with ``--sp`` or ``--cp`` (one of the two) the sequence is
+sharded over the sequence ring, attention ``--attn`` routed as the JAX
+model routes it (``ring`` | ``ring2`` | ``ulysses`` | ``ulysses_flash`` |
+``ring_flash``; ``flash`` and ``xla`` take the XLA ring there; the default
+is ``ring2`` with ``--cp``, ``ring`` otherwise); with ``--tp`` each rank
+holds its Megatron shard of the model; with ``--pp`` its pipeline stage,
+running ``--schedule gpipe|1f1b`` over ``--n_micro`` microbatches (lowered
+to the largest count that divides a rank's rows, with a note, as the JAX
+example does). Every axis composes with the others. Rank r runs on
+``cuda:{r % device_count}`` (logged per rank: with fewer cards than ranks,
+ranks share a card), or on the CPU with ``--device cpu``. Rank 0 logs the
+steps; a failing rank fails the run.
 
 ``--checkpoint_dir DIR`` resumes from the newest step there (the
 parameters and the optimizer's state in the JAX package's trees, so a
@@ -46,16 +54,15 @@ runs ``--steps`` more updates on the cosine horizon ``start + steps`` with
 the batch stream seeded ``seed + start``, and saves step ``start +
 steps`` at the end. On a mesh every rank saves and restores its own
 blocks of the JAX ``init_hybrid`` tree (``checkpoint.optim_state.
-mesh_state``: tp shards, the stacked pp layer axis; the lowest rank
-holding a block writes it), and all ranks wait for the commit.
+mesh_state``: tp and fsdp shards, the stacked pp layer axis, the rest
+replicated over dp and the sequence axis; the lowest rank holding a block
+writes it), and all ranks wait for the commit.
 ``--eval_every K`` logs the held-out loss and perplexity every K steps on
 every mesh (under ``--pp`` the pipelined forward over ``--n_micro``
 microbatches).
 
-Runs on the CUDA card unless ``--device cpu``. The other sequence
-parallelisms, cp composed with another axis, Llama under cp, BPE, the
-prose corpus, profiles and adafactor come with later slices and raise
-here.
+Runs on the CUDA card unless ``--device cpu``. BPE, the prose corpus,
+profiles and adafactor come with later slices and raise here.
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ import time
 import numpy as np
 import torch
 
+from dsml_tpu_torch.models.gpt2 import GPT2
 from dsml_tpu_torch.utils.config import Config, field
 
 
@@ -94,10 +102,11 @@ class GPT2TrainConfig(Config):
     schedule: str = field("gpipe", help="pipeline schedule (pp > 1): gpipe | 1f1b")
     n_micro: int = field(2, help="pipeline microbatches per step (pp > 1)")
     dp: int = field(0, help="data-parallel size: spawns this many ranks (0 or 1 = this device)")
-    sp: int = field(1, help="sequence-parallel size (long-context slice)")
-    cp: int = field(1, help="context-parallel size: spawns this many ranks over the flash ring (ring2)")
+    fsdp: int = field(1, help="ZeRO-3 size: the rows split further, the weights sharded over this many ranks")
+    sp: int = field(1, help="sequence-parallel size (the XLA ring's axis): spawns this many ranks per position")
+    cp: int = field(1, help="context-parallel size (the flash ring's axis): spawns this many ranks per position")
     tp: int = field(1, help="tensor-parallel size: spawns this many ranks per dp x pp position")
-    attn: str = field("", help="attention impl: flash | xla | ring2 ('' = plain attention on one device, ring2 with --cp > 1, as the JAX example)")
+    attn: str = field("", help="attention impl: ring | ring2 | ulysses | ulysses_flash | ring_flash | flash | xla ('' = plain attention on one device, ring2 on cp meshes, ring otherwise, as the JAX example)")
     lr: float = field(3e-4, help="peak learning rate")
     optimizer: str = field("adamw", help="adamw (adafactor: a later slice)")
     clip_norm: float = field(1.0, help="global-norm gradient clip (0 = off)")
@@ -135,17 +144,6 @@ def _generated_stories(n_chars: int, seed: int) -> bytes:
 
 def _check_supported(cfg: GPT2TrainConfig) -> None:
     later = {
-        "--sp > 1 (the rest of the long-context slice)": cfg.sp > 1,
-        "--cp > 1 with --tp/--pp > 1 (cp composed with another axis, the rest of the long-context "
-        "slice)": cfg.cp > 1 and (cfg.pp > 1 or cfg.tp > 1),
-        f"--attn {cfg.attn} (the rest of the long-context slice)":
-            cfg.attn in ("ring", "ulysses", "ulysses_flash", "ring_flash"),
-        f"--attn {cfg.attn} with --cp > 1 (the JAX package routes it to the XLA ring, the rest "
-        "of the long-context slice)": cfg.cp > 1 and cfg.attn in ("flash", "xla"),
-        "--dp > 1 with --cp > 1 (dp composed with cp, the rest of the long-context slice)":
-            cfg.dp > 1 and cfg.cp > 1,
-        "--family llama with --cp > 1 (the RoPE global-position offset under an sp group, "
-        "ROADMAP.md queue 1, item 12)": cfg.family == "llama" and cfg.cp > 1,
         "--tokenizer bpe (a later slice, with utils/tokenizer.py)": cfg.tokenizer == "bpe",
         "--data prose (a later slice: the corpus reads the JAX package's docstrings)": cfg.data == "prose",
         "--profile_dir (a later slice, with utils/tracing.py)": bool(cfg.profile_dir),
@@ -160,8 +158,10 @@ def _check_supported(cfg: GPT2TrainConfig) -> None:
         raise SystemExit(f"unknown --tokenizer {cfg.tokenizer!r} (use '' or 'bpe')")
     if cfg.optimizer != "adamw":
         raise SystemExit(f"unknown --optimizer {cfg.optimizer!r} (adamw | adafactor)")
-    if cfg.attn not in ("", "flash", "xla", "ring2"):
-        raise SystemExit(f"--attn {cfg.attn!r}: this port runs flash | xla | ring2")
+    if cfg.attn and cfg.attn not in GPT2._ATTN_IMPLS:
+        raise SystemExit(f"--attn {cfg.attn!r}: choose from {' | '.join(GPT2._ATTN_IMPLS)}")
+    if cfg.sp > 1 and cfg.cp > 1:
+        raise SystemExit(f"--sp {cfg.sp} and --cp {cfg.cp}: pick ONE sequence ring")
     if cfg.schedule not in ("gpipe", "1f1b"):
         raise SystemExit(f"unknown --schedule {cfg.schedule!r} (gpipe | 1f1b)")
 
@@ -208,14 +208,14 @@ def train_step(model, optimizer, lr: float, x: torch.Tensor, y: torch.Tensor,
 def main(argv=None) -> dict:
     cfg = GPT2TrainConfig.parse_args(argv)
     _check_supported(cfg)
-    dp = max(cfg.dp, 1)
-    if cfg.batch_size % (cfg.grad_accum * dp):
+    rows = max(cfg.dp, 1) * cfg.fsdp  # the batch rows split over dp × fsdp
+    if cfg.batch_size % (cfg.grad_accum * rows):
         raise SystemExit(
-            f"batch_size={cfg.batch_size} must be divisible by grad_accum*dp="
-            f"{cfg.grad_accum * dp}"
+            f"batch_size={cfg.batch_size} must be divisible by grad_accum*dp*fsdp="
+            f"{cfg.grad_accum * rows}"
         )
     if cfg.pp > 1:
-        rows_per_rank = cfg.batch_size // (cfg.grad_accum * dp)
+        rows_per_rank = cfg.batch_size // (cfg.grad_accum * rows)
         n_micro = cfg.n_micro
         while rows_per_rank % n_micro:
             n_micro -= 1  # largest feasible microbatch count ≥ 1
@@ -223,9 +223,15 @@ def main(argv=None) -> dict:
             print(f"note: n_micro={cfg.n_micro} does not divide the {rows_per_rank} "
                   f"rows per dp rank; using n_micro={n_micro}")
             cfg = dataclasses.replace(cfg, n_micro=n_micro)
-    if dp * cfg.cp * cfg.pp * cfg.tp > 1:
+    if _mesh_spec(cfg).n_devices > 1:
         return _spawn(cfg)
     return _train(cfg)
+
+
+def _mesh_spec(cfg: GPT2TrainConfig):
+    from dsml_tpu_torch.parallel.mesh import MeshSpec
+
+    return MeshSpec(pp=cfg.pp, dp=max(cfg.dp, 1), fsdp=cfg.fsdp, sp=cfg.sp, cp=cfg.cp, tp=cfg.tp)
 
 
 def _spawn(cfg: GPT2TrainConfig) -> dict:
@@ -234,8 +240,7 @@ def _spawn(cfg: GPT2TrainConfig) -> dict:
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="dsml_ranks_") as tmp:
-        mp.spawn(_rank, args=(cfg, tmp), nprocs=max(cfg.dp, 1) * cfg.cp * cfg.pp * cfg.tp,
-                 join=True)
+        mp.spawn(_rank, args=(cfg, tmp), nprocs=_mesh_spec(cfg).n_devices, join=True)
         with open(os.path.join(tmp, "result.json")) as f:
             return json.load(f)
 
@@ -243,13 +248,17 @@ def _spawn(cfg: GPT2TrainConfig) -> dict:
 def _rank(rank: int, cfg: GPT2TrainConfig, tmp: str) -> None:
     import torch.distributed as dist
 
-    from dsml_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from dsml_tpu_torch.parallel.mesh import build_mesh
     from dsml_tpu_torch.utils.logging import get_logger
 
     # rank r on cuda:{r % device_count}: a placement, never a CPU fallback
     device = "cpu" if torch.device(cfg.device).type == "cpu" else None
-    spec = MeshSpec(pp=cfg.pp, dp=max(cfg.dp, 1), cp=cfg.cp, tp=cfg.tp)
-    world = spec.pp * spec.dp * spec.cp * spec.tp
+    spec = _mesh_spec(cfg)
+    world = spec.n_devices
+    if device == "cpu":
+        # the ranks share the host: each takes an equal part of half its
+        # cores (more threads a rank starve gloo's transport threads)
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // (2 * world)))
     mesh = build_mesh(spec, rank, world, os.path.join(tmp, "rendezvous"), device)
     axes = " x ".join(a for a, n in mesh.shape.items() if n > 1)
     get_logger("gpt2").info("%s rank %d of %d on %s", axes, rank, world, mesh.device)
@@ -330,6 +339,10 @@ def _train(cfg: GPT2TrainConfig, mesh=None) -> dict:
     # adamw(schedule)): adamw's default weight decay there is 1e-4
     schedule = make_schedule("cosine", cfg.lr, start_step + cfg.steps, cfg.warmup_steps)
     optimizer = torch.optim.AdamW(model.parameters(), lr=0.0, weight_decay=1e-4)
+    if mesh is not None:
+        from dsml_tpu_torch.parallel.hybrid import shard_fsdp
+
+        model, optimizer = shard_fsdp(model, optimizer, mesh)  # ZeRO-3 shards under --fsdp
     count = 0  # updates done: the schedule's argument
 
     def state_tree(n: int) -> dict:

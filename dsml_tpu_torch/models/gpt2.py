@@ -37,14 +37,16 @@ one onto the other. :meth:`GPT2.init` draws the same
 ``np.random.default_rng(seed)`` sequence as the JAX init, so both packages
 build identical weights from one seed.
 
-Context parallelism: :meth:`GPT2.loss` and :meth:`GPT2.apply` take an
-``sp_group`` (a ``parallel.peer.RingGroup``) over which the sequence is
-sharded, as ``dsml_tpu``'s ``loss_spmd``/``apply_spmd`` take ``sp_axis``:
-each rank holds its contiguous shard of the tokens, positions start at the
-shard's origin, attention is the bidirectional flash ring
-(``attn_impl="ring2"``, ``ops/ring_attention.py``) and the loss is this
-rank's mean over its own rows (``parallel/hybrid.py`` reduces it over the
-group). The other sequence-parallel attentions come with a later slice.
+Sequence and context parallelism: :meth:`GPT2.loss` and :meth:`GPT2.apply`
+take an ``sp_group`` (a ``parallel.peer.RingGroup`` of the mesh's ``sp``
+or ``cp`` axis) over which the sequence is sharded, as ``dsml_tpu``'s
+``loss_spmd``/``apply_spmd`` take ``sp_axis``: each rank holds its
+contiguous shard of the tokens, positions start at the shard's origin
+(Llama's RoPE at the GLOBAL positions), attention is routed as the JAX
+``_route_attention`` routes it (:meth:`GPT2._attend`: the flash ring
+``"ring2"``, Ulysses, ``"ring_flash"`` or the XLA ring) and the loss is
+this rank's mean over its own rows (``parallel/hybrid.py`` reduces it over
+the group).
 
 Experts: with ``n_experts > 0`` every block's MLP is the top-k gated
 mixture of experts of the JAX ``_moe_block`` (:meth:`GPT2._moe_block`),
@@ -95,6 +97,7 @@ output (and GPT-2's ``bo``) to the residual.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import warnings
 
@@ -105,9 +108,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dsml_tpu_torch.models.common import fsdp_spec_fn, qmatmul, shard_leaf
-from dsml_tpu_torch.ops.attention import _NEG_INF, attention
+from dsml_tpu_torch.ops.attention import _NEG_INF, attention, ulysses_attention
+from dsml_tpu_torch.ops.attention import ring_attention as xla_ring_attention
 from dsml_tpu_torch.ops.collectives import all_gather, all_to_all
-from dsml_tpu_torch.ops.flash import flash_attention
+from dsml_tpu_torch.ops.flash import flash_attention, ring_flash_attention
 from dsml_tpu_torch.ops.paged_attention import paged_attention, paged_attn_impl
 from dsml_tpu_torch.ops.quantization import compressed_checkpoint, quantize_kv_rows, unpack_int4
 from dsml_tpu_torch.ops.ring_attention import ring_attention
@@ -247,9 +251,7 @@ class GPT2(nn.Module):
     indices, in the order the stage runs them) a pipeline stage's layers
     (see the module docstring)."""
 
-    _ATTN_IMPLS = ("flash", "xla", "ring2")
-    # the JAX package's other sequence-parallel attentions, not ported yet
-    _LATER_ATTN_IMPLS = ("ring", "ulysses", "ulysses_flash", "ring_flash")
+    _ATTN_IMPLS = ("ring", "ring2", "ulysses", "ulysses_flash", "ring_flash", "flash", "xla")
 
     def __init__(self, config: GPT2Config | None = None, device=None, tp_group=None,
                  layer_ids=None):
@@ -701,27 +703,32 @@ class GPT2(nn.Module):
         return h + attn_out + layer["attn"]["bo"]
 
     def _attend(self, attn_impl: str, sp_group=None):
-        """The attention function for ``attn_impl``, routed as the JAX
-        ``_route_attention`` routes it: on a sharded sequence (``sp_group``
-        of more than one rank) only the ring sees the whole context, so
-        ``"ring2"`` is the ring and anything else raises; without one (or a
-        group of one), ``"ring2"`` degenerates to single-device flash."""
-        if attn_impl in self._LATER_ATTN_IMPLS:
-            raise NotImplementedError(
-                f"attn_impl {attn_impl!r} comes with the rest of the long-context slice "
-                f"(ROADMAP.md queue 1, item 12); this port serves {self._ATTN_IMPLS}"
-            )
+        """The attention function ``attend(q, k, v, causal=True)`` for
+        ``attn_impl``, routed as the JAX ``_route_attention`` routes it. A
+        sequence group of one counts as none. On a sharded sequence
+        (``sp_group`` of more than one rank: the ``sp`` or the ``cp`` axis)
+        only a ring or Ulysses sees the whole context: ``"ring2"`` is the
+        bidirectional flash ring (``ops/ring_attention.py``), ``"ulysses"``
+        and ``"ulysses_flash"`` the all-to-all re-shard (plain or flash
+        attention inside), ``"ring_flash"`` the flash ring of
+        ``ops.flash.ring_flash_attention``, and every other impl the XLA
+        ring (``ops.attention.ring_attention``: ``"flash"`` alone would be
+        block-diagonal attention). Without one the flash variants are
+        single-device flash, the rest plain attention. An unknown impl
+        raises."""
         if attn_impl not in self._ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}; choose from {self._ATTN_IMPLS}")
-        if sp_group is not None and sp_group.size > 1:
-            if attn_impl != "ring2":
-                raise NotImplementedError(
-                    f"attn_impl {attn_impl!r} on a sequence sharded over {sp_group.size} ranks: "
-                    "the port serves 'ring2' there; the XLA ring the JAX package routes other "
-                    "impls to comes with the rest of the long-context slice (ROADMAP.md queue 1, "
-                    "item 12)")
-            return lambda q, k, v, causal=True: ring_attention(q, k, v, sp_group, causal)
-        return attention if attn_impl == "xla" else flash_attention
+        if sp_group is not None and sp_group.size == 1:
+            sp_group = None
+        if sp_group is not None:
+            seq_fn = {"ring2": ring_attention, "ring_flash": ring_flash_attention,
+                      "ulysses": ulysses_attention,
+                      "ulysses_flash": functools.partial(ulysses_attention, flash=True),
+                      }.get(attn_impl, xla_ring_attention)
+            return lambda q, k, v, causal=True: seq_fn(q, k, v, sp_group, causal)
+        if attn_impl in ("flash", "ring_flash", "ulysses_flash", "ring2"):
+            return flash_attention
+        return attention
 
     def _block(self, layer, h, attend, rot=None):
         """One pre-LN block: attention residual, then the FFN residual (the
@@ -762,9 +769,10 @@ class GPT2(nn.Module):
 
     def apply(self, tokens: torch.Tensor, attn_impl: str = "xla", sp_group=None) -> torch.Tensor:
         """Logits [b, s, vocab] of ``tokens`` [b, s] (causal). ``attn_impl``
-        is ``"xla"`` (plain attention), ``"flash"`` (the flash kernels) or
-        ``"ring2"`` (the flash ring over ``sp_group``, whose rank holds
-        ``tokens`` as its shard of the sequence; flash without one). Under tp
+        is one of :attr:`_ATTN_IMPLS`, routed by :meth:`_attend`: ``"xla"``
+        plain attention, ``"flash"`` the flash kernels; with ``sp_group``
+        (whose rank holds ``tokens`` as its shard of the sequence) a
+        sequence-parallel attention over it. Under tp
         the logits are this rank's vocab shard [b, s, vocab/tp], as the JAX
         ``apply_spmd`` returns them."""
         return self._unembed(self._final_norm(self._blocks(tokens, attn_impl, sp_group)))
@@ -775,11 +783,12 @@ class GPT2(nn.Module):
              attn_impl: str = "xla", sp_group=None) -> torch.Tensor:
         """Mean next-token cross-entropy of ``tokens`` [b, s] against
         ``targets`` [b, s] (the single-shard head of the JAX
-        ``_head_loss_spmd``): the chunked loss of ``ops/xent.py`` when
-        ``vocab_size > xent_chunk > 0``, else dense logits in the model's
-        type, cast to f32, then log-softmax. With ``sp_group`` (the JAX
-        ``loss_spmd`` with ``sp_axis``) both are this rank's shard of the
-        sequence and the loss is the mean over this rank's rows. Under tp the
+        ``_head_loss_spmd``), attention routed by :meth:`_attend`: the
+        chunked loss of ``ops/xent.py`` when ``vocab_size > xent_chunk >
+        0``, else dense logits in the model's type, cast to f32, then
+        log-softmax. With ``sp_group`` (the JAX ``loss_spmd`` with
+        ``sp_axis``) both are this rank's shard of the sequence and the loss
+        is the mean over this rank's rows. Under tp the
         head is the vocab-parallel cross-entropy (:meth:`head_loss`)."""
         return self.head_loss(self._blocks(tokens, attn_impl, sp_group), targets)
 

@@ -25,8 +25,11 @@ Weights keep the JAX tree's names and layouts (``state_dict`` keys such as
 ``lm_head``, ``rms_f.scale``, ``layers.0.attn.wq``, ``layers.0.mlp.w_gate``),
 so ``models.convert.params_from_jax`` carries JAX weights over unchanged, and
 :meth:`Llama.init` draws the JAX init's ``np.random.default_rng(seed)``
-sequence. Llama under a context-parallel ring raises, naming the ROADMAP
-item that brings it.
+sequence. Under a sequence group (the ``sp`` or ``cp`` axis) each rank
+rotates its shard's q/k at their GLOBAL positions (``rank · s_local``
+onward, :meth:`GPT2._blocks`' offset, as the JAX ``Llama._block``) and the
+repeated K/V go through the routed sequence-parallel attention; Ulysses
+then needs the ``n_head/tp`` query heads to divide by the group's size.
 
 Mixtral (``n_experts > 0``, :meth:`LlamaConfig.mixtral_8x7b`): the SwiGLU
 MLP becomes the inherited expert layer (``GPT2._moe_block``), with the JAX
@@ -359,15 +362,6 @@ class Llama(GPT2):
         if self.config.n_experts:
             return h + self._moe_block(layer["moe"], x)
         return h + self._mlp_block(layer["mlp"], x)
-
-    def _attend(self, attn_impl: str, sp_group=None):
-        if sp_group is not None and sp_group.size > 1:
-            # the JAX _block rotates each sp rank's shard by its GLOBAL
-            # positions (rank · s_local offset) under the ring
-            raise NotImplementedError(
-                "Llama over a context-parallel ring is not ported yet (the RoPE global-position "
-                "offset under an sp group; ROADMAP.md queue 1, item 12)")
-        return super()._attend(attn_impl, sp_group)
 
     def _block(self, layer, h, attend, rot=None):
         """One pre-norm block: RMSNorm → GQA attention, q/k rotated by ``rot``

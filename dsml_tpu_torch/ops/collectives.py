@@ -2,8 +2,10 @@
 ``dsml_tpu/ops/collectives.py``.
 
 - :func:`ring_pass` (and :func:`ring_pass_start`) is the one rotate step
-  every schedule here moves its payloads through, and so does ring
-  attention (``ops/ring_attention.py``).
+  every schedule here moves its payloads through, and so do the ring
+  attentions (``ops/ring_attention.py``, ``ops/attention.py``,
+  ``ops/flash.py``). Under autograd :func:`ring_pass` is differentiable
+  as the JAX ``ppermute``: the cotangents ride one hop back.
 - :func:`ring_all_reduce` / :func:`ring2_all_reduce` run the 2(n−1)-step
   ring schedule (scatter-reduce, then all-gather) of
   ``_ring_all_reduce_impl``, one or two directions; :func:`naive_all_reduce`
@@ -190,9 +192,33 @@ def ring_pass_start(x, group, sign: int = +1, overlap: bool = True) -> _Pass:
     return _Pass(finish)
 
 
+class _RingPass(torch.autograd.Function):
+    """One hop whose backward is the JAX transpose of ``ppermute``: the
+    cotangents ride one hop the opposite way, every leaf in one pass."""
+
+    @staticmethod
+    def forward(ctx, group, sign, *leaves):
+        ctx.group, ctx.sign = group, sign
+        return tuple(ring_pass_start(list(leaves), group, sign, overlap=False).wait())
+
+    @staticmethod
+    def backward(ctx, *grads):
+        back = ring_pass_start(list(grads), ctx.group, -ctx.sign, overlap=False).wait()
+        return (None, None, *back)
+
+
 def ring_pass(x, group, sign: int = +1):
     """One rotate step of the ring schedule (:func:`ring_pass_start`,
-    waited for at once): the counterpart of the JAX ``ring_pass``."""
+    waited for at once): the counterpart of the JAX ``ring_pass``, and
+    differentiable as it is. When grad mode is on and a tensor of ``x``
+    requires grad, the hop runs through an autograd function whose
+    backward sends the cotangents of every tensor of ``x`` one hop in the
+    opposite direction (the transpose of ``ppermute``; a cotangent autograd
+    leaves unset hops as zeros, so every rank posts the same hop). The
+    pipelines and the all-reduce family pass tensors that need no grad."""
+    leaves, rebuild = _leaves(x)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves) and group.size > 1:
+        return rebuild(list(_RingPass.apply(group, sign, *leaves)))
     return ring_pass_start(x, group, sign, overlap=False).wait()
 
 

@@ -2,7 +2,8 @@
 ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_tc.cu`` and ``csrc/flash_bwd.cu``
 behind the counterpart of
 ``dsml_tpu/ops/flash.py``'s ``flash_attention`` / ``flash_attention_lse``
-and ``flash_block_grads``.
+and ``flash_block_grads``, and :func:`ring_flash_attention`, the flash ring of
+the JAX package (one kernel-1 call a hop, merged with logsumexp weights).
 
 The kernel never materialises the [seq, seq] score matrix: one thread block
 walks the kv tiles of one (batch·head, q tile) with an online softmax and
@@ -55,7 +56,7 @@ from dsml_tpu_torch.ops.attention import _NEG_INF
 from dsml_tpu_torch.ops.collectives import ring_pass
 
 __all__ = ["flash_attention", "flash_attention_lse", "flash_block_grads", "flash_bwd", "flash_fwd",
-           "flash_stream", "flash_stream_hop"]
+           "flash_stream", "flash_stream_hop", "ring_flash_attention"]
 
 _MAX_FLOOR = -1e20  # running-max floor: a fully masked row gives exp(-1e30 + 1e20) = 0
 _HEAD_DIMS = (64, 128)
@@ -360,6 +361,50 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
         raise ValueError(f"expected [batch, heads, seq, head_dim], got {tuple(q.shape)}")
     out, _ = flash_attention_lse(q, k, v, causal)
     return out
+
+
+def ring_flash_attention(q, k, v, group, causal: bool = True) -> torch.Tensor:
+    """Ring attention with one flash call a hop (the counterpart of the JAX
+    ``ring_flash_attention``): each rank holds a sequence shard [batch,
+    heads, seq/n, head_dim] of ``group`` (rank r holds block r), K/V rotate
+    ``n − 1`` hops through the differentiable ``ops.collectives.ring_pass``,
+    and every hop is ONE :func:`flash_attention_lse` call (kernel 1 on CUDA
+    tensors) whose global ``q_start = rank·s`` and ``k_start = k_off·s``
+    make the causal mask exact for that pair. The hops' (out, lse) merge
+    online with logsumexp weights, each hop's out rounded to q's dtype and
+    merged in f32, the result cast back to q's dtype, as the JAX code does.
+    A causal hop whose keys all lie in the future (rank 0's second hop at
+    n = 2) returns lse ≈ −1e20 (the kernel's row-max floor), so its weight
+    is exp(−1e20 − lse) = 0, and its backward recomputes p = exp(s − lse) =
+    0 on every row: no NaN. Gradients flow through kernels 2 and 3 with the
+    lse cotangent. The JAX function falls back to its XLA ring where a
+    shard does not tile for Pallas; the CUDA kernels mask ragged tails, so
+    every hop here runs kernel 1 on CUDA tensors and there is no fallback.
+    A group of one (or ``None``) is :func:`flash_attention`."""
+    n = 1 if group is None else group.size
+    if n == 1:
+        return flash_attention(q, k, v, causal)
+    rank = group.rank
+    seq_block = q.shape[-2]
+    # one running (out, lse) pair alive, as the JAX merge
+    run_out = run_lse = None
+    kv = (k, v)
+    for hop in range(n):
+        k_off = (rank - hop) % n  # whose K/V block is resident this hop
+        o, lse = flash_attention_lse(q, kv[0], kv[1], causal, q_start=rank * seq_block,
+                                     k_start=k_off * seq_block)
+        o = o.float()
+        if run_out is None:
+            run_out, run_lse = o, lse
+        else:
+            new_lse = torch.logaddexp(run_lse, lse)
+            w_prev = torch.exp(run_lse - new_lse)[..., None]
+            w_new = torch.exp(lse - new_lse)[..., None]
+            run_out = w_prev * run_out + w_new * o
+            run_lse = new_lse
+        if hop != n - 1:
+            kv = ring_pass(kv, group, +1)
+    return run_out.to(q.dtype)
 
 
 def flash_block_grads(q, k, v, out, lse, do, g_lse=None, causal: bool = True,

@@ -1,6 +1,6 @@
 """Context-parallel ring attention over the flash kernels — the counterpart
 of ``dsml_tpu/ops/ring_attention.py``: the sequence sharded across the
-ranks of a ring group (the ``cp`` axis, ``parallel/mesh.py``), K/V blocks
+ranks of a ring group (the ``cp`` or ``sp`` axis, ``parallel/mesh.py``), K/V blocks
 STREAMED around the ring instead of any rank holding full-length
 attention.
 

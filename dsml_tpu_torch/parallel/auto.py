@@ -19,9 +19,9 @@ reasons and provenance are the JAX package's, line for line:
    smallest head-divisible split), fsdp carrying the rest;
 4. SP when the activation footprint crosses the other third of the budget.
 
-A plan may carry ``sp > 1``: the plan is the JAX package's all the same,
-and ``build_mesh`` of it raises until the long-context slice ports the XLA
-ring (ROADMAP.md queue 1, item 12).
+A plan with ``sp > 1`` builds like any other: the sequence shards over
+the ``sp`` group and attention defaults to the XLA ring there
+(``parallel.hybrid.default_attn_impl``).
 
 Capacity inputs: the per-chip memory comes from the card
 (``torch.cuda.get_device_properties(dev).total_memory``, provenance

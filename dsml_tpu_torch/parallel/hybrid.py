@@ -1,25 +1,30 @@
 """The hybrid train step — ``dsml_tpu/parallel/hybrid.py`` over every axis
-the port serves: pp × dp × fsdp × tp, and cp alone.
+of the mesh: pp × dp × fsdp × (sp or cp) × tp.
 
 The JAX step is one jitted SPMD program over the mesh: parameters
 TP-sharded (and ZeRO-sharded over fsdp, and stage-sharded over pp), the
-batch rows sharded over dp × fsdp and the sequence over cp, the loss
-``pmean``-ed over the batch and sequence axes, and the shard_map transpose
-assigning every collective's cotangent. Here each rank is one process
-running :func:`make_hybrid_train_step`'s ``step``:
+batch rows sharded over dp × fsdp and the sequence over the sequence axis
+(``sp`` or ``cp``, ``MeshSpec.seq_axis``), the loss ``pmean``-ed over
+``("dp", "fsdp") + seq_names``, and the shard_map transpose assigning every
+collective's cotangent. Here each rank is one process running
+:func:`make_hybrid_train_step`'s ``step``:
 
-1. it takes its share of the global batch: its rows over dp then fsdp
-   (``P(("dp", "fsdp"))``), or its contiguous sequence shard on a cp mesh;
+1. it takes its share of the global batch (``P(("dp", "fsdp"),
+   seq_names)``): its contiguous sequence shard on a mesh with a sequence
+   axis, and of that its rows over dp then fsdp;
 2. with fsdp, the ZeRO-3 shards are all-gathered into the module's weights
    (``parallel.fsdp.Zero3``, the JAX ``gather_fsdp``);
 3. the loss and its gradients: ``model.loss`` (Megatron tp inside the
-   model, ``parallel.tp``; every rank seeds its identical loss with 1), or
-   with pp the pipeline (``parallel.pp``: ``"gpipe"``, interleaved when
-   ``config.pp_interleave > 1``, or ``"1f1b"``, over ``n_microbatches``),
-   whose non-layer gradients (the embedding's on stage 0, the head's on the
-   last stage: the tied ``wte`` gets both) are then summed over the pp
-   group, and whose loss is the last stage's; on cp the per-rank loss is
-   scaled by 1/cp and the gradients summed over the cp group;
+   model, ``parallel.tp``; every tp rank seeds its identical loss alike),
+   or with pp the pipeline (``parallel.pp``: ``"gpipe"``, interleaved when
+   ``config.pp_interleave > 1``, or ``"1f1b"``, over ``n_microbatches``,
+   the sequence group and its position offset reaching every stage's
+   blocks), whose non-layer gradients (the embedding's on stage 0, the
+   head's on the last stage: the tied ``wte`` gets both) are then summed
+   over the pp group, and whose loss is the last stage's; on a sequence
+   axis the per-rank loss is seeded with 1/n_seq (the sequence-parallel
+   attention's backward carries each rank's K/V cotangents home) and the
+   gradients, replicated over the group, are summed over it;
 4. the microbatch gradients summed and divided by ``grad_accum``; with
    fsdp reduce-scattered back into the shards (averaged over fsdp); then
    averaged over dp — ``dp_sync="xla"`` through the process group's own
@@ -66,7 +71,7 @@ from dsml_tpu_torch.parallel.pp import (_forward_ticks, pipeline_train, pipeline
                                         stage_layer_ids)
 
 __all__ = ["default_attn_impl", "gather_fsdp", "hybrid_eval_loss", "hybrid_loss_fn",
-           "hybrid_model", "init_hybrid", "make_hybrid_train_step"]
+           "hybrid_model", "init_hybrid", "make_hybrid_train_step", "shard_fsdp"]
 
 _MP_AXES = ("pp", "fsdp", "tp")  # the model-parallel axes: their own step
 
@@ -74,24 +79,22 @@ _MP_AXES = ("pp", "fsdp", "tp")  # the model-parallel axes: their own step
 def default_attn_impl(mesh: Mesh) -> str:
     """What ``attn_impl=None`` resolves to on this mesh, as in the JAX
     package: the flash ring ``"ring2"`` when cp is sized, else the XLA ring
-    ``"ring"`` (on an unsharded sequence the JAX model routes that to plain
-    attention, and so does :func:`hybrid_loss_fn`)."""
+    ``"ring"`` (on an unsharded sequence the model routes that to plain
+    attention, as the JAX ``_route_attention`` does)."""
     return "ring2" if mesh.shape.get("cp", 1) > 1 else "ring"
 
 
 def _seq_group(mesh: Mesh):
-    return mesh.group("cp") if mesh.spec.seq_axis() == "cp" else None
+    """The group of the mesh's sequence axis (``MeshSpec.seq_axis``: cp or
+    sp, whichever is sized), or None."""
+    return mesh.group(mesh.spec.seq_axis())
 
 
 def hybrid_loss_fn(model, attn_impl: str = "ring", seq_group=None):
     """Per-rank loss closure ``loss_fn(x, y)`` over this rank's sequence
     shard: positions offset by the shard origin and the rank's own
-    cross-entropy, as the JAX ``hybrid_loss_fn`` with ``seq_axis``. On an
-    unsharded sequence the XLA ring ``"ring"`` is plain attention
-    (``"xla"``), as the JAX model's ``_route_attention`` routes a ring of
-    one."""
-    if attn_impl == "ring" and (seq_group is None or seq_group.size == 1):
-        attn_impl = "xla"
+    cross-entropy, as the JAX ``hybrid_loss_fn`` with ``seq_axis``; the
+    model routes ``attn_impl`` over ``seq_group`` (``GPT2._attend``)."""
 
     def loss_fn(x, y):
         return model.loss(x, y, attn_impl=attn_impl, sp_group=seq_group)
@@ -128,14 +131,19 @@ def gather_fsdp(model):
 def init_hybrid(model, optimizer, mesh: Mesh, seed: int = 0):
     """Fill the weights from ``seed`` on every rank (the same seed gives the
     same weights, and each tp/pp rank keeps its shard of them:
-    ``GPT2.init`` draws the whole model from numpy). With fsdp > 1 the
-    weights become ZeRO-3 shards on the first free divisible dim of
-    ``model.param_specs(fsdp)`` (``parallel.fsdp.Zero3``, kept as
-    ``model.fsdp``) and the optimizer is rebuilt over them. Returns
-    ``(model, optimizer)``; the parameters and the optimizer state are
-    claimed in the memory ledger at this rank's shard bytes after the first
-    step."""
+    ``GPT2.init`` draws the whole model from numpy), then
+    :func:`shard_fsdp`. Returns ``(model, optimizer)``; the parameters and
+    the optimizer state are claimed in the memory ledger at this rank's
+    shard bytes after the first step."""
     model.init(seed)
+    return shard_fsdp(model, optimizer, mesh)
+
+
+def shard_fsdp(model, optimizer, mesh: Mesh):
+    """With fsdp > 1 the model's weights become ZeRO-3 shards on the first
+    free divisible dim of ``model.param_specs(fsdp)`` (``parallel.fsdp.
+    Zero3``, kept as ``model.fsdp``) and the optimizer is rebuilt over
+    them; otherwise nothing changes. Returns ``(model, optimizer)``."""
     if mesh.shape.get("fsdp", 1) > 1:
         specs = model.param_specs(fsdp=mesh.shape["fsdp"])
         full = {model.local_name(k): spec_dim(v, "fsdp") for k, v in specs.items()}
@@ -151,7 +159,7 @@ def _shard(t, group):
         return t
     s = t.shape[1]
     if s % group.size:
-        raise ValueError(f"sequence {s} not divisible by cp={group.size}")
+        raise ValueError(f"sequence {s} not divisible by the sequence axis' {group.size}")
     n = s // group.size
     return t[:, group.rank * n:(group.rank + 1) * n]
 
@@ -160,9 +168,9 @@ def make_hybrid_train_step(model, optimizer, mesh: Mesh, attn_impl: str | None =
                            grad_accum: int = 1, n_microbatches: int = 1,
                            schedule: str = "gpipe", dp_sync: str = "xla",
                            clip_norm: float = 0.0, bucket_size_mb: float | None | str = "auto"):
-    """Build ``step(x, y, lr=None) -> loss`` for a cp or a dp mesh. ``x``/``y``
-    are the GLOBAL batch [batch, seq] (every rank passes the same); each
-    rank trains on its sequence shard (cp) or its rows (dp). With
+    """Build ``step(x, y, lr=None) -> loss`` for ``mesh``. ``x``/``y`` are
+    the GLOBAL batch [batch, seq] (every rank passes the same); each rank
+    trains on its sequence shard (sp or cp) of its rows (dp, fsdp). With
     ``grad_accum > 1`` the rank's batch splits into that many microbatches
     whose gradients are summed and divided by ``grad_accum`` (as the JAX
     step). ``dp_sync`` picks the dp gradient sync: ``"xla"``, the process
@@ -220,16 +228,14 @@ def make_hybrid_train_step(model, optimizer, mesh: Mesh, attn_impl: str | None =
         for m in range(grad_accum):
             rows = slice(m * micro, (m + 1) * micro)
             micro_loss = loss_fn(x[rows], y[rows])
-            # the gradient of the global mean: every rank seeds 1/cp, and the
-            # ring's backward carries each rank's share home
+            # the gradient of the global mean: every rank seeds 1/n_seq, and
+            # the sequence-parallel attention's backward carries each rank's
+            # share home
             (micro_loss / n_seq).backward()
             loss += micro_loss.detach().float()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         if seq_group is not None:
-            flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), seq_group,
-                              ReduceOp.SUM, "ring")
-            torch._foreach_copy_(grads, [part.view_as(g) for part, g in zip(
-                flat.split([g.numel() for g in grads]), grads)])
+            _sum_grads(grads, seq_group)
             loss = all_reduce(loss, seq_group, ReduceOp.SUM, "ring")
         if grad_accum > 1:
             torch._foreach_div_(grads, grad_accum)
@@ -257,6 +263,15 @@ def make_hybrid_train_step(model, optimizer, mesh: Mesh, attn_impl: str | None =
     return step
 
 
+def _sum_grads(grads, group) -> None:
+    """Sum ``grads`` over ``group`` in place, as one flat buffer in their
+    type (rank order on the CPU, the ring on CUDA)."""
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group, ReduceOp.SUM,
+                      "xla" if grads[0].is_cpu else "ring")
+    torch._foreach_copy_(grads, [part.view_as(g) for part, g in zip(
+        flat.split([g.numel() for g in grads]), grads)])
+
+
 def _sum_over(tensors, group) -> None:
     """Sum ``tensors`` over ``group`` in place, as one flat buffer."""
     if group is None or not tensors:
@@ -267,14 +282,21 @@ def _sum_over(tensors, group) -> None:
         t.copy_(part.view_as(t))
 
 
-def _pp_chunks(model, attn_impl: str, s: int, remat=False) -> list:
+def _seq_offset(seq_group, s: int) -> int:
+    """The global position of this rank's first row of a sequence shard of
+    length ``s``."""
+    return 0 if seq_group is None else seq_group.rank * s
+
+
+def _pp_chunks(model, attn_impl: str, s: int, remat=False, seq_group=None) -> list:
     """This stage's chunk functions ``h -> h`` (one per interleave chunk:
-    its layers in order) at sequence length ``s``; ``remat=True`` recomputes
-    each chunk in the backward and ``"int8"`` each layer from an int8
-    stash, as the JAX ``_blocks_spmd`` does for GPipe (``"mlp"`` is inside
-    the block)."""
-    attend = model._attend(attn_impl)
-    rot = model._rotary(0, s)
+    its layers in order) at sequence length ``s``, attention routed over
+    ``seq_group`` at the shard's global positions (the JAX block closure's
+    ``sp_axis``); ``remat=True`` recomputes each chunk in the backward and
+    ``"int8"`` each layer from an int8 stash, as the JAX ``_blocks_spmd``
+    does for GPipe (``"mlp"`` is inside the block)."""
+    attend = model._attend(attn_impl, seq_group)
+    rot = model._rotary(_seq_offset(seq_group, s), s)
     layers = list(model.layers)
     v = model.config.pp_interleave
     per_chunk = len(layers) // v
@@ -298,10 +320,10 @@ def _pp_chunks(model, attn_impl: str, s: int, remat=False) -> list:
     return [chunk(layers[j * per_chunk:(j + 1) * per_chunk]) for j in range(v)]
 
 
-def _pp_feed(model, x, y, group, n_micro: int):
+def _pp_feed(model, x, y, group, n_micro: int, seq_group=None):
     """Stage 0's embedded microbatches (None elsewhere, with the embedding's
-    output kept for its backward), the targets by microbatch and the
-    pipeline's ``micros_like``."""
+    output kept for its backward; positions from the sequence shard's
+    origin), the targets by microbatch and the pipeline's ``micros_like``."""
     cfg = model.config
     b, s = x.shape
     if b % n_micro:
@@ -309,27 +331,34 @@ def _pp_feed(model, x, y, group, n_micro: int):
     mb = b // n_micro
     micros = h = None
     if group.rank == 0:
-        h = model._embed(x)
+        h = model._embed(x, _seq_offset(seq_group, s))
         micros = h.detach().view(n_micro, mb, s, cfg.d_model)
     like = (n_micro, (mb, s, cfg.d_model), cfg.torch_dtype, model.device)
     return h, micros, y.view(n_micro, mb, s), like
 
 
-def _pp_loss_backward(model, x, y, group, n_micro: int, schedule: str, attn_impl: str):
+def _pp_loss_backward(model, x, y, group, n_micro: int, schedule: str, attn_impl: str,
+                      seq_group=None):
     """This stage's share of the pipelined loss of ``x``/``y`` and its
     backward (gradients accumulate in ``.grad``): stage 0 embeds and feeds
     ``n_micro`` microbatches, the stages run ``parallel.pp``'s schedule over
-    :func:`_pp_chunks` (with the config's ``remat``), the last stage runs
-    the head (:meth:`GPT2.head_loss`), and stage 0 pulls the feed's
-    cotangent back through the embedding. Returns the loss on the last
-    stage, 0 elsewhere."""
-    chunks = _pp_chunks(model, attn_impl, x.shape[1], model.config.remat)
-    h, micros, targets, like = _pp_feed(model, x, y, group, n_micro)
+    :func:`_pp_chunks` (with the config's ``remat``; attention over
+    ``seq_group``), the last stage runs the head (:meth:`GPT2.head_loss`,
+    seeded with 1/n_seq on a sequence group), and stage 0 pulls the feed's
+    cotangent back through the embedding. Returns the loss (over n_seq) on
+    the last stage, 0 elsewhere."""
+    n_seq = 1 if seq_group is None else seq_group.size
+    chunks = _pp_chunks(model, attn_impl, x.shape[1], model.config.remat, seq_group)
+    h, micros, targets, like = _pp_feed(model, x, y, group, n_micro, seq_group)
+
+    def head(out, tgt):
+        loss = model.head_loss(out, tgt)
+        return loss if n_seq == 1 else loss / n_seq
+
     if schedule == "1f1b":
-        loss, d_micros = pipeline_train_1f1b(chunks[0], model.head_loss, micros, targets, group,
-                                             like)
+        loss, d_micros = pipeline_train_1f1b(chunks[0], head, micros, targets, group, like)
     else:
-        loss, d_micros = pipeline_train(chunks, model.head_loss, micros, targets, group, like)
+        loss, d_micros = pipeline_train(chunks, head, micros, targets, group, like)
     if group.rank == 0:
         h.backward(d_micros.view_as(h))
     return loss
@@ -360,14 +389,13 @@ def _global_name(model, name: str) -> str:
 def _make_mp_step(model, optimizer, mesh: Mesh, attn_impl: str, grad_accum: int,
                   n_micro: int, schedule: str, clip_norm: float):
     """The step on a mesh with a sized pp, fsdp or tp axis (see the module
-    docstring)."""
+    docstring), and a sequence axis beside them."""
     pp_group, dp_group = mesh.group("pp"), mesh.group("dp")
-    fsdp_group = mesh.group("fsdp")
+    fsdp_group, seq_group = mesh.group("fsdp"), _seq_group(mesh)
+    n_seq = 1 if seq_group is None else seq_group.size
     zero3 = getattr(model, "fsdp", None)
     if fsdp_group is not None and zero3 is None:
         raise ValueError("an fsdp mesh needs the ZeRO-3 shards of init_hybrid")
-    if attn_impl == "ring":
-        attn_impl = "xla"  # the XLA ring on an unsharded sequence is plain attention
     named = named_params(model)
     layer_params = [p for n, p in named if n.startswith("layers.")]
     head_params = [p for n, p in named if not n.startswith("layers.")]
@@ -382,7 +410,7 @@ def _make_mp_step(model, optimizer, mesh: Mesh, attn_impl: str, grad_accum: int,
 
     def step(x, y, lr: float | None = None):
         nonlocal weights, first
-        x, y = torch.as_tensor(x), torch.as_tensor(y)
+        x, y = _shard(x, seq_group), _shard(y, seq_group)
         for g in (dp_group, fsdp_group):
             x, y = rank_rows(x, g), rank_rows(y, g)
         x, y = x.to(model.device).long(), y.to(model.device).long()
@@ -397,9 +425,12 @@ def _make_mp_step(model, optimizer, mesh: Mesh, attn_impl: str, grad_accum: int,
             rows = slice(m * micro, (m + 1) * micro)
             if pp_group is not None:
                 loss += _pp_loss_backward(model, x[rows], y[rows], pp_group, n_micro, schedule,
-                                          attn_impl)
+                                          attn_impl, seq_group)
             else:
-                micro_loss = model.loss(x[rows], y[rows], attn_impl=attn_impl)
+                micro_loss = model.loss(x[rows], y[rows], attn_impl=attn_impl,
+                                        sp_group=seq_group)
+                if n_seq > 1:
+                    micro_loss = micro_loss / n_seq  # the global mean's seed
                 micro_loss.backward()
                 loss += micro_loss.detach().float()
         for p in layer_params + head_params:
@@ -416,6 +447,11 @@ def _make_mp_step(model, optimizer, mesh: Mesh, attn_impl: str, grad_accum: int,
         if zero3 is not None:
             zero3.scatter_grads()
             loss = all_reduce(loss, fsdp_group, ReduceOp.AVG, "xla" if loss.is_cpu else "ring")
+        if seq_group is not None:
+            # every parameter is replicated over the sequence axis: its
+            # ranks' shares sum to the gradient of the global mean
+            _sum_grads([t.grad for _, t in targets], seq_group)
+            loss = all_reduce(loss, seq_group, ReduceOp.SUM, "xla" if loss.is_cpu else "ring")
         grads = [t.grad for _, t in targets]
         if dp_group is not None:
             grads = bucketed_all_reduce(grads, dp_group, ReduceOp.AVG, "xla", None)
@@ -459,14 +495,15 @@ def _clip_sharded(grads, weights, max_norm: float, mesh: Mesh) -> None:
 
 
 @torch.no_grad()
-def _pp_eval_loss(model, x, y, group, n_micro: int, attn_impl: str) -> torch.Tensor:
+def _pp_eval_loss(model, x, y, group, n_micro: int, attn_impl: str,
+                  seq_group=None) -> torch.Tensor:
     """The pipelined forward alone (``parallel.pp``'s forward ticks, GPipe
     or interleaved as the model's ``pp_interleave`` says, no graph kept)
     over ``n_micro`` microbatches, the head over all of them on the last
     stage: the loss there, 0 elsewhere."""
     _check_pp(group.size, n_micro, model.config.pp_interleave)
-    chunks = _pp_chunks(model, attn_impl, x.shape[1])
-    _, micros, targets, like = _pp_feed(model, x, y, group, n_micro)
+    chunks = _pp_chunks(model, attn_impl, x.shape[1], seq_group=seq_group)
+    _, micros, targets, like = _pp_feed(model, x, y, group, n_micro, seq_group)
     _, outputs = _forward_ticks(chunks, like, micros, group, len(chunks), False)
     if group.rank != group.size - 1:
         return torch.zeros((), dtype=torch.float32, device=model.device)
@@ -479,15 +516,13 @@ def hybrid_eval_loss(model, mesh: Mesh, attn_impl: str, x, y,
                      n_microbatches: int = 1) -> torch.Tensor:
     """The global mean loss of the batch ``x``/``y`` [batch, seq] with no
     update (the JAX example's eval: ``pmean`` of ``hybrid_loss_fn`` over the
-    batch and sequence axes): every rank's loss over its rows (dp × fsdp)
-    or its sequence shard (cp), averaged over those groups. With fsdp the
+    batch and sequence axes): every rank's loss over its sequence shard
+    (sp or cp) of its rows (dp × fsdp), averaged over those groups. With fsdp the
     weights are the gathered ZeRO-3 shards (:func:`gather_fsdp`), released
     again after the forward; with pp the loss is the pipelined forward over
     ``n_microbatches`` microbatches (:func:`_pp_eval_loss`), summed over the
     stages (the JAX masked-head psum). Returns a device scalar, identical on
     every rank."""
-    if attn_impl == "ring" and mesh.shape.get("cp", 1) == 1:
-        attn_impl = "xla"  # the XLA ring on an unsharded sequence is plain attention
     seq_group, dp_group = _seq_group(mesh), mesh.group("dp")
     pp_group, fsdp_group = mesh.group("pp"), mesh.group("fsdp")
     x, y = _shard(x, seq_group), _shard(y, seq_group)
@@ -497,7 +532,7 @@ def hybrid_eval_loss(model, mesh: Mesh, attn_impl: str, x, y,
     gather_fsdp(model)
     try:
         if pp_group is not None:
-            loss = _pp_eval_loss(model, x, y, pp_group, n_microbatches, attn_impl)
+            loss = _pp_eval_loss(model, x, y, pp_group, n_microbatches, attn_impl, seq_group)
             loss = all_reduce(loss, pp_group, ReduceOp.SUM, "xla" if loss.is_cpu else "ring")
         else:
             loss = hybrid_loss_fn(model, attn_impl, seq_group)(x, y).float()

@@ -11,10 +11,12 @@ exactly the shard JAX device r holds), and gives each sized axis a
 :class:`~dsml_tpu_torch.parallel.peer.RingGroup` over the ranks that differ
 only in that axis' coordinate, in coordinate order.
 
-Served: pp, dp, fsdp and tp and their compositions, and cp alone (the
-context-parallel ring). A plan of ``parallel.auto.plan_mesh`` is a spec
-like any other (``build_mesh(plan.spec, ...)``). ``sp`` and cp composed with another sized axis
-raise and name the ROADMAP item that brings them. gloo carries the control
+Served: every axis and every composition the JAX package serves — pp, dp,
+fsdp, one sequence axis (``sp``, the XLA ring's, or ``cp``, the flash
+ring's; :meth:`MeshSpec.seq_axis`) and tp. sp and cp both sized raise the
+JAX ``ValueError``: a 2D sequence grid rides tp × sp
+(``ops.attention.attention_2d``). A plan of ``parallel.auto.plan_mesh`` is
+a spec like any other (``build_mesh(plan.spec, ...)``). gloo carries the control
 messages (and the ``"xla"`` syncs); the rings' CUDA payloads go through each
 ring's own CUDA IPC transport (``parallel/peer.py``), one notice board and
 one set of slots per group. An NCCL route waits for a host with several
@@ -39,7 +41,6 @@ __all__ = ["AXES", "Mesh", "MeshSpec", "axis_group_ranks", "build_mesh", "data_m
            "rank_coords"]
 
 AXES = ("pp", "dp", "fsdp", "sp", "cp", "tp")
-_NOT_PORTED = "comes with a later slice of the port (ROADMAP.md queue 1, item {})"
 
 
 @dataclasses.dataclass
@@ -78,6 +79,10 @@ class MeshSpec(Config):
 
     def sizes_dict(self) -> dict:
         return {a: getattr(self, a) for a in AXES}
+
+    @property
+    def n_devices(self) -> int:
+        return math.prod(self.sizes_dict().values())
 
 
 def rank_coords(spec: MeshSpec, rank: int) -> dict:
@@ -151,15 +156,10 @@ def build_mesh(spec: MeshSpec, rank: int, world_size: int, init_file: str,
     card, on ``cuda:{rank % device_count}``: ranks share a card when there
     are fewer cards than ranks); a CUDA device becomes the process's
     current device. A rank that waits longer than ``TIMEOUT_S`` on another
-    raises instead of hanging."""
+    raises instead of hanging. sp and cp both sized raise ``ValueError``
+    before any group is joined."""
     spec = spec.resolved(world_size)
     spec.seq_axis()
-    if spec.sp > 1:
-        raise NotImplementedError(f"mesh axis sp={spec.sp} " + _NOT_PORTED.format(12))
-    for axis in ("pp", "dp", "fsdp", "tp"):
-        if spec.cp > 1 and getattr(spec, axis) > 1:
-            raise NotImplementedError(f"mesh axis {axis}={getattr(spec, axis)} composed with "
-                                      f"cp={spec.cp} " + _NOT_PORTED.format(12))
     dev = resolve_device(device)
     if dev.type == "cuda":
         if dev.index is None:

@@ -283,14 +283,22 @@ def test_trainer_measure_act_claims_and_records(monkeypatch, tmp_path):
             pkg.disable()
 
 
-def test_build_mesh_of_an_sp_plan_raises_the_long_context_error(tmp_path):
-    """A plan may carry sp > 1 (the JAX package's plan, all the same);
-    building it raises until the long-context slice (ROADMAP.md queue 1,
-    item 12)."""
+def test_build_mesh_of_an_sp_plan_raises_the_long_context_error(devices8):
+    """A plan may carry sp > 1 (the JAX package's plan), and since the
+    long-context slice its spec builds (it raised before): rank r takes the
+    coordinates ``jax.devices()[r]`` takes in the JAX mesh of the JAX
+    plan's spec, and the sp group is the whole ring in rank order."""
+    from dsml_tpu.parallel.mesh import build_mesh as jax_build_mesh
+
+    from dsml_tpu_torch.parallel.mesh import AXES, axis_group_ranks, rank_coords
+
     plan, want = _plans("sp_measured")
     assert plan.spec.sp == want.spec.sp == 8
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_mesh(plan.spec, 0, 8, str(tmp_path / "rendezvous"), "cpu")
+    ids = np.vectorize(lambda d: devices8.index(d))(jax_build_mesh(want.spec, devices8).devices)
+    spec = plan.spec.resolved(8)
+    for rank in range(8):
+        assert rank_coords(spec, rank) == dict(zip(AXES, map(int, np.argwhere(ids == rank)[0])))
+    assert axis_group_ranks(spec, "sp") == [list(range(8))]
 
 
 # ---------------------------------------------------------------------------

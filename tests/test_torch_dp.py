@@ -26,7 +26,7 @@ from dsml_tpu_torch.ops.collectives import ReduceOp
 from dsml_tpu_torch.parallel import bucketing as B
 from dsml_tpu_torch.parallel import hybrid as thybrid
 from dsml_tpu_torch.parallel.dp import make_dp_train_step
-from dsml_tpu_torch.parallel.mesh import Mesh, MeshSpec, build_mesh, data_mesh
+from dsml_tpu_torch.parallel.mesh import Mesh, MeshSpec, axis_group_ranks, build_mesh, data_mesh
 from dsml_tpu_torch.parallel.peer import RingGroup
 from dsml_tpu_torch.trainer import TrainConfig, Trainer
 from dsml_tpu_torch.utils import data as tdata
@@ -539,12 +539,18 @@ def test_error_feedback_dp_cp_and_bad_options_raise(tmp_path):
     # dp > 1 without a mesh says how to launch the ranks
     with pytest.raises(ValueError, match="data_mesh"):
         Trainer(model, TrainConfig(epochs=1, batch_size=8, dp=2)).train(data)
-    # dp composed with cp: the long-context slice's item, before any group is joined
-    with pytest.raises(NotImplementedError, match="dp=2 composed with cp=2 .*item 12"):
-        build_mesh(MeshSpec(dp=2, cp=2), 0, 4, str(tmp_path / "rendezvous"), "cpu")
+    # dp composed with cp is ported (it raised until the long-context slice;
+    # tests/test_torch_hybrid_sp.py trains on it): the cp rings are the rank
+    # pairs of one dp replica, the dp groups their mirror; train_gpt2 takes
+    # the flags. sp with cp stays the JAX ValueError, before any group is joined
+    spec = MeshSpec(dp=2, cp=2).resolved(4)
+    assert axis_group_ranks(spec, "cp") == [[0, 1], [2, 3]]
+    assert axis_group_ranks(spec, "dp") == [[0, 2], [1, 3]]
+    train_gpt2._check_supported(train_gpt2.GPT2TrainConfig.parse_args(
+        ["--device", "cpu", "--steps", "1", "--dp", "2", "--cp", "2"]))
+    with pytest.raises(ValueError, match="ONE sequence"):
+        build_mesh(MeshSpec(sp=2, cp=2), 0, 4, str(tmp_path / "rendezvous"), "cpu")
     assert not dist.is_initialized()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_gpt2.main(["--device", "cpu", "--steps", "1", "--dp", "2", "--cp", "2"])
     # an explicit dp_sync needs a dp-only mesh, as in the JAX package
     cp_mesh = Mesh(MeshSpec(dp=1, cp=2).resolved(2), 0, torch.device("cpu"), {})
     with pytest.raises(ValueError, match="dp-only mesh"):

@@ -111,9 +111,17 @@ def test_apply_logits_match(pair, attn_impl):
 
 
 def test_apply_rejects_unported_attention(pair):
-    *_, tmodel = pair
-    with pytest.raises(NotImplementedError, match="long-context"):
-        tmodel.apply(torch.zeros(1, 4, dtype=torch.long), attn_impl="ring")
+    """The sequence-parallel impls are ported (``"ring"`` raised before the
+    long-context slice): on an unsharded sequence the XLA ring and Ulysses
+    are plain attention, and the logits match the JAX ``apply_spmd`` with
+    the same impl, which routes them alike."""
+    jmodel, jparams, tmodel = pair
+    toks = _tokens((2, 24), 512, seed=4)
+    for impl in ("ring", "ulysses"):
+        want = jmodel.apply_spmd(jparams, jnp.asarray(toks), attn_impl=impl)
+        with torch.no_grad():
+            got = tmodel.apply(torch.from_numpy(toks).long(), attn_impl=impl)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_prefill_logits_and_cache_match(pair):

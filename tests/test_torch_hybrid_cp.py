@@ -198,13 +198,28 @@ def test_default_attn_impl_matches_jax(devices8):
     (MeshSpec(dp=2, cp=2), 4, "dp"), (MeshSpec(tp=2, cp=2), 4, "tp"),
     (MeshSpec(pp=2, cp=2), 4, "pp"), (MeshSpec(fsdp=2, cp=2), 4, "fsdp"), (MeshSpec(sp=2), 2, "sp"),
 ])
-def test_build_mesh_raises_for_unported_axes(spec, world, axis, tmp_path):
-    """pp, dp, fsdp and tp compose, and cp runs alone: sp, and cp composed
-    with any other sized axis, raise (naming ROADMAP item 12) before any
-    process group is joined."""
-    with pytest.raises(NotImplementedError, match=f"mesh axis {axis}=2 .*ROADMAP.md queue 1"):
-        build_mesh(spec, 0, world, str(tmp_path / "rendezvous"), "cpu")
-    assert not dist.is_initialized()
+def test_build_mesh_raises_for_unported_axes(spec, world, axis, devices8):
+    """sp, and cp composed with pp, dp, fsdp or tp, are ported (they raised
+    until the long-context slice; the spawned meshes of
+    ``tests/test_torch_hybrid_sp.py`` train on them): rank r takes the
+    coordinates of ``jax.devices()[r]`` in the JAX mesh of the same spec,
+    and each axis group holds the ranks of that axis' device rows, in ring
+    order. No process group is joined."""
+    from dsml_tpu.parallel.mesh import MeshSpec as JaxMeshSpec
+    from dsml_tpu.parallel.mesh import build_mesh as jax_build_mesh
+
+    from dsml_tpu_torch.parallel.mesh import AXES, axis_group_ranks, rank_coords
+
+    jmesh = jax_build_mesh(JaxMeshSpec(**spec.sizes_dict()), devices8[:world])
+    ids = np.vectorize(lambda d: devices8.index(d))(jmesh.devices)
+    resolved = spec.resolved(world)
+    for rank in range(world):
+        at = np.argwhere(ids == rank)[0]
+        assert rank_coords(resolved, rank) == dict(zip(AXES, map(int, at)))
+    for a in (a for a in AXES if getattr(resolved, a) > 1):
+        rows = np.moveaxis(ids, AXES.index(a), -1).reshape(-1, getattr(resolved, a))
+        assert axis_group_ranks(resolved, a) == sorted(row.tolist() for row in rows), a
+    assert getattr(resolved, axis) == 2 and not dist.is_initialized()
 
 
 def test_mesh_spec_matches_jax():
@@ -233,15 +248,23 @@ def test_hybrid_step_raises_for_unported_options():
 
 def test_gpt2_ring2_without_a_ring_is_flash():
     """``attn_impl="ring2"`` with no sequence group (or a group of one) is
-    single-device flash, as the JAX ``_route_attention``; the other
-    sequence-parallel impls raise, naming ROADMAP item 12."""
+    single-device flash, as the JAX ``_route_attention``; so are
+    ``"ring_flash"`` and ``"ulysses_flash"``, while the XLA ring and
+    Ulysses are plain attention (they raised before the long-context
+    slice). An unknown impl raises."""
     model = tgpt2.GPT2(tgpt2.GPT2Config.tiny(), device="cpu").init(0)
     tokens = torch.from_numpy(_batch()[0][:2, :96]).long()
+
+    class One:
+        size, rank = 1, 0
+
     with torch.no_grad():
-        assert torch.equal(model.apply(tokens, attn_impl="ring2"),
-                           model.apply(tokens, attn_impl="flash"))
-    for impl in ("ring", "ulysses", "ulysses_flash", "ring_flash"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            model.apply(tokens, attn_impl=impl)
+        flash = model.apply(tokens, attn_impl="flash")
+        plain = model.apply(tokens, attn_impl="xla")
+        assert torch.equal(model.apply(tokens, attn_impl="ring2"), flash)
+        for impl, want in (("ring_flash", flash), ("ulysses_flash", flash), ("ring", plain),
+                           ("ulysses", plain)):
+            for group in (None, One()):
+                assert torch.equal(model.apply(tokens, attn_impl=impl, sp_group=group), want), impl
     with pytest.raises(ValueError, match="unknown attn_impl"):
         model.apply(tokens, attn_impl="bogus")

@@ -110,12 +110,21 @@ def test_config_presets_match_and_unported_options_raise():
         tllama.Llama(dataclasses.replace(tllama.LlamaConfig.tiny(), kv_quant="int2"), device="cpu")
     model = tllama.Llama(tllama.LlamaConfig.tiny(), device="cpu").init(0)
 
-    class TwoRanks:
-        size, rank = 2, 0
+    class OneRank:
+        size, rank = 1, 0
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        model.loss(torch.zeros(1, 4, dtype=torch.long), torch.zeros(1, 4, dtype=torch.long),
-                   attn_impl="ring2", sp_group=TwoRanks())
+    # Llama under a sequence group is ported (it raised before the
+    # long-context slice; tests/test_torch_hybrid_sp.py trains it at cp = 2
+    # and sp = 2): a group of one is no group, and the rotary tables of a
+    # shard at offset 4 are rows 4.. of the whole sequence's (the global
+    # positions a rank's shard rotates by)
+    x = torch.arange(8, dtype=torch.long)[None] % 512
+    with torch.no_grad():
+        assert torch.equal(model.loss(x, x, attn_impl="ring2", sp_group=OneRank()),
+                           model.loss(x, x, attn_impl="flash"))
+    whole, shard = model._rotary(0, 8), model._rotary(4, 4)
+    for w, t in zip(whole, shard):
+        assert torch.equal(w[..., 4:8, :], t)
 
 
 def test_model_by_family_builds_llama():

@@ -386,17 +386,30 @@ def test_train_gpt2_cli_runs_and_logs():
     assert len(steps) == 3 and "loss = " in steps[-1] and steps[-1].endswith("tokens/s")
 
 
-@pytest.mark.parametrize("flag", [
-    # --pp and --tp are ported, with their checkpoints: what stays unported
-    # with them is cp composed with either
+# the long-context flags: ported with the long-context slice (they raised
+# before it; tests/test_torch_hybrid_sp.py trains on such meshes)
+LONG_CONTEXT_FLAGS = [
     ["--pp", "2", "--cp", "2"], ["--tp", "2", "--cp", "2"], ["--sp", "2"], ["--cp", "2", "--attn", "flash"], ["--dp", "2", "--cp", "2"],
     ["--family", "llama", "--cp", "2"],
+]
+
+
+@pytest.mark.parametrize("flag", LONG_CONTEXT_FLAGS + [
     ["--tokenizer", "bpe"], ["--data", "prose"],
     ["--profile_dir", "prof"], ["--optimizer", "adafactor"],
 ])
 def test_train_gpt2_cli_raises_for_unported_flags(flag):
+    """What stays unported raises NotImplementedError; the long-context
+    flags pass the check, and ``--sp`` with ``--cp`` refuses two sequence
+    rings."""
+    args = ["--device", "cpu", "--steps", "1", *flag]
+    if flag in LONG_CONTEXT_FLAGS:
+        train_gpt2._check_supported(train_gpt2.GPT2TrainConfig.parse_args(args))
+        with pytest.raises(SystemExit, match="ONE sequence ring"):
+            train_gpt2.main(args + ["--sp", "2", "--cp", "2"])
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_gpt2.main(["--device", "cpu", "--steps", "1", *flag])
+        train_gpt2.main(args)
 
 
 def test_train_gpt2_cli_checkpoint_dir_restores(tmp_path):
