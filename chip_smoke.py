@@ -19,7 +19,13 @@ before the path and read just after):
   two FMA backward kernels (f32);
 - continuous serving: ``ContinuousBatcher(paged_kv="int4")`` on 48
   requests through both paged-attention kernels;
-- quantized-weight serving: the same 48 requests with
+- the serving fleet: ``build_fleet`` with 2 ``PrefillWorker``s and 2
+  decode batchers of 8 slots behind the SLO router (int4 pages, the KV
+  handoff in process and through the CRC32C codec, a registered prefix
+  shared by the decode side), 20 requests under two SLO classes with
+  obs on, then 4 at f32 with a prefill worker killed mid-prefill: the
+  prefill chunks and the decode ticks through the paged kernels;
+- quantized-weight serving: the first 24 of those requests with
   ``weight_quant="int4"``, every projection through the dequant-fused
   matmul kernel (qmm), and a 16-request int8 drain;
 - compressed-remat training: the train step with ``remat="int8"``, each
@@ -116,7 +122,18 @@ defines per element, its IEEE division read from its SASS); slice and
 trace (the generate run, its launches, logits and greedy tokens against the
 plain path, device-busy time); cli
 (``generate_text``); train and its trace; train_cli (``train_gpt2`` and the
-MNIST ``Trainer``); paged_slice; wq_slice (qmm launches = 48 per chunk or
+MNIST ``Trainer``); paged_slice; fleet (run alone, it runs paged_slice
+first: every request complete, every pool back to all but the scratch
+and registry pages, kernel 6 launched 12 times a chunk on the prefill
+workers and a tick on the decode workers, kernel 5 the same in the f32
+run, the prefix requests' handoffs with 256 shared rows and only their
+suffix grid's pages, two of them through the codec byte for byte with
+its MB/s, one request's trace chain, tokens/s, TTFT and e2e by class,
+the decode gaps, handoff bytes against dense f32 rows,
+``router.slo.report()``; f32 tokens against paged_slice's f32 drain under
+the margin rule after a prefill-worker kill; kernels 5 and 6 at the 8-
+and 4-slot decode shapes against their plain versions, with CUDA-event
+times); wq_slice (qmm launches = 48 per chunk or
 tick, tokens/s, TTFT, tick ms and idle share, the twin's bytes, f32 int4
 greedy tokens against a dense model holding the same codes dequantized);
 serve_cli (``serve_continuous``, also with ``DSML_WEIGHT_QUANT=int4``);
@@ -186,8 +203,8 @@ processes; obs_disabled_overhead_pct of a tick and a step); checkpoint
 beside the card; the restored state bit for bit with the in-memory copy,
 the continued run within the copy's run-to-run gap, the tokens served
 from the checkpoint through both paged kernels equal to the in-memory
-weights', the dp = 2 q8_ring + EF resume bit-identical with each rank
-writing only its own residual rows); model_parallel (per tp rank: 22
+weights', the dp = 2 q8_ring + EF resume (in dp_slice's spawn)
+bit-identical with each rank writing only its own residual rows); model_parallel (per tp rank: 22
 launches of kernels 1–3 a step, the step-0 loss against the single-device
 step's, f32 gradients of a 2-layer model at TinyLlama's width within
 TOL_TRAIN_GRADS of the single-device plain path's, identical replicated
@@ -236,6 +253,7 @@ ms, decode ms a step, tokens/s, the 16-request drain's tokens/s, TTFT and
 median tick, a steady tick's wall and device-busy ms with its collectives,
 their bytes and ms alone, peak memory and IPC slot bytes a rank);
 kernels (one line for the run; kernel 8's entry counts its three paths,
+kernels 5 and 6 their fleet path,
 kernels 1–3, 5 and 6 their Llama, checkpoint, model-parallel and MoE
 paths too; kernels 1, 5 and 6 their tp_serve path; kernels 1–3 the
 resumed pp × tp step and the pp eval, ``mp_resume_eval``; kernels 1–3
@@ -243,6 +261,11 @@ the sp = 2 impls (``sp_impls``) and, with kernel 4, the long-context
 program's ``cp_tp_llama``, ``cp_dp`` and ``attention_2d``).
 
 Every phase line carries ``t_s``, its seconds since the script started.
+In the full run two spawns of two ranks carry every two-rank program, one
+after another in the same processes: cp_slice's, the two all-reduce
+phases', dp_slice's, the checkpoint phase's dp = 2 resume and the obs
+phase's dp = 2 q8 program in one; the model-parallel tp, tp_serve, pp and
+fsdp programs in the other. A phase run alone spawns its own ranks.
 
 Float32 matmuls stay in full f32 (TF32 off, PyTorch's default, set here
 explicitly): the f32 phases compare two paths at f32 tolerances.
@@ -467,18 +490,32 @@ PAGED_MANGLED = re.compile(r"(paged_attn(?:_pipelined)?_kernel)I(f|13__nv_bfloat
                            r"Li(\d+)ELi(\d)ELi(\d+)E")
 
 
-def paged_sass(tool, build, report):
+def sass_dumps(tool, build, libs) -> dict:
+    """``cuobjdump -sass`` of each library in ``libs``, all at once (one
+    process each): {lib: its SASS text}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def dump(lib):
+        return subprocess.run([tool, "-sass", str(build._target(lib))], capture_output=True,
+                              text=True, check=False)
+
+    with ThreadPoolExecutor(len(libs)) as pool:
+        results = dict(zip(libs, pool.map(dump, libs)))
+    for lib, res in results.items():
+        check(res.returncode == 0, f"cuobjdump -sass {lib} failed ({res.returncode}): "
+                                   f"{res.stderr[-2000:]}")
+    return {lib: res.stdout for lib, res in results.items()}
+
+
+def paged_sass(sass, report):
     """Both paged kernels in every instantiation: HMMA instructions in the
     tensor-core regime's (bf16 q, 64-row tiles), none in the register
-    regime's, and no spills in any. Returns ({label: {hmma, registers,
-    spills}} of each, [the faults found])."""
-    res = subprocess.run([tool, "-sass", str(build._target("paged_attn"))], capture_output=True,
-                         text=True, check=False)
-    check(res.returncode == 0, f"cuobjdump -sass paged_attn failed ({res.returncode}): "
-                               f"{res.stderr[-2000:]}")
+    regime's, and no spills in any. ``sass`` is the library's SASS text.
+    Returns ({label: {hmma, registers, spills}} of each, [the faults
+    found])."""
     ptxas = ptxas_report(report)
     out, faults = {}, []
-    for chunk in res.stdout.split("Function : ")[1:]:
+    for chunk in sass.split("Function : ")[1:]:
         name, body = chunk.split("\n", 1)
         m = PAGED_MANGLED.search(name)
         if not m:
@@ -508,17 +545,14 @@ def paged_sass(tool, build, report):
 QMM_MANGLED = re.compile(r"qmm_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)E")
 
 
-def qmm_sass(tool, build, report):
+def qmm_sass(sass, report):
     """qmm in every instantiation: HMMA instructions in the bf16-x ones (the
     decode and chunk regimes, both codecs), none in the f32-x FMA body's,
-    and no spills in any. Returns ({label: {hmma, registers, spills}},
-    [the faults found])."""
-    res = subprocess.run([tool, "-sass", str(build._target("qmm"))], capture_output=True, text=True,
-                         check=False)
-    check(res.returncode == 0, f"cuobjdump -sass qmm failed ({res.returncode}): {res.stderr[-2000:]}")
+    and no spills in any. ``sass`` is the library's SASS text. Returns
+    ({label: {hmma, registers, spills}}, [the faults found])."""
     ptxas = ptxas_report(report)
     out, faults = {}, []
-    for chunk in res.stdout.split("Function : ")[1:]:
+    for chunk in sass.split("Function : ")[1:]:
         name, body = chunk.split("\n", 1)
         m = QMM_MANGLED.search(name)
         if not m:
@@ -559,13 +593,10 @@ def phase_sass(build, reports):
                                 "of the tensor-core kernels needs it")
     row = {"phase": "sass", "sources": {lib: f"dsml_tpu_torch/ops/csrc/{lib}.cu" for lib in SASS_KERNELS},
            "hmma": {}, "ptxas": {}}
+    sass = sass_dumps(tool, build, [*SASS_KERNELS, "paged_attn", "qmm"])
     for lib, kernels in SASS_KERNELS.items():
-        res = subprocess.run([tool, "-sass", str(build._target(lib))], capture_output=True,
-                             text=True, check=False)
-        check(res.returncode == 0, f"cuobjdump -sass {lib} failed ({res.returncode}): "
-                                   f"{res.stderr[-2000:]}")
         hmma = {name.split()[0]: body.count("HMMA") for name, body in
-                (chunk.split("\n", 1) for chunk in res.stdout.split("Function : ")[1:])}
+                (chunk.split("\n", 1) for chunk in sass[lib].split("Function : ")[1:])}
         ptxas = ptxas_report(reports[lib])
         for label, prefix, tensor_cores in kernels:
             for d in (64, 128):
@@ -579,9 +610,9 @@ def phase_sass(build, reports):
                 check(len(props) == 1, f"{key}: no single -Xptxas -v entry: {sorted(ptxas)}")
                 row["ptxas"][key] = props[0]
     row["sources"]["paged_attn"] = PAGED_SOURCE
-    row["paged_attn"], paged_faults = paged_sass(tool, build, reports["paged_attn"])
+    row["paged_attn"], paged_faults = paged_sass(sass["paged_attn"], reports["paged_attn"])
     row["sources"]["qmm"] = QMM_SOURCE
-    row["qmm"], qmm_faults = qmm_sass(tool, build, reports["qmm"])
+    row["qmm"], qmm_faults = qmm_sass(sass["qmm"], reports["qmm"])
     emit(row)
     check(not paged_faults + qmm_faults, "; ".join(paged_faults + qmm_faults))
     for kernels in SASS_KERNELS.values():
@@ -1527,7 +1558,307 @@ def phase_paged_slice(dev, card):
           "card": card})
     check(mismatches == 0, f"f32 fp pages: {mismatches} requests diverge from the gather path "
                            "beyond the margin rule")
-    return counts, counts_single
+    # the fleet phase serves the same requests and holds its tokens to these
+    return counts, counts_single, {"prompts": prompts, "budgets": budgets, "bf16_tokens": toks,
+                                   "f32_tokens": runs["pallas"]}
+
+
+# ---- the serving fleet: prefill workers, the KV handoff, decode workers ----------
+
+FLEET_PREFILL, FLEET_DECODE, FLEET_SLOTS = 2, 2, 8  # 16 decode slots in all, as in paged_slice
+FLEET_REQUESTS = 16  # the first 16 of the paged row's 48
+FLEET_PREFIX, FLEET_PREFIX_REQUESTS = 256, 4  # a registered 256-token prefix + 64-256 suffix tokens
+FLEET_F32_REQUESTS, FLEET_F32_SLOTS = 4, 4
+FLEET_CODEC_HANDOFFS = 2
+FLEET_TPOT_MS, FLEET_E2E_MS = 100.0, 15000.0  # the interactive class's budgets
+
+
+def count_launches_by_role(workers, role, tpa, by_role):
+    """Wrap each worker's ``step`` so the paged kernels' launches inside it
+    add to ``by_role[role]`` ([single-buffer, pipelined])."""
+    for w in workers:
+        def step(inner=w.step):
+            a, b = tpa.paged_attn_launches, tpa.paged_attn_pipelined_launches
+            out = inner()
+            by_role[role][0] += tpa.paged_attn_launches - a
+            by_role[role][1] += tpa.paged_attn_pipelined_launches - b
+            return out
+
+        w.step = step
+
+
+def phase_fleet(dev, card, paged):
+    """GPT-2-small bf16 served disaggregated: ``build_fleet`` with 2
+    PrefillWorkers (256-token chunks into int4 pages, kernel 6) and 2
+    decode batchers of 8 slots (int4 pages, kernel 6) behind the SLO
+    router, obs on. The first 16 of the paged row's requests and 4 made of
+    a registered 256-token prefix plus 64-256 suffix tokens, submitted at
+    once under two classes (interactive with TPOT and e2e budgets, batch).
+    Checks: every request completes its budget; every pool is back to all
+    its pages free but the scratch page and the registry's; kernel 6
+    launched n_layer times a dispatch on each role (chunks on the prefill
+    workers, ticks on the decode workers), kernel 5 never; the prefix
+    requests hand off with prefix_rows = 256 and only their suffix's pages
+    (its chunk grid's, as the JAX worker ships them);
+    2 of those handoffs through the CRC32C codec come back byte for byte
+    (and serve from the decoded copy); one request's trace holds its
+    prefill, handoff and decode events. Then 4 requests at f32 over fp
+    pages through the single-buffer kernel (kernel 5), a prefill worker
+    killed while one of them is mid-prefill: their greedy tokens against
+    paged_slice's monolithic f32 drain under the margin rule. Last, both
+    kernels at the decode ticks' shapes (:func:`fleet_kernel_time`).
+    Returns the kernels' launches on the fleet path and their largest
+    error there."""
+    from dsml_tpu_torch import obs
+    from dsml_tpu_torch.models.gpt2 import GPT2Config
+    from dsml_tpu_torch.obs.cluster import snapshot, stitch_traces, trace_summary
+    from dsml_tpu_torch.ops import paged_attention as tpa
+    from dsml_tpu_torch.serving import SLOClass, build_fleet, decode_handoff, encode_handoff
+    from dsml_tpu_torch.serving.paging import pages_for
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16")
+    hd = cfg.d_model // cfg.n_head
+    model = gpt2_small(cfg, dev)
+    prompts = paged["prompts"][:FLEET_REQUESTS]
+    budgets = [int(n) for n in paged["budgets"][:FLEET_REQUESTS]]
+    rng = np.random.default_rng(20)
+    prefix = rng.integers(0, cfg.vocab_size, FLEET_PREFIX).astype(np.int64)
+    pre_prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, int(n))])
+                   for n in rng.integers(64, 257, FLEET_PREFIX_REQUESTS)]
+    pre_budgets = [int(n) for n in rng.integers(16, 129, FLEET_PREFIX_REQUESTS)]
+    classes = [SLOClass("interactive", tpot_budget_ms=FLEET_TPOT_MS, e2e_budget_ms=FLEET_E2E_MS,
+                        objective=0.9),
+               SLOClass("batch", priority=1)]
+    handoffs, codec = {}, []
+
+    def transport(h):
+        """In process (the rows stay on the card), but for the first
+        prefix handoffs: those go through the codec and serve decoded."""
+        shipped = sum(t.numel() * t.element_size() for layer in h.cache1 for t in layer.values())
+        handoffs[h.frid] = {"prefill_len": h.prefill_len, "prefix_rows": h.prefix_rows,
+                            "pages": int(h.cache1[0]["k"].shape[0]), "bytes": shipped,
+                            "dense_f32_bytes": cfg.n_layer * 2 * cfg.n_head * h.prefill_len * hd * 4}
+        if not h.prefix_rows or len(codec) >= FLEET_CODEC_HANDOFFS:
+            return h
+        t0 = time.perf_counter()
+        frame = encode_handoff(h)
+        t1 = time.perf_counter()
+        back = decode_handoff(frame)
+        t2 = time.perf_counter()
+        same = torch.equal(back.logits, h.logits.float().cpu()) and all(
+            torch.equal(back.cache1[i][k], v.cpu()) for i, layer in enumerate(h.cache1)
+            for k, v in layer.items())
+        n = len(frame["payload"])
+        codec.append({"frid": h.frid, "payload_bytes": n, "frames": len(frame["chunk_crcs"]),
+                      "encode_s": t1 - t0, "decode_s": t2 - t1,
+                      "encode_mb_per_s": n / (t1 - t0) / 1e6, "decode_mb_per_s": n / (t2 - t1) / 1e6,
+                      "byte_for_byte": same})
+        return back
+
+    obs.disable()
+    obs.get_registry().reset()
+    obs.get_tracer().reset()
+    obs.enable(forensics=False)
+    try:
+        router = build_fleet(model, n_prefill=FLEET_PREFILL, n_decode=FLEET_DECODE,
+                             prefill_chunk=PAGED_CHUNK, paged_kv="int4", page_size=PAGE,
+                             n_slots=FLEET_SLOTS, slo_classes=classes, transport=transport)
+        prefill_workers, decode_workers = list(router.prefill_workers), list(router.decode_workers)
+        for p, n in zip(prompts[:4], [8] * 4):  # warm-up: cuBLAS at these batches, the allocator
+            router.submit(p, n, slo="batch")
+        router.run()
+        router.reset_latency_stats()
+        router.reset_request_records()
+        router.slo.reset()
+        handoffs.clear()
+        router.register_prefix(prefix)  # blocking: every prefill and decode worker
+        obs.get_tracer().reset()
+
+        # the main path, counted by role
+        by_role = {"prefill": [0, 0], "decode": [0, 0]}
+        count_launches_by_role(prefill_workers, "prefill", tpa, by_role)
+        count_launches_by_role(decode_workers, "decode", tpa, by_role)
+        chunks0 = [pw.n_chunk_dispatches for pw in prefill_workers]
+        ticks0 = [dw.n_plain_ticks for dw in decode_workers]
+        requests = ([(p, n, "interactive" if i < FLEET_REQUESTS // 2 else "batch")
+                     for i, (p, n) in enumerate(zip(prompts, budgets))]
+                    + [(p, n, "interactive") for p, n in zip(pre_prompts, pre_budgets)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frids = [router.submit(p, n, slo=c) for p, n, c in requests]
+        out = router.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        chunks = [pw.n_chunk_dispatches - c for pw, c in zip(prefill_workers, chunks0)]
+        ticks = [dw.n_plain_ticks - t for dw, t in zip(decode_workers, ticks0)]
+        records = {f: router.request_records[f] for f in frids}
+        gaps = router.decode_gaps()
+        slo_report = router.slo.report()
+        pre_frids = frids[FLEET_REQUESTS:]
+        chain_tid = records[pre_frids[0]]["trace_id"]
+        summary = trace_summary(stitch_traces([snapshot(role="fleet")]))
+        chain = summary.get(chain_tid, {})
+        chain_events = [(e["name"], e["ph"]) for e in obs.get_tracer().chrome_trace()["traceEvents"]
+                        if (e.get("args") or {}).get("trace_id") == chain_tid]
+    finally:
+        obs.disable()
+        obs.get_registry().reset()
+        obs.get_tracer().reset()
+        obs.get_flight_recorder().clear()
+        obs.get_memory_ledger().clear()
+    toks = [out[f] for f in frids]
+    new_tokens = sum(len(t) for t in toks)
+    check(all(len(t) == n for t, (_, n, _) in zip(toks, requests)),
+          "the fleet: a request did not complete its budget")
+    pools = [(w.obs_role, w._pages.free_pages, w.n_pages, w._registry_pages)
+             for w in prefill_workers + decode_workers]
+    check(all(free == n_pages - 1 - held for _, free, n_pages, held in pools),
+          f"the fleet's pools after the drain (role, free, pages, registry pages): {pools}")
+    check(by_role["prefill"] == [0, cfg.n_layer * sum(chunks)]
+          and by_role["decode"] == [0, cfg.n_layer * sum(ticks)],
+          f"the fleet launched [kernel 5, kernel 6] {by_role}, expected {cfg.n_layer} x "
+          f"{sum(chunks)} chunks and {sum(ticks)} ticks on kernel 6")
+    # a handoff ships its chunk grid's pages (the JAX worker's payload): a
+    # prefix request's are those past the prefix, the suffix's grid
+    pre_rows = [handoffs[f] for f in pre_frids]
+    for h in pre_rows:
+        grid = FLEET_PREFIX + -(-(h["prefill_len"] - FLEET_PREFIX) // PAGED_CHUNK) * PAGED_CHUNK
+        h["suffix_grid_pages"] = pages_for(grid, PAGE) - FLEET_PREFIX // PAGE
+    check(all(h["prefix_rows"] == FLEET_PREFIX and h["pages"] == h["suffix_grid_pages"]
+              for h in pre_rows),
+          f"the prefix requests' handoffs (prefix rows, pages shipped): {pre_rows}")
+    check(len(codec) == FLEET_CODEC_HANDOFFS and all(c["byte_for_byte"] for c in codec),
+          f"the codec's round trips: {codec}")
+    check({"router_submit", "prefill_chunk", "serving_first_token"} <= set(chain.get("names", []))
+          and chain.get("flow", {}).get("s") == 1 and chain["flow"].get("t", 0) >= 2
+          and chain["flow"].get("f") == 1,
+          f"request trace {chain_tid}: {chain}")
+
+    def pct(vals, q):
+        return float(np.percentile(np.asarray(vals), q)) if vals else None
+
+    by_class = {}
+    for c in ("interactive", "batch"):
+        rows = [records[f] for f, (_, _, cls) in zip(frids, requests) if cls == c]
+        by_class[c] = {"requests": len(rows),
+                       "ttft_p50_s": pct([r["ttft_s"] for r in rows], 50),
+                       "ttft_p99_s": pct([r["ttft_s"] for r in rows], 99),
+                       "e2e_p50_s": pct([r["e2e_s"] for r in rows], 50),
+                       "e2e_p99_s": pct([r["e2e_s"] for r in rows], 99)}
+    same16 = sum(a == b for a, b in zip(toks[:FLEET_REQUESTS], paged["bf16_tokens"]))
+    hand_bytes = [h["bytes"] for h in handoffs.values()]
+    dense_bytes = [h["dense_f32_bytes"] for h in handoffs.values()]
+    bf16_s = time.perf_counter() - t_phase
+    del router, prefill_workers, decode_workers, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32 over fp pages through the single-buffer kernel, a prefill worker
+    # killed mid-prefill: tokens against paged_slice's monolithic f32 drain
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = gpt2_small(cfg32, dev)
+    os.environ["DSML_PAGED_ATTN_PIPELINE"] = "0"
+    try:
+        r32 = build_fleet(model32, n_prefill=FLEET_PREFILL, n_decode=FLEET_DECODE,
+                          prefill_chunk=PAGED_CHUNK, paged_kv="fp", page_size=PAGE,
+                          n_slots=FLEET_F32_SLOTS)
+        pw32, dw32 = list(r32.prefill_workers), list(r32.decode_workers)
+        by_role32 = {"prefill": [0, 0], "decode": [0, 0]}
+        count_launches_by_role(pw32, "prefill", tpa, by_role32)
+        count_launches_by_role(dw32, "decode", tpa, by_role32)
+        sub = slice(0, FLEET_F32_REQUESTS)
+        frids32 = [r32.submit(p, n) for p, n in zip(prompts[sub], budgets[sub])]
+        killed = None
+        for _ in range(64):
+            r32.tick()
+            mid = [i for i, pw in enumerate(r32.prefill_workers)
+                   if pw._pending is not None and pw._pending[2] > 0]
+            if mid:
+                killed = {"worker": mid[0], "frid": r32.prefill_workers[mid[0]]._pending[0].frid,
+                          "at_row": int(r32.prefill_workers[mid[0]]._pending[2])}
+                killed["requeued"] = r32.kill_prefill_worker(mid[0])
+                break
+        out32 = r32.run()
+    finally:
+        del os.environ["DSML_PAGED_ATTN_PIPELINE"]
+    toks32 = [out32[f] for f in frids32]
+    check(killed is not None and killed["requeued"] >= 1,
+          f"the f32 fleet: no prefill worker was killed mid-prefill ({killed})")
+    check(all(len(t) == n for t, n in zip(toks32, budgets[sub])),
+          "the f32 fleet: a request did not complete its budget")
+    chunks32 = sum(pw.n_chunk_dispatches for pw in pw32)
+    ticks32 = sum(dw.n_plain_ticks for dw in dw32)
+    check(by_role32["prefill"] == [cfg.n_layer * chunks32, 0]
+          and by_role32["decode"] == [cfg.n_layer * ticks32, 0],
+          f"the f32 fleet launched [kernel 5, kernel 6] {by_role32}, expected {cfg.n_layer} x "
+          f"{chunks32} chunks and {ticks32} ticks on kernel 5")
+    near_ties, mismatches = [], 0
+    for i, (a, w) in enumerate(zip(toks32, paged["f32_tokens"][sub])):
+        diff = [j for j, (x, y) in enumerate(zip(a, w)) if x != y]
+        if not diff:
+            continue
+        m = first_divergence_margin(model32, prompts[i], w, diff[0])
+        near_ties.append({"request": i, "step": diff[0], "margin": m})
+        mismatches += m >= MARGIN
+    del r32, model32
+    kernel_err = fleet_kernel_time(dev)
+    emit({"phase": "fleet", "model": "gpt2-small", "dtype": "bfloat16", "paged_kv": "int4",
+          "page_size": PAGE, "prefill_chunk": PAGED_CHUNK, "n_prefill": FLEET_PREFILL,
+          "n_decode": FLEET_DECODE, "n_slots_per_decode": FLEET_SLOTS,
+          "requests": len(requests), "prefix_requests": FLEET_PREFIX_REQUESTS,
+          "new_tokens": new_tokens, "wall_s": wall, "tokens_per_s": new_tokens / wall,
+          "by_class": by_class, "decode_gap_p50_s": pct(gaps, 50), "decode_gap_p99_s": pct(gaps, 99),
+          "chunk_dispatches_per_prefill_worker": chunks, "decode_ticks_per_decode_worker": ticks,
+          "launches_by_role": {r: {"paged_attn": v[0], "paged_attn_pipelined": v[1]}
+                               for r, v in by_role.items()},
+          "handoffs": len(handoffs), "handoff_bytes_mean": float(np.mean(hand_bytes)),
+          "dense_f32_bytes_mean": float(np.mean(dense_bytes)),
+          "handoff_bytes_over_dense_f32": float(np.sum(hand_bytes) / np.sum(dense_bytes)),
+          "prefix_handoffs": pre_rows, "codec": codec, "pools": pools,
+          "slo_report": slo_report, "trace_chain": {"trace_id": chain_tid, **chain,
+                                                    "events": chain_events},
+          "bf16_tokens_equal_paged_slice": f"{same16} of {FLEET_REQUESTS}",
+          "f32_fp_pages": {"requests": FLEET_F32_REQUESTS, "killed": killed,
+                           "tokens_equal": toks32 == paged["f32_tokens"][sub],
+                           "near_ties": near_ties,
+                           "launches_by_role": {r: {"paged_attn": v[0], "paged_attn_pipelined": v[1]}
+                                                for r, v in by_role32.items()}},
+          "bf16_seconds": bf16_s, "phase_seconds": time.perf_counter() - t_phase, "card": card})
+    check(mismatches == 0, f"the f32 fleet: {mismatches} requests diverge from the monolithic "
+                           "batcher beyond the margin rule")
+    return {"paged_attn": by_role32["prefill"][0] + by_role32["decode"][0],
+            "paged_attn_pipelined": by_role["prefill"][1] + by_role["decode"][1]}, kernel_err
+
+
+def fleet_kernel_time(dev):
+    """Kernels 5 and 6 at the fleet's decode ticks, the shapes kernel_paged
+    does not take: 8 slots (bf16 q, int4 pages) and, at f32, 4 slots over
+    fp pages (the prefill workers' 256-row chunks are kernel_paged's chunk
+    shape). Each held to the plain version, then timed with CUDA events
+    around one call (host launch included) beside its bound and the plain
+    version. Returns the largest error."""
+    from dsml_tpu_torch.ops import paged_attention as tpa
+
+    rng = np.random.default_rng(21)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    timing, errs = {}, []
+    for name, b, q_dtype, mode in (("fleet_decode", FLEET_SLOTS, torch.bfloat16, "int4"),
+                                   ("fleet_f32_decode", FLEET_F32_SLOTS, torch.float32, None)):
+        positions = (rng.integers(1, 1024, b) - 1)[:, None]
+        args = paged_case(dev, rng, gen, b, H, H, D, 1024 // PAGE, positions, q_dtype, mode)
+        errs.append(paged_check(dev, tpa, name, args, mode, q_dtype, positions))
+        bound_ms, bound_by = paged_bound_ms(*args)
+        timing[name] = {
+            "shape": [b, H, 1, D], "q": str(q_dtype)[6:], "codec": mode or "fp",
+            **{k: {"ms": cuda_ms(lambda p=p: tpa.paged_attention(*args, mode, pipeline=p)),
+                   "plain_ms": cuda_ms(lambda: tpa._paged_attention_reference(*args, mode)),
+                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+               for k, p in (("paged_attn", False), ("paged_attn_pipelined", True))}}
+    emit({"phase": "kernel_time", "path": "fleet", "kernels": ["paged_attn", "paged_attn_pipelined"],
+          **timing, "note": "CUDA events around one call, host launch included; no PyTorch call "
+                            "reads a page table"})
+    return max(errs)
 
 
 def phase_serve_cli(dev):
@@ -1559,6 +1890,7 @@ QMM_ROWS = {"decode": PAGED_SLOTS, "chunk": PAGED_CHUNK, "ragged": 7, "one": 1, 
 # another order; relative to the largest |output| (the JAX suite's bound
 # for its fused matmul, tests/test_quantization.py)
 TOL_QMM = 1e-5
+WQ_INT4_REQUESTS = 24  # the paged row's first 24 (cut from 48: the run's time)
 WQ_INT8_REQUESTS = 16
 KERNEL_TIMES = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 TRAIN_F32_B = 2
@@ -1914,7 +2246,7 @@ def wq_counts(tq, tpa):
 
 def phase_wq_slice(dev, card):
     """GPT-2-small bf16 through ContinuousBatcher(paged_kv="int4",
-    weight_quant="int4") on the paged slice's 48 requests: launches of qmm
+    weight_quant="int4") on the first 24 of the paged slice's 48 requests: launches of qmm
     (48 per chunk or tick) and of the paged kernel, completion, pages,
     tokens/s, TTFT, tick ms, the idle share of a steady tick and the twin's
     bytes; a 16-request int8 drain; f32 int4 greedy tokens against a dense
@@ -1942,7 +2274,8 @@ def phase_wq_slice(dev, card):
     # the main path, counted
     tq.qmm_launches = tpa.paged_attn_launches = tpa.paged_attn_pipelined_launches = 0
     ticks0, pre0 = srv.n_plain_ticks, srv.n_prefill_dispatches
-    toks, wall, tick_ms = drain(srv, prompts, budgets)
+    drained = slice(0, WQ_INT4_REQUESTS)
+    toks, wall, tick_ms = drain(srv, prompts[drained], budgets[drained])
     counts = wq_counts(tq, tpa)
     n_chunks, n_ticks = srv.n_prefill_dispatches - pre0, srv.n_plain_ticks - ticks0
     dispatches = n_chunks + n_ticks * srv.decode_quantum
@@ -1997,7 +2330,8 @@ def phase_wq_slice(dev, card):
 
     emit({"phase": "wq_slice", "model": "gpt2-small", "dtype": "bfloat16", "weight_quant": "int4",
           "paged_kv": "int4", "page_size": PAGE, "prefill_chunk": PAGED_CHUNK,
-          "n_slots": PAGED_SLOTS, "requests": PAGED_REQUESTS, "prompt_tokens": int(lengths.sum()),
+          "n_slots": PAGED_SLOTS, "requests": WQ_INT4_REQUESTS,
+          "prompt_tokens": int(lengths[drained].sum()),
           "new_tokens": new_tokens, "launches": counts,
           "dispatches": {"prefill_chunks": n_chunks, "decode_ticks": n_ticks},
           "qmm_per_dispatch": counts["qmm"] / dispatches, "wall_s": wall,
@@ -2475,6 +2809,8 @@ def _run_programs(rank, tmp, programs):
         sub = os.path.join(tmp, name)
         os.makedirs(sub, exist_ok=True)
         fn(rank, sub, *args)
+        gc.collect()
+        torch.cuda.empty_cache()  # the next program starts from the card's memory, not this cache
 
 
 def cp_rank(rank, tmp):
@@ -2658,6 +2994,7 @@ def cp_rank_run(rank, tmp, res, stage):
     stage("close")
     mesh.close()
     dist.destroy_process_group()
+    os.environ.pop("DSML_RING_FUSED", None)  # later programs of a shared spawn route as set
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
 
@@ -2705,7 +3042,7 @@ def sp_impl_steps(rank, tmp, stage, x_all, y_all, cfg):
 SP_FLASH_CALLS = {"ring": 0, "ulysses": 0, "ulysses_flash": 1, "ring_flash": 2}
 
 
-def phase_cp_slice(card):
+def phase_cp_slice(card, spawned=None):
     """GPT-2-small trained over a cp = 2 ring: two spawned ranks (on one
     card they share it, time-sliced), the hop through kernel 4 into the
     neighbour's CUDA-IPC-mapped slot. Checks per rank: gloo sums CUDA
@@ -2713,8 +3050,9 @@ def phase_cp_slice(card):
     n_layer × 2 per forward; ring_pass moves the right values; f32 ring
     loss and gradients within tolerance of single-device flash; three
     bf16 steps (and more) tracking the single-device step; identical
-    replicas. Returns rank 0's launches on the counted steps."""
-    ranks, seconds = spawn_ranks(cp_rank, "cp")
+    replicas. ``spawned`` as :func:`phase_allreduce` takes it. Returns rank
+    0's launches on the counted steps."""
+    ranks, seconds = spawned or spawn_ranks(cp_rank, "cp")
     n_layer = 12
     r0 = ranks[0]
     for r in ranks:
@@ -2927,7 +3265,7 @@ def phase_allreduce(card, spawned=None):
     a + b (n = 2: addition commutes), gloo within one ulp, the routes,
     and int8 SUM, MIN, MAX and PROD through every IPC algorithm.
     ``spawned`` is (ranks, seconds) of a spawn shared with other programs
-    (:func:`spawn_collectives`); None spawns the ranks here."""
+    (:func:`spawn_two_rank_programs`); None spawns the ranks here."""
     ranks, seconds = spawned or spawn_ranks(allreduce_rank, "allreduce")
     # one line per payload and type: every algorithm, rank 0's row with rank
     # 1's times beside it
@@ -3052,13 +3390,15 @@ def quant_allreduce_rank_run(rank, tmp, res, stage):
         json.dump(res, f)
 
 
-def spawn_collectives():
-    """The all-reduce family's and the compressed all-reduces' rank programs
-    in one spawn: ((allreduce ranks, seconds), (quant ranks, seconds)),
-    the seconds those of the shared spawn."""
-    out, seconds = spawn_programs({"allreduce": (allreduce_rank, ()),
-                                   "quant_allreduce": (quant_allreduce_rank, ())}, "collectives")
-    return (out["allreduce"], seconds), (out["quant_allreduce"], seconds)
+def spawn_two_rank_programs():
+    """The two-rank programs of cp_slice, the collectives, dp_slice, the
+    checkpoint phase and the obs phase in one spawn, cp first (in fresh
+    processes) and obs last (it leaves obs enabled in the ranks): ({name:
+    each rank's JSON}, the shared spawn's seconds)."""
+    return spawn_programs({"cp": (cp_rank, ()), "allreduce": (allreduce_rank, ()),
+                           "quant_allreduce": (quant_allreduce_rank, ()),
+                           "dp": (dp_rank, ()), "ckpt_dp": (ckpt_dp_rank, ()),
+                           "obs_dp": (obs_dp_rank, ())}, "dp")
 
 
 def phase_quant_allreduce(card, spawned=None):
@@ -3297,7 +3637,7 @@ def dp_rank_run(rank, tmp, res, stage):
         json.dump(res, f)
 
 
-def phase_dp_slice(card):
+def phase_dp_slice(card, spawned=None):
     """GPT-2-small bf16 trained data-parallel at dp = 2 (global batch 8 ×
     1024, 4 × 1024 a rank, flash attention, AdamW(3e-4, weight_decay=0.01))
     by ``make_dp_train_step`` with the ring and 4 MiB buckets, two spawned
@@ -3306,8 +3646,12 @@ def phase_dp_slice(card):
     ring, ring2 and naive losses bit-identical; identical replicas; an f32
     step's gradients within TOL_TRAIN_GRADS of single-device flash; the bf16
     steps tracking the single-device steps within TOL_CP_BF16_LOSS."""
-    # the obs phase's dp = 2 q8 program rides this spawn (read by phase_obs)
-    out, seconds = spawn_programs({"dp": (dp_rank, ()), "obs_dp": (obs_dp_rank, ())}, "dp")
+    # ``spawned``: (programs' ranks, seconds) of spawn_two_rank_programs,
+    # where the checkpoint phase's dp = 2 resume and the obs phase's dp = 2
+    # q8 program ride too (read by phase_checkpoint and phase_obs); a run
+    # of this phase alone spawns them here
+    out, seconds = spawned or spawn_programs({"dp": (dp_rank, ()), "ckpt_dp": (ckpt_dp_rank, ()),
+                                              "obs_dp": (obs_dp_rank, ())}, "dp")
     ranks = out["dp"]
     n_layer = 12
     r0 = ranks[0]
@@ -3370,7 +3714,8 @@ def phase_dp_slice(card):
         for name, m in r["mnist"].items():
             check(np.isfinite(m["avg_loss"]) and m["test_accuracy"] > 0.5,
                   f"rank {r['rank']}: the MNIST trainer under {name}: {m}")
-    return r0["launches"], r0["quant"]["q8"]["launches"]["quantize_int8"], (out["obs_dp"], seconds)
+    return (r0["launches"], r0["quant"]["q8"]["launches"]["quantize_int8"],
+            (out["obs_dp"], seconds), (out["ckpt_dp"], seconds))
 
 
 # ---- Llama: TinyLlama-1.1B trained and served ------------------------------------
@@ -3838,7 +4183,7 @@ def phase_llama_ticks(dev, card):
 # ---- observability -------------------------------------------------------------------
 
 # the drains off and on: the paged slice's first 16 (cut from 24: the run's time)
-OBS_REQUESTS = 16
+OBS_REQUESTS = 16  # every slot busy at once: the full-pool probe needs a full tick
 # the speculative drain with obs on: the paged slice's first 8 (cut from 16)
 OBS_SPEC_REQUESTS = 8
 OBS_AB_TICKS = 60  # steady ticks, the registry switched off and on in turns
@@ -4070,7 +4415,7 @@ def obs_dp_rank_run(rank, tmp, res, stage):
 
 def phase_obs(tflash, dev, card, obs_dp=None):
     """The observability core on the card, GPT-2-small at full width from
-    seed 0: the paged serving drain (the first 24 requests) with obs off, then on (identical tokens;
+    seed 0: the paged serving drain (the first 16 requests) with obs off, then on (identical tokens;
     the tick's counters, the admission histogram, the retirements, the
     pool's gauges and ledger source, the memory pressure from
     torch.cuda.memory_stats; the decode_tick spans' Chrome trace under
@@ -4108,7 +4453,7 @@ def phase_obs(tflash, dev, card, obs_dp=None):
     serving_labels = {"replica": "0", "role": "decode"}
     labels2 = ("replica", "role")
 
-    # (1) serving: the paged slice's first 24 requests, obs off then on
+    # (1) serving: the paged slice's first OBS_REQUESTS requests, obs off then on
     cfg = dataclasses.replace(GPT2Config.small(), dtype="bfloat16")
     model = gpt2_small(cfg, dev)
     rng = np.random.default_rng(2)
@@ -4386,6 +4731,7 @@ def ckpt_dp_rank_run(rank, tmp, res, stage):
     resumed = run(CKPT_DP_EPOCHS, ckdir, resume=True)
     res["bit_identical"] = all(torch.equal(straight[k], resumed[k]) for k in straight)
     res["weights_checksum"] = float(sum(t.double().sum().item() for t in resumed.values()))
+    native.snapshot = real_snapshot  # later programs of the spawn checkpoint unspied
     mesh.close()
     dist.destroy_process_group()
     if rank == 0:
@@ -4395,7 +4741,7 @@ def ckpt_dp_rank_run(rank, tmp, res, stage):
         json.dump(res, f)
 
 
-def phase_checkpoint(tflash, dev, card):
+def phase_checkpoint(tflash, dev, card, ckpt_dp=None):
     """Checkpointing on the card. GPT-2-small bf16 trained as ``train_gpt2``
     steps it (``train_step``: flash attention, clip 1.0, AdamW on the
     warmup-cosine schedule) at batch 8 × 1024: k steps, an async save
@@ -4568,7 +4914,9 @@ def phase_checkpoint(tflash, dev, card):
             reg.disable()
 
     # dp = 2: the error-feedback residuals ride the checkpoint
-    ranks, seconds = spawn_ranks(ckpt_dp_rank, "ckpt_dp")
+    # the dp = 2 resume ran in dp_slice's spawn (``ckpt_dp``: (ranks, the
+    # spawn's seconds)), or a spawn of its own in a run of this phase alone
+    ranks, seconds = ckpt_dp or spawn_ranks(ckpt_dp_rank, "ckpt_dp")
     ef = [e for e in ranks[0]["manifest"]["leaves"] if e["path"].startswith("ef/")]
     ef_files = {p["file"] for e in ef for p in e["pieces"]}
     rest = {p["file"] for e in ranks[0]["manifest"]["leaves"] if "pieces" in e
@@ -5423,9 +5771,9 @@ def phase_model_parallel(tflash, dev, card, weights, serve=False):
     the one card: the times are the cost of the collectives and the
     schedules, not a model-parallel speed-up. ``weights`` is the TinyLlama
     bf16 file the tp and pp × tp ranks map (:func:`tinyllama_bf16_weights`).
-    The pp and fsdp programs share one spawn of two ranks; with ``serve``
-    the tp ranks go on to the tp_serve program (:func:`tp_serve_run`, whose
-    references run here first). Returns rank 0's launches per path, kernel
+    The tp, pp and fsdp programs share one spawn of two ranks; with
+    ``serve`` the tp ranks go on to the tp_serve program
+    (:func:`tp_serve_run`, whose references run here first) before pp. Returns rank 0's launches per path, kernel
     8's launches, with ``serve`` the tp_serve references and (ranks,
     seconds of the shared spawn), rank 0's launches of the resumed
     step and the pp eval, and rank 0's launches on the long-context paths."""
@@ -5439,13 +5787,15 @@ def phase_model_parallel(tflash, dev, card, weights, serve=False):
         single_loss = float(model.loss(x, torch.roll(x, -1, 1), attn_impl="flash"))
     del model
     torch.cuda.empty_cache()
+    # the two-rank programs in one spawn: tp (then tp_serve), pp and fsdp
     tp_programs = {"tp": (mp_tp_rank, (weights,))}
     if serve:
         tp_programs["tp_serve"] = (tp_serve_rank, (weights, serve_ref["inputs"]))
+    tp_programs.update(pp=(mp_pp_rank, ()), fsdp=(mp_zero_rank, ()))
     tp_out, tp_seconds = spawn_programs(tp_programs, "tp")
     tp_ranks = tp_out["tp"]
-    two, pp_seconds = spawn_programs({"pp": (mp_pp_rank, ()), "fsdp": (mp_zero_rank, ())}, "pp")
-    pp_ranks, zero_ranks, zero_seconds = two["pp"], two["fsdp"], pp_seconds
+    pp_ranks, zero_ranks, pp_seconds = tp_out["pp"], tp_out["fsdp"], tp_seconds
+    zero_seconds = pp_seconds
     # the long-context program rides the pp x tp ranks' spawn
     fours, four_seconds = spawn_programs({"pp_tp": (mp_4rank_rank, (weights,)),
                                           "long_context": (lc_rank, (weights,))}, "pp_tp", 4)
@@ -6520,6 +6870,8 @@ def main() -> None:
                   "slice": lambda: phase_trace(*phase_slice(tflash, dev, card)[1:]),
                   "train": lambda: phase_train_trace(phase_train(tflash, dev, card)[2]),
                   "paged_slice": lambda: phase_paged_slice(dev, card),
+                  "fleet": lambda: phase_fleet(dev, card, phase_paged_slice(dev, card)[2]),
+                  "fleet_kernel": lambda: fleet_kernel_time(dev),
                   "wq_slice": lambda: phase_wq_slice(dev, card),
                   "serve_cli": lambda: (phase_serve_cli(dev), phase_serve_cli_wq(dev)),
                   "train_int8remat": lambda: phase_train_int8remat(tflash, dev, card),
@@ -6580,7 +6932,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_train_cli(tflash)
     torch.cuda.empty_cache()
-    paged_launches, single_launches = phase_paged_slice(dev, card)
+    paged_launches, single_launches, paged_row = phase_paged_slice(dev, card)
+    torch.cuda.empty_cache()
+    fleet_launches, fleet_err = phase_fleet(dev, card, paged_row)
+    del paged_row
     torch.cuda.empty_cache()
     wq_launches = phase_wq_slice(dev, card)
     torch.cuda.empty_cache()
@@ -6589,12 +6944,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     remat_launches = phase_train_int8remat(tflash, dev, card)
     torch.cuda.empty_cache()
-    cp_launches, sp_launches = phase_cp_slice(card)
-    torch.cuda.empty_cache()
-    allreduce_ranks, quant_ranks = spawn_collectives()  # one spawn, both programs
-    phase_allreduce(card, allreduce_ranks)
-    phase_quant_allreduce(card, quant_ranks)
-    _, q8_launches, obs_dp = phase_dp_slice(card)
+    two_rank, two_seconds = spawn_two_rank_programs()  # one spawn: six programs
+    cp_launches, sp_launches = phase_cp_slice(card, (two_rank["cp"], two_seconds))
+    phase_allreduce(card, (two_rank["allreduce"], two_seconds))
+    phase_quant_allreduce(card, (two_rank["quant_allreduce"], two_seconds))
+    _, q8_launches, obs_dp, ckpt_dp = phase_dp_slice(card, (two_rank, two_seconds))
     torch.cuda.empty_cache()
     # the Llama and the train_gpt2 entry points (cp, dp, tp, pp) run as
     # processes while this one builds TinyLlama's weights on the host, and the
@@ -6631,7 +6985,7 @@ def main() -> None:
     # are in its own line: the kernels line reads the paths above)
     phase_obs(tflash, dev, card, obs_dp)
     torch.cuda.empty_cache()
-    ckpt_launches = phase_checkpoint(tflash, dev, card)
+    ckpt_launches = phase_checkpoint(tflash, dev, card, ckpt_dp)
     torch.cuda.empty_cache()
     # the mesh planner on the card; model parallelism: tp, pp (three
     # schedules, the eval), ZeRO-3/ZeRO-2 on the planner's mesh and pp x tp
@@ -6708,24 +7062,30 @@ def main() -> None:
         {"name": "paged_attn", "route": "cuda", "source": PAGED_SOURCE,
          "replaces": "dsml_tpu/ops/paged_attention.py:169",
          "launches": single_launches["paged_attn"] + llama_paged_launches["paged_attn"]
-         + ckpt_launches["paged_attn"] + moe["paged_attn"] + tp_launches["paged_attn"],
+         + ckpt_launches["paged_attn"] + moe["paged_attn"] + tp_launches["paged_attn"]
+         + fleet_launches["paged_attn"],
          "launches_by_path": {"paged_slice": single_launches["paged_attn"],
+                              "fleet": fleet_launches["paged_attn"],
                               "llama_serve": llama_paged_launches["paged_attn"],
                               "checkpoint": ckpt_launches["paged_attn"], "moe": moe["paged_attn"],
                               "tp_serve": tp_launches["paged_attn"]},
-         "max_abs_err": max(paged_err, llama_kernels["paged_err"], moe["paged_err"], tp_paged_err),
+         "max_abs_err": max(paged_err, llama_kernels["paged_err"], moe["paged_err"], tp_paged_err,
+                            fleet_err),
          **paged_timing["paged_attn"]["decode"]},
         {"name": "paged_attn_pipelined", "route": "cuda", "source": PAGED_SOURCE,
          "replaces": "dsml_tpu/ops/paged_attention.py:259",
          "launches": paged_launches["paged_attn_pipelined"]
          + llama_paged_launches["paged_attn_pipelined"] + ckpt_launches["paged_attn_pipelined"]
-         + moe["paged_attn_pipelined"] + tp_launches["paged_attn_pipelined"],
+         + moe["paged_attn_pipelined"] + tp_launches["paged_attn_pipelined"]
+         + fleet_launches["paged_attn_pipelined"],
          "launches_by_path": {"paged_slice": paged_launches["paged_attn_pipelined"],
+                              "fleet": fleet_launches["paged_attn_pipelined"],
                               "llama_serve": llama_paged_launches["paged_attn_pipelined"],
                               "checkpoint": ckpt_launches["paged_attn_pipelined"],
                               "moe": moe["paged_attn_pipelined"],
                               "tp_serve": tp_launches["paged_attn_pipelined"]},
-         "max_abs_err": max(paged_err, llama_kernels["paged_err"], moe["paged_err"], tp_paged_err),
+         "max_abs_err": max(paged_err, llama_kernels["paged_err"], moe["paged_err"], tp_paged_err,
+                            fleet_err),
          **paged_timing["paged_attn_pipelined"]["decode"]},
         # times at the decode tick's shape of wqkv (16 rows, int4, bf16 x; the
         # other projections and the chunk are in the kernel_time line);
@@ -6758,6 +7118,7 @@ def main() -> None:
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
+    print(f"chip_smoke: done (t = {time.perf_counter() - _T0:.1f} s)", file=sys.stderr, flush=True)
 
 
 if __name__ == "__main__":

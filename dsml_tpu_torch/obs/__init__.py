@@ -1,8 +1,8 @@
 """dsml_tpu_torch.obs — observability of the port: metrics, spans, step
-stats, failure forensics and the device-memory ledger; the counterpart of
-``dsml_tpu/obs`` (its core: the fleet's cluster plane, SLO budgets and the
-regression gate, ``obs/{cluster,slo,regress}.py``, come with ROADMAP.md
-queue 1, item 13).
+stats, failure forensics, the device-memory ledger, SLO budgets and the
+fleet's cluster plane; the counterpart of ``dsml_tpu/obs`` (its bench
+regression gate, ``obs/regress.py``, comes with the port's bench,
+ROADMAP.md queue 1, item 16).
 
 - :mod:`~dsml_tpu_torch.obs.registry` — process-wide thread-safe metrics
   registry (counters / gauges / fixed-bound histograms, labeled), JSONL +
@@ -16,7 +16,19 @@ queue 1, item 13).
 - :mod:`~dsml_tpu_torch.obs.step_stats` — per-step phase breakdown,
   goodput (productive ÷ wall), MFU.
 - :mod:`~dsml_tpu_torch.obs.export` — rotation-safe JSONL sink
-  (:class:`MetricsLogger`) + opt-in HTTP ``/metrics`` endpoint.
+  (:class:`MetricsLogger`) + opt-in HTTP ``/metrics`` endpoint (with
+  ``/metrics.json`` and ``/cluster.json``).
+
+The serving fleet:
+
+- :mod:`~dsml_tpu_torch.obs.slo` — per-SLO-class SLI windows, rolling
+  error budgets with multi-window (fast/slow) burn-rate status, goodput
+  and p99 tail attribution by stage (the router's ``Router.slo``).
+- :mod:`~dsml_tpu_torch.obs.cluster` — cross-process aggregation:
+  identity-stamped snapshots, exact-sum counter and bucket-wise
+  histogram merge into one exposition, fleet goodput, stragglers and SLO
+  status, and Chrome traces stitched into one timeline
+  (:class:`ClusterAggregator`, :func:`snapshot`, :func:`stitch_traces`).
 
 Failure forensics:
 
@@ -103,20 +115,20 @@ __all__ = [
     "MemoryLedger", "get_memory_ledger",
     "SentinelConfig", "SentinelTripped", "TrainingSentinels",
     "HangWatch", "TrailingDeadline", "get_hangwatch",
+    "ClockSync", "ClusterAggregator", "merge_snapshots", "snapshot",
+    "stitch_traces", "trace_summary",
 ]
 
-_NOT_PORTED = "comes with a later slice of the port (ROADMAP.md queue 1, item {})"
-# the JAX package's cluster-plane names (obs/cluster.py), reached lazily
-# there too: the fleet's observability plane is not ported yet
+# cluster-plane names resolve lazily (PEP 562), as in the JAX package
 _CLUSTER_NAMES = ("ClockSync", "ClusterAggregator", "merge_snapshots",
                   "snapshot", "stitch_traces", "trace_summary")
 
 
 def __getattr__(name: str):
     if name in _CLUSTER_NAMES:
-        raise NotImplementedError(
-            f"obs.{name} (the cluster observability plane, obs/cluster.py) "
-            + _NOT_PORTED.format(13))
+        from dsml_tpu_torch.obs import cluster as _cluster
+
+        return getattr(_cluster, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

@@ -6,16 +6,17 @@ rotation-safe JSONL sink + in-process HTTP /metrics.
   rotating ``path`` → ``path.1`` atomically so a long-running trainer
   cannot fill a disk.
 - :func:`start_metrics_server` — OPT-IN in-process HTTP endpoint serving
-  the registry's Prometheus text at ``/metrics`` and the JSON snapshot at
-  ``/metrics.json`` (nothing listens unless a caller asks). The JAX
-  package's third route, the cluster snapshot ``/cluster.json``, comes
-  with the fleet's observability plane (ROADMAP.md queue 1, item 13).
+  the registry's Prometheus text at ``/metrics``, the JSON snapshot at
+  ``/metrics.json``, and the identity-stamped CLUSTER snapshot (metrics,
+  Chrome trace and clock reading) at ``/cluster.json`` — the scrape
+  surface ``obs.cluster.ClusterAggregator`` merges fleet-wide (nothing
+  listens unless a caller asks).
 
-Histogram records in the JSON expositions (``/metrics.json``, JSONL) carry
-per-bucket trace_id EXEMPLARS when the emitting call site attached them
-(``Histogram.observe(..., exemplar=trace_id)`` — the serving admission
-histogram does). Prometheus 0.0.4 text has no exemplar syntax; they ride
-the JSON forms only.
+Histogram records in the JSON expositions (``/metrics.json``, JSONL,
+``/cluster.json``) carry per-bucket trace_id EXEMPLARS when the emitting
+call site attached them (``Histogram.observe(..., exemplar=trace_id)`` —
+the serving TTFT/TPOT/admission histograms do). Prometheus 0.0.4 text has
+no exemplar syntax; they ride the JSON forms only.
 """
 
 from __future__ import annotations
@@ -94,10 +95,16 @@ class MetricsServer:
 
 
 def start_metrics_server(registry: Registry | None = None, port: int = 0,
-                         host: str = "127.0.0.1") -> MetricsServer:
+                         host: str = "127.0.0.1", role: str | None = None,
+                         tracer=None) -> MetricsServer:
     """Serve ``registry`` on a daemon thread. ``port=0`` picks a free
-    port (read it back from the handle). Raises :class:`ObsUnavailable`
-    when the port cannot be bound, with the conflicting address named."""
+    port (read it back from the handle). ``role`` labels this process in
+    ``/cluster.json`` snapshots (default: ``DSML_OBS_ROLE``) and
+    ``tracer`` pairs them with the matching span trace — pass it whenever
+    ``registry`` is a private instance, or the snapshot would couple
+    private metrics with the GLOBAL tracer's unrelated spans. Raises
+    :class:`ObsUnavailable` when the port cannot be bound, with the
+    conflicting address named."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     reg = registry if registry is not None else get_registry()
@@ -110,6 +117,11 @@ def start_metrics_server(registry: Registry | None = None, port: int = 0,
                 ctype = "text/plain; version=0.0.4; charset=utf-8"
             elif path == "/metrics.json":
                 body = json.dumps(reg.collect()).encode()
+                ctype = "application/json"
+            elif path == "/cluster.json":
+                from dsml_tpu_torch.obs.cluster import snapshot
+
+                body = json.dumps(snapshot(role=role, registry=reg, tracer=tracer)).encode()
                 ctype = "application/json"
             else:
                 self.send_error(404)

@@ -74,8 +74,10 @@ builds such a replica over a list of devices.
 either package (a weights-only partial restore), on a mesh into this
 rank's shard.
 
-Left for a later slice, raising where a caller can reach it: the fleet's
-handoff admission ``inject`` (item 13).
+The batcher is also the fleet's DECODE worker (``serving/router.py``):
+:meth:`ContinuousBatcher.inject` admits a request whose prefill ran on a
+``PrefillWorker``, from its handoff's cache rows or pages and first
+logits, before any queued prompt.
 """
 
 from __future__ import annotations
@@ -149,7 +151,6 @@ def _bucket(n: int, buckets: tuple) -> int:
     raise ValueError(f"prompt length {n} exceeds the largest bucket {buckets[-1]}")
 
 
-_NOT_PORTED = "comes with a later slice of the port (ROADMAP.md queue 1, item {})"
 # an adaptive tick with an EOS id reads its tokens back every this many
 # steps to find the stop; steps decoded past the stop are dropped
 ADAPTIVE_EOS_CHECK = 8
@@ -348,6 +349,7 @@ class ContinuousBatcher:
             # the request whose page wait is being counted (its first
             # blocked tick marks the request's flow, later ones only count)
             self._page_wait_rid = None
+            self._page_wait_rid_inject = None  # the same for a handoff's admission
             # pool gauges refresh at SCRAPE time (an idle batcher's gauges
             # never freeze at the last tick's); the ledger reads the pool's
             # bytes at every scrape and postmortem — both weakly held
@@ -363,7 +365,10 @@ class ContinuousBatcher:
             raise ValueError(f"max_queue must be >= 0 (0 = unbounded), got {max_queue}")
         self.max_queue = int(max_queue)
         self._queue: deque[Request] = deque()
-        self._live: dict[int, Request] = {}  # queued or in a slot
+        # handed-off admissions (inject): (request, cache1 or (pages, prefix
+        # rows), first logits); they admit before the queue
+        self._inject: deque = deque()
+        self._live: dict[int, Request] = {}  # queued, injected or in a slot
         self._done: dict[int, Request] = {}  # retired, awaiting collect()
         self._latency: list = []  # (ttft_s, e2e_s) per retired request
         self._gaps: list = []  # inter-emission gaps
@@ -532,8 +537,8 @@ class ContinuousBatcher:
         return torch.as_tensor(padded, device=self.device).long()
 
     def _insert(self, cache1, slot: int) -> None:
-        """Copy a 1-row cache into slot ``slot`` of the batch cache (the
-        dense admission write); the source stays intact."""
+        """Copy a 1-row cache (on any device) into slot ``slot`` of the
+        batch cache (the dense admission write); the source stays intact."""
         for c, c1 in zip(self._cache, cache1):
             for key in c:
                 c[key][slot] = c1[key][0]
@@ -660,13 +665,7 @@ class ContinuousBatcher:
         if self.max_queue and len(self._queue) >= self.max_queue:
             # shed AFTER validation: a malformed request is the caller's bug
             # (ValueError), a full queue is the deployment's state
-            if self._obs.enabled:
-                self._obs.counter("serving_shed_total", "requests rejected by the queue cap",
-                                  labels=("replica", "role")).inc(
-                    replica=self.obs_replica, role=self.obs_role)
-            raise QueueFull(
-                f"admission queue at its cap ({self.max_queue} waiting); "
-                "request shed — retry on another replica or back off")
+            self._shed()
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, prompt=prompt, max_new_tokens=max_new_tokens,
@@ -676,10 +675,113 @@ class ContinuousBatcher:
         self._live[rid] = req
         return rid
 
-    def inject(self, *args, **kwargs) -> int:
-        raise NotImplementedError(
-            "inject (admission of a request prefilled on another worker) "
-            + _NOT_PORTED.format(13))
+    def _shed(self) -> None:
+        if self._obs.enabled:
+            self._obs.counter("serving_shed_total", "requests rejected by the queue cap",
+                              labels=("replica", "role")).inc(
+                replica=self.obs_replica, role=self.obs_role)
+        raise QueueFull(
+            f"admission queue at its cap ({self.max_queue} waiting); "
+            "request shed — retry on another replica or back off")
+
+    def inject(self, prompt, max_new_tokens: int, cache1=None, logits_row=None,
+               key_rid: int | None = None, submitted_at: float | None = None, *,
+               kv_pages=None, page_size: int | None = None, prefix_rows: int = 0,
+               trace_id: str | None = None) -> int:
+        """Admit a request whose PREFILL ran elsewhere: the decode-worker
+        half of the fleet's KV handoff (``serving/handoff.py``). ``cache1``
+        is the 1-row KV cache a ``PrefillWorker`` produced for the whole
+        prompt, ``logits_row`` the next-token logits at its last position.
+        Admission costs one insert (no prefill here); the first token
+        samples from ``logits_row`` under the (seed, ``key_rid``, step)
+        noise a local admission would draw, so tokens equal submitting the
+        prompt here. ``submitted_at`` carries the ORIGINAL submit time, so
+        the admission histogram reports the true TTFT. Sheds with
+        :class:`QueueFull` at ``max_queue`` handoffs waiting.
+
+        A PAGED worker admits a paged handoff: ``kv_pages`` is the shipped
+        page payload (per-layer dicts with a leading page axis, the pool's
+        own entry layout), ``page_size`` the sender's (must match), and
+        ``prefix_rows`` the leading rows not shipped because this worker
+        shares its own registered prefix pages for them (validated here
+        against the local registry). Tensors on another device (a decoded
+        handoff's CPU tensors) are copied onto this worker's at admission."""
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        if len(prompt) < 1:
+            raise ValueError("empty prompt")
+        self.model._check_generate_args(
+            len(prompt), max_new_tokens, self.temperature, self.top_k, self.top_p)
+        cfg = self.model.config
+        if self.paged:
+            if kv_pages is None:
+                raise ValueError(
+                    "paged decode worker: inject needs kv_pages= (a dense "
+                    "cache1 cannot land in a page pool)")
+            if page_size != self.page_size:
+                raise ValueError(
+                    f"handoff pages are {page_size} rows, this pool's are "
+                    f"{self.page_size} — prefill and decode workers must "
+                    "share the page size")
+            if len(kv_pages) != cfg.n_layer:
+                raise ValueError(f"handoff has {len(kv_pages)} layers, model has {cfg.n_layer}")
+            ref = self._pool[0]
+            for key in ref:
+                arr = kv_pages[0].get(key)
+                if arr is None or tuple(arr.shape[1:]) != tuple(ref[key].shape[1:]):
+                    raise ValueError(
+                        f"handoff page entry {key!r} is "
+                        f"{None if arr is None else tuple(arr.shape)}; pool "
+                        f"pages are {tuple(ref[key].shape)} — quant modes "
+                        "must match")
+            if prefix_rows < 0 or prefix_rows % self.page_size or prefix_rows > len(prompt):
+                raise ValueError(
+                    f"prefix_rows={prefix_rows} must be a multiple of "
+                    f"page_size={self.page_size} within the prompt")
+            if prefix_rows:
+                # fail at the fleet edge when no local registration covers
+                # the shared rows (the router replicates registrations)
+                self._registered_prefix_pages(prompt, prefix_rows)
+            n_ship = int(kv_pages[0]["k"].shape[0])
+            rows = self._handoff_rows(len(prompt), max_new_tokens, prefix_rows, n_ship,
+                                      worst_case=True)
+            n_private = -(-rows // self.page_size) - prefix_rows // self.page_size
+            ceiling = self.n_pages - 1 - self._registry_pages
+            if n_private > ceiling:
+                raise ValueError(
+                    f"handoff needs {n_private} private pages but only "
+                    f"{ceiling} are ever reservable ({self._registry_pages} "
+                    "held by the prefix registry); raise n_pages")
+        else:
+            if kv_pages is not None:
+                raise ValueError(
+                    "dense decode worker: got kv_pages= (paged handoffs "
+                    "need a paged_kv batcher)")
+            if len(cache1) != cfg.n_layer:
+                raise ValueError(
+                    f"handoff cache has {len(cache1)} layers, model has {cfg.n_layer}")
+            k = cache1[0]["k"]
+            if k.shape[0] != 1 or k.shape[2] != cfg.max_seq:
+                raise ValueError(
+                    f"handoff cache rows are {tuple(k.shape)}; expected "
+                    f"(1, heads, max_seq={cfg.max_seq}, ...) — prefill and "
+                    "decode workers must share the model config")
+        if self.max_queue and len(self._inject) >= self.max_queue:
+            self._shed()
+        rid = self._next_rid
+        self._next_rid += 1
+        req = Request(rid=rid, prompt=prompt, max_new_tokens=max_new_tokens,
+                      submitted_at=time.monotonic() if submitted_at is None else submitted_at,
+                      key_rid=key_rid, trace_id=trace_id)
+        self._live[rid] = req
+        ctx = req.trace_ctx()
+        if ctx is not None and self._obs.enabled:
+            # the handoff landed here: a flow step on the decode lane links
+            # the prefill worker's handoff to the admission that follows
+            get_tracer().flow("decode_inject", ctx, phase="step", rid=rid,
+                              replica=self.obs_replica)
+        payload = (kv_pages, int(prefix_rows)) if self.paged else cache1
+        self._inject.append((req, payload, torch.as_tensor(logits_row).reshape(-1)))
+        return rid
 
     def register_prefix(self, tokens) -> None:
         """Precompute and keep the KV rows and next-token logits of a shared
@@ -738,7 +840,9 @@ class ContinuousBatcher:
             if len(ptoks) >= prefix_rows and len(ppages) >= n_full and \
                     np.array_equal(ptoks[:prefix_rows], prompt[:prefix_rows]):
                 return [int(p) for p in ppages[:n_full]]
-        raise RuntimeError(f"no registered prefix covers {prefix_rows} shared rows")
+        raise RuntimeError(
+            f"no registered prefix covers the handoff's {prefix_rows} shared "
+            "rows — inject validation should have rejected it")
 
     def _match_prefix(self, prompt: np.ndarray):
         """Longest registered prefix that heads ``prompt`` and whose suffix
@@ -767,6 +871,11 @@ class ContinuousBatcher:
     def n_pending(self) -> int:
         """Chunked admissions mid-prefill (0 or 1)."""
         return 0 if self._pending is None else 1
+
+    @property
+    def n_injected(self) -> int:
+        """Handed-off admissions waiting for a free slot (:meth:`inject`)."""
+        return len(self._inject)
 
     @property
     def n_preempted(self) -> int:
@@ -804,6 +913,22 @@ class ContinuousBatcher:
         if c <= 0:
             return False
         return -(-prompt_len // c) * c <= self.model.config.max_seq
+
+    def _handoff_rows(self, prompt_len: int, max_new: int, prefix_rows: int, n_ship: int,
+                      worst_case: bool = False) -> int:
+        """Rows a paged HANDOFF admission reserves pages for: the decode
+        budget (with the speculative window's overhang) or the shipped and
+        shared page grid, whichever is larger — one formula for inject's
+        validation and the admission's reservation. With ``preemption``
+        the admission reserves only the landing grid and the decode budget
+        grows page by page."""
+        base = prompt_len + max_new
+        if self.speculative_window:
+            base += self.speculative_window - 1
+        landing = prefix_rows + n_ship * self.page_size
+        if self.preemption and not worst_case:
+            return max(prompt_len, landing)
+        return max(base, landing)
 
     def _reserve_rows(self, prompt_len: int, max_new: int, prefix_len: int,
                       worst_case: bool = False) -> int:
@@ -950,6 +1075,16 @@ class ContinuousBatcher:
                 kept.append(s)
         return [s for s in kept if self._slot_rid[s] >= 0]
 
+    def _install_pages(self, pages: list, payload: list) -> None:
+        """Scatter a page payload (per-layer dicts with a leading page axis,
+        on any device: a swapped-out slot's or a handoff's) into ``pages``
+        of the pool."""
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        for c, layer in zip(self._pool, payload):
+            for key, arr in layer.items():
+                c[key][idx] = arr.to(self.device)
+        self.n_insert_dispatches += 1
+
     def _install_slot(self, slot: int, shared: list, n_private: int) -> list:
         """Share ``shared`` pages and allocate ``n_private`` fresh ones as
         ``slot``'s table; returns the private pages."""
@@ -979,11 +1114,7 @@ class ContinuousBatcher:
             shared = self._registered_prefix_pages(req.prompt, shared_rows) if shared_rows else []
             private = self._install_slot(slot, shared, n_private)
             if n_private:
-                idx = torch.as_tensor(private, dtype=torch.long, device=self.device)
-                for c, saved in zip(self._pool, payload):
-                    for key, arr in saved.items():
-                        c[key][idx] = arr.to(self.device)
-                self.n_insert_dispatches += 1
+                self._install_pages(private, payload)
             self._restore_slot(req, slot, pos, entry["last_tok"])
             return True
         c = self.prefill_chunk or self.page_size
@@ -1053,6 +1184,45 @@ class ContinuousBatcher:
             self._free_slot_pages(slot)
             return
         self._occupy(req, slot, tok)
+
+    def _admit_injected(self, emitted: dict) -> None:
+        """Admit handed-off requests into free slots before queued prompts
+        (they already paid their prefill): insert the prefilled rows and
+        run the admission epilogue — one insert, no prefill here. A paged
+        handoff reserves and installs PAGES instead: its shared prefix rows
+        resolve to this worker's registered prefix pages (a reference, no
+        bytes moved), the shipped pages land at freshly allocated ones, and
+        the rest of the decode budget's pages come from the free list; one
+        that cannot reserve waits at the head of the inject queue."""
+        while self._inject:
+            free = np.flatnonzero(self._slot_rid == -1)
+            if len(free) == 0:
+                return
+            slot = int(free[0])
+            if not self.paged:
+                req, cache1, logits_row = self._inject.popleft()
+                self.n_insert_dispatches += 1
+                self._insert(cache1, slot)
+                self._finish_admission(req, slot, logits_row.to(self.device), emitted)
+                continue
+            req, (payload, prefix_rows), logits_row = self._inject[0]  # peek
+            n_ship = int(payload[0]["k"].shape[0])
+            rows = self._handoff_rows(len(req.prompt), req.max_new_tokens, prefix_rows, n_ship)
+            n_private = pages_for(rows, self.page_size) - prefix_rows // self.page_size
+            if not self._pages.can_alloc(n_private):
+                first = self._page_wait_rid_inject != req.rid
+                self._page_wait_rid_inject = req.rid
+                note_page_wait(self._obs, self.obs_replica, self.obs_role,
+                               trace=req.trace_ctx() if first else None)
+                return  # pool full: the handoff waits for retirements
+            shared = self._registered_prefix_pages(req.prompt, prefix_rows) if prefix_rows else []
+            self._inject.popleft()
+            # _install_slot sets the CoW boundary too: eviction treats the
+            # first _slot_shared pages as references and never swaps them
+            private = self._install_slot(slot, shared, n_private)
+            if n_ship:
+                self._install_pages(private[:n_ship], payload)
+            self._finish_admission(req, slot, logits_row.to(self.device), emitted)
 
     def _admit_full(self, req: Request, slot: int, emitted: dict) -> None:
         """Whole-prompt prefill padded to its bucket, the copy into the
@@ -1292,7 +1462,7 @@ class ContinuousBatcher:
             buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0),
         ).observe(self.n_active / self.n_slots, **labels)
         self._obs.gauge("serving_queue_depth", "requests waiting for a slot",
-                        labels=("replica", "role")).set(self.n_queued, **labels)
+                        labels=("replica", "role")).set(self.n_queued + self.n_injected, **labels)
         self._obs.counter("serving_tokens_total", "tokens emitted", labels=("replica", "role")).inc(
             sum(len(t) for t in emitted.values()), **labels)
         return emitted
@@ -1363,10 +1533,14 @@ class ContinuousBatcher:
         return (allocatable - self._pages.free_pages) / allocatable
 
     def _step_inner(self) -> dict[int, list]:
+        emitted: dict[int, list] = {}
+        if self._inject:
+            self._admit_injected(emitted)
+        # handed-off and local admissions touch disjoint rids
         if self.paged:
-            emitted = self._admit_paged()
+            emitted.update(self._admit_paged())
         else:
-            emitted = self._admit_chunked() if self.prefill_chunk else self._admit()
+            emitted.update(self._admit_chunked() if self.prefill_chunk else self._admit())
         active = np.flatnonzero(self._slot_rid >= 0)
         if len(active) == 0:
             return emitted
@@ -1465,8 +1639,8 @@ class ContinuousBatcher:
     def predicted_tpot_s(self) -> float | None:
         """Acceptance-aware time per output token: the verify tick's wall
         EWMA over the committed tokens a slot a tick. None until both are
-        measured, or without the speculative tick. (Its consumer, the
-        fleet router's cost model, is ROADMAP.md queue 1, item 13.)"""
+        measured, or without the speculative tick. The fleet router's
+        cost model reads it (``Router.decode_cost_s``)."""
         if (not self.speculative_window or self.spec_tick_s_ewma is None
                 or not self.commit_ewma):
             return None
@@ -1556,12 +1730,13 @@ class ContinuousBatcher:
         return emitted
 
     def abandon(self) -> list[Request]:
-        """Evacuate every unfinished request (queued, mid-admission,
-        mid-decode, preempted) and reset the scheduler; retired results stay
+        """Evacuate every unfinished request (queued, injected,
+        mid-admission, mid-decode, preempted) and reset the scheduler; retired results stay
         collectable. Every slot's pages return to the pool (registered
         prefix pages stay)."""
         live = [self._live[rid] for rid in sorted(self._live)]
         self._queue.clear()
+        self._inject.clear()  # handed-off rows die with the replica; a router re-prefills
         self._live.clear()
         self._pending = None
         if self.paged and self.preemption:
@@ -1599,8 +1774,8 @@ class ContinuousBatcher:
         """Drain the queue and the slots; returns {rid: [tokens]} for every
         request retired during (or before) this call."""
         for _ in range(max_steps):
-            if (not self._queue and self.n_active == 0 and self.n_pending == 0
-                    and self.n_preempted == 0):
+            if (not self._queue and not self._inject and self.n_active == 0
+                    and self.n_pending == 0 and self.n_preempted == 0):
                 break
             self.step()
         else:

@@ -286,8 +286,13 @@ def test_http_metrics_endpoint_serves_both_expositions():
         snap = json.loads(urllib.request.urlopen(f"{srv.address}/metrics.json",
                                                  timeout=10).read())
         assert snap[0]["value"] == 5.0
-        with pytest.raises(urllib.error.HTTPError):  # the cluster plane is item 13
-            urllib.request.urlopen(f"{srv.address}/cluster.json", timeout=10)
+        # the third route, the cluster snapshot (item 13, ported)
+        cluster = json.loads(urllib.request.urlopen(f"{srv.address}/cluster.json",
+                                                    timeout=10).read())
+        assert cluster["schema"] == "dsml.obs.cluster/1" and cluster["role"]
+        assert cluster["metrics"][0]["value"] == 5.0 and "traceEvents" in cluster["trace"]
+        with pytest.raises(urllib.error.HTTPError):
+            urllib.request.urlopen(f"{srv.address}/no_such_route", timeout=10)
         with pytest.raises(tobs.ObsUnavailable, match="cannot bind"):
             tobs.start_metrics_server(reg, port=srv.port)
     finally:
@@ -295,8 +300,15 @@ def test_http_metrics_endpoint_serves_both_expositions():
 
 
 def test_unported_cluster_names_raise_naming_item_13():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tobs.ClusterAggregator  # noqa: B018
+    """The cluster names (item 13) are ported: each resolves lazily to
+    ``obs.cluster``; only the gRPC pull still raises, citing item 14."""
+    from dsml_tpu_torch.obs import cluster
+
+    for name in ("ClockSync", "ClusterAggregator", "merge_snapshots", "snapshot",
+                 "stitch_traces", "trace_summary"):
+        assert getattr(tobs, name) is getattr(cluster, name) and name in tobs.__all__
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tobs.ClusterAggregator().pull("127.0.0.1:1")
     with pytest.raises(AttributeError):
         tobs.no_such_name  # noqa: B018
 

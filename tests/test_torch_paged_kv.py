@@ -331,7 +331,8 @@ def test_constructor_and_submit_validation(setup, monkeypatch):
     srv = ContinuousBatcher(model, n_pages=20, **PAGED)  # "off" serves full-precision weights
     with pytest.raises(ValueError, match="weight_quant must be"):
         ContinuousBatcher(model, weight_quant="int3")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # inject (item 13) is ported: a paged worker takes pages, not a dense cache
+    with pytest.raises(ValueError, match="inject needs kv_pages="):
         srv.inject(np.ones(3), 2)
     with pytest.raises(ValueError, match="one process per device"):
         ContinuousBatcher.for_devices(model, ["cpu", "cpu"])  # no rank, no rendezvous
