@@ -25,6 +25,14 @@ before the path and read just after):
   shared by the decode side), 20 requests under two SLO classes with
   obs on, then 4 at f32 with a prefill worker killed mid-prefill: the
   prefill chunks and the decode ticks through the paged kernels;
+- the wire (``dsml_tpu_torch.comm``, the reference's own architecture):
+  the MNIST MLP (784-128-64-10) trained data-parallel over gRPC through 3
+  device servers on the card (buffers uint8 tensors there, RunForward /
+  RunBackward on it) and the coordinator (AllReduceRing(AVG) on the
+  native runtime's host path), 300 steps at batch 64 through
+  ``PipelineClient``; the RPCs' medians, the native runtime against its
+  Python versions, a GPT-2-small shard migration under wire faults, a
+  cross-host fleet handoff and the launchers as processes;
 - quantized-weight serving: the first 24 of those requests with
   ``weight_quant="int4"``, every projection through the dequant-fused
   matmul kernel (qmm), and a 16-request int8 drain;
@@ -133,7 +141,23 @@ the decode gaps, handoff bytes against dense f32 rows,
 ``router.slo.report()``; f32 tokens against paged_slice's f32 drain under
 the margin rule after a prefill-worker kill; kernels 5 and 6 at the 8-
 and 4-slot decode shapes against their plain versions, with CUDA-event
-times); wq_slice (qmm launches = 48 per chunk or
+times; the codec's CRC32C on the native ds_crc32c, with the Python-CRC
+run's MB/s and decode-gap p99 beside); wire (the device line carries
+grpc's, protobuf's and g++'s versions and the build line the native
+library's seconds; 300 wire steps from a seed-0 MLP: steps/s, samples/s,
+the first and last loss falling, the 2000-image holdout's accuracy; the
+flat weights after 20 steps bit for bit those of the same steps driven
+through the runtimes directly, and within TOL_WIRE_AUTOGRAD of one
+device's plain MLP with autograd; the median ms of Memcpy H2D and D2H at
+437,544 bytes, RunForward, RunBackward, AllReduceRing(AVG) at 3 ranks and
+a 4 MiB BeginSend/StreamSend with its MB/s; ds_reduce_f32 and ds_crc32c
+against their Python versions, equal; the native calls of the path;
+GPT-2-small's seed-0 f32 weights migrated under drop@1, resumed and bit
+for bit, and a leaf under corrupt@* raising MigrationError; a GPT-2-small
+f32 fleet's greedy tokens through register_with_donor /
+fetch_from_migrator equal to the in-process handoff's; launch_devices and
+launch_coordinator as processes and one AllReduceRing over them); wq_slice
+(qmm launches = 48 per chunk or
 tick, tokens/s, TTFT, tick ms and idle share, the twin's bytes, f32 int4
 greedy tokens against a dense model holding the same codes dequantized);
 serve_cli (``serve_continuous``, also with ``DSML_WEIGHT_QUANT=int4``);
@@ -286,6 +310,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1570,6 +1595,9 @@ FLEET_REQUESTS = 16  # the first 16 of the paged row's 48
 FLEET_PREFIX, FLEET_PREFIX_REQUESTS = 256, 4  # a registered 256-token prefix + 64-256 suffix tokens
 FLEET_F32_REQUESTS, FLEET_F32_SLOTS = 4, 4
 FLEET_CODEC_HANDOFFS = 2
+# the codec on the pure-Python CRC32C: the fleet line of the run of record
+# before the native runtime
+PY_CRC_CODEC_MB_PER_S, PY_CRC_DECODE_GAP_P99_S = (4.87, 7.98), 0.868
 FLEET_TPOT_MS, FLEET_E2E_MS = 100.0, 15000.0  # the interactive class's budgets
 
 
@@ -1613,6 +1641,7 @@ def phase_fleet(dev, card, paged):
     from dsml_tpu_torch.models.gpt2 import GPT2Config
     from dsml_tpu_torch.obs.cluster import snapshot, stitch_traces, trace_summary
     from dsml_tpu_torch.ops import paged_attention as tpa
+    from dsml_tpu_torch.runtime import native
     from dsml_tpu_torch.serving import SLOClass, build_fleet, decode_handoff, encode_handoff
     from dsml_tpu_torch.serving.paging import pages_for
 
@@ -1675,7 +1704,8 @@ def phase_fleet(dev, card, paged):
         router.register_prefix(prefix)  # blocking: every prefill and decode worker
         obs.get_tracer().reset()
 
-        # the main path, counted by role
+        # the main path, counted by role (the codec's CRC32C: native calls)
+        native.reset_calls()
         by_role = {"prefill": [0, 0], "decode": [0, 0]}
         count_launches_by_role(prefill_workers, "prefill", tpa, by_role)
         count_launches_by_role(decode_workers, "decode", tpa, by_role)
@@ -1694,6 +1724,7 @@ def phase_fleet(dev, card, paged):
         ticks = [dw.n_plain_ticks - t for dw, t in zip(decode_workers, ticks0)]
         records = {f: router.request_records[f] for f in frids}
         gaps = router.decode_gaps()
+        codec_crc_calls = native.CALLS["ds_crc32c"]
         slo_report = router.slo.report()
         pre_frids = frids[FLEET_REQUESTS:]
         chain_tid = records[pre_frids[0]]["trace_id"]
@@ -1730,6 +1761,7 @@ def phase_fleet(dev, card, paged):
           f"the prefix requests' handoffs (prefix rows, pages shipped): {pre_rows}")
     check(len(codec) == FLEET_CODEC_HANDOFFS and all(c["byte_for_byte"] for c in codec),
           f"the codec's round trips: {codec}")
+    check(codec_crc_calls > 0, "the codec's CRC32C did not run on the native ds_crc32c")
     check({"router_submit", "prefill_chunk", "serving_first_token"} <= set(chain.get("names", []))
           and chain.get("flow", {}).get("s") == 1 and chain["flow"].get("t", 0) >= 2
           and chain["flow"].get("f") == 1,
@@ -1815,7 +1847,11 @@ def phase_fleet(dev, card, paged):
           "handoffs": len(handoffs), "handoff_bytes_mean": float(np.mean(hand_bytes)),
           "dense_f32_bytes_mean": float(np.mean(dense_bytes)),
           "handoff_bytes_over_dense_f32": float(np.sum(hand_bytes) / np.sum(dense_bytes)),
-          "prefix_handoffs": pre_rows, "codec": codec, "pools": pools,
+          "prefix_handoffs": pre_rows, "codec": codec, "codec_crc32c": "ds_crc32c (native)",
+          "codec_ds_crc32c_calls": codec_crc_calls,
+          "with_python_crc32c": {"codec_mb_per_s": PY_CRC_CODEC_MB_PER_S,
+                                 "decode_gap_p99_s": PY_CRC_DECODE_GAP_P99_S},
+          "pools": pools,
           "slo_report": slo_report, "trace_chain": {"trace_id": chain_tid, **chain,
                                                     "events": chain_events},
           "bf16_tokens_equal_paged_slice": f"{same16} of {FLEET_REQUESTS}",
@@ -1859,6 +1895,378 @@ def fleet_kernel_time(dev):
           **timing, "note": "CUDA events around one call, host launch included; no PyTorch call "
                             "reads a page table"})
     return max(errs)
+
+
+def wire_toolchain() -> dict:
+    """grpc's, protobuf's and g++'s versions on this machine (None where absent)."""
+    import importlib.metadata
+    import importlib.util
+
+    out = {}
+    for key, module, dist in (("grpc", "grpc", "grpcio"), ("protobuf", "google.protobuf",
+                                                           "protobuf")):
+        try:
+            out[key] = importlib.metadata.version(dist) if importlib.util.find_spec(module) \
+                else None
+        except (ImportError, importlib.metadata.PackageNotFoundError):
+            out[key] = None
+    try:
+        out["gxx"] = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                                    timeout=60).stdout.splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError):
+        out["gxx"] = None
+    return out
+
+
+WIRE_DEVICES, WIRE_MEM = 3, 0x1000000  # 3 servers on cuda:0, the example's address space
+WIRE_STEPS, WIRE_CHECK_STEPS = 300, 20  # the wire run; its bit-identity prefix
+WIRE_BATCH, WIRE_LR = 64, 0.1  # the reference launcher's batch and lr at 3 devices
+WIRE_RPC_REPS = 20
+WIRE_STREAM_BYTES = 4 << 20  # one 4 MiB BeginSend/StreamSend between two servers
+# the wire run's flat weights after 20 steps against one device's plain MLP
+# with autograd on the same batches (f32: the host's softmax gradient in
+# numpy against torch's cross-entropy on the card, 20 SGD steps apart)
+TOL_WIRE_AUTOGRAD = 1e-4
+WIRE_HANDOFF_PROMPTS, WIRE_HANDOFF_TOKENS = (64, 97), 16  # two requests' prompt lengths
+
+
+def median_ms(fn, reps=WIRE_RPC_REPS, setup=None):
+    times = []
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def launcher_start():
+    """``launch_devices`` (2 servers on the card) and ``launch_coordinator``
+    as processes, on ephemeral ports; each prints its addresses as a JSON
+    line once it serves."""
+    return [subprocess.Popen([sys.executable, "-m", f"dsml_tpu_torch.cli.{name}", *args],
+                             stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+            for name, args in (("launch_devices", ["--num_devices", "2", "--base_port", "0"]),
+                               ("launch_coordinator", ["--port", "0"]))]
+
+
+def launcher_check(procs):
+    """One AllReduceRing over the launched cluster through ``PipelineClient``."""
+    from dsml_tpu_torch.comm.client import PipelineClient
+
+    devices = json.loads(procs[0].stdout.readline())["devices"]
+    coordinator = json.loads(procs[1].stdout.readline())["coordinator"]
+    client = PipelineClient.connect(coordinator, devices, timeout=60.0)
+    grads = [np.full(WIRE_STREAM_BYTES // 16, 1.5, np.float32),
+             np.full(WIRE_STREAM_BYTES // 16, 2.25, np.float32)]
+    t0 = time.perf_counter()
+    reduced = client.all_reduce_gradients(grads)
+    ms = (time.perf_counter() - t0) * 1e3
+    client.finalize()
+    return {"devices": devices, "coordinator": coordinator, "all_reduce_gradients_ms": ms,
+            "values_ok": bool(np.array_equal(reduced, grads[0] + grads[1]))}
+
+
+def wire_reference_steps(dev, data, flat0, steps):
+    """The same batches through one device's plain MLP with autograd: each
+    rank's shard a mean cross-entropy, their average the loss, SGD on the
+    module's parameters."""
+    from dsml_tpu_torch.models.mlp import MLP
+    from dsml_tpu_torch.utils.data import shard_batches
+
+    model = MLP(device=dev)
+    with torch.no_grad():
+        for name, v in model.unflatten(torch.from_numpy(flat0.copy()).to(dev)).items():
+            getattr(model, name).copy_(v)
+    for step, (x, y) in enumerate(shard_batches(data.train_x, data.train_y, WIRE_BATCH, seed=1)):
+        if step == steps:
+            break
+        shard = x.shape[0] // WIRE_DEVICES
+        xs = torch.from_numpy(x).to(dev)
+        ys = torch.from_numpy(y.astype(np.int64)).to(dev)
+        loss = sum(F.cross_entropy(model(xs[r * shard:(r + 1) * shard]),
+                                   ys[r * shard:(r + 1) * shard])
+                   for r in range(WIRE_DEVICES)) / WIRE_DEVICES
+        model.zero_grad()
+        loss.backward()
+        with torch.no_grad():
+            for p in model.parameters():
+                p -= WIRE_LR * p.grad
+    return model.flatten().cpu().numpy()
+
+
+def wire_migration(dev, weights):
+    """GPT-2-small's seed-0 f32 weights from a StateDonor to a
+    ShardMigrator over gRPC between two servers on the card: every leaf
+    under ``DSML_CHAOS_WIRE=drop@1`` (the first push truncated: it must
+    resume), then one leaf under ``corrupt@*`` (it must raise)."""
+    from dsml_tpu_torch.comm.device_server import serve_device
+    from dsml_tpu_torch.comm.migration import MigrationConfig, MigrationError, ShardMigrator
+    from dsml_tpu_torch.runtime import chaos
+
+    biggest = max(t.numel() * t.element_size() for t in weights.values())
+    mem = 4 * biggest  # landing in the lower half, the donor's staging in the upper
+    recv = serve_device(91, mem_size=mem, device=dev)
+    donor = serve_device(92, mem_size=mem, device=dev)
+    peers = {0: recv.address, 1: donor.address}
+    recv.runtime.configure_peers(peers, 0)
+    donor.runtime.configure_peers(peers, 1)
+    out = {}
+    try:
+        n = donor.runtime.donor.register_state(dict(weights), prefix="gpt2", version=0)
+        mig = ShardMigrator(recv.runtime, 0, [(1, donor.address)],
+                            config=MigrationConfig(timeout_s=120.0), local_address=recv.address,
+                            expect_version=0)
+        os.environ["DSML_CHAOS_WIRE"] = "drop@1"
+        chaos.set_wire_fault_plan(chaos.WireFaultPlan.parse(os.environ["DSML_CHAOS_WIRE"]))
+        t0 = time.perf_counter()
+        same, nbytes = True, 0
+        for key, t in weights.items():
+            got = mig.fetch_piece(f"gpt2/{key}", [[0, s] for s in t.shape], "float32")
+            same &= torch.equal(got, t)
+            nbytes += t.numel() * t.element_size()
+        secs = time.perf_counter() - t0
+        out["drop"] = {"leaves": n, "bytes": nbytes, "seconds": secs,
+                       "mb_per_s": nbytes / secs / 1e6, "bit_for_bit": bool(same),
+                       "fired": chaos.wire_fault_plan().fired, **mig.stats}
+        os.environ["DSML_CHAOS_WIRE"] = "corrupt@*"
+        chaos.set_wire_fault_plan(chaos.WireFaultPlan.parse(os.environ["DSML_CHAOS_WIRE"]))
+        small = ShardMigrator(recv.runtime, 0, [(1, donor.address)],
+                              config=MigrationConfig(timeout_s=30.0, retries=1),
+                              local_address=recv.address)
+        key = "wpe"
+        try:
+            small.fetch_piece(f"gpt2/{key}", [[0, s] for s in weights[key].shape], "float32")
+            out["corrupt"] = {"raised": None}
+        except MigrationError as e:
+            out["corrupt"] = {"raised": "MigrationError", "message": str(e)[:160],
+                              "integrity_failures": small.stats["integrity_failures"]}
+        small.close()
+        mig.close()
+    finally:
+        del os.environ["DSML_CHAOS_WIRE"]
+        chaos.set_wire_fault_plan(None)
+        recv.stop()
+        donor.stop()
+    return out
+
+
+def wire_handoff(dev):
+    """One GPT-2-small f32 fleet (1 prefill worker, 1 decode batcher)
+    drained twice: the handoffs in process, then each published on a
+    device server's StateDonor and pulled by another's ShardMigrator."""
+    from dsml_tpu_torch.comm.device_server import serve_device
+    from dsml_tpu_torch.comm.migration import MigrationConfig, ShardMigrator
+    from dsml_tpu_torch.models.gpt2 import GPT2Config
+    from dsml_tpu_torch.serving import build_fleet, stream_transport
+
+    model = gpt2_small(GPT2Config.small(), dev)
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, 50257, n).astype(np.int64) for n in WIRE_HANDOFF_PROMPTS]
+    recv = serve_device(93, mem_size=1 << 26, device=dev)
+    donor = serve_device(94, mem_size=1 << 26, device=dev)
+    peers = {0: recv.address, 1: donor.address}
+    recv.runtime.configure_peers(peers, 0)
+    donor.runtime.configure_peers(peers, 1)
+    mig = ShardMigrator(recv.runtime, 0, [(1, donor.address)],
+                        config=MigrationConfig(timeout_s=60.0), local_address=recv.address)
+    toks, secs = {}, {}
+    try:
+        for name, transport in (("in_process", None),
+                                ("stream", stream_transport(donor.runtime.donor, mig))):
+            router = build_fleet(model, n_prefill=1, n_decode=1, prefill_chunk=PAGED_CHUNK,
+                                 n_slots=2, transport=transport)
+            t0 = time.perf_counter()
+            frids = [router.submit(p, WIRE_HANDOFF_TOKENS) for p in prompts]
+            out = router.run()
+            secs[name] = time.perf_counter() - t0
+            toks[name] = [list(map(int, out[f])) for f in frids]
+    finally:
+        mig.close()
+        recv.stop()
+        donor.stop()
+    return {"requests": len(prompts), "new_tokens": WIRE_HANDOFF_TOKENS, "dtype": "float32",
+            "tokens_equal": toks["stream"] == toks["in_process"], "seconds": secs,
+            "pulled": mig.stats, "donor_keys_left": len(donor.runtime.donor.keys())}
+
+
+def phase_wire(dev, card):
+    """The reference's own workload over the port's wire: the MNIST MLP
+    (784-128-64-10) trained data-parallel through 3 device servers on the
+    card and the coordinator, over gRPC on localhost (``PipelineClient``,
+    ``cli/train_mnist_wire.py``'s loop), 300 steps at batch 64 and lr 0.1
+    from a seed-0 MLP: steps/s, samples/s, the first and last loss, the
+    2000-image holdout's accuracy. The flat weights after 20 steps equal,
+    bit for bit, those of the same 20 steps driven through the runtimes
+    directly (``LocalClient``), and one device's plain MLP with autograd
+    within TOL_WIRE_AUTOGRAD. The median ms of each RPC, the 4 MiB stream's
+    MB/s, the native runtime against its Python versions, a GPT-2-small
+    migration under ``drop@1`` and ``corrupt@*``, a cross-host fleet
+    handoff, and the launchers as processes."""
+    import grpc
+    import google.protobuf
+
+    from dsml_tpu_torch.cli.train_mnist_wire import (
+        AVG, GRAD_ADDR, INPUT_ADDR, LOGITS_ADDR, LocalClient, accuracy, train_wire)
+    from dsml_tpu_torch.comm.client import PipelineClient
+    from dsml_tpu_torch.comm.coordinator import serve_coordinator
+    from dsml_tpu_torch.comm.device_server import serve_local_devices
+    from dsml_tpu_torch.models.mlp import MLP
+    from dsml_tpu_torch.runtime import native
+    from dsml_tpu_torch.utils import crc32c as tcrc
+    from dsml_tpu_torch.utils.data import load_mnist
+
+    t_phase = time.perf_counter()
+    procs = []
+    try:
+        native.reset_calls()
+        data = load_mnist()
+        idx_calls = native.CALLS["ds_idx_parse"]
+        model = MLP(device=dev)
+        flat0 = model.init(0).flatten().cpu().numpy()
+        handles = serve_local_devices(WIRE_DEVICES, mem_size=WIRE_MEM, model=model,
+                                      device=None if dev.type == "cuda" else dev)
+        coordinator = serve_coordinator()
+        client = PipelineClient.connect(coordinator.address, [h.address for h in handles])
+        at_check = {}
+
+        def on_step(step, flat, losses):
+            if step == WIRE_CHECK_STEPS:
+                at_check["flat"] = flat.copy()
+
+        native.reset_calls()
+        run = train_wire(client, data, flat0, steps=WIRE_STEPS, batch_size=WIRE_BATCH,
+                         lr=WIRE_LR, on_step=on_step)
+        train_calls = dict(native.CALLS)
+        acc = accuracy(model, run["flat"], data.test_x, data.test_y)
+        # the same 20 steps on the runtimes directly: the calls the servicers make
+        rt = coordinator.runtime
+        comm = rt.comm_init(WIRE_DEVICES, [h.address for h in handles])
+        direct = train_wire(LocalClient(rt, [h.runtime for h in handles], comm.comm_id), data,
+                            flat0, steps=WIRE_CHECK_STEPS, batch_size=WIRE_BATCH, lr=WIRE_LR)
+        ref = wire_reference_steps(dev, data, flat0, WIRE_CHECK_STEPS)
+        autograd_err = float(np.abs(ref - at_check["flat"]).max())
+
+        # the median of each RPC
+        w = run["flat"].tobytes()
+        rpc = {"memcpy_h2d_437544_b": median_ms(lambda: client.write(0, 0x300000, w)),
+               "memcpy_d2h_437544_b": median_ms(lambda: client.read(0, 0x300000, len(w))),
+               "run_forward": median_ms(lambda: client.run_forward(0, INPUT_ADDR, LOGITS_ADDR))}
+        dl = np.full((WIRE_BATCH // WIRE_DEVICES, 10), 0.01, np.float32)
+        rpc["run_backward"] = median_ms(lambda: client.run_backward(0, GRAD_ADDR),
+                                        setup=lambda: client.write(0, GRAD_ADDR, dl))
+        for r in range(WIRE_DEVICES):
+            client.write(r, GRAD_ADDR, w)
+        rpc["all_reduce_ring_avg_3_ranks"] = median_ms(
+            lambda: client.all_reduce_ring(len(w), op=AVG,
+                                           mem_addrs={r: GRAD_ADDR for r in range(WIRE_DEVICES)}))
+        # staged in process: one 4 MiB Memcpy would exceed gRPC's 4 MiB message cap
+        # (the stream itself moves 256 KiB chunks)
+        payload = np.random.default_rng(4).integers(0, 256, WIRE_STREAM_BYTES, dtype=np.uint8)
+        handles[0].runtime.memcpy_h2d(0x400000, payload)
+
+        def stream():
+            sid = client.begin_send(0, 0x400000, WIRE_STREAM_BYTES, dst_rank=1)
+            client.begin_receive(1, sid, 0x900000, WIRE_STREAM_BYTES, src_rank=0)
+            while client.stream_status(1, sid) == 0:  # IN_PROGRESS
+                time.sleep(0.0005)
+            return client.stream_status(1, sid)
+
+        rpc["stream_4_mib"] = median_ms(stream, reps=5)
+        stream_ok = stream() == 1 and handles[1].runtime.read_bytes(
+            0x900000, WIRE_STREAM_BYTES) == payload.tobytes()
+        client.finalize()
+        coordinator.stop()
+        for h in handles:
+            h.stop()
+        del handles, coordinator, client
+
+        # the launchers boot (after the timed wire run: their start competes
+        # for the host's cores) while the native runtime, the migration and
+        # the handoff run
+        procs = launcher_start()
+        # the native runtime against its plain Python versions
+        rows = np.random.default_rng(5).standard_normal((WIRE_DEVICES, model.n_params)) \
+            .astype(np.float32)
+        red_ms = median_ms(lambda: native.reduce_f32(rows, AVG))
+        red_py_ms = median_ms(lambda: native.reduce_f32_py(rows, AVG), reps=5)
+        blob = payload.tobytes()
+        crc_ms = median_ms(lambda: tcrc.crc32c(blob), reps=5)
+        mib = blob[: 1 << 20]
+        t0 = time.perf_counter()
+        crc_py = tcrc.crc32c_py(mib)
+        crc_py_ms = (time.perf_counter() - t0) * 1e3
+        natives = {
+            "ds_reduce_f32": {"rows": list(rows.shape), "ms": red_ms, "python_ms": red_py_ms,
+                              "mb_per_s": rows.nbytes / red_ms / 1e3,
+                              "python_mb_per_s": rows.nbytes / red_py_ms / 1e3,
+                              "equal": bool(np.array_equal(native.reduce_f32(rows, AVG).view(
+                                  np.uint32), native.reduce_f32_py(rows, AVG).view(np.uint32)))},
+            "ds_crc32c": {"bytes": len(blob), "ms": crc_ms, "python_bytes": len(mib),
+                          "python_ms": crc_py_ms, "mb_per_s": len(blob) / crc_ms / 1e3,
+                          "python_mb_per_s": len(mib) / crc_py_ms / 1e3,
+                          "equal": tcrc.crc32c(mib) == crc_py}}
+        native.reset_calls()
+        migration = wire_migration(dev, gpt2_small_weights())
+        migration_calls = dict(native.CALLS)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        handoff = wire_handoff(dev)
+        launchers = launcher_check(procs)
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    losses = run["losses"]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    row = {"phase": "wire", "model": "mnist-mlp-784-128-64-10", "transport": "grpc",
+           "grpc": grpc.__version__, "protobuf": google.protobuf.__version__,
+           "device_servers": WIRE_DEVICES, "servers_on": str(dev), "batch": WIRE_BATCH,
+           "lr": WIRE_LR, "steps": run["steps"], "train_seconds": run["seconds"],
+           "steps_per_s": run["steps"] / run["seconds"],
+           "samples_per_s": run["steps"] * WIRE_BATCH / run["seconds"],
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "loss_first10_mean": first, "loss_last10_mean": last,
+           "holdout_accuracy": acc, "holdout_images": int(data.test_x.shape[0]),
+           f"wire_equals_direct_after_{WIRE_CHECK_STEPS}_steps":
+               at_check["flat"].tobytes() == direct["flat"].tobytes(),
+           "autograd_max_abs_err": autograd_err, "autograd_tol": TOL_WIRE_AUTOGRAD,
+           "rpc_median_ms": rpc, "stream_4_mib_mb_per_s": WIRE_STREAM_BYTES / rpc[
+               "stream_4_mib"] / 1e3, "stream_bytes_ok": stream_ok,
+           "native_calls": {"load_mnist_ds_idx_parse": idx_calls, "train": train_calls,
+                            "migration": migration_calls},
+           "native": natives, "migration": migration, "handoff": handoff,
+           "launchers": launchers, "phase_seconds": time.perf_counter() - t_phase,
+           "card": card}
+    emit(row)
+    check(all(np.isfinite(losses)) and last < first, f"the wire run's loss did not fall: "
+                                                     f"{first} -> {last}")
+    check(acc >= 0.85, f"the wire run's holdout accuracy {acc}")
+    check(row[f"wire_equals_direct_after_{WIRE_CHECK_STEPS}_steps"],
+          "the wire run's weights differ from the direct runtime run's")
+    check(autograd_err <= TOL_WIRE_AUTOGRAD,
+          f"the wire run against the autograd reference: {autograd_err}")
+    check(stream_ok, "the 4 MiB stream did not arrive byte for byte")
+    check(idx_calls >= 2 and train_calls["ds_reduce_f32"] >= WIRE_STEPS
+          and train_calls["ds_prefetch_next"] >= WIRE_STEPS
+          and migration_calls["ds_crc32c"] > 0,
+          f"the native runtime's calls: {row['native_calls']}")
+    check(natives["ds_reduce_f32"]["equal"] and natives["ds_crc32c"]["equal"],
+          f"native against Python: {natives}")
+    check(migration["drop"]["bit_for_bit"] and migration["drop"]["resumed"] >= 1
+          and migration["drop"]["fired"] and migration["drop"]["fired"][0]["action"] == "drop",
+          f"the drop@1 migration: {migration['drop']}")
+    check(migration["corrupt"]["raised"] == "MigrationError",
+          f"the corrupt@* migration: {migration['corrupt']}")
+    check(handoff["tokens_equal"] and handoff["donor_keys_left"] == 0,
+          f"the cross-host handoff: {handoff}")
+    check(launchers["values_ok"], f"the launched cluster's all-reduce: {launchers}")
 
 
 def phase_serve_cli(dev):
@@ -6835,18 +7243,26 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     from dsml_tpu_torch.ops import _build
     from dsml_tpu_torch.ops import flash as tflash
+    from dsml_tpu_torch.runtime import native
     from dsml_tpu_torch.utils.platform import card_name_and_power_limit, resolve_device
 
     dev = resolve_device("cuda:0")
     card = card_name_and_power_limit()
     emit({"phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+          "cuda": torch.version.cuda, "python": sys.version.split()[0], **wire_toolchain()})
 
     t0 = time.perf_counter()
     reports = _build.build()
     reports_seconds = time.perf_counter() - t0
+    native_built = time.perf_counter()
+    native_lib = native.build()
+    native.load()
+    native_seconds = time.perf_counter() - native_built
+    reports_seconds += native_seconds
     emit({"phase": "build", "sources": sorted(reports), "seconds": reports_seconds,
+          "native": {"source": str(native.SOURCE.relative_to(Path.cwd())),
+                     "library": native_lib.name, "seconds": native_seconds},
           "ptxas": {name: [line.strip() for line in log.splitlines()
                            if "registers" in line or "spill" in line]
                     for name, log in reports.items()},
@@ -6872,6 +7288,7 @@ def main() -> None:
                   "paged_slice": lambda: phase_paged_slice(dev, card),
                   "fleet": lambda: phase_fleet(dev, card, phase_paged_slice(dev, card)[2]),
                   "fleet_kernel": lambda: fleet_kernel_time(dev),
+                  "wire": lambda: phase_wire(dev, card),
                   "wq_slice": lambda: phase_wq_slice(dev, card),
                   "serve_cli": lambda: (phase_serve_cli(dev), phase_serve_cli_wq(dev)),
                   "train_int8remat": lambda: phase_train_int8remat(tflash, dev, card),
@@ -6936,6 +7353,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     fleet_launches, fleet_err = phase_fleet(dev, card, paged_row)
     del paged_row
+    torch.cuda.empty_cache()
+    phase_wire(dev, card)
     torch.cuda.empty_cache()
     wq_launches = phase_wq_slice(dev, card)
     torch.cuda.empty_cache()

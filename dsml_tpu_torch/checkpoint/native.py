@@ -60,6 +60,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from dsml_tpu_torch.utils.dtypes import DTYPE_NAMES
 from dsml_tpu_torch.utils.logging import get_logger
 
 __all__ = ["FlatShard", "MeshShard", "RankShard", "Snapshot", "commit", "read_manifest",
@@ -171,16 +172,9 @@ def _map_tree(fn, tree, prefix: str = ""):
     return type(tree)(v for _, v in mapped)
 
 
-_TORCH_DTYPE_NAMES = {
-    torch.float32: "float32", torch.float64: "float64", torch.float16: "float16",
-    torch.bfloat16: "bfloat16", torch.int64: "int64", torch.int32: "int32",
-    torch.int16: "int16", torch.int8: "int8", torch.uint8: "uint8", torch.bool: "bool",
-}
-
-
 def _torch_dtype_name(dt: torch.dtype) -> str:
     try:
-        return _TORCH_DTYPE_NAMES[dt]
+        return DTYPE_NAMES[dt]
     except KeyError:
         raise ValueError(f"no checkpoint dtype name for {dt}") from None
 

@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_numpy", "zero2_shards_from_jax"]
+__all__ = ["mlp_flat_from_jax", "params_from_jax", "params_to_numpy", "zero2_shards_from_jax"]
 
 
 def _leaf_to_tensor(a) -> torch.Tensor:
@@ -76,6 +76,21 @@ def params_from_jax(tree, prefix: str = "", model=None,
     for key, sub in items:
         out.update(params_from_jax(sub, f"{prefix}.{key}" if prefix else str(key)))
     return out
+
+
+def mlp_flat_from_jax(params, sizes=(784, 128, 64, 10)) -> torch.Tensor:
+    """A JAX MLP's parameter dict (``w0, b0, w1, …`` as numpy) as the
+    port's flat f32 vector ``[W0, b0, W1, b1, …]`` (``MLP.flatten``'s
+    layout, the JAX ``MLP.flatten``'s too)."""
+    n_layers = len(sizes) - 1
+    leaves = []
+    for i, (fan_in, fan_out) in enumerate(zip(sizes[:-1], sizes[1:])):
+        w, b = np.asarray(params[f"w{i}"], np.float32), np.asarray(params[f"b{i}"], np.float32)
+        if w.shape != (fan_in, fan_out) or b.shape != (fan_out,):
+            raise ValueError(f"layer {i} of {n_layers}: w{w.shape} b{b.shape}, expected "
+                             f"({fan_in}, {fan_out}) and ({fan_out},)")
+        leaves += [w.reshape(-1), b.reshape(-1)]
+    return torch.from_numpy(np.concatenate(leaves))
 
 
 def zero2_shards_from_jax(flat_buckets, n: int, rank: int) -> list[torch.Tensor]:

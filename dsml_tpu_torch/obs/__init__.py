@@ -253,7 +253,7 @@ def observe_recovery_ms(stage: str, ms: float,
     """One elastic-recovery latency sample →
     ``controller_recovery_ms{stage}`` (stages: ``reconfigure`` /
     ``checkpoint_fallback`` / ``grow_keep`` / ``grow_replay``; the elastic
-    controller that feeds it is ROADMAP.md queue 1, item 14)."""
+    controller that feeds it is ROADMAP.md queue 1, item 14b)."""
     reg = registry if registry is not None else get_registry()
     if not reg.enabled:
         return

@@ -21,9 +21,15 @@ offline half).
 
 The snapshot schema, merge semantics and clock contract are the JAX
 package's: a snapshot written by either package merges in the other's
-``MergedView``. The gRPC half (``ClusterAggregator.pull``, the ObsPlane
-servicers, ``push_snapshot``, the multi-process demo) needs the control
-plane's ``comm/`` (ROADMAP.md queue 1, item 14).
+``MergedView``.
+
+The gRPC half rides the wire's plumbing (``comm/rpc.py``'s raw-JSON
+``dsml_obs.ObsPlane`` service, attached to every device server and
+coordinator): :meth:`ClusterAggregator.pull`, :class:`ObsServicer`,
+:class:`AggregatorServicer`, :func:`serve_aggregator`,
+:func:`push_snapshot` and :func:`run_cluster_demo` (the coordinator plus
+device-server subprocesses, ``python -m dsml_tpu_torch.obs.cluster --demo
+OUT_DIR``).
 """
 
 from __future__ import annotations
@@ -46,11 +52,16 @@ from dsml_tpu_torch.obs.slo import STATUS_LEVELS, burn_rate
 
 __all__ = [
     "SNAPSHOT_SCHEMA",
+    "AggregatorServicer",
     "ClockSync",
     "ClusterAggregator",
+    "ObsServicer",
     "current_role",
     "estimate_quantile",
     "merge_snapshots",
+    "push_snapshot",
+    "run_cluster_demo",
+    "serve_aggregator",
     "snapshot",
     "stitch_traces",
     "trace_summary",
@@ -635,9 +646,8 @@ class ClusterAggregator:
     - :meth:`scrape` — HTTP GET of a worker's ``/cluster.json``
       (``obs.start_metrics_server``), with the RTT-midpoint clock
       handshake measured around the request;
-    - :meth:`pull` — the same over the control plane's gRPC ObsPlane
-      service (raises until that plane is ported, ROADMAP.md queue 1,
-      item 14);
+    - :meth:`pull` — the same over the wire's gRPC ObsPlane service
+      (attached to every device server and coordinator);
     - :meth:`add` — a snapshot dict/file pushed or loaded offline
       (wall-clock alignment).
     """
@@ -679,12 +689,23 @@ class ClusterAggregator:
         return snap
 
     def pull(self, address: str, timeout: float = 10.0) -> dict:
-        """ObsPlane.PullSnapshot over a gRPC channel (the JAX package's
-        third ingest path). Not ported yet."""
-        raise NotImplementedError(
-            "ClusterAggregator.pull needs the control plane's comm/ gRPC plumbing, which "
-            "comes with a later slice of the port (ROADMAP.md queue 1, item 14); scrape "
-            "/cluster.json over HTTP or add() snapshot dicts instead")
+        """ObsPlane.PullSnapshot over a gRPC channel (clock handshake
+        measured around the RPC)."""
+        import grpc
+
+        from dsml_tpu_torch.comm import rpc as comm_rpc
+
+        channel = grpc.insecure_channel(address)
+        try:
+            stub = comm_rpc.obs_stub(channel)
+            t0 = now_us()
+            body = stub.PullSnapshot(b"{}", timeout=timeout)
+            t1 = now_us()
+        finally:
+            channel.close()
+        snap = json.loads(body)
+        self.add(snap, ClockSync.from_handshake(t0, t1, snap["mono_us"]))
+        return snap
 
     # -- outputs -----------------------------------------------------------
 
@@ -728,3 +749,214 @@ class ClusterAggregator:
         with open(paths["report"], "w") as f:
             json.dump(self.report(), f, indent=2, sort_keys=True)
         return paths
+
+
+# ---------------------------------------------------------------------------
+# worker side: the ObsPlane gRPC servicer + aggregator push
+# ---------------------------------------------------------------------------
+
+
+class ObsServicer:
+    """Worker-side ObsPlane: serves this process's snapshot over the
+    grpc.Server the worker already runs for its gpu_sim service (attach
+    with ``rpc.add_obs_servicer``). Raw-JSON payloads."""
+
+    def __init__(self, role: str, registry: Registry | None = None, tracer=None):
+        self.role = role
+        self._registry = registry
+        self._tracer = tracer
+
+    def PullSnapshot(self, request: bytes, context) -> bytes:  # noqa: N802
+        opts = json.loads(request or b"{}")
+        snap = snapshot(role=self.role, registry=self._registry, tracer=self._tracer,
+                        with_trace=bool(opts.get("trace", True)))
+        return json.dumps(snap).encode()
+
+    def PushSnapshot(self, request: bytes, context) -> bytes:  # noqa: N802
+        import grpc
+
+        context.abort(grpc.StatusCode.UNIMPLEMENTED,
+                      "this ObsPlane endpoint only serves PullSnapshot")
+
+
+class AggregatorServicer:
+    """Aggregator-side ObsPlane: accepts worker pushes."""
+
+    def __init__(self, aggregator: ClusterAggregator):
+        self.aggregator = aggregator
+
+    def PushSnapshot(self, request: bytes, context) -> bytes:  # noqa: N802
+        import grpc
+
+        try:
+            snap = json.loads(request)
+        except ValueError:
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, "PushSnapshot payload is not JSON")
+        try:
+            # a push has no handshake (the worker cannot read our clock):
+            # wall alignment happens at stitch time
+            self.aggregator.add(snap)
+        except ValueError as e:
+            # reject THIS push; never poison the aggregator's artifact run
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+        return json.dumps({"ok": True, "agg_mono_us": now_us()}).encode()
+
+    def PullSnapshot(self, request: bytes, context) -> bytes:  # noqa: N802
+        import grpc
+
+        context.abort(grpc.StatusCode.UNIMPLEMENTED, "aggregators accept PushSnapshot only")
+
+
+def serve_aggregator(aggregator: ClusterAggregator, port: int = 0, host: str = "127.0.0.1"):
+    """Boot a standalone aggregator endpoint workers can push to. Returns a
+    handle with ``.address`` and ``.stop()``."""
+    from concurrent import futures as _futures
+
+    import grpc
+
+    from dsml_tpu_torch.comm import rpc as comm_rpc
+
+    server = grpc.server(_futures.ThreadPoolExecutor(max_workers=4))
+    comm_rpc.add_obs_servicer(AggregatorServicer(aggregator), server)
+    bound = server.add_insecure_port(f"{host}:{port}")
+    server.start()
+
+    class _Handle:
+        address = f"{host}:{bound}"
+
+        @staticmethod
+        def stop(grace: float = 0.2) -> None:
+            server.stop(grace)
+
+    return _Handle()
+
+
+def push_snapshot(address: str, role: str | None = None, registry: Registry | None = None,
+                  with_trace: bool = True, timeout: float = 10.0) -> dict:
+    """Worker → aggregator push over the wire's plumbing: one shot, returns
+    the aggregator's ack (for workers the aggregator cannot scrape)."""
+    import grpc
+
+    from dsml_tpu_torch.comm import rpc as comm_rpc
+
+    snap = snapshot(role=role, registry=registry, with_trace=with_trace)
+    channel = grpc.insecure_channel(address)
+    try:
+        ack = comm_rpc.obs_stub(channel).PushSnapshot(json.dumps(snap).encode(), timeout=timeout)
+    finally:
+        channel.close()
+    return json.loads(ack)
+
+
+# ---------------------------------------------------------------------------
+# demo CLI: the multi-process proof
+# ---------------------------------------------------------------------------
+
+_DEMO_WORKER_FLAG = "--serve-one-device"
+
+
+def _demo_worker_main(device_id: int, device: str | None) -> None:
+    """Subprocess body: one device server with obs on and the ObsPlane
+    attached; prints its address as a JSON line, then serves until stdin
+    closes."""
+    import sys
+
+    from dsml_tpu_torch import obs
+    from dsml_tpu_torch.comm.device_server import serve_device
+
+    obs.enable(forensics=False)
+    handle = serve_device(device_id, mem_size=0x100000, device=device)
+    print(json.dumps({"address": handle.address, "pid": os.getpid()}), flush=True)
+    sys.stdin.read()  # the parent closes the pipe → exit
+    handle.stop()
+
+
+def run_cluster_demo(out_dir: str, n_devices: int = 2, payload_floats: int = 1024,
+                     device: str | None = None) -> dict:
+    """The coordinator (this process) and ``n_devices`` device-server
+    subprocesses on ``device`` (the card by default): one all-reduce over
+    the wire, then every process scraped over the ObsPlane, and the merged
+    exposition, stitched trace and report written into ``out_dir``.
+    Returns the report with the artifact paths attached."""
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from dsml_tpu_torch import obs
+    from dsml_tpu_torch.comm.coordinator import CoordinatorConfig, serve_coordinator
+
+    obs.enable(forensics=False)
+    env = {**os.environ, "DSML_OBS": "1", "DSML_OBS_ROLE": "device_server"}
+    cmd = [sys.executable, "-m", "dsml_tpu_torch.obs.cluster"]
+    if device is not None:
+        cmd += ["--device", str(device)]
+    procs, addrs = [], []
+    try:
+        for i in range(n_devices):
+            procs.append(subprocess.Popen([*cmd, _DEMO_WORKER_FLAG, str(i + 1)],
+                                          stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                          env=env, text=True))
+        for p in procs:
+            addrs.append(json.loads(p.stdout.readline())["address"])
+        coordinator = serve_coordinator(
+            config=CoordinatorConfig(health_interval_s=0.5, probe_timeout_s=2.0))
+        try:
+            rt = coordinator.runtime
+            comm = rt.comm_init(n_devices, addrs)
+            data = np.arange(payload_floats, dtype=np.float32)
+            for info in comm.devices:
+                rt.memcpy_h2d(info.device_id, 0x1000, data.tobytes())
+            rt.all_reduce_ring(comm.comm_id, data.nbytes, dtype="float32")
+            agg = ClusterAggregator()
+            agg.add(snapshot(role="coordinator"), ClockSync(0.0, 0.0, "identity"))
+            for addr in addrs:
+                agg.pull(addr)
+            paths = agg.write_artifacts(out_dir)
+            report = agg.report()
+            report["artifacts"] = paths
+            report["n_processes"] = 1 + n_devices
+            return report
+        finally:
+            coordinator.stop()
+    finally:
+        for p in procs:
+            try:
+                p.stdin.close()
+            except OSError:
+                pass
+        for p in procs:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+
+
+def _main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m dsml_tpu_torch.obs.cluster",
+        description="cluster obs demo: merged exposition + stitched trace of 3 processes")
+    ap.add_argument("--demo", metavar="OUT_DIR",
+                    help="run the coordinator + 2 device-server subprocesses, write merged "
+                    "artifacts into OUT_DIR")
+    ap.add_argument("--device", default=None,
+                    help="the device servers' torch device (default: the card)")
+    ap.add_argument(_DEMO_WORKER_FLAG, type=int, default=None, metavar="DEVICE_ID",
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.serve_one_device is not None:
+        _demo_worker_main(args.serve_one_device, args.device)
+        return 0
+    if not args.demo:
+        ap.print_help()
+        return 2
+    report = run_cluster_demo(args.demo, device=args.device)
+    print(json.dumps({k: report[k] for k in ("n_processes", "n_series", "artifacts", "notes")},
+                     indent=2))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())

@@ -36,6 +36,12 @@ on CPU tensors the ``"xla"`` all-reduce of floats and :func:`reduce_scatter`
 SUM/AVG gather the ranks' rows and sum them in that order (bf16 in f32,
 rounded once), so they equal the JAX package's bit for bit at any n; CUDA
 tensors keep gloo and the IPC ring.
+
+:func:`local_all_reduce`, :func:`device_buffers_all_reduce` and
+:func:`make_stacked_all_reduce` are the in-process all-reduces of the wire
+coordinator: one process holds every rank's tensor, each on its own
+device, and the same schedules run over them (the JAX package runs them
+as one program over a device mesh).
 """
 
 from __future__ import annotations
@@ -47,6 +53,8 @@ import os
 
 import torch
 import torch.distributed as dist
+
+from dsml_tpu_torch.utils.dtypes import TORCH_DTYPES
 
 __all__ = [
     "ReduceOp",
@@ -67,6 +75,9 @@ __all__ = [
     "STATS",
     "reset_stats",
     "ring_wire_bytes",
+    "local_all_reduce",
+    "device_buffers_all_reduce",
+    "make_stacked_all_reduce",
 ]
 
 # all_to_all calls (the backward's inverse exchanges included) and the
@@ -610,3 +621,130 @@ def all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> tor
         raise ValueError(f"all_to_all: dim {split_axis} of size {x.shape[split_axis]} not "
                          f"divisible by axis size {group.size}")
     return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+# ---------------------------------------------------------------------------
+# In-process all-reduces over a list of per-device tensors (the coordinator's)
+# ---------------------------------------------------------------------------
+
+
+def _local_ring(xs: list, op: ReduceOp, signs: tuple) -> list:
+    """:func:`_ring_all_reduce_impl` over ``n`` tensors held by one process,
+    rank r's on its own device: the same segments, hops and ``combine``
+    order, so the results equal the JAX ring's bit for bit."""
+    n = len(xs)
+    size = xs[0].numel()
+    k = len(signs)
+    padded = -(-size // (k * n)) * (k * n)
+    part = padded // k
+    flats, bufs = [], []
+    for x in xs:
+        flat = torch.zeros(padded, dtype=_acc_dtype(x.dtype), device=x.device)
+        flat[:size].copy_(x.reshape(-1))
+        flats.append(flat)
+        bufs.append([flat[i * part:(i + 1) * part].view(n, part // n) for i in range(k)])
+
+    def step(idx_send, idx_recv, combine):
+        # every rank's hop of this step leaves before any lands
+        sent = [[bufs[r][i][idx_send(r, s)].clone() for i, s in enumerate(signs)]
+                for r in range(n)]
+        for r in range(n):
+            for i, s in enumerate(signs):
+                dst = (r + s) % n
+                resident = bufs[dst][i][idx_recv(dst, s)]
+                recv = sent[r][i].to(resident.device)
+                if combine is None:
+                    resident.copy_(recv)
+                else:
+                    combine(resident, recv, out=resident)
+
+    for t in range(n - 1):
+        step(lambda r, s: (r - s * t) % n, lambda r, s: (r - s * (t + 1)) % n, op.combine)
+    for t in range(n - 1):
+        step(lambda r, s: (r - s * (t - 1)) % n, lambda r, s: (r - s * t) % n, None)
+    outs = []
+    for x, flat in zip(xs, flats):
+        out = flat[:size]
+        if op == ReduceOp.AVG:
+            out = _avg(out, n)
+        outs.append(out.reshape(x.shape).to(x.dtype))
+    return outs
+
+
+def _local_gather_reduce(xs: list, op: ReduceOp) -> list:
+    """The rows reduced in rank order on the first tensor's device and
+    copied to every device: ``lax.psum``/``pmin``/``pmax``/``pmean`` and
+    the naive gather's ``jnp.sum(axis=0)``, ``((x0 + x1) + x2) …``."""
+    n = len(xs)
+    dev0 = xs[0].device
+    acc = xs[0].to(_acc_dtype(xs[0].dtype)).clone()
+    fn = {ReduceOp.SUM: torch.add, ReduceOp.AVG: torch.add, ReduceOp.PROD: torch.mul,
+          ReduceOp.MIN: torch.minimum, ReduceOp.MAX: torch.maximum}[op]
+    for x in xs[1:]:
+        acc = fn(acc, x.to(dev0, acc.dtype))
+    if op == ReduceOp.AVG:
+        acc = _avg(acc, n)
+    return [acc.to(x.device, x.dtype) for x in xs]
+
+
+def local_all_reduce(xs: list, op: ReduceOp = ReduceOp.SUM, algorithm: str = "ring") -> list:
+    """All-reduce ``n`` same-shape tensors held by this process (tensor i
+    on its device i) under the JAX package's algorithms, one result per
+    input on its device: ``ring`` / ``ring2`` (the ring schedule, in the
+    JAX ring's combine order), ``naive`` (gather, then a rank-order
+    reduce), ``xla`` (``lax.psum`` and its siblings: the rank-order reduce;
+    PROD takes the ring) and ``auto``."""
+    op = ReduceOp(op)
+    n = len(xs)
+    if n == 1:
+        return [xs[0].clone()]
+    if algorithm == "auto":
+        algorithm = auto_all_reduce_algorithm(xs[0].numel() * xs[0].element_size(), n)
+    if algorithm == "ring" or (algorithm == "xla" and op == ReduceOp.PROD):
+        return _local_ring(xs, op, (+1,))
+    if algorithm == "ring2":
+        return _local_ring(xs, op, (+1, -1))
+    if algorithm in ("naive", "xla"):
+        return _local_gather_reduce(xs, op)
+    raise ValueError(f"unknown all-reduce algorithm {algorithm!r}")
+
+
+def device_buffers_all_reduce(buffers: list, op: ReduceOp = ReduceOp.SUM,
+                              algorithm: str = "ring", dtype: str = "float32") -> list:
+    """All-reduce per-device byte buffers without a host round trip (the
+    JAX ``device_buffers_all_reduce``): ``buffers[i]`` is a flat uint8
+    tensor on device i (a device server's registry buffer), viewed as
+    ``dtype`` for the reduction; returns one flat uint8 tensor per device,
+    ready for ``BufferRegistry.put_array``."""
+    dt = TORCH_DTYPES.get(str(dtype))
+    if dt is None:
+        raise ValueError(f"unsupported buffer dtype {dtype!r}")
+    count = buffers[0].numel()
+    itemsize = torch.empty(0, dtype=dt).element_size()
+    if count % itemsize:
+        raise ValueError(f"{count} bytes is not a multiple of {dtype} itemsize")
+    for i, b in enumerate(buffers):
+        if b.dim() != 1 or b.dtype != torch.uint8 or b.numel() != count:
+            raise ValueError(f"buffer {i}: expected flat uint8[{count}], got "
+                             f"{b.dtype}{tuple(b.shape)}")
+    xs = [b.contiguous().view(dt) for b in buffers]
+    return [r.contiguous().view(torch.uint8) for r in local_all_reduce(xs, op, algorithm)]
+
+
+def make_stacked_all_reduce(devices: list, op: ReduceOp = ReduceOp.SUM,
+                            algorithm: str = "ring"):
+    """A function of a host-side stack ``[n_devices, ...]`` (slice i device
+    i's contribution) that places slice i on ``devices[i]``, all-reduces
+    them in process (:func:`local_all_reduce`) and returns the ``[n, ...]``
+    stack of results on the input's device: every slice the reduction."""
+    devices = [torch.device(d) for d in devices]
+    op = ReduceOp(op)
+
+    def run(stacked) -> torch.Tensor:
+        t = torch.as_tensor(stacked)
+        if t.shape[0] != len(devices):
+            raise ValueError(f"expected leading dim {len(devices)}, got {tuple(t.shape)}")
+        outs = local_all_reduce([t[i].to(d) for i, d in enumerate(devices)], op, algorithm)
+        return torch.stack([o.to(t.device) for o in outs])
+
+    return run

@@ -11,7 +11,8 @@ cache, and the disaggregated prefill/decode fleet — the counterpart of
 - :mod:`prefill` — ``PrefillWorker``: chunked prefill to completion with a
   replicated prefix registry, producing ``Handoff`` objects.
 - :mod:`handoff` — the KV handoff: in-process handover (the rows stay on
-  the device) and the CRC32C-framed byte codec.
+  the device), the CRC32C-framed byte codec and the cross-host stream
+  pull (``stream_transport``).
 - :mod:`router` — ``Router``: SLO-class admission with explicit shedding,
   load-aware dispatch over N prefill and M decode workers, prefix
   replication, worker-loss hooks; ``build_fleet`` assembles one.
@@ -30,6 +31,7 @@ _LAZY = {
     "fetch_from_migrator": "handoff",
     "frame_transport": "handoff",
     "register_with_donor": "handoff",
+    "stream_transport": "handoff",
     "PrefillWorker": "prefill",
     "Router": "router",
     "SLOClass": "router",

@@ -23,10 +23,13 @@ the request's identity and timing. Two transports here:
   ``"bfloat16"``, as the JAX header names it. Decoded leaves come back as
   CPU tensors; ``inject`` places them on the worker's device.
 
-The cross-host stream path of the JAX package (:func:`register_with_donor`
-/ :func:`fetch_from_migrator`, over the device server's ``StateDonor`` and
-a ``ShardMigrator``) needs the control plane's ``comm/`` and raises here
-(ROADMAP.md queue 1, item 14).
+- **Across hosts** (:func:`register_with_donor` /
+  :func:`fetch_from_migrator`): the prefill host's device server publishes
+  every leaf on its ``StateDonor`` and sends a descriptor (the codec's
+  header, no payload); the decode host pulls each leaf over the hardened
+  P2P streams with a ``ShardMigrator`` (``comm/migration.py``): CRC32C
+  frames, resumable offsets, donor-death retries. :func:`stream_transport`
+  makes that pair a router's ``transport=``.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ __all__ = [
     "fetch_from_migrator",
     "frame_transport",
     "register_with_donor",
+    "stream_transport",
 ]
 
 HANDOFF_SCHEMA = "dsml.serving.handoff/1"
@@ -226,18 +230,105 @@ def frame_transport(handoff: Handoff) -> Handoff:
     return decode_handoff(encode_handoff(handoff))
 
 
-_CONTROL_PLANE = ("needs the control plane's comm/ (the device server's StateDonor and a "
-                  "ShardMigrator), which comes with a later slice of the port (ROADMAP.md "
-                  "queue 1, item 14)")
-
-
 def register_with_donor(donor, handoff: Handoff, prefix: str | None = None) -> dict:
-    """Publish a handoff on the prefill host's device server for a
-    cross-host pull (the JAX package's stream path). Not ported yet."""
-    raise NotImplementedError(f"register_with_donor {_CONTROL_PLANE}")
+    """Publish a handoff on the prefill host's device server: every cache
+    leaf (and the logits row) registers with the server's ``StateDonor``
+    under ``<prefix>/<layer>/<entry>`` (``<prefix>/logits``), and the
+    returned descriptor — the codec's header and the key prefix, no
+    payload — travels to the decode host over any control channel. The
+    bytes move over ``BeginSend``/``StreamSend`` when the decode host pulls
+    (:func:`fetch_from_migrator`). Call ``donor.unregister(prefix)`` once
+    the pull completes: handoffs are per-request transients."""
+    prefix = prefix if prefix is not None else f"handoff/{int(handoff.frid)}"
+    leaves, total = [], 0
+    for i, key, arr in _leaves(handoff.cache1):
+        t = arr.detach().contiguous().cpu() if isinstance(arr, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(arr))
+        name = _DTYPE_NAMES.get(t.dtype)
+        if name is None:
+            raise TypeError(f"handoff leaf dtype {t.dtype} has no codec name")
+        donor.register_array(f"{prefix}/{i}/{key}", t, trace_id=handoff.trace_id)
+        nbytes = t.numel() * t.element_size()
+        leaves.append({"layer": i, "entry": key, "dtype": name, "shape": list(t.shape),
+                       "nbytes": nbytes})
+        total += nbytes
+    logits = handoff.logits
+    logits = (logits.detach().float().reshape(-1).cpu() if isinstance(logits, torch.Tensor)
+              else torch.from_numpy(np.asarray(logits, np.float32).reshape(-1).copy()))
+    donor.register_array(f"{prefix}/logits", logits, trace_id=handoff.trace_id)
+    header = {
+        "schema": HANDOFF_SCHEMA,
+        "frid": int(handoff.frid),
+        "key_rid": None if handoff.key_rid is None else int(handoff.key_rid),
+        "prompt": [int(t) for t in handoff.prompt],
+        "max_new_tokens": int(handoff.max_new_tokens),
+        "prefill_len": int(handoff.prefill_len),
+        "submitted_at": float(handoff.submitted_at),
+        "prefill_done_at": float(handoff.prefill_done_at),
+        "n_layers": len(handoff.cache1),
+        "page_size": handoff.page_size,
+        "prefix_rows": int(handoff.prefix_rows),
+        "trace_id": handoff.trace_id,
+        "parent_span": handoff.parent_span,
+        "leaves": leaves,
+        "logits_nbytes": logits.numel() * 4,
+        "total_nbytes": total + logits.numel() * 4,
+    }
+    return {"prefix": prefix, "header": header}
 
 
 def fetch_from_migrator(migrator, descriptor: dict) -> Handoff:
-    """Pull a published handoff over the hardened P2P streams (the JAX
-    package's stream path). Not ported yet."""
-    raise NotImplementedError(f"fetch_from_migrator {_CONTROL_PLANE}")
+    """Pull a published handoff over the hardened P2P streams: one
+    ``ShardMigrator.fetch_piece`` per leaf (whole-tensor pieces), each
+    CRC32C-validated frame by frame with resumable offsets and donor-death
+    retries. Raises ``comm.migration.MigrationError`` when a leaf cannot be
+    delivered (the router's contract is then a re-prefill). Leaves come
+    back as CPU tensors; ``inject`` places them on the worker's device."""
+    from dsml_tpu_torch.obs import TraceContext, get_tracer
+
+    header = descriptor["header"]
+    prefix = descriptor["prefix"]
+    ctx = TraceContext.from_header(header)
+    cache1: list = [{} for _ in range(int(header["n_layers"]))]
+    # the pull is the cross-host hop: a trace-tagged span (and flow step)
+    # on the decode host's timeline
+    with get_tracer().request_span("handoff_pull", ctx, flow="step", frid=int(header["frid"]),
+                                   nbytes=int(header["total_nbytes"])):
+        for leaf in header["leaves"]:
+            piece = [[0, int(s)] for s in leaf["shape"]]
+            cache1[int(leaf["layer"])][leaf["entry"]] = migrator.fetch_piece(
+                f"{prefix}/{leaf['layer']}/{leaf['entry']}", piece, leaf["dtype"],
+                trace_id=header.get("trace_id"))
+        vocab = int(header["logits_nbytes"]) // 4
+        logits = migrator.fetch_piece(f"{prefix}/logits", [[0, vocab]], "float32",
+                                      trace_id=header.get("trace_id")).reshape(-1)
+    return Handoff(
+        frid=int(header["frid"]),
+        prompt=np.asarray(header["prompt"], np.int64),
+        max_new_tokens=int(header["max_new_tokens"]),
+        prefill_len=int(header["prefill_len"]),
+        cache1=cache1,
+        logits=logits,
+        submitted_at=float(header["submitted_at"]),
+        prefill_done_at=float(header["prefill_done_at"]),
+        key_rid=header.get("key_rid"),
+        page_size=header.get("page_size"),
+        prefix_rows=int(header.get("prefix_rows", 0)),
+        trace_id=header.get("trace_id"),
+        parent_span=str(header.get("parent_span") or ""),
+    )
+
+
+def stream_transport(donor, migrator):
+    """A router ``transport=`` that moves every handoff across hosts:
+    published on the prefill host's ``StateDonor`` (``donor``), pulled by
+    the decode host's ``ShardMigrator`` (``migrator``), then unregistered."""
+
+    def transport(handoff: Handoff) -> Handoff:
+        desc = register_with_donor(donor, handoff)
+        try:
+            return fetch_from_migrator(migrator, desc)
+        finally:
+            donor.unregister(desc["prefix"])
+
+    return transport

@@ -1,19 +1,18 @@
 """CRC32C (Castagnoli) and the per-frame checksum table of a byte payload
-— the port's own copy of ``dsml_tpu/runtime/native.py``'s table-driven
-``_crc32c_py`` and of ``dsml_tpu/comm/migration.py``'s
-``payload_chunk_crcs`` at ``MIGRATE_CHUNK`` frames
-(``dsml_tpu/comm/device_server.py``'s 256 KiB stream chunk).
+— the counterpart of ``dsml_tpu/runtime/native.py``'s ``crc32c`` and of
+``dsml_tpu/comm/migration.py``'s ``payload_chunk_crcs`` at
+``MIGRATE_CHUNK`` frames (the device server's 256 KiB stream chunk).
 
-The serving handoff codec (``serving/handoff.py``) frames its payload with
-these. Pure Python, one table lookup a byte. The C route of the JAX
-package (``runtime/native.py``) comes with the control plane (ROADMAP.md
-queue 1, item 14), whose ``comm/migration.py`` and ``runtime/native.py``
-re-export these names.
+Shard migration (``comm/migration.py``) and the serving handoff codec
+(``serving/handoff.py``) frame their payloads with these. :func:`crc32c`
+runs the native runtime's ``ds_crc32c`` (``runtime/native.py``, built on
+first use); :func:`crc32c_py`, one table lookup a byte in Python, is its
+plain version.
 """
 
 from __future__ import annotations
 
-__all__ = ["MIGRATE_CHUNK", "crc32c", "payload_chunk_crcs"]
+__all__ = ["MIGRATE_CHUNK", "crc32c", "crc32c_py", "payload_chunk_crcs"]
 
 # one CRC frame of a migration or handoff payload (the stream's DataChunk)
 MIGRATE_CHUNK = 1 << 18
@@ -35,9 +34,16 @@ def _crc32c_table() -> list:
 
 
 def crc32c(data, crc: int = 0) -> int:
-    """CRC32C of ``data`` (bytes-like); pass the previous return value as
-    ``crc`` to roll the checksum across chunks. Equal to the JAX package's
-    ``runtime.native.crc32c`` (C kernel or Python fallback) on any input."""
+    """CRC32C of ``data`` (bytes-like) with the native ``ds_crc32c``; pass
+    the previous return value as ``crc`` to roll the checksum across
+    chunks. Equal to the JAX package's ``runtime.native.crc32c``."""
+    from dsml_tpu_torch.runtime import native
+
+    return native.crc32c(data, crc)
+
+
+def crc32c_py(data, crc: int = 0) -> int:
+    """Plain version of :func:`crc32c`: table-driven, one byte at a time."""
     data = data if isinstance(data, (bytes, bytearray)) else bytes(data)
     tbl = _crc32c_table()
     c = ~crc & 0xFFFFFFFF

@@ -7,8 +7,11 @@ can augment it with pixel shifts); real train images are used when present
 at ``data/mnist/train-images-idx3-ubyte.gz``. Batches are numpy arrays; a
 trainer moves each one to its device.
 
-The native C++ loader (``shard_batches(native=True)``) and the prose corpus
-built from library docstrings are not ported yet.
+IDX blobs are parsed by the native runtime's ``ds_idx_parse``
+(``runtime/native.py``; :func:`_parse_idx_py` is its plain version), and
+``shard_batches(native=True)`` gathers the image rows on the native
+runtime's background thread (``NativePrefetcher``). The prose corpus built
+from library docstrings is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,17 +39,29 @@ _LABELS_MAGIC = 2049
 
 
 def _read_idx(path: str) -> np.ndarray:
-    """Parse one (gzipped) IDX file of images or labels."""
+    """Parse one (gzipped) IDX file of images or labels with the native
+    ``ds_idx_parse``."""
+    from dsml_tpu_torch.runtime import native
+
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rb") as f:
         blob = f.read()
+    try:
+        return native.idx_parse(blob)[0]
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from e
+
+
+def _parse_idx_py(blob: bytes) -> np.ndarray:
+    """Plain version of the native IDX parse: images ``[count, rows,
+    cols]`` or labels ``[count]``, uint8."""
     magic, count = struct.unpack(">II", blob[:8])
     if magic == _IMAGES_MAGIC:
         rows, cols = struct.unpack(">II", blob[8:16])
         return np.frombuffer(blob, np.uint8, count * rows * cols, 16).reshape(count, rows, cols)
     if magic == _LABELS_MAGIC:
         return np.frombuffer(blob, np.uint8, count, 8)
-    raise ValueError(f"{path}: unknown IDX magic {magic}")
+    raise ValueError(f"unknown IDX magic {magic}")
 
 
 @dataclass
@@ -179,18 +194,26 @@ def shard_batches(
 ):
     """Yield (x_batch, y_batch) host batches, shuffled per epoch by
     ``np.random.default_rng(seed)`` (the JAX package's order). The batch is
-    the GLOBAL batch. ``native=True`` (the C++ loader) raises: it comes with
-    the runtime slice; ``None`` and ``False`` take the numpy path."""
-    if native:
-        raise NotImplementedError(
-            "the native C++ batch loader (runtime/native.py) comes with the "
-            "control-plane and runtime slice"
-        )
+    the GLOBAL batch. ``native=True`` gathers the x rows on the native
+    runtime's background thread (``NativePrefetcher``), overlapping the
+    consumer's step; the values are the numpy path's. ``None`` and
+    ``False`` take the numpy path."""
     n = x.shape[0]
     idx = np.arange(n)
     if seed is not None:
         np.random.default_rng(seed).shuffle(idx)
     end = (n // batch_size) * batch_size if drop_remainder else n
+    n_full = end // batch_size
+    if native and n_full > 0:
+        from dsml_tpu_torch.runtime.native import NativePrefetcher
+
+        batch_idx = idx[: n_full * batch_size].reshape(n_full, batch_size).astype(np.int32)
+        for b, xb in enumerate(NativePrefetcher(x, batch_idx, depth=2)):
+            yield xb, y[batch_idx[b]]
+        if end > n_full * batch_size:
+            sel = idx[n_full * batch_size : end]
+            yield x[sel], y[sel]
+        return
     for start in range(0, end, batch_size):
         sel = idx[start : start + batch_size]
         yield x[sel], y[sel]

@@ -434,7 +434,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "checkpoint/manager.py", "checkpoint/iterator.py", "checkpoint/optim_state.py",
             "utils/checkpoint.py", "parallel/tp.py", "parallel/pp.py",
             "parallel/fsdp.py", "serving/prefill.py", "serving/handoff.py",
-            "serving/router.py", "obs/slo.py", "obs/cluster.py", "utils/crc32c.py"} <= names
+            "serving/router.py", "obs/slo.py", "obs/cluster.py", "utils/crc32c.py",
+            "runtime/__init__.py", "runtime/native.py", "runtime/chaos.py", "comm/__init__.py",
+            "comm/rpc.py", "comm/device_server.py", "comm/coordinator.py", "comm/client.py",
+            "comm/migration.py", "comm/proto/__init__.py", "comm/proto/gpu_sim_pb2.py",
+            "cli/launch_devices.py", "cli/launch_coordinator.py",
+            "cli/train_mnist_wire.py", "models/convert.py"} <= names
     bad = []
     for path in files:
         for mod in _imported_modules(ast.parse(path.read_text(), str(path))):
@@ -444,3 +449,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             if root in ("jax", "jaxlib", "dsml_tpu", "ml_dtypes"):
                 bad.append(f"{path.relative_to(PKG.parent)}: {mod}")
     assert not bad, bad
+    # the native runtime's C++ includes only the standard library, and the
+    # proto imports no other proto
+    cc = (PKG / "runtime" / "native" / "dsml_runtime.cc").read_text()
+    assert {ln.split()[1] for ln in cc.splitlines() if ln.startswith("#include")} <= \
+        {"<atomic>", "<condition_variable>", "<cstdint>", "<cstring>", "<map>", "<mutex>",
+         "<thread>", "<vector>"}
+    assert "dsml_tpu/" not in cc.replace("dsml_tpu_torch/", "")
+    proto = (PKG / "comm" / "proto" / "gpu_sim.proto").read_text()
+    assert not [ln for ln in proto.splitlines() if ln.startswith("import")]

@@ -52,6 +52,7 @@ from dsml_tpu_torch.serving import (
     fetch_from_migrator,
     frame_transport,
     register_with_donor,
+    stream_transport,
 )
 from dsml_tpu_torch.serving.paging import pages_for
 from dsml_tpu_torch.utils import crc32c as tcrc
@@ -264,11 +265,62 @@ def test_bf16_leaves_round_trip_under_the_jax_dtype_name():
 
 
 def test_donor_and_migrator_paths_raise_citing_item_14():
+    """The stream path is ported (item 14): a handoff registers on a
+    ``StateDonor``, and a pull that no donor can serve raises
+    ``MigrationError`` (the router's cue to re-prefill)."""
+    from dsml_tpu_torch.comm.device_server import DeviceRuntime
+    from dsml_tpu_torch.comm.migration import MigrationConfig, MigrationError, ShardMigrator, \
+        StateDonor
+
     h = _pair(False)[1]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        register_with_donor(object(), h)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        fetch_from_migrator(object(), {})
+    donor = StateDonor(DeviceRuntime(301, mem_size=0x200000, device="cpu"))
+    desc = register_with_donor(donor, h)
+    assert desc["prefix"] == "handoff/7" and len(donor.keys()) == 5
+    assert desc["header"] == encode_handoff(h)["header"]
+    mig = ShardMigrator(DeviceRuntime(302, mem_size=0x200000, device="cpu"), 0, [],
+                        config=MigrationConfig(timeout_s=2.0, retries=0))
+    with pytest.raises(MigrationError, match="no live donor"):
+        fetch_from_migrator(mig, desc)
+    assert donor.unregister(desc["prefix"]) == 5 and donor.keys() == []
+
+
+@pytest.fixture(scope="module")
+def two_hosts():
+    """A prefill host's and a decode host's device servers, over gRPC."""
+    from dsml_tpu_torch.comm.device_server import serve_device
+    from dsml_tpu_torch.comm.migration import MigrationConfig, ShardMigrator
+
+    recv = serve_device(311, mem_size=0x400000, device="cpu")
+    donor = serve_device(312, mem_size=0x400000, device="cpu")
+    peers = {0: recv.address, 1: donor.address}
+    recv.runtime.configure_peers(peers, 0)
+    donor.runtime.configure_peers(peers, 1)
+    mig = ShardMigrator(recv.runtime, 0, [(1, donor.address)],
+                        config=MigrationConfig(timeout_s=10.0), local_address=recv.address)
+    yield donor.runtime.donor, mig
+    mig.close()
+    recv.stop()
+    donor.stop()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_stream_pull_returns_the_handoff_bit_for_bit(two_hosts, paged):
+    donor, mig = two_hosts
+    h = _pair(paged)[1]
+    back = fetch_from_migrator(mig, register_with_donor(donor, h))
+    donor.unregister(f"handoff/{h.frid}")
+    assert encode_handoff(back) == encode_handoff(h)
+
+
+@pytest.mark.parametrize("kind", ["dense", "int4"])
+def test_fleet_over_the_cross_host_stream_pull(models, mono, two_hosts, kind):
+    """Every handoff published on one device server's donor and pulled by
+    another's migrator over gRPC: the greedy tokens of the in-process
+    handoff, bit for bit."""
+    donor, mig = two_hosts
+    router = _fleet(models[2], kind, transport=stream_transport(donor, mig))
+    assert _fleet_tokens(router, kind) == mono[kind]
+    assert donor.keys() == []  # every handoff unregistered after its pull
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ import urllib.error
 import urllib.request
 
 import jax.numpy as jnp
+import grpc
 import numpy as np
 import pytest
 import torch
@@ -301,14 +302,15 @@ def test_http_metrics_endpoint_serves_both_expositions():
 
 def test_unported_cluster_names_raise_naming_item_13():
     """The cluster names (item 13) are ported: each resolves lazily to
-    ``obs.cluster``; only the gRPC pull still raises, citing item 14."""
+    ``obs.cluster``; the gRPC pull is ported too (item 14), and an endpoint
+    with nothing behind it is a gRPC error."""
     from dsml_tpu_torch.obs import cluster
 
     for name in ("ClockSync", "ClusterAggregator", "merge_snapshots", "snapshot",
                  "stitch_traces", "trace_summary"):
         assert getattr(tobs, name) is getattr(cluster, name) and name in tobs.__all__
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tobs.ClusterAggregator().pull("127.0.0.1:1")
+    with pytest.raises(grpc.RpcError):
+        tobs.ClusterAggregator().pull("127.0.0.1:1", timeout=5.0)
     with pytest.raises(AttributeError):
         tobs.no_such_name  # noqa: B018
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import json
 import urllib.request
 
+import grpc
 import numpy as np
 import pytest
 
@@ -292,8 +293,9 @@ def test_validate_snapshot_errors_equal_jax():
     agg = tcluster.ClusterAggregator()
     with pytest.raises(ValueError, match="not a cluster snapshot"):
         agg.add({"schema": "x"})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        agg.pull("127.0.0.1:1")
+    # the gRPC pull is ported: an endpoint with nothing behind it is a gRPC error
+    with pytest.raises(grpc.RpcError):
+        agg.pull("127.0.0.1:1", timeout=5.0)
 
 
 def test_cluster_json_served_and_scraped_in_process(tmp_path):
@@ -332,3 +334,59 @@ def test_cluster_json_served_and_scraped_in_process(tmp_path):
     assert "roundtrip_total:fleet 8" in open(paths["prometheus"]).read()
     # the JAX package's view merges the scraped snapshot too
     assert jcluster.merge_snapshots([snap]).processes[0]["role"] == "worker"
+
+
+# ---------------------------------------------------------------------------
+# the gRPC half: ObsPlane pull, push, and the multi-process demo
+# ---------------------------------------------------------------------------
+
+
+def test_pull_and_push_over_grpc_cross_the_packages():
+    """``ClusterAggregator.pull`` scrapes a port device server's ObsPlane
+    (and the JAX aggregator scrapes it too); ``push_snapshot`` reaches a
+    port aggregator and a JAX one."""
+    from dsml_tpu_torch.comm.device_server import serve_device
+
+    tobs.enable(forensics=False)
+    srv = serve_device(501, mem_size=0x1000, device="cpu")
+    agg = tcluster.ClusterAggregator()
+    tsrv = tcluster.serve_aggregator(agg)
+    jagg = jcluster.ClusterAggregator()
+    jsrv = jcluster.serve_aggregator(jagg)
+    try:
+        srv.runtime.memcpy_h2d(0x1000, b"x")
+        tobs.get_registry().counter("wire_probe_total", "probe").inc(3)
+        snap = agg.pull(srv.address)
+        assert snap["role"] == "device_server" and snap["schema"] == tcluster.SNAPSHOT_SCHEMA
+        assert jagg.pull(srv.address)["pid"] == snap["pid"]
+        names = {r["name"] for r in agg.merged().collect()}
+        assert "wire_probe_total" in names
+        assert agg.report()["clock_sync"][0]["method"] == "handshake"
+        for address in (tsrv.address, jsrv.address):
+            assert tcluster.push_snapshot(address, role="pusher")["ok"] is True
+        assert len(agg.merged().collect()) > 0 and len(jagg._snaps) == 2
+        with pytest.raises(grpc.RpcError) as err:
+            tcluster.push_snapshot(srv.address)  # a worker's plane only serves pulls
+        assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
+    finally:
+        tsrv.stop()
+        jsrv.stop()
+        srv.stop()
+        tobs.disable()
+        tobs.get_registry().reset()
+
+
+def test_cluster_demo_runs_the_coordinator_and_two_device_subprocesses(tmp_path):
+    report = tcluster.run_cluster_demo(str(tmp_path), n_devices=2, payload_floats=256,
+                                       device="cpu")
+    try:
+        assert report["n_processes"] == 3
+        roles = {s["role"] for s in json.load(open(report["artifacts"]["report"]))["processes"]}
+        assert roles == {"coordinator", "device_server"}
+        trace = json.load(open(report["artifacts"]["trace"]))
+        assert any(e.get("name") == "wire_op" for e in trace["traceEvents"])
+        assert any(e.get("name") == "device_memcpy" for e in trace["traceEvents"])
+    finally:
+        tobs.disable()
+        tobs.get_registry().reset()
+        tobs.get_tracer().reset()
