@@ -691,3 +691,44 @@ def test_launchers_boot_a_cluster_that_all_reduces(tmp_path):
         for p in procs:
             p.terminate()
             p.wait(timeout=30)
+
+
+_WITHOUT_GRPC = r'''
+import sys
+sys.modules["grpc"] = None  # any import of grpc raises ImportError
+import numpy as np
+from dsml_tpu_torch.comm import coordinator, device_server
+from dsml_tpu_torch.models.mlp import MLP
+from dsml_tpu_torch.runtime import native
+
+m = MLP(device="cpu").init(0)
+rts = []
+for i in range(3):
+    rt = device_server.DeviceRuntime(11 + i, mem_size=0x400000, device="cpu", model=m)
+    rt.bound_address = f"inproc:{11 + i}"
+    rt.memcpy_h2d(rt.weights_addr, m.flatten().numpy())
+    rt.memcpy_h2d(0x1000, np.full(4, float(i + 1), np.float32))
+    rts.append(rt)
+co = coordinator.CoordinatorRuntime()
+comm = coordinator.Communicator(1, [coordinator.DeviceInfo(r, rt.device_id, rt.bound_address,
+                                                           None, None, None)
+                                    for r, rt in enumerate(rts)])
+native.reset_calls()
+co._execute_all_reduce(comm, 16, coordinator.ReduceOp.AVG, {}, "float32")
+co.stop()
+rts[0].memcpy_h2d(0x10000, np.ones((2, 784), np.float32))
+print(np.frombuffer(rts[2].read_bytes(0x1000, 16), np.float32).tolist(),
+      native.CALLS["ds_reduce_f32"], rts[0].run_forward(0x10000, 0x20000),
+      sys.modules["grpc"] is None)
+'''
+
+
+def test_runtimes_and_the_host_reduce_run_without_grpc():
+    """The device and coordinator runtimes import no grpc: with grpc
+    unimportable, servers' runtimes in one process take an all-reduce
+    through the coordinator's host path (``ds_reduce_f32``) and a
+    forward."""
+    out = subprocess.run([sys.executable, "-c", _WITHOUT_GRPC], capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": os.getcwd()}, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split("\n")[0] == "[2.0, 2.0, 2.0, 2.0] 1 80 True"
