@@ -493,7 +493,8 @@ class DeviceRuntime:
                 # error the call; the sleep lets grpc flush the prefix first
                 cut = max(1, len(payload) // 2)
                 for off in range(0, cut, _STREAM_CHUNK):
-                    yield pb.DataChunk(data=payload[off:off + _STREAM_CHUNK], streamId=stream_id)
+                    yield pb.DataChunk(data=payload[off:min(off + _STREAM_CHUNK, cut)],
+                                       streamId=stream_id)
                 time.sleep(0.05)
                 raise RuntimeError("wire fault: stream dropped")
             for off in range(0, len(payload), _STREAM_CHUNK):

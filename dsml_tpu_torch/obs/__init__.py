@@ -252,8 +252,8 @@ def observe_recovery_ms(stage: str, ms: float,
                         registry: Registry | None = None) -> None:
     """One elastic-recovery latency sample →
     ``controller_recovery_ms{stage}`` (stages: ``reconfigure`` /
-    ``checkpoint_fallback`` / ``grow_keep`` / ``grow_replay``; the elastic
-    controller that feeds it is ROADMAP.md queue 1, item 14b)."""
+    ``checkpoint_fallback`` / ``grow_keep`` / ``grow_replay``), fed by
+    ``runtime.controller.ElasticController`` after every recovery."""
     reg = registry if registry is not None else get_registry()
     if not reg.enabled:
         return

@@ -148,15 +148,15 @@ class Mesh:
 
 
 def build_mesh(spec: MeshSpec, rank: int, world_size: int, init_file: str,
-               device=None) -> Mesh:
+               device=None, timeout_s: float = TIMEOUT_S) -> Mesh:
     """Join the ``world_size`` processes of ``spec`` (this one is ``rank``)
     over gloo, through the rendezvous file ``init_file`` (a path that no
     earlier run used; every rank passes the same), and build the groups.
     ``device`` is where this rank's tensors live (``None`` = the CUDA
     card, on ``cuda:{rank % device_count}``: ranks share a card when there
     are fewer cards than ranks); a CUDA device becomes the process's
-    current device. A rank that waits longer than ``TIMEOUT_S`` on another
-    raises instead of hanging. sp and cp both sized raise ``ValueError``
+    current device. A rank that waits longer than ``timeout_s`` on another
+    in a gloo operation raises instead of hanging. sp and cp both sized raise ``ValueError``
     before any group is joined."""
     spec = spec.resolved(world_size)
     spec.seq_axis()
@@ -168,7 +168,7 @@ def build_mesh(spec: MeshSpec, rank: int, world_size: int, init_file: str,
     if not dist.is_initialized():
         dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                                 world_size=world_size,
-                                timeout=datetime.timedelta(seconds=TIMEOUT_S))
+                                timeout=datetime.timedelta(seconds=timeout_s))
     workdir = os.path.dirname(os.path.abspath(init_file))
     coords = rank_coords(spec, rank)
     groups = {}
@@ -179,7 +179,7 @@ def build_mesh(spec: MeshSpec, rank: int, world_size: int, init_file: str,
             if len(ranks) == world_size:  # the whole world, in rank order
                 pg = dist.group.WORLD
             else:  # every rank creates every group, in the same order
-                pg = dist.new_group(ranks, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+                pg = dist.new_group(ranks, timeout=datetime.timedelta(seconds=timeout_s))
             if rank in ranks:
                 groups[axis] = RingGroup(pg, ranks, ranks.index(rank), dev, workdir,
                                          name=f"{axis}{ranks[0]}")

@@ -30,7 +30,11 @@ between processes of one host anyway), each rank counts there the payloads
 it has written and freed per direction, and a rank polls its peer's
 counter before it enqueues its wait. Only the host polls: no kernel spins
 on a flag that another process writes (two contexts on one card are
-time-sliced, and such a spin could stall the card).
+time-sliced, and such a spin could stall the card). A peer that died never
+posts: the wait also polls an abort file in the ring's workdir
+(``ABORT``, written by whoever supervises the ranks: ``parallel/world.py``)
+and raises within milliseconds of it appearing, instead of after
+``TIMEOUT_S``.
 
 The received payload is copied out of the slot into fresh tensors (one
 extra device copy per hop), so a slot is free as soon as that copy has
@@ -64,6 +68,8 @@ _MIN_CAPACITY = 1 << 20
 _DATA, _FREE = 0, 1  # notice kinds: "slot written", "slot read"
 TIMEOUT_S = 600.0  # a rank that waits longer than this on another raises
 _SIGN = {+1: 0, -1: 1}
+ABORT_FILE = "ABORT"  # in a ring's workdir: its peers are gone, stop waiting
+_ABORT_EVERY = 256  # spins between two looks at the abort file
 
 
 @functools.cache
@@ -106,9 +112,10 @@ class _NoticeBoard:
     file: row r holds, per notice kind and direction, how many notices rank
     r has posted. Each rank writes only its own row."""
 
-    def __init__(self, path: str, size: int, rank: int):
+    def __init__(self, path: str, size: int, rank: int, abort_path: str | None = None):
         self.arr = np.memmap(path, dtype=np.int64, mode="r+", shape=(size, 2, 2))
         self.rank = rank
+        self.abort_path = abort_path
 
     def post(self, kind: int, sign: int, count: int) -> None:
         """Notice number ``count`` (from 0) of this kind is out."""
@@ -116,12 +123,18 @@ class _NoticeBoard:
 
     def wait(self, pos: int, kind: int, sign: int, count: int) -> None:
         """Block until rank ``pos`` has posted notice ``count`` of this
-        kind (polling host memory); raises after the timeout."""
+        kind (polling host memory); raises after the timeout, or as soon
+        as the abort file appears."""
         cell = (pos, kind, _SIGN[sign])
         deadline, spins = None, 0
         while self.arr[cell] <= count:
             spins += 1
             if spins > 1000:
+                if spins % _ABORT_EVERY == 0 and self.abort_path is not None \
+                        and os.path.exists(self.abort_path):
+                    raise RuntimeError(
+                        f"ring transport: aborted while waiting for rank {pos}'s "
+                        f"{('data', 'free')[kind]} notice {count} (a peer of this ring died)")
                 deadline = deadline or time.monotonic() + TIMEOUT_S
                 if time.monotonic() > deadline:
                     raise RuntimeError(
@@ -235,7 +248,8 @@ class _IpcRing:
             everyone = [None] * g.size
             # also the barrier after rank 0 zeroed the board
             dist.all_gather_object(everyone, handles, group=g.pg)
-            self.board = _NoticeBoard(board, g.size, g.rank)
+            self.board = _NoticeBoard(board, g.size, g.rank,
+                                      os.path.join(g.workdir, ABORT_FILE))
             self.peer_slot, self.peer_free, self.peer_data = {}, {}, {}
             for key in self._keys():
                 sign = key[0]
@@ -259,12 +273,22 @@ class _IpcRing:
     def _release(self) -> None:
         """Close this rank's mappings of its neighbours' slots, then, once
         every rank has, free its own slots."""
+        self.unmap_local()
+        dist.barrier(group=self.g.pg)
+        self.free_local()
+
+    def unmap_local(self) -> None:
+        """Close this rank's mappings of its neighbours' slots, with no
+        collective (a world whose peer died leaves this way; every rank
+        unmaps before any rank calls :meth:`free_local`)."""
         for ptr in self.peer_slot.values():
             _call("peer_ipc_close", self.dev, ctypes.c_void_p(ptr))
         self.peer_slot.clear()
         self.peer_free.clear()
         self.peer_data.clear()
-        dist.barrier(group=self.g.pg)
+
+    def free_local(self) -> None:
+        """Free this rank's own slots (after every rank's :meth:`unmap_local`)."""
         for ptr in self.slots.values():
             _call("peer_free", self.dev, ctypes.c_void_p(ptr))
         self.slots.clear()

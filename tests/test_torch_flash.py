@@ -439,7 +439,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "comm/rpc.py", "comm/device_server.py", "comm/coordinator.py", "comm/client.py",
             "comm/migration.py", "comm/proto/__init__.py", "comm/proto/gpu_sim_pb2.py",
             "cli/launch_devices.py", "cli/launch_coordinator.py",
-            "cli/train_mnist_wire.py", "models/convert.py"} <= names
+            "cli/train_mnist_wire.py", "models/convert.py", "parallel/elastic.py",
+            "parallel/world.py", "runtime/controller.py"} <= names
     bad = []
     for path in files:
         for mod in _imported_modules(ast.parse(path.read_text(), str(path))):
