@@ -25,6 +25,13 @@ before the path and read just after):
   shared by the decode side), 20 requests under two SLO classes with
   obs on, then 4 at f32 with a prefill worker killed mid-prefill: the
   prefill chunks and the decode ticks through the paged kernels;
+- decode workers over several devices (``serving/mesh_worker.py``):
+  TinyLlama-1.1B served by ``build_fleet(n_decode=2, devices=["cuda:0"] *
+  4)``, two tp = 2 ``MeshDecodeWorker``s of two rank processes each
+  sharing the card (phase fleet_tp, after tp_serve): f32 tokens against
+  one device, bf16 timed with every decode rank's kernel 5 and 6
+  launches, a worker killed mid-drain, a ``DecodeFleet`` of tp = 2
+  replicas with one killed, no rank process left after;
 - elasticity and chaos (``runtime/controller.py``, ``parallel/world.py``):
   GPT-2-small bf16 trains on four rank slots (one worker process a slot,
   sharing the card) under ``ElasticController`` through three kills and a
@@ -102,7 +109,7 @@ before the path and read just after):
   spawned ranks at tp = 2 (16 query and 2 kv heads, half the vocabulary
   and the KV shard a rank): ``GPT2.generate_spmd`` at 2 × 512 + 32 tokens
   (the prefill through kernel 1) and ``ContinuousBatcher(mesh=...,
-  paged_kv="int4")`` on 16 requests (kernels 5 and 6 over the rank's pool),
+  paged_kv="int4")`` on 8 requests (kernels 5 and 6 over the rank's pool),
   f32 tokens (unquantized pages) held to the single-device port's, bf16
   for the times;
 - long context (``ops.attention``'s XLA ring and Ulysses,
@@ -204,9 +211,10 @@ and q8_ring2 with error feedback from the same weights: kernel 8 once per
 float bucket a q8 step, step and sync ms, wire bytes, losses within 0.06
 of the ring's, identical replicas; the MNIST Trainer under ring and
 q8_ring2 with error feedback); dp_cli (``train_gpt2 --dp 2``); llama_cli
-(the three Llama entry points as processes, started before the Llama
-weights are built and waited for before any Llama phase: each exit code
-0 and its closing log line); llama_kernel (kernels 1–3 at [64, 2048, 64]
+(the three Llama entry points as processes, started beside the
+two-rank programs and waited for before any Llama phase: each exit code
+0 and its closing log line; TinyLlama's and the cut Mixtral's weights
+are drawn in processes of their own beside the build); llama_kernel (kernels 1–3 at [64, 2048, 64]
 bf16 causal and kernels 5–6 at the Llama decode, W = 4 verify and
 256-row chunk shapes with int4 pages and rep 8, each against its plain
 version, then kernel_time lines beside the bounds); llama_train (22
@@ -281,13 +289,22 @@ versions, with CUDA-event times; f32 ``generate_spmd`` and 4-request drain
 tokens and prefill logits identical, the rank's cache and pool holding 2
 kv heads, 22 kernel-1 launches a generate, 22 kernel-5/6 launches a chunk
 or tick, 45 all-reduces and one all-gather a decode step; bf16 prefill
-ms, decode ms a step, tokens/s, the 16-request drain's tokens/s, TTFT and
+ms, decode ms a step, tokens/s, the 8-request drain's tokens/s, TTFT and
 median tick, a steady tick's wall and device-busy ms with its collectives,
 their bytes and ms alone, peak memory and IPC slot bytes a rank);
+fleet_tp (the tp = 2 fleet's legs: tokens against one device, margins,
+every decode rank's launches and ticks, the ranks' own metrics by worker,
+tokens/s, TTFT, decode gaps, the lockstep round trip beside tp_serve's
+one batcher, the killed worker's requeues and processes, the DecodeFleet's
+kill; a kernel_time line "D" of kernels 5 and 6 at a tp = 2 decode rank's
+shape); kernel_time lines "E" (kernels 1–3 at a dp = 4 rank's [24, 1024,
+64]) and "L" (kernel 7 at TinyLlama's projections);
 kernels (one line for the run; kernel 8's entry counts its three paths,
 kernels 5 and 6 their fleet path,
 kernels 1–3, 5 and 6 their Llama, checkpoint, model-parallel and MoE
-paths too; kernels 1, 5 and 6 their tp_serve path; kernels 1–3 the
+paths too; kernels 1, 5 and 6 their tp_serve path; kernels 5 and 6 the
+tp fleet's ("D:", its decode ranks summed; ``path_timing`` holds the D:,
+E: and L: times); kernels 1–3 the
 resumed pp × tp step and the pp eval, ``mp_resume_eval``; kernels 1–3
 the sp = 2 impls (``sp_impls``) and, with kernel 4, the long-context
 program's ``cp_tp_llama``, ``cp_dp`` and ``attention_2d``).
@@ -296,8 +313,9 @@ Every phase line carries ``t_s``, its seconds since the script started.
 In the full run two spawns of two ranks carry every two-rank program, one
 after another in the same processes: cp_slice's, the two all-reduce
 phases', dp_slice's, the checkpoint phase's dp = 2 resume and the obs
-phase's dp = 2 q8 program in one; the model-parallel tp, tp_serve, pp and
-fsdp programs in the other. A phase run alone spawns its own ranks.
+phase's dp = 2 q8 program in one; the model-parallel tp, pp, fsdp and
+tp_serve programs in the other, beside the four-rank spawn of the pp × tp
+and long-context programs. A phase run alone spawns its own ranks.
 
 Float32 matmuls stay in full f32 (TF32 off, PyTorch's default, set here
 explicitly): the f32 phases compare two paths at f32 tolerances.
@@ -305,6 +323,7 @@ explicitly): the f32 phases compare two paths at f32 tolerances.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
@@ -317,6 +336,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -364,6 +384,10 @@ TOL_TRAIN_GRADS = 1e-4
 
 
 _T0 = time.perf_counter()  # the run's start: every phase line carries its seconds since
+# the environment of the processes that run beside others (the weights'
+# draws, the entry points): one host thread each, or a dozen of them
+# oversubscribe the host's cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 
 
 GPT2_SHAPE = ("vocab_size", "max_seq", "n_layer", "n_head", "d_model", "d_ff", "n_experts")
@@ -2531,6 +2555,120 @@ def qmm_time(dev):
     return timing["int4"]["decode"]["wqkv"]
 
 
+# TinyLlama-1.1B's projections (contraction d, trailing shape): q, k and v
+# as one wqkv (32 query and 2 x 4 kv heads of 64), the MLP's gate and up
+# (each [2048, 5632]) and down
+LLAMA_PROJECTIONS = {"wqkv": (2048, (2048 + 2 * 256,)), "w_gate": (2048, (5632,)),
+                     "w_down": (5632, (2048,))}
+
+
+def qmm_llama(dev):
+    """Kernel 7 at TinyLlama-1.1B's int4 and int8 wqkv and MLP shapes, 16
+    decode rows and a 256-row chunk, f32 and bf16 x, each against its plain
+    version (twice, identical bits); then the bf16-x times beside the bytes
+    bound and bf16 ``torch.matmul`` against the dense weight (the L: path of
+    the kernels line). A kernel check, not a serving run. Returns the
+    largest relative error and the times."""
+    from dsml_tpu_torch.ops import quantization as tq
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = {"decode": PAGED_SLOTS, "chunk": PAGED_CHUNK}
+    worst, configs = 0.0, []
+    for name, (d, rest) in LLAMA_PROJECTIONS.items():
+        w = torch.randn(d, *rest, generator=gen, device=dev) * 0.02
+        for scheme in ("int8", "int4"):
+            qwt = tq.quantize_weight_blocks(w, scheme)
+            for shape, m in rows.items():
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn(m, d, generator=gen, device=dev).to(dtype)
+                    got, again = tq.quantized_matmul(x, qwt), tq.quantized_matmul(x, qwt)
+                    ref = tq._qmm_reference(x, qwt)
+                    rel = (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+                    same = bool(torch.equal(got, again))
+                    check(rel <= TOL_QMM and same and bool(torch.isfinite(got).all()),
+                          f"qmm at TinyLlama's {name} ({scheme}, {shape}, {dtype}): {rel} of "
+                          f"max |ref|, a second call identical: {same}")
+                    worst = max(worst, rel)
+                    if dtype == torch.bfloat16:
+                        configs.append((name, scheme, shape, qwt, x, w))
+    reps = 20
+    ms = kernel_event_ms(lambda: [tq.quantized_matmul(x, qwt) for _, _, _, qwt, x, _ in configs
+                                  for _ in range(reps)], "qmm_kernel<", reps * len(configs),
+                         [(functools.partial(tq.quantized_matmul, x, qwt), reps)
+                          for _, _, _, qwt, x, _ in configs])
+    timing = {}
+    for i, (name, scheme, shape, qwt, x, w) in enumerate(configs):
+        dense = w.reshape(qwt.shape[0], -1).to(torch.bfloat16)
+        bound_ms, bound_by = qmm_bound_ms(x, qwt)
+        library = device_kernel_ms(lambda: [torch.matmul(x, dense) for _ in range(reps)])
+        timing.setdefault(scheme, {}).setdefault(shape, {})[name] = {
+            "ms": statistics.median(ms[i * reps:(i + 1) * reps]),
+            "plain_ms": cuda_ms(lambda: tq._qmm_reference(x, qwt)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": sum(library.values()) / reps}
+    emit({"phase": "kernel_time", "path": "L", "kernel": "qmm", "x_dtype": "bfloat16",
+          "rows": rows, "projections": {k: [d, *r] for k, (d, r) in LLAMA_PROJECTIONS.items()},
+          "max_err_over_max_abs": worst, "tol": TOL_QMM, "timing": timing,
+          "library": "torch.matmul(x, W) against the dense bf16 weight; ms and library_ms are "
+                     "profiler device times (events per call if a trace loses launches), "
+                     "plain_ms CUDA events around one call"})
+    return worst, timing
+
+
+# the elasticity legs' attention: a dp = 4 rank's share of the 8 x 1024 step
+# (2 rows of GPT-2-small's 12 heads)
+E_SHAPE = (2 * 12, 1024, 64)
+
+
+def elastic_kernel_time(tflash, dev):
+    """Kernels 1-3 at a dp = 4 rank's attention in the elasticity legs
+    ([24, 1024, 64] causal bf16: GPT-2-small, 2 rows a rank): each against
+    its plain version, then profiler device times beside the bounds, the
+    plain versions and SDPA (the E: path of the kernels line)."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    bh, s, d = E_SHAPE
+    q, k, v, do = (torch.randn(bh, s, d, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = tflash.flash_fwd(q, k, v, True)
+    ref_out, ref_lse = tflash._flash_fwd_reference(q, k, v, True)
+    err = (out.float() - ref_out.float()).abs().max().item()
+    check(err <= TOL[torch.bfloat16]["out"], f"flash_fwd at the E: shape: {err}")
+    grads = tflash.flash_bwd(q, k, v, out, lse, do)
+    want = tflash._flash_bwd_reference(q, k, v, out, lse, do)
+    rel = max((g.float() - w.float()).abs().max().item() / max(w.float().abs().max().item(), 1e-30)
+              for g, w in zip(grads, want))
+    check(rel <= TOL_BWD[torch.bfloat16], f"flash_bwd at the E: shape: {rel}")
+    q4, k4, v4, do4 = (t.view(bh // 12, 12, s, d).detach().requires_grad_() for t in (q, k, v, do))
+
+    def sdpa(backward):
+        o = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        if backward:
+            torch.autograd.grad(o, (q4, k4, v4), do4)
+
+    sdpa_fwd = device_ms(functools.partial(sdpa, False), reps=10)
+    fwd_bound = attention_bound_ms(bh, s, s, d, torch.bfloat16, True)
+    timing = {"flash_fwd": {
+        "ms": device_ms(functools.partial(tflash.flash_fwd, q, k, v, True),
+                        pattern="flash_fwd_kernel<"),
+        "plain_ms": device_ms(functools.partial(tflash._flash_fwd_reference, q, k, v, True)),
+        "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": sdpa_fwd}}
+    call = functools.partial(tflash.flash_bwd, q, k, v, out, lse, do)
+    plain_bwd = device_ms(functools.partial(tflash._flash_bwd_reference, q, k, v, out, lse, do),
+                          reps=10)
+    library_bwd = device_ms(functools.partial(sdpa, True), reps=10) - sdpa_fwd
+    for name, products, n_out in zip(BWD_KERNELS[torch.bfloat16], (3, 4), (1, 2)):
+        bound_ms, bound_by = backward_bound_ms(bh, s, s, d, torch.bfloat16, True, products, n_out)
+        timing[name] = {"ms": device_ms(call, reps=10, pattern=f"{name}_kernel<"),
+                        "plain_ms": plain_bwd, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_bwd}
+    emit({"phase": "kernel_time", "path": "E", "shape": list(E_SHAPE), "dtype": "bfloat16",
+          "causal": True, "max_abs_err_fwd": err, "max_err_over_max_abs_bwd": rel, **timing,
+          "note": "profiler device times; the backward's plain_ms and library_ms are whole "
+                  "backwards (dq, dk and dv); library_ms is SDPA (backward: forward+backward "
+                  "minus forward)"})
+    return timing
+
+
 # Instruction rates of one H100 SM per clock, by pipe (CUDA C++ Programming
 # Guide, arithmetic instruction throughput, compute capability 9.0): 4
 # schedulers issue one warp instruction each (128 lanes); f32 add, multiply
@@ -4205,13 +4343,61 @@ LLAMA_TURBO, LLAMA_ADAPTIVE = 4, 32
 LLAMA_LOSS_AT_INIT = float(np.log(32000))  # a uniform guess over the vocabulary
 
 
+_LLAMA_DRAW: dict = {}  # the process of :func:`llama_weights_start`, once started
+
+
+def llama_weights_path():
+    from dsml_tpu_torch.ops import _build
+
+    return str(_build.BUILD_DIR.parent / "llama" / "tinyllama_f32.pt")
+
+
+def llama_weights_child(path):
+    """TinyLlama-1.1B's f32 weights from seed 0 (``Llama.init``: the JAX
+    init's numpy draws), saved to ``path`` (its own process, started with
+    the kernels' build)."""
+    from dsml_tpu_torch.models.llama import Llama, LlamaConfig
+
+    t0 = time.perf_counter()
+    state = Llama(LlamaConfig.tinyllama_1b(), device="cpu").init(0).state_dict()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(state, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    print(json.dumps({"seconds": time.perf_counter() - t0}), flush=True)
+
+
+def llama_weights_start():
+    """Start :func:`llama_weights_child` as a process (the full run starts it
+    before the build, whose nvcc processes leave cores idle); the first
+    :func:`llama_weights` call waits for it and reads its file."""
+    path = llama_weights_path()
+    if os.path.exists(path):
+        os.remove(path)
+    root = os.path.dirname(os.path.abspath(__file__))
+    _LLAMA_DRAW["proc"] = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.llama_weights_child({path!r})"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, **ONE_THREAD})
+    return _LLAMA_DRAW["proc"]
+
+
 @functools.lru_cache(maxsize=1)
 def llama_weights():
     """TinyLlama-1.1B's f32 weights from seed 0 (``Llama.init``: the JAX
-    init's numpy draws), built once on the host for every Llama phase."""
+    init's numpy draws), drawn once on the host for every Llama phase: read
+    from :func:`llama_weights_start`'s file when that process runs, else
+    drawn here."""
     from dsml_tpu_torch.models.llama import Llama, LlamaConfig
 
-    return Llama(LlamaConfig.tinyllama_1b(), device="cpu").init(0).state_dict()
+    proc = _LLAMA_DRAW.pop("proc", None)
+    if proc is None:
+        return Llama(LlamaConfig.tinyllama_1b(), device="cpu").init(0).state_dict()
+    out, _ = proc.communicate(timeout=900)
+    check(proc.returncode == 0, f"the TinyLlama weights process failed:\n{out[-3000:]}")
+    path = llama_weights_path()
+    state = torch.load(path, weights_only=True)
+    os.remove(path)
+    return state
 
 
 def llama_model(dev, **replace):
@@ -4243,7 +4429,8 @@ def llama_cli_start():
     }
     root = os.path.dirname(os.path.abspath(__file__))
     return {name: subprocess.Popen([sys.executable, "-m", *args], cwd=root, stdout=subprocess.PIPE,
-                                   stderr=subprocess.STDOUT, text=True)
+                                   stderr=subprocess.STDOUT, text=True,
+                                   env={**os.environ, **ONE_THREAD})
             for name, args in entries.items()}
 
 
@@ -6245,8 +6432,10 @@ def phase_model_parallel(tflash, dev, card, weights, serve=False):
     schedules, not a model-parallel speed-up. ``weights`` is the TinyLlama
     bf16 file the tp and pp × tp ranks map (:func:`tinyllama_bf16_weights`).
     The tp, pp and fsdp programs share one spawn of two ranks; with
-    ``serve`` the tp ranks go on to the tp_serve program
-    (:func:`tp_serve_run`, whose references run here first) before pp. Returns rank 0's launches per path, kernel
+    ``serve`` those ranks go on to the tp_serve program
+    (:func:`tp_serve_run`, whose references run here first) last. The pp ×
+    tp and long-context programs share a spawn of four ranks, run beside
+    the two-rank spawn. Returns rank 0's launches per path, kernel
     8's launches, with ``serve`` the tp_serve references and (ranks,
     seconds of the shared spawn), rank 0's launches of the resumed
     step and the pp eval, and rank 0's launches on the long-context paths."""
@@ -6260,18 +6449,38 @@ def phase_model_parallel(tflash, dev, card, weights, serve=False):
         single_loss = float(model.loss(x, torch.roll(x, -1, 1), attn_impl="flash"))
     del model
     torch.cuda.empty_cache()
-    # the two-rank programs in one spawn: tp (then tp_serve), pp and fsdp
-    tp_programs = {"tp": (mp_tp_rank, (weights,))}
+    # the two-rank programs in one spawn: tp, pp, fsdp (then tp_serve, last:
+    # the four-rank spawn below runs beside the others, not beside its
+    # timed drains on a quick host)
+    tp_programs = {"tp": (mp_tp_rank, (weights,)), "pp": (mp_pp_rank, ()),
+                   "fsdp": (mp_zero_rank, ())}
     if serve:
         tp_programs["tp_serve"] = (tp_serve_rank, (weights, serve_ref["inputs"]))
-    tp_programs.update(pp=(mp_pp_rank, ()), fsdp=(mp_zero_rank, ()))
-    tp_out, tp_seconds = spawn_programs(tp_programs, "tp")
+    # the pp x tp program and the long-context program in a spawn of four
+    # ranks, beside the two-rank spawn (every check is of values, which do
+    # not depend on what shares the card; the times are its cost)
+    four_out = {}
+
+    def four_ranks():
+        try:
+            four_out["done"] = spawn_programs({"pp_tp": (mp_4rank_rank, (weights,)),
+                                               "long_context": (lc_rank, (weights,))},
+                                              "pp_tp", 4)
+        except BaseException as e:  # noqa: BLE001 — raised in this thread below
+            four_out["error"] = e
+
+    beside = threading.Thread(target=four_ranks, name="chip_smoke_pp_tp")
+    beside.start()
+    try:
+        tp_out, tp_seconds = spawn_programs(tp_programs, "tp")
+    finally:
+        beside.join()
+    if "error" in four_out:
+        raise four_out["error"]
+    fours, four_seconds = four_out["done"]
     tp_ranks = tp_out["tp"]
     pp_ranks, zero_ranks, pp_seconds = tp_out["pp"], tp_out["fsdp"], tp_seconds
     zero_seconds = pp_seconds
-    # the long-context program rides the pp x tp ranks' spawn
-    fours, four_seconds = spawn_programs({"pp_tp": (mp_4rank_rank, (weights,)),
-                                          "long_context": (lc_rank, (weights,))}, "pp_tp", 4)
     four, lc = fours["pp_tp"], fours["long_context"]
     note = ("ranks time-slice one card: the times are the cost of the collectives and the "
             "schedule, not a model-parallel speed-up")
@@ -6408,7 +6617,8 @@ def phase_model_parallel(tflash, dev, card, weights, serve=False):
 # ---- tensor-parallel serving: TinyLlama-1.1B at tp = 2 (port slice 17) -------------
 
 TP_SERVE_B, TP_SERVE_PROMPT, TP_SERVE_NEW = 2, 512, 32  # generate_spmd's batch and lengths
-TP_SERVE_REQUESTS, TP_SERVE_F32_REQUESTS = 16, 4  # of llama_prompts: the bf16 and f32 drains
+# of llama_prompts: the bf16 and f32 drains (bf16 cut from 16: the run's time)
+TP_SERVE_REQUESTS, TP_SERVE_F32_REQUESTS = 8, 4
 TP_SERVE_HEADS, TP_SERVE_KV_HEADS = LLAMA_HEADS // 2, LLAMA_KV_HEADS // 2  # a rank's
 TP_SERVE_STEADY_TICKS = 5
 # the f32 drains' pages: unquantized, so that the tp ranks' f32 rounding
@@ -6712,7 +6922,7 @@ def phase_tp_serve(tflash, dev, card, weights, ref=None, spawned=None):
     ``ref`` is :func:`tp_serve_reference`'s and ``spawned`` (ranks, seconds)
     of a spawn shared with other programs (the full run's model-parallel
     tp ranks); None does either here. Returns the launches by kernel, the
-    kernels' max errors and their times."""
+    kernels' max errors, their times and rank 0's bf16 batcher figures."""
     from dsml_tpu_torch.models.llama import Llama, LlamaConfig
 
     t_phase = time.perf_counter()
@@ -6803,7 +7013,401 @@ def phase_tp_serve(tflash, dev, card, weights, ref=None, spawned=None):
              + r0["f32_generate_launches"]["flash_fwd"],
              "paged_attn": r0["f32_batcher"]["launches"]["paged_attn"],
              "paged_attn_pipelined": r0["bf16_batcher"]["launches"]["paged_attn_pipelined"]},
-            errs, times)
+            errs, times, {k: v for k, v in r0["bf16_batcher"].items() if k != "tokens"})
+
+
+# ---- decode workers over several devices: TinyLlama-1.1B at tp = 2 behind the router ----
+
+FLEET_TP_REQUESTS, FLEET_TP_NEW = 8, 32  # of llama_prompts (seed 2), every budget 32 tokens
+FLEET_TP_SLOTS = 4  # a decode worker's slots
+FLEET_TP_PREFIX = 256  # a registered prefix heading every other request
+FLEET_TP_CHAOS_REQUESTS = 4  # legs (c) and (d): the first 4 of the 8 (the run's time)
+FLEET_TP_PINGS = 20  # lockstep round trips timed a worker
+FLEET_TP_DIR = os.path.join("build", "fleet_tp")  # the workers' rendezvous and shard files
+FLEET_TP_DEVICES = ["cuda:0"] * 4  # two decode workers of two ranks, sharing the card
+
+
+def fleet_tp_requests():
+    """The phase's requests: the first 8 of the Llama serving row's prompts
+    (``llama_prompts`` at seed 2), every odd one replaced by a 256-token
+    prefix followed by 64–256 of that prompt's tokens."""
+    prompts, _, _ = llama_prompts(np.random.default_rng(2), PAGED_REQUESTS)
+    rng = np.random.default_rng(23)
+    prefix = rng.integers(0, 32000, FLEET_TP_PREFIX).astype(np.int64)
+    reqs = [np.concatenate([prefix, np.asarray(p[:int(rng.integers(64, 257))], np.int64)])
+            if i % 2 else np.asarray(p, np.int64)
+            for i, p in enumerate(prompts[:FLEET_TP_REQUESTS])]
+    return prefix, reqs
+
+
+def fleet_tp_kernel_time(dev):
+    """Kernels 5 and 6 at a tp = 2 decode rank's tick (4 slots, 16 query
+    heads over 2 kv heads, hd 64, depths 1-767): f32 q over fp pages (the
+    f32 legs) and bf16 q over int4 pages (the timed leg), each against the
+    plain version, then timed by profiler device time beside the bound and
+    the plain version. Returns the largest error and the times."""
+    from dsml_tpu_torch.ops import paged_attention as tpa
+
+    rng = np.random.default_rng(24)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    timing, errs = {}, []
+    hq, hkv = LLAMA_HEADS // 2, LLAMA_KV_HEADS // 2
+    for name, q_dtype, mode in (("tp_rank_f32_fp", torch.float32, None),
+                                ("tp_rank_bf16_int4", torch.bfloat16, "int4")):
+        positions = (rng.integers(1, 768, FLEET_TP_SLOTS) - 1)[:, None]
+        args = paged_case(dev, rng, gen, FLEET_TP_SLOTS, hq, hkv, D, 2048 // PAGE, positions,
+                          q_dtype, mode)
+        errs.append(paged_check(dev, tpa, name, args, mode, q_dtype, positions))
+        call = (*args, mode)
+        per_kernel = paged_kernel_ms(tpa, call)
+        bound_ms, bound_by = paged_bound_ms(*args)
+        plain_ms = cuda_ms(lambda: tpa._paged_attention_reference(*call))
+        timing[name] = {"shape": [FLEET_TP_SLOTS, hq, 1, D], "hkv": hkv, "q": str(q_dtype)[6:],
+                        "codec": mode or "fp",
+                        **{k: {"ms": per_kernel[k], "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by, "library_ms": None}
+                           for k in ("paged_attn", "paged_attn_pipelined")}}
+    emit({"phase": "kernel_time", "path": "D", "kernels": ["paged_attn", "paged_attn_pipelined"],
+          **timing, "note": "profiler device time a call; plain_ms CUDA events around one call; "
+                            "no PyTorch call reads a page table"})
+    return max(errs), timing
+
+
+def _rank_sum(workers, kernel):
+    return sum(r.get(kernel, 0) for w in workers for r in w.rank_launches())
+
+
+def _margin_mismatches(model, prompts, got, want):
+    """Requests whose tokens differ from ``want`` at a step whose top-2
+    margin (``model``'s plain prefill) is at least :data:`MARGIN`, and the
+    near ties."""
+    near, bad = [], 0
+    for i, (a, w) in enumerate(zip(got, want)):
+        diff = [j for j, (x, y) in enumerate(zip(a, w)) if x != y]
+        if len(a) != len(w):
+            bad += 1
+        if diff:
+            m = first_divergence_margin(model, prompts[i], w, diff[0])
+            near.append({"request": i, "step": diff[0], "margin": m})
+            bad += m >= MARGIN
+    return near, bad
+
+
+def _obs_roles(workers):
+    """{(replica, role): tokens} of serving_tokens_total in each decode
+    rank's own registry (gathered back through the pipes)."""
+    out = {}
+    for w in workers:
+        for r, snap in enumerate(w.obs_snapshots()):
+            for m in snap["metrics"]:
+                if m["name"] == "serving_tokens_total":
+                    key = f"{m['labels'].get('replica')}/{m['labels'].get('role')}/rank{r}"
+                    out[key] = out.get(key, 0) + m["value"]
+    return out
+
+
+def phase_fleet_tp(dev, card, weights, tp_serve_bf16=None, kernels=None):
+    """TinyLlama-1.1B (full width and depth, the bf16-rounded weights file
+    of tp_serve) served by decode workers that span two devices each:
+    ``build_fleet(n_prefill=1, n_decode=2, devices=["cuda:0"] * 4)``, two
+    tp = 2 ``MeshDecodeWorker``s of two rank processes each sharing the
+    card, the prefill worker in this process. (a) f32 over fp pages (the
+    single-buffer kernel 5), obs on: 8 requests at 32 tokens with a
+    registered 256-token prefix, greedy tokens against a single-device
+    paged batcher on the same card under the top-2 margin rule; every
+    decode rank's launches n_layer a tick, its metrics labelled by its
+    worker. (b) The same processes rebuilt bf16 over int4 pages (kernel
+    6): tokens/s, TTFT p50, decode gaps p99, the lockstep round trip, the
+    launches by role. (c) f32 again through ``run_chaos_serving_fleet``
+    with a decode worker killed mid-drain: requeued, its processes gone,
+    tokens equal (a)'s. (d) ``DecodeFleet(devices=["cuda:0"] * 4,
+    devices_per_replica=2)`` of tp = 2 replicas through
+    ``run_chaos_serving`` with one killed: tokens equal one replica's
+    alone. At the end no rank process is alive. ``kernels`` is
+    :func:`fleet_tp_kernel_time`'s result (the full run takes it with the
+    other kernel timings, early), None times them here. Returns the decode
+    ranks' launches of the D: path (legs a and b) and this process's
+    prefill launches, the kernels' error and times."""
+    from dsml_tpu_torch import obs
+    from dsml_tpu_torch.models.llama import Llama, LlamaConfig
+    from dsml_tpu_torch.ops import paged_attention as tpa
+    from dsml_tpu_torch.runtime import chaos
+    from dsml_tpu_torch.runtime.controller import DecodeFleet
+    from dsml_tpu_torch.serving import (ContinuousBatcher, MeshDecodeWorker, PrefillWorker,
+                                        Router, build_fleet)
+
+    t_phase = time.perf_counter()
+    kernel_err, kernel_times = kernels or fleet_tp_kernel_time(dev)
+    prefix, reqs = fleet_tp_requests()
+    n_layer = LlamaConfig.tinyllama_1b().n_layer
+    os.makedirs(FLEET_TP_DIR, exist_ok=True)
+    f32_kw = dict(paged_kv=TP_SERVE_F32_PAGES, page_size=PAGE, n_slots=FLEET_TP_SLOTS)
+    bf16_kw = dict(paged_kv="int4", page_size=PAGE, n_slots=FLEET_TP_SLOTS)
+    model32 = Llama(LlamaConfig.tinyllama_1b(), device=dev)
+    model32.load_state_dict(torch.load(weights, mmap=True))
+    row = {"phase": "fleet_tp", "model": "tinyllama-1.1b", "tp": 2, "n_prefill": 1, "n_decode": 2,
+           "devices": FLEET_TP_DEVICES, "n_slots": FLEET_TP_SLOTS, "requests": FLEET_TP_REQUESTS,
+           "new_tokens_each": FLEET_TP_NEW, "prefix": FLEET_TP_PREFIX, "card": card,
+           "kernel_times": kernel_times, "kernel_max_abs_err": kernel_err}
+    pids, everyone, starter = set(), [], None
+    launches = {"decode": {"paged_attn": 0, "paged_attn_pipelined": 0},
+                "prefill": {"paged_attn": 0, "paged_attn_pipelined": 0}}
+
+    def counted(prefill_workers, by_role):
+        count_launches_by_role(prefill_workers, "prefill", tpa, by_role)
+
+    os.environ["DSML_PAGED_ATTN_PIPELINE"] = "0"
+    try:
+        # the single-device reference on the same card
+        t0 = time.perf_counter()
+        ref_srv = ContinuousBatcher(model32, prefill_chunk=PAGED_CHUNK, **f32_kw)
+        ref_srv.register_prefix(prefix)
+        ref_tokens, _, _ = drain(ref_srv, reqs, [FLEET_TP_NEW] * len(reqs))
+        del ref_srv
+        row["reference_s"] = time.perf_counter() - t0
+
+        # (a) identity: f32 over fp pages, obs on
+        obs.disable()
+        obs.get_registry().reset()
+        obs.enable(forensics=False)
+        t0 = time.perf_counter()
+        router = build_fleet(model32, n_prefill=1, n_decode=2, devices=FLEET_TP_DEVICES,
+                             prefill_chunk=PAGED_CHUNK, workdir=FLEET_TP_DIR, **f32_kw)
+        workers = list(router.decode_workers)
+        everyone += workers
+        pids |= {p for w in workers for p in w.pids}
+        row["spawn_and_build_s"] = time.perf_counter() - t0
+        router.register_prefix(prefix)
+        for w in workers:
+            w.reset_launches()
+        by_role = {"prefill": [0, 0], "decode": [0, 0]}
+        counted(router.prefill_workers, by_role)
+        t0 = time.perf_counter()
+        frids = [router.submit(p, FLEET_TP_NEW) for p in reqs]
+        out = router.run()
+        wall_a = time.perf_counter() - t0
+        toks_a = [out[f] for f in frids]
+        roles = _obs_roles(workers)
+        ticks_a = [r["n_plain_ticks"] for w in workers for r in w.rank_ticks()]
+        rank_a = [w.rank_launches() for w in workers]
+        near_a, bad_a = _margin_mismatches(model32, reqs, toks_a, ref_tokens)
+        launches["decode"]["paged_attn"] += _rank_sum(workers, "paged_attn")
+        launches["prefill"]["paged_attn"] += by_role["prefill"][0]
+        obs.disable()
+        obs.get_registry().reset()
+        row["a_identity"] = {
+            "dtype": "float32", "pages": TP_SERVE_F32_PAGES, "wall_s": wall_a,
+            "tokens_equal_single_device": toks_a == ref_tokens, "near_ties": near_a,
+            "mesh_tp": [w.mesh.shape["tp"] for w in workers],
+            "pool_heads": [w.pool_heads for w in workers],
+            "rank_ticks": ticks_a, "rank_launches": [[{k: r[k] for k in (
+                "paged_attn", "paged_attn_pipelined")} for r in ranks] for ranks in rank_a],
+            "prefill_launches": by_role["prefill"], "obs_tokens_by_worker": roles}
+        check(bad_a == 0, f"fleet_tp (a): the tp = 2 fleet's f32 tokens diverge from one "
+                          f"device's beyond the margin rule: {near_a}")
+        check(all(w.mesh.shape["tp"] == 2 and w.pool_heads == LLAMA_KV_HEADS // 2
+                  for w in workers), f"fleet_tp (a): workers {row['a_identity']}")
+        for w in workers:
+            for r, (lc, tk) in enumerate(zip(w.rank_launches(), w.rank_ticks())):
+                check(lc["paged_attn"] > 0 and lc["paged_attn"] == n_layer * tk["n_plain_ticks"]
+                      and lc["paged_attn_pipelined"] == 0,
+                      f"fleet_tp (a): decode worker {w.obs_replica} rank {r} launched {lc}, "
+                      f"expected {n_layer} x {tk['n_plain_ticks']} ticks on kernel 5")
+        check(all(roles.get(f"{i}/decode/rank{r}", 0) > 0 for i in range(2) for r in range(2)),
+              f"fleet_tp (a): the decode ranks' own metrics by worker: {roles}")
+        del router
+
+        # (b) timed: the same processes rebuilt bf16 over int4 pages
+        del os.environ["DSML_PAGED_ATTN_PIPELINE"]
+        model16 = Llama(dataclasses.replace(LlamaConfig.tinyllama_1b(), dtype="bfloat16"),
+                        device=dev)
+        model16.load_state_dict(torch.load(weights, mmap=True))
+        t0 = time.perf_counter()
+        for w in workers:
+            w.rebuild(model16, **bf16_kw)
+        row["rebuild_bf16_s"] = time.perf_counter() - t0
+        router = Router([PrefillWorker(model16, PAGED_CHUNK, paged_kv="int4", page_size=PAGE)],
+                        workers)
+        for p in reqs[:2]:  # warm-up: the allocator, cuBLAS at these batches
+            router.submit(p, 4)
+        router.run()
+        router.reset_latency_stats()
+        router.register_prefix(prefix)
+        for w in workers:
+            w.reset_launches()
+        by_role = {"prefill": [0, 0], "decode": [0, 0]}
+        counted(router.prefill_workers, by_role)
+        ticks0 = [[r["n_plain_ticks"] for r in w.rank_ticks()] for w in workers]
+        step_ms = []
+        for w in workers:
+            def timed(inner=w.step):
+                t = time.perf_counter()
+                got = inner()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                return got
+
+            w.step = timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frids = [router.submit(p, FLEET_TP_NEW) for p in reqs]
+        out = router.run()
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t0
+        for w in workers:
+            del w.step
+        pings = [w.ping() * 1e3 for w in workers for _ in range(FLEET_TP_PINGS)]
+        toks_b = [out[f] for f in frids]
+        ttft = [s[0] for s in router.latency_samples]
+        gaps = router.decode_gaps()
+        n_tok = sum(len(t) for t in toks_b)
+        launches["decode"]["paged_attn_pipelined"] += _rank_sum(workers, "paged_attn_pipelined")
+        launches["prefill"]["paged_attn_pipelined"] += by_role["prefill"][1]
+        ticks_b = [[r["n_plain_ticks"] - t0_ for r, t0_ in zip(w.rank_ticks(), t0s)]
+                   for w, t0s in zip(workers, ticks0)]
+        row["b_timed"] = {
+            "dtype": "bfloat16", "pages": "int4", "wall_s": wall_b, "new_tokens": n_tok,
+            "tokens_per_s": n_tok / wall_b,
+            "ttft_p50_s": float(np.percentile(ttft, 50)) if ttft else None,
+            "decode_gap_p50_s": float(np.percentile(gaps, 50)) if gaps else None,
+            "decode_gap_p99_s": float(np.percentile(gaps, 99)) if gaps else None,
+            "decode_step_ms_p50": float(np.percentile(step_ms, 50)),
+            "lockstep_round_trip_ms_p50": float(np.percentile(pings, 50)),
+            "lockstep_round_trip_ms_p99": float(np.percentile(pings, 99)),
+            "rank_ticks": ticks_b,
+            "launches_by_role": {
+                "prefill": {"paged_attn": by_role["prefill"][0],
+                            "paged_attn_pipelined": by_role["prefill"][1]},
+                "decode_ranks": [[{k: r[k] for k in ("paged_attn", "paged_attn_pipelined")}
+                                  for r in w.rank_launches()] for w in workers]},
+            "tp_serve_one_batcher": tp_serve_bf16,
+            "note": "four rank processes and this one share one card: the cost of the lockstep "
+                    "and the tp collectives, not a tensor-parallel speed-up"}
+        check(all(len(t) == FLEET_TP_NEW for t in toks_b),
+              "fleet_tp (b): a request did not complete its budget")
+        check(by_role["prefill"][0] == 0 and by_role["prefill"][1] > 0,
+              f"fleet_tp (b): the prefill worker launched {by_role['prefill']}")
+        for w, tks in zip(workers, ticks_b):
+            for r, (lc, tk) in enumerate(zip(w.rank_launches(), tks)):
+                check(lc["paged_attn_pipelined"] > 0 and lc["paged_attn"] == 0
+                      and lc["paged_attn_pipelined"] == n_layer * tk,
+                      f"fleet_tp (b): decode worker {w.obs_replica} rank {r} launched {lc}, "
+                      f"expected {n_layer} x {tk} ticks on kernel 6")
+        del router, model16
+        torch.cuda.empty_cache()
+
+        # (c) chaos: f32 again, a decode worker killed mid-drain
+        os.environ["DSML_PAGED_ATTN_PIPELINE"] = "0"
+        d_kw = dict(prefill_chunk=PAGED_CHUNK, **f32_kw)
+        # (d)'s second replica starts now, beside (c) and (d)'s reference
+        spare = {}
+
+        def start_spare():
+            try:
+                spare["worker"] = MeshDecodeWorker(model32, FLEET_TP_DEVICES[:2],
+                                                   workdir=FLEET_TP_DIR, **d_kw)
+            except BaseException as e:  # noqa: BLE001 — raised in this thread by make_replica
+                spare["error"] = e
+
+        starter = threading.Thread(target=start_spare, name="fleet_tp_spare")
+        starter.start()
+        for w in workers:
+            w.rebuild(model32, **f32_kw)
+        router = Router([PrefillWorker(model32, PAGED_CHUNK, paged_kv=TP_SERVE_F32_PAGES,
+                                       page_size=PAGE)], workers)
+        router.register_prefix(prefix)
+        victim = workers[-1]
+
+        class WhenBusy:  # the kill lands once the victim decodes
+            fired = None
+
+            def get(self, tick):
+                if self.fired is not None or not victim.n_active:
+                    return None
+                self.fired = tick
+                return ("decode", None)
+
+        kill = WhenBusy()
+        sub = slice(0, FLEET_TP_CHAOS_REQUESTS)
+        t0 = time.perf_counter()
+        rep = chaos.run_chaos_serving_fleet(router, reqs[sub], FLEET_TP_NEW, kill)
+        toks_c = [rep["results"][f] for f in sorted(rep["results"])]
+        gone = [p for p in victim.pids if _pid_alive(p)]
+        row["c_chaos"] = {"killed_at_tick": kill.fired, "wall_s": time.perf_counter() - t0,
+                          **{k: v for k, v in rep.items() if k != "results"},
+                          "tokens_equal_a": toks_c == toks_a[sub], "victim_pids_alive": gone}
+        check(kill.fired is not None and rep["requeued_decode"] >= 1 and not gone
+              and not victim.alive, f"fleet_tp (c): {row['c_chaos']}")
+        check(toks_c == toks_a[sub], "fleet_tp (c): the f32 tokens after the kill differ from "
+                                     "leg (a)'s")
+        del router
+
+        # (d) a DecodeFleet of tp = 2 replicas, one killed
+        survivor = workers[0]
+        t0 = time.perf_counter()
+        survivor.rebuild(model32, **d_kw)
+        want_d, _, _ = drain(survivor, reqs[sub], [FLEET_TP_NEW] * FLEET_TP_CHAOS_REQUESTS)
+        made = []
+
+        def make_replica(span):
+            if made:  # the spare, started during (c)
+                starter.join()
+                if "error" in spare:
+                    raise spare["error"]
+                w = spare["worker"]
+            else:
+                w = survivor.rebuild(model32, **d_kw)
+            made.append(w)
+            pids.update(w.pids)
+            return w
+
+        fleet = DecodeFleet(make_replica, min_replicas=2, max_replicas=2,
+                            scale_up_queue_depth=1 << 30, devices=FLEET_TP_DEVICES,
+                            devices_per_replica=2)
+        everyone += made
+        rep_d = chaos.run_chaos_serving(fleet, reqs[sub], FLEET_TP_NEW, {3: None})
+        toks_d = [rep_d["results"][f] for f in sorted(rep_d["results"])]
+        killed = made[-1]
+        requeued = [e.get("requeued", 0) for e in fleet.scale_events if e["reason"] == "killed"]
+        row["d_decode_fleet"] = {
+            "replicas": len(made), "ticks": rep_d["ticks"], "requeued": requeued,
+            "tokens_equal_one_replica": toks_d == want_d,
+            "tokens_equal_a": toks_d == toks_a[sub], "killed_pids_alive": [
+                p for p in killed.pids if _pid_alive(p)],
+            "pool_devices_after": len(fleet._device_pool), "wall_s": time.perf_counter() - t0}
+        check(toks_d == want_d and all(len(t) == FLEET_TP_NEW for t in toks_d),
+              f"fleet_tp (d): tokens lost or changed: {row['d_decode_fleet']}")
+        check(sum(requeued) >= 1 and not killed.alive and not row["d_decode_fleet"][
+            "killed_pids_alive"] and len(fleet._device_pool) == 2,
+            f"fleet_tp (d): {row['d_decode_fleet']}")
+    finally:
+        os.environ.pop("DSML_PAGED_ATTN_PIPELINE", None)
+        obs.disable()
+        obs.get_registry().reset()
+        if starter is not None:
+            starter.join()
+            everyone.append(spare.get("worker"))
+        for w in everyone:
+            if w is not None:
+                pids.update(w.pids)
+                w.close()
+        shutil.rmtree(FLEET_TP_DIR, ignore_errors=True)
+    alive = sorted(p for p in pids if _pid_alive(p))
+    row.update({"rank_processes": len(pids), "rank_processes_alive_after": alive,
+                "phase_seconds": time.perf_counter() - t_phase})
+    emit(row)
+    check(not alive, f"fleet_tp: rank processes still alive after the phase: {alive}")
+    del model32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, kernel_err, kernel_times
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
 
 
 # the train_gpt2 entry points run as processes, beside each other and the Llama
@@ -6822,6 +7426,9 @@ TRAIN_CLI_RUNS = {
                                  "--attn", "flash", "--batch_size", "2"], {}),
 }
 TRAIN_CLI_RESUMED = {"small_pp2_1f1b"}  # runs followed by a one-step resume from their checkpoint
+# runs the full run starts beside the two-rank programs with the Llama entry
+# points (their numpy draws are host work); the others start after them
+TRAIN_CLI_EARLY = ["tinyllama_tp2"]
 RESUME_MARK = "chip_smoke: resuming"
 
 
@@ -6848,7 +7455,7 @@ def train_cli_start(names):
             cmd += f" && echo {shlex.quote(RESUME_MARK)} && {command(name, 1)}"
         procs[name] = subprocess.Popen(
             ["bash", "-c", cmd], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True, env={**os.environ, **TRAIN_CLI_RUNS[name][2]})
+            text=True, env={**os.environ, **ONE_THREAD, **TRAIN_CLI_RUNS[name][2]})
     return procs
 
 
@@ -6945,7 +7552,8 @@ def moe_weights_start():
     root = os.path.dirname(os.path.abspath(__file__))
     return subprocess.Popen([sys.executable, "-c",
                              f"import chip_smoke; chip_smoke.moe_weights_child({path!r})"],
-                            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, **ONE_THREAD})
 
 
 def moe_weights_wait(proc):
@@ -7115,8 +7723,8 @@ def phase_moe(tflash, dev, card, draw, kernels):
     weights = moe_weights_path()
     full = torch.load(weights, mmap=True)
     emit({"phase": "moe_weights", **draw, "bytes": os.path.getsize(weights), "cut": cut,
-          "note": "the numpy draw of Llama.init(0), bf16, in its own process beside the Llama "
-                  "entry points (waited_s: how long it ran on after them)"})
+          "note": "the numpy draw of Llama.init(0), bf16, in its own process (the full run "
+                  "starts it with the kernels' build; waited_s: how long it was waited for)"})
 
     # (b) single-device training, the main path counted
     model = moe_model(dev, full, dtype="bfloat16", xent_chunk=8192)
@@ -7312,7 +7920,11 @@ CHAOS_STEPS, CHAOS_EVERY = 24, 4  # the scripted leg: steps, checkpoint cadence
 CHAOS_LR = 3e-4  # Adam, as optax.adam(3e-4)
 CHAOS_TORN_STEPS, CHAOS_TORN_EVERY, CHAOS_TORN_AT = 4, 2, 3  # cut from 8 and 5 (the run's time)
 CHAOS_TORN_REASON = "training state not recoverable from survivors"  # the torn-leaf audit's
-CHAOS_MID_STEPS, CHAOS_MID_AT, CHAOS_MID_SLOT = 3, 2, 2
+CHAOS_MID_STEPS, CHAOS_MID_AT, CHAOS_MID_RANK = 3, 2, 2  # the rank killed: 2 of the leg's 4
+# slots started with the pool beside its four, which the torn and the mid-step
+# legs take in the place of slots killed before them (no worker restored
+# between legs)
+CHAOS_SPARE_SLOTS = 3
 CHAOS_DETECT_S = 30.0  # a rank killed inside a step must surface within this
 CHAOS_SERVE_REQUESTS, CHAOS_SERVE_NEW, CHAOS_SERVE_KILL_TICK = 8, 32, 3
 CHAOS_MIG_LAYERS = 2  # the migration smoke's depth (GPT-2-small's width)
@@ -7478,9 +8090,12 @@ def phase_chaos_training(dev, card):
     shard over fsdp = 2: tp = 2 does not divide the vocabulary).
     Kernel launches counted by leg (the ``"E:"`` paths); every number of
     the recoveries printed. The serving leg is :func:`chaos_serving`; this
-    function runs legs 1–3 and 5 (the worker pool's), and returns them
-    for :func:`phase_chaos`; leg 5 is :func:`chaos_migration`, on the same
-    pool. The full run drives it last, alone on the card."""
+    function runs legs 1, 5, 2 and 3 (the worker pool's), in that order,
+    and returns them for :func:`phase_chaos`; leg 5 is
+    :func:`chaos_migration`, on the same pool. The pool starts
+    :data:`CHAOS_SPARE_SLOTS` slots beside the four, and legs 2 and 3 run on
+    the first four live slots, so no worker is restored between legs. The
+    full run drives it last, alone on the card."""
     import tempfile
 
     from dsml_tpu_torch.checkpoint import CheckpointManager
@@ -7506,8 +8121,15 @@ def phase_chaos_training(dev, card):
     legs, launches = {}, {}
     slots = list(range(CHAOS_SLOTS))
     t0 = time.perf_counter()
-    pool = WorkerPool(CHAOS_SLOTS, recipe, device=str(dev), workdir=os.path.join(root, "pool"))
+    pool = WorkerPool(CHAOS_SLOTS + CHAOS_SPARE_SLOTS, recipe, device=str(dev),
+                      workdir=os.path.join(root, "pool"))
     row["pool_start_s"] = time.perf_counter() - t0
+    row["spare_slots"] = CHAOS_SPARE_SLOTS
+
+    def live_world():
+        """The first four live slots: the spares stand in for slots killed
+        by an earlier leg."""
+        return [s for s in sorted(pool.slots) if pool.is_alive(s)][:CHAOS_SLOTS]
     try:
         # (1) the scripted schedule against an uninterrupted run
         t0 = time.perf_counter()
@@ -7551,9 +8173,13 @@ def phase_chaos_training(dev, card):
               f"chaos scripted: {rep['steps_completed']} steps, recoveries {kinds}, "
               f"bit-identical {same}")
 
+        # (5) the migration smoke next, on slots 0-3 (it leaves slot 1 dead)
+        legs["migration"] = chaos_migration(dev, card, root, overrides, pool)
+
         # (2) torn state: dp = 2 x fsdp = 2, both fsdp-1 slots killed
         t0 = time.perf_counter()
         pool.launches.clear()
+        slots = live_world()
         torn_dir = os.path.join(root, "torn")
         adopted = {}
 
@@ -7567,12 +8193,11 @@ def phase_chaos_training(dev, card):
             config=ControllerConfig(checkpoint_every=CHAOS_TORN_EVERY, growback="keep"),
             global_batch=CHAOS_BATCH, seed=0, planner_overrides=overrides, on_recover=on_recover)
         torn_slots = [s for s in slots if ctl2.world.slots.index(s) % 2 == 1]  # fsdp coordinate 1
-        with ctl2:
+        with ctl2:  # a chaos event names indices into the fleet's slot list
             rep2 = chaos.run_chaos_training(
-                ctl2, chaos.ChaosSchedule([chaos.ChaosEvent(CHAOS_TORN_AT, "kill",
-                                                            tuple(torn_slots))]),
+                ctl2, chaos.ChaosSchedule([chaos.ChaosEvent(
+                    CHAOS_TORN_AT, "kill", tuple(slots.index(s) for s in torn_slots))]),
                 CHAOS_TORN_STEPS)
-        fleet.restore()
         mgr = CheckpointManager(torn_dir, max_to_keep=None)
         ck = elastic._host_from_checkpoint(mgr, CHAOS_TORN_AT - 1, pool)
         ck_tree = ck.tree()
@@ -7583,7 +8208,8 @@ def phase_chaos_training(dev, card):
         del ck_tree, adopted
         launches["E:torn"] = dict(pool.launches)
         fb = [r for r in rep2["recoveries"] if r["kind"] == "checkpoint_fallback"]
-        legs["torn"] = {"steps_completed": rep2["steps_completed"], "killed": torn_slots,
+        legs["torn"] = {"steps_completed": rep2["steps_completed"], "slots": slots,
+                        "killed": torn_slots,
                         "recoveries": chaos_recovery_rows(rep2),
                         "fallback_reason": fb[0].get("fallback_reason") if fb else None,
                         "adopted_equals_checkpoint": torn_same,
@@ -7598,17 +8224,18 @@ def phase_chaos_training(dev, card):
         # (3) a rank SIGKILLs itself inside a step, before the gradient sync
         t0 = time.perf_counter()
         pool.launches.clear()
+        slots = live_world()
         ctl3 = ElasticController(
             pool, provider, os.path.join(root, "mid"), slots=slots,
             spec=MeshSpec(dp=CHAOS_SLOTS), config=ControllerConfig(checkpoint_every=100),
             global_batch=CHAOS_BATCH, seed=0, planner_overrides=overrides)
-        ctl3.kill_mid_step(CHAOS_MID_AT, CHAOS_MID_SLOT)
+        ctl3.kill_mid_step(CHAOS_MID_AT, slots[CHAOS_MID_RANK])
         with ctl3:
             rep3 = ctl3.run(CHAOS_MID_STEPS)
-        pool.restore(*[s for s in slots if not pool.is_alive(s)])
         launches["E:mid_step"] = dict(pool.launches)
         rec3 = rep3["recoveries"][0] if rep3["recoveries"] else {}
-        legs["mid_step"] = {"steps_completed": rep3["steps_completed"],
+        legs["mid_step"] = {"steps_completed": rep3["steps_completed"], "slots": slots,
+                            "killed": slots[CHAOS_MID_RANK],
                             "recoveries": chaos_recovery_rows(rep3),
                             "losses": [ctl3.losses[s] for s in sorted(ctl3.losses)],
                             "launches": launches["E:mid_step"],
@@ -7619,7 +8246,6 @@ def phase_chaos_training(dev, card):
               and rec3.get("resume_step") == CHAOS_MID_AT
               and rep3["steps_completed"] == CHAOS_MID_STEPS,
               f"chaos mid-step kill: {legs['mid_step']}")
-        legs["migration"] = chaos_migration(dev, card, root, overrides, pool)
     finally:
         pool.close()
         shutil.rmtree(root, ignore_errors=True)
@@ -7663,6 +8289,13 @@ def main() -> None:
 
     dev = resolve_device("cuda:0")
     card = card_name_and_power_limit()
+    only = sys.argv[1:]  # a debugging run of some phases: no result line
+    if not only:
+        # the numpy draws of TinyLlama's and the cut Mixtral's weights, each in a
+        # process of its own, beside the build (its nvcc processes leave cores
+        # idle); the Mixtral draw is waited for before the first timed phase
+        draws = [llama_weights_start(), moe_weights_start()]
+        atexit.register(lambda: [p.kill() for p in draws if p.poll() is None])
     emit({"phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0], **wire_toolchain()})
@@ -7688,7 +8321,6 @@ def main() -> None:
     share_gpt2_small_weights()
     emit({"phase": "gpt2_weights", "seconds": time.perf_counter() - t0 - reports_seconds,
           "note": "GPT-2-small's f32 init from seed 0, drawn once and read by every phase and rank"})
-    only = sys.argv[1:]  # a debugging run of some phases: no result line
     if only:
         phases = {"sass": lambda: phase_sass(_build, reports),
                   "kernel": lambda: phase_kernel(tflash, dev),
@@ -7731,6 +8363,10 @@ def main() -> None:
                       lambda w: phase_model_parallel(tflash, dev, card, w)),
                   "tp_serve": lambda: with_tinyllama_weights(
                       lambda w: phase_tp_serve(tflash, dev, card, w)),
+                  "fleet_tp": lambda: with_tinyllama_weights(
+                      lambda w: phase_fleet_tp(dev, card, w)),
+                  "qmm_llama": lambda: qmm_llama(dev),
+                  "elastic_kernel_time": lambda: elastic_kernel_time(tflash, dev),
                   "mp_cli": lambda: phase_train_cli_runs(
                       train_cli_start(["tinyllama_tp2", "small_pp2_1f1b"])),
                   "moe": lambda: phase_moe(
@@ -7742,15 +8378,19 @@ def main() -> None:
         raise SystemExit(f"chip_smoke: ran only {only}; no result line")
 
     phase_sass(_build, reports)
+    moe_draw = moe_weights_wait(draws[1])  # no timed phase beside a numpy draw
     main_err, timing = phase_kernel(tflash, dev)
     bwd_err, bwd_timing = phase_kernel_bwd(tflash, dev)
     paged_err, paged_timing = phase_kernel_paged(dev)
     qmm_err = phase_kernel_qmm(dev)
     qmm_timing = qmm_time(dev)
+    qmm_llama_err, qmm_llama_timing = qmm_llama(dev)
     quant8_err, quant8_timing = phase_kernel_quant8(dev)
     stream_err, stream_timing = phase_kernel_stream(tflash, dev)
     phase_kernel_head_dim(tflash, dev)
     phase_kernel_long_context(tflash, dev)
+    elastic_timing = elastic_kernel_time(tflash, dev)
+    fleet_tp_kernels = fleet_tp_kernel_time(dev)
     # with the other kernel phases: late in a full run the profiler's traces
     # lost events twice in this phase (never in its own run)
     llama_kernels = family_kernels(tflash, dev, "llama", LLAMA_HEADS, LLAMA_KV_HEADS, D,
@@ -7778,36 +8418,37 @@ def main() -> None:
     torch.cuda.empty_cache()
     wq_launches = phase_wq_slice(dev, card)
     torch.cuda.empty_cache()
-    phase_serve_cli(dev)
-    phase_serve_cli_wq(dev)
-    torch.cuda.empty_cache()
     remat_launches = phase_train_int8remat(tflash, dev, card)
     torch.cuda.empty_cache()
+    # the entry points run as processes: the TinyLlama-1.1B ones (each first
+    # draws 1.1B weights on the host) beside the two-rank programs, the
+    # GPT-2-small train_gpt2 runs after them, while this process runs the
+    # serve_continuous entry point in process and reads TinyLlama's weights
+    # (drawn beside the build); every Llama phase is timed after them all
+    procs = llama_cli_start()
+    cli_procs = train_cli_start(TRAIN_CLI_EARLY)
+    atexit.register(lambda: [p.kill() for p in (*procs.values(), *cli_procs.values())
+                             if p.poll() is None])
     two_rank, two_seconds = spawn_two_rank_programs()  # one spawn: six programs
     cp_launches, sp_launches = phase_cp_slice(card, (two_rank["cp"], two_seconds))
     phase_allreduce(card, (two_rank["allreduce"], two_seconds))
     phase_quant_allreduce(card, (two_rank["quant_allreduce"], two_seconds))
     _, q8_launches, obs_dp, ckpt_dp = phase_dp_slice(card, (two_rank, two_seconds))
     torch.cuda.empty_cache()
-    # the Llama and the train_gpt2 entry points (cp, dp, tp, pp) run as
-    # processes while this one builds TinyLlama's weights on the host, and the
-    # cut Mixtral's numpy draw runs beside them in its own process: every
-    # Llama phase is timed after them, and no profiled phase runs until the
-    # draw is done (a busy host lost profiler events)
-    procs = llama_cli_start()
-    cli_procs = train_cli_start(list(TRAIN_CLI_RUNS))
-    moe_proc = moe_weights_start()
+    cli_procs.update(train_cli_start([n for n in TRAIN_CLI_RUNS if n not in TRAIN_CLI_EARLY]))
     try:
+        phase_serve_cli(dev)
+        phase_serve_cli_wq(dev)
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         llama_weights()
         emit({"phase": "llama_weights", "seconds": time.perf_counter() - t0,
-              "note": "TinyLlama-1.1B's f32 init from seed 0 on the host, while the entry "
-                      "points run"})
+              "note": "TinyLlama-1.1B's f32 init from seed 0, drawn in its own process beside "
+                      "the build: seconds is the wait and the read of its file"})
         phase_llama_cli(procs)
         phase_train_cli_runs(cli_procs)
-        moe_draw = moe_weights_wait(moe_proc)
     except BaseException:
-        for p in (*procs.values(), *cli_procs.values(), moe_proc):
+        for p in (*procs.values(), *cli_procs.values()):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
@@ -7836,8 +8477,13 @@ def main() -> None:
         mp_launches, mp_quant8, (serve_ref, serve_spawned), resume_eval, lc_launches = (
             phase_model_parallel(tflash, dev, card, weights, serve=True))
         torch.cuda.empty_cache()
-        tp_launches, tp_errs, _ = phase_tp_serve(tflash, dev, card, weights, serve_ref,
-                                                 serve_spawned)
+        tp_launches, tp_errs, _, tp_bf16 = phase_tp_serve(tflash, dev, card, weights, serve_ref,
+                                                          serve_spawned)
+        torch.cuda.empty_cache()
+        # decode workers over two devices each behind the router, from the
+        # same weights file
+        fleet_tp_launches, fleet_tp_err, fleet_tp_times = phase_fleet_tp(
+            dev, card, weights, tp_bf16, fleet_tp_kernels)
     tp_paged_err = max(v for k, v in tp_errs.items() if k.startswith("paged_"))
     torch.cuda.empty_cache()
     # elasticity and chaos, the worker pool's legs (GPT-2-small on four rank
@@ -7878,7 +8524,9 @@ def main() -> None:
                                   "model_parallel": mp[dq_name], "moe": mx[dq_name],
                                   "mp_resume_eval": ra[dq_name],
                                   **{p: v[dq_name] for p, v in lcp.items()}},
-             "max_abs_err": err["dq"], **bwd_timing[dq_name]},
+             "max_abs_err": err["dq"], **bwd_timing[dq_name],
+             **({"path_timing": {"E": elastic_timing[dq_name]}}
+                if dtype == torch.bfloat16 else {})},
             {"name": dkv_name, "route": "cuda", "source": source, "replaces": "dsml_tpu/ops/flash.py:526",
              "launches": counts[dkv_name] + llama[dkv_name] + ckpt_launches[dkv_name] + mp[dkv_name]
              + mx[dkv_name] + ra[dkv_name] + sum(v[dkv_name] for v in lcp.values()),
@@ -7887,7 +8535,9 @@ def main() -> None:
                                   "model_parallel": mp[dkv_name], "moe": mx[dkv_name],
                                   "mp_resume_eval": ra[dkv_name],
                                   **{p: v[dkv_name] for p, v in lcp.items()}},
-             "max_abs_err": max(err["dk"], err["dv"]), **bwd_timing[dkv_name]}]
+             "max_abs_err": max(err["dk"], err["dv"]), **bwd_timing[dkv_name],
+             **({"path_timing": {"E": elastic_timing[dkv_name]}}
+                if dtype == torch.bfloat16 else {})}]
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": "dsml_tpu_torch/ops/csrc/flash_fwd.cu",
          "replaces": "dsml_tpu/ops/flash.py:198",
@@ -7904,7 +8554,7 @@ def main() -> None:
                               "sp_impls": sp_launches["flash_fwd"],
                               **{p: v["flash_fwd"] for p, v in lc_launches.items()},
                               **{p: v.get("flash_fwd", 0) for p, v in chaos_launches.items()}},
-         "max_abs_err": main_err, **timing},
+         "max_abs_err": main_err, **timing, "path_timing": {"E": elastic_timing["flash_fwd"]}},
         *bwd_rows,
         # times at the decode tick's shape (the chunk's are in the kernel_time line);
         # launches from the paged slice's two drains, one per kernel
@@ -7912,24 +8562,32 @@ def main() -> None:
          "replaces": "dsml_tpu/ops/paged_attention.py:169",
          "launches": single_launches["paged_attn"] + llama_paged_launches["paged_attn"]
          + ckpt_launches["paged_attn"] + moe["paged_attn"] + tp_launches["paged_attn"]
-         + fleet_launches["paged_attn"] + chaos_launches["E:serving"]["paged_attn"],
+         + fleet_launches["paged_attn"] + chaos_launches["E:serving"]["paged_attn"]
+         + fleet_tp_launches["decode"]["paged_attn"] + fleet_tp_launches["prefill"]["paged_attn"],
          "launches_by_path": {"paged_slice": single_launches["paged_attn"],
+                              "D:decode_ranks": fleet_tp_launches["decode"]["paged_attn"],
+                              "D:prefill": fleet_tp_launches["prefill"]["paged_attn"],
                               "fleet": fleet_launches["paged_attn"],
                               "E:serving": chaos_launches["E:serving"]["paged_attn"],
                               "llama_serve": llama_paged_launches["paged_attn"],
                               "checkpoint": ckpt_launches["paged_attn"], "moe": moe["paged_attn"],
                               "tp_serve": tp_launches["paged_attn"]},
          "max_abs_err": max(paged_err, llama_kernels["paged_err"], moe["paged_err"], tp_paged_err,
-                            fleet_err),
-         **paged_timing["paged_attn"]["decode"]},
+                            fleet_err, fleet_tp_err),
+         **paged_timing["paged_attn"]["decode"],
+         "path_timing": {"D": fleet_tp_times["tp_rank_f32_fp"]["paged_attn"]}},
         {"name": "paged_attn_pipelined", "route": "cuda", "source": PAGED_SOURCE,
          "replaces": "dsml_tpu/ops/paged_attention.py:259",
          "launches": paged_launches["paged_attn_pipelined"]
          + llama_paged_launches["paged_attn_pipelined"] + ckpt_launches["paged_attn_pipelined"]
          + moe["paged_attn_pipelined"] + tp_launches["paged_attn_pipelined"]
          + fleet_launches["paged_attn_pipelined"]
-         + chaos_launches["E:serving"]["paged_attn_pipelined"],
+         + chaos_launches["E:serving"]["paged_attn_pipelined"]
+         + fleet_tp_launches["decode"]["paged_attn_pipelined"]
+         + fleet_tp_launches["prefill"]["paged_attn_pipelined"],
          "launches_by_path": {"paged_slice": paged_launches["paged_attn_pipelined"],
+                              "D:decode_ranks": fleet_tp_launches["decode"]["paged_attn_pipelined"],
+                              "D:prefill": fleet_tp_launches["prefill"]["paged_attn_pipelined"],
                               "fleet": fleet_launches["paged_attn_pipelined"],
                               "E:serving": chaos_launches["E:serving"]["paged_attn_pipelined"],
                               "llama_serve": llama_paged_launches["paged_attn_pipelined"],
@@ -7937,14 +8595,17 @@ def main() -> None:
                               "moe": moe["paged_attn_pipelined"],
                               "tp_serve": tp_launches["paged_attn_pipelined"]},
          "max_abs_err": max(paged_err, llama_kernels["paged_err"], moe["paged_err"], tp_paged_err,
-                            fleet_err),
-         **paged_timing["paged_attn_pipelined"]["decode"]},
+                            fleet_err, fleet_tp_err),
+         **paged_timing["paged_attn_pipelined"]["decode"],
+         "path_timing": {"D": fleet_tp_times["tp_rank_bf16_int4"]["paged_attn_pipelined"]}},
         # times at the decode tick's shape of wqkv (16 rows, int4, bf16 x; the
         # other projections and the chunk are in the kernel_time line);
         # launches from the wq slice's int4 drain
         {"name": "qmm", "route": "cuda", "source": QMM_SOURCE,
          "replaces": "dsml_tpu/ops/quantization.py:531", "launches": wq_launches["qmm"],
-         "max_abs_err": qmm_err, **{k: qmm_timing[k] for k in KERNEL_TIMES}},
+         "max_abs_err": qmm_err, **{k: qmm_timing[k] for k in KERNEL_TIMES},
+         "path_timing": {"L": {**qmm_llama_timing["int4"]["decode"]["wqkv"],
+                               "max_err_over_max_abs": qmm_llama_err}}},
         # times at the train step's block input [8, 1024, 768] bf16 (the q8
         # bucket's are in its kernel_time line); kernel 8 runs on two paths:
         # launches from the int8-remat train steps and from rank 0's q8 dp

@@ -656,7 +656,9 @@ class DecodeFleet:
     the chaos-survival story.
 
     ``make_replica()`` builds a ``serving.ContinuousBatcher`` (each replica
-    owns its own slots/cache). Requests enter a fleet-level backlog and
+    owns its own slots/cache), or over a span of several pooled devices a
+    ``serving.MeshDecodeWorker`` (a tensor-parallel replica, one rank
+    process a device). Requests enter a fleet-level backlog and
     dispatch to the least-loaded replica each tick; autoscaling is
     QUEUE-DEPTH-DRIVEN:
 
@@ -764,7 +766,10 @@ class DecodeFleet:
             self._device_pool.extend(span)
 
     def _retire(self, rid: int, reason: str) -> None:
-        self._replicas.pop(rid)
+        replica = self._replicas.pop(rid)
+        close = getattr(replica, "close", None)
+        if close is not None:  # a replica of rank processes (MeshDecodeWorker)
+            close()
         self._idle_ticks.pop(rid, None)
         self._release_devices(rid)
         self._note_scale("down", rid, reason)
@@ -782,7 +787,10 @@ class DecodeFleet:
     def kill_replica(self, rid: int | None = None) -> int:
         """Chaos hook: drop a replica (default: the newest). Finished-but-
         uncollected results are harvested first; everything unfinished
-        re-enters the backlog at the FRONT (it has waited longest)."""
+        re-enters the backlog at the FRONT (it has waited longest). A
+        replica of rank processes (``serving.MeshDecodeWorker``, the
+        factory over a span of several devices) is killed: its processes
+        end, its devices return to the pool."""
         if not self._replicas:
             raise RuntimeError("no replicas to kill")
         if rid is None:
@@ -791,9 +799,17 @@ class DecodeFleet:
         self._idle_ticks.pop(rid, None)
         self._release_devices(rid)
         self._harvest(rid, replica.collect())
+        kill = getattr(replica, "kill", None)
+        if kill is not None:
+            # a replica of rank processes dies for real; what it held
+            # unfinished is the fleet's own record of its requests
+            kill()
+            lrids = sorted(lrid for r, lrid in self._local if r == rid)
+        else:
+            lrids = [req.rid for req in replica.abandon()]
         requeued = 0
-        for req in reversed(replica.abandon()):
-            frid = self._local.pop((rid, req.rid), None)
+        for lrid in reversed(lrids):
+            frid = self._local.pop((rid, lrid), None)
             if frid is None:
                 continue
             self._placed.pop(frid, None)

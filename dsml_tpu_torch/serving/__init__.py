@@ -16,6 +16,9 @@ cache, and the disaggregated prefill/decode fleet — the counterpart of
 - :mod:`router` — ``Router``: SLO-class admission with explicit shedding,
   load-aware dispatch over N prefill and M decode workers, prefix
   replication, worker-loss hooks; ``build_fleet`` assembles one.
+- :mod:`mesh_worker` — ``MeshDecodeWorker``: a tensor-parallel decode
+  worker over several devices, one rank process each, driven in lockstep
+  (``build_fleet(devices=)`` over slices of several devices).
 """
 
 from dsml_tpu_torch.serving.batcher import ContinuousBatcher, QueueFull, Request
@@ -32,6 +35,8 @@ _LAZY = {
     "frame_transport": "handoff",
     "register_with_donor": "handoff",
     "stream_transport": "handoff",
+    "MeshDecodeWorker": "mesh_worker",
+    "MeshWorkerError": "mesh_worker",
     "PrefillWorker": "prefill",
     "Router": "router",
     "SLOClass": "router",

@@ -107,7 +107,8 @@ from dsml_tpu_torch.serving.paging import (
 )
 from dsml_tpu_torch.utils.hash32 import request_key, request_uniform
 
-__all__ = ["ContinuousBatcher", "QueueFull", "Request", "request_key", "request_uniform"]
+__all__ = ["ContinuousBatcher", "QueueFull", "Request", "head_block", "request_key",
+           "request_uniform"]
 
 
 class QueueFull(RuntimeError):
@@ -142,6 +143,26 @@ class Request:
         """The request's TraceContext (its flow id derives from the
         trace_id alone); None when the request carries no trace."""
         return None if self.trace_id is None else TraceContext(trace_id=self.trace_id)
+
+
+def head_block(tree, tp: int, index: int) -> list:
+    """Block ``index`` of ``tp`` equal contiguous blocks of the head axis
+    (axis 1) of every leaf of a KV payload (per-layer dicts: a 1-row cache
+    or a page payload, scales included): what the JAX placement
+    ``NamedSharding(mesh, P(None, "tp"))`` hands tp coordinate ``index``.
+    A mesh batcher's share of a whole-head handoff."""
+    out = []
+    for layer in tree:
+        cut = {}
+        for key, arr in layer.items():
+            heads = arr.shape[1]
+            if heads % tp:
+                raise ValueError(f"handoff entry {key!r} has {heads} heads, not divisible by "
+                                 f"tp={tp}")
+            step = heads // tp
+            cut[key] = arr[:, index * step:(index + 1) * step]
+        out.append(cut)
+    return out
 
 
 def _bucket(n: int, buckets: tuple) -> int:
@@ -705,13 +726,31 @@ class ContinuousBatcher:
         ``prefix_rows`` the leading rows not shipped because this worker
         shares its own registered prefix pages for them (validated here
         against the local registry). Tensors on another device (a decoded
-        handoff's CPU tensors) are copied onto this worker's at admission."""
+        handoff's CPU tensors) are copied onto this worker's at admission.
+
+        On a tensor-parallel ``mesh`` the handoff carries every head (a
+        ``PrefillWorker`` serves the whole model) and this rank keeps its
+        contiguous block of the head axis, the JAX ``P(None, "tp")``
+        placement (:func:`head_block`); a payload already cut to this
+        rank's heads is taken as it is. Nothing here reads a clock or a
+        rank: every rank of the mesh admits the same request into the same
+        slot and samples the same first token from the same logits row."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if len(prompt) < 1:
             raise ValueError("empty prompt")
         self.model._check_generate_args(
             len(prompt), max_new_tokens, self.temperature, self.top_k, self.top_p)
         cfg = self.model.config
+        tp = self.model.tp
+        if tp > 1:
+            payload = kv_pages if self.paged else cache1
+            if payload is not None and len(payload) and \
+                    payload[0]["k"].shape[1] == self.model._n_cache_heads:
+                cut = head_block(payload, tp, self.mesh.coord("tp"))
+                if self.paged:
+                    kv_pages = cut
+                else:
+                    cache1 = cut
         if self.paged:
             if kv_pages is None:
                 raise ValueError(
@@ -760,10 +799,11 @@ class ContinuousBatcher:
                 raise ValueError(
                     f"handoff cache has {len(cache1)} layers, model has {cfg.n_layer}")
             k = cache1[0]["k"]
-            if k.shape[0] != 1 or k.shape[2] != cfg.max_seq:
+            heads = self._cache[0]["k"].shape[1]  # this rank's, on a mesh
+            if k.shape[0] != 1 or k.shape[1] != heads or k.shape[2] != cfg.max_seq:
                 raise ValueError(
                     f"handoff cache rows are {tuple(k.shape)}; expected "
-                    f"(1, heads, max_seq={cfg.max_seq}, ...) — prefill and "
+                    f"(1, {heads}, max_seq={cfg.max_seq}, ...) — prefill and "
                     "decode workers must share the model config")
         if self.max_queue and len(self._inject) >= self.max_queue:
             self._shed()

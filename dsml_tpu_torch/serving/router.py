@@ -32,11 +32,13 @@ behind one admission surface.
   trace_id exemplars; each class's measured TTFT/TPOT/e2e feeds the
   ``obs/slo.py`` windows (``Router.slo``).
 
-``build_fleet`` assembles one from a model. Every worker runs on the
-model's device; a decode worker spanning several devices needs one
-process a device (``ContinuousBatcher.for_devices``), which a router
-driving it in lockstep would need too, and raises here (ROADMAP.md
-queue 1, item 17).
+``build_fleet`` assembles one from a model. Prefill workers run on the
+model's device. A decode worker over one device is a ``ContinuousBatcher``
+there; a decode worker over several is a tensor-parallel
+``serving.mesh_worker.MeshDecodeWorker``: one rank process a device, which
+this router drives in lockstep through the same interface (its page pool
+or cache holds each rank's block of heads, as the JAX worker's is sharded
+over them). :meth:`Router.close` ends such workers' processes.
 """
 
 from __future__ import annotations
@@ -606,6 +608,21 @@ class Router:
         self.request_records.clear()
         self._record_order.clear()
 
+    def close(self) -> None:
+        """End the processes of every decode worker that has them
+        (``MeshDecodeWorker``); in-process workers need nothing."""
+        for dw in self.decode_workers:
+            close = getattr(dw, "close", None)
+            if close is not None:
+                close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
     def run(self, max_ticks: int = 100_000) -> dict[int, list]:
         """Drain everything; returns {frid: [tokens]} for every request
         finished during (or before) this call."""
@@ -677,17 +694,27 @@ class Router:
         results are harvested first; unfinished requests (injected queue,
         mid-decode) re-enter the backlog and run the FULL pipeline again —
         re-prefill on a prefill worker, handoff, decode on a survivor.
-        Greedy decode makes the re-run bit-identical. Returns the requeue
-        count."""
+        Greedy decode makes the re-run bit-identical. A worker of rank
+        processes (``MeshDecodeWorker``) is killed for real after the
+        harvest of what rank 0 reported, its unfinished requests read from
+        the router's own record. Returns the requeue count."""
         if len(self.decode_workers) <= 1:
             raise RuntimeError("cannot kill the last decode worker")
         dw = self.decode_workers.pop(
             idx if idx is not None else len(self.decode_workers) - 1
         )
         self._harvest(dw)
+        kill = getattr(dw, "kill", None)
+        if kill is not None:
+            # a worker of rank processes: its state dies with them, and what
+            # it held unfinished is the router's own record of its requests
+            kill()
+            lrids = sorted(lrid for w, lrid in self._local if w == id(dw))
+        else:
+            lrids = [req.rid for req in dw.abandon()]
         requeued = 0
-        for req in reversed(dw.abandon()):
-            frid = self._local.pop((id(dw), req.rid), None)
+        for lrid in reversed(lrids):
+            frid = self._local.pop((id(dw), lrid), None)
             if frid is None:
                 continue
             self._decode_at.pop(frid, None)
@@ -741,11 +768,14 @@ def build_fleet(
     size rides ``decode_kwargs['n_pages']``.
 
     ``devices`` gives each decode worker an equal slice of the list
-    (``ContinuousBatcher.for_devices``); prefill workers stay on the
-    model's device. A slice of one device is a worker on it, serving a
-    copy of the weights there when the model lives elsewhere; a worker
-    over several devices runs one process a device, which this router
-    cannot drive, and raises (ROADMAP.md queue 1, item 17)."""
+    (the JAX ``ContinuousBatcher.for_devices``); prefill workers stay on
+    the model's device. A slice of one device is a worker on it, serving a
+    copy of the weights there when the model lives elsewhere. A slice of
+    several is a tensor-parallel ``MeshDecodeWorker`` over them (tp = the
+    slice's length), one rank process a device, every worker's processes
+    started at once; ``workdir`` in ``decode_kwargs`` goes
+    to it (``serving/mesh_worker.py``). Such a fleet's processes end with
+    :meth:`Router.close`."""
     prefill_workers = [
         PrefillWorker(model, prefill_chunk, max_queue=prefill_max_queue, paged_kv=paged_kv,
                       page_size=page_size, n_pages=prefill_n_pages)
@@ -760,10 +790,13 @@ def build_fleet(
         if per < 1:
             raise ValueError(f"{len(devices)} device(s) cannot back {n_decode} decode worker(s)")
         if per > 1:
-            raise NotImplementedError(
-                f"a decode worker over {per} devices runs one process a device "
-                "(ContinuousBatcher.for_devices); a router that drives such workers in "
-                "lockstep comes with a later slice of the port (ROADMAP.md queue 1, item 17)")
+            from dsml_tpu_torch.serving.mesh_worker import MeshDecodeWorker
+
+            decode_workers = MeshDecodeWorker.spawn(
+                model, [devices[i * per:(i + 1) * per] for i in range(n_decode)],
+                **decode_kwargs)
+            return Router(prefill_workers, decode_workers, slo_classes=slo_classes,
+                          transport=transport)
         decode_workers = []
         for dev in devices[:n_decode]:
             dev = torch.device(dev)

@@ -562,11 +562,14 @@ def test_unknown_class_mixed_fleet_and_edge_validation(models):
                slo_classes=[SLOClass("a"), SLOClass("a")])
     with pytest.raises(ValueError, match="need at least one"):
         Router([], [paged])
-    # devices: one device a decode worker works; more raise, citing the ROADMAP entry
+    # devices: a slice of one device is a batcher there; of two, a tp = 2 worker of
+    # two rank processes (tests/test_torch_fleet_tp.py serves through them)
     two = build_fleet(tmodel, n_decode=2, prefill_chunk=8, devices=["cpu", "cpu"])
     assert len(two.decode_workers) == 2
-    with pytest.raises(NotImplementedError, match="item 17"):
-        build_fleet(tmodel, n_decode=2, prefill_chunk=8, devices=["cpu"] * 4)
+    with build_fleet(tmodel, n_decode=2, prefill_chunk=8, devices=["cpu"] * 4) as four:
+        assert len(four.decode_workers) == 2
+        assert all(dw.mesh.shape["tp"] == 2 for dw in four.decode_workers)
+    assert not [dw.alive_pids() for dw in four.decode_workers if dw.alive_pids()]
     with pytest.raises(ValueError, match="cannot back"):
         build_fleet(tmodel, n_decode=2, prefill_chunk=8, devices=["cpu"])
 
