@@ -112,6 +112,13 @@ before the path and read just after):
   paged_kv="int4")`` on 8 requests (kernels 5 and 6 over the rank's pool),
   f32 tokens (unquantized pages) held to the single-device port's, bf16
   for the times;
+- the vision family (BASELINE configs 3 and 4): ``cli.train_mnist
+  --model cnn`` for one epoch on the repo's MNIST; ResNet-18 at full width
+  in f32 through ``cli.train_cifar_resnet``'s config (batch 256, momentum,
+  the ring, the reduce-on-plateau scheduler) at dp = 2 on two spawned
+  ranks sharing the card, on the synthetic CIFAR-shaped set (no CIFAR-10
+  binaries in the repo); one single-device ResNet-18 step timed. No
+  kernel of the port lies on this path (cuDNN convolutions);
 - long context (``ops.attention``'s XLA ring and Ulysses,
   ``ops.flash.ring_flash_attention``, ``attention_2d``, the ``sp`` axis):
   GPT-2-small at sp = 2 through ``ring``, ``ulysses``, ``ulysses_flash``
@@ -299,7 +306,15 @@ one batcher, the killed worker's requeues and processes, the DecodeFleet's
 kill; a kernel_time line "D" of kernels 5 and 6 at a tp = 2 decode rank's
 shape); kernel_time lines "E" (kernels 1–3 at a dp = 4 rank's [24, 1024,
 64]) and "L" (kernel 7 at TinyLlama's projections);
-kernels (one line for the run; kernel 8's entry counts its three paths,
+vision (vision_cnn: the CNN's holdout accuracy > 0.85, steps/s, seconds;
+vision_resnet_single: ResNet-18 f32 at batch 256, the median step ms of
+10 after a warm-up, images/s, peak memory; vision_resnet_dp: per rank the
+ring and naive Trainer runs' epoch losses, weights and plateau state
+bit-identical (cuDNN deterministic for them), both replicas identical, the
+loss falling over 3 epochs of 8 steps, the plateau's windows closed, the
+first ring step's f32 gradients within TOL_TRAIN_GRADS of one device's
+per-rank batch norm, a rank's step ms, images/s, peak memory, the sync's
+ms and IPC slot bytes); kernels (one line for the run; kernel 8's entry counts its three paths,
 kernels 5 and 6 their fleet path,
 kernels 1–3, 5 and 6 their Llama, checkpoint, model-parallel and MoE
 paths too; kernels 1, 5 and 6 their tp_serve path; kernels 5 and 6 the
@@ -312,8 +327,8 @@ program's ``cp_tp_llama``, ``cp_dp`` and ``attention_2d``).
 Every phase line carries ``t_s``, its seconds since the script started.
 In the full run two spawns of two ranks carry every two-rank program, one
 after another in the same processes: cp_slice's, the two all-reduce
-phases', dp_slice's, the checkpoint phase's dp = 2 resume and the obs
-phase's dp = 2 q8 program in one; the model-parallel tp, pp, fsdp and
+phases', dp_slice's, the checkpoint phase's dp = 2 resume, the vision
+phase's dp = 2 ResNet-18 and the obs phase's dp = 2 q8 program in one; the model-parallel tp, pp, fsdp and
 tp_serve programs in the other, beside the four-rank spawn of the pp × tp
 and long-context programs. A phase run alone spawns its own ranks.
 
@@ -4003,13 +4018,13 @@ def quant_allreduce_rank_run(rank, tmp, res, stage):
 
 def spawn_two_rank_programs():
     """The two-rank programs of cp_slice, the collectives, dp_slice, the
-    checkpoint phase and the obs phase in one spawn, cp first (in fresh
+    checkpoint phase, the vision phase and the obs phase in one spawn, cp first (in fresh
     processes) and obs last (it leaves obs enabled in the ranks): ({name:
     each rank's JSON}, the shared spawn's seconds)."""
     return spawn_programs({"cp": (cp_rank, ()), "allreduce": (allreduce_rank, ()),
                            "quant_allreduce": (quant_allreduce_rank, ()),
                            "dp": (dp_rank, ()), "ckpt_dp": (ckpt_dp_rank, ()),
-                           "obs_dp": (obs_dp_rank, ())}, "dp")
+                           "vision": (vision_rank, ()), "obs_dp": (obs_dp_rank, ())}, "dp")
 
 
 def phase_quant_allreduce(card, spawned=None):
@@ -4327,6 +4342,236 @@ def phase_dp_slice(card, spawned=None):
                   f"rank {r['rank']}: the MNIST trainer under {name}: {m}")
     return (r0["launches"], r0["quant"]["q8"]["launches"]["quantize_int8"],
             (out["obs_dp"], seconds), (out["ckpt_dp"], seconds))
+
+
+# ---- the vision family: the MNIST CNN and CIFAR ResNet-18 -------------------------
+
+VISION_SYNTH_N = 2276  # CIFAR-shaped synthetic rows: 2048 to train on (8 batches of 256), 228 held out
+VISION_BATCH = 256  # BASELINE config 4's global batch
+VISION_EPOCHS = 3  # three plateau windows (one an epoch) close
+VISION_WARMUP, VISION_TIMED = 2, 5  # timed ResNet-18 steps after a warm-up
+VISION_SINGLE_TIMED = 10
+VISION_MNIST_ARGS = ["--model", "cnn", "--epochs", "1", "--batch_size", "64", "--lr", "0.05",
+                     "--optimizer", "momentum"]  # the JAX suite's tests/test_models.py:13-22
+VISION_DIR = os.path.join("build", "vision")
+
+
+def vision_args(*extra):
+    """``cli.train_cifar_resnet``'s flags for the dp = 2 runs: the config-4
+    defaults (batch 256, lr 0.1, momentum, ring, plateau) at patience 1 on
+    the synthetic CIFAR-shaped set (no binaries in the repo)."""
+    return ["--epochs", str(VISION_EPOCHS), "--synth_n", str(VISION_SYNTH_N),
+            "--plateau_patience", "1", "--dp", "2", "--data_dir", os.path.join(VISION_DIR, "none"),
+            *extra]
+
+
+def vision_rank(rank, tmp):
+    rank_main(vision_rank_run, "vision", rank, tmp)
+
+
+def vision_rank_run(rank, tmp, res, stage):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from dsml_tpu_torch.cli import train_cifar_resnet as cifar
+    from dsml_tpu_torch.ops.collectives import ReduceOp
+    from dsml_tpu_torch.parallel.bucketing import bucketed_all_reduce, default_bucket_mb
+    from dsml_tpu_torch.parallel.dp import make_dp_train_step, named_params
+    from dsml_tpu_torch.parallel.mesh import data_mesh
+    from dsml_tpu_torch.trainer import Trainer
+
+    mesh = data_mesh(2, rank, os.path.join(tmp, "rendezvous"))
+    dev, group = mesh.device, mesh.group("dp")
+    res["device"] = str(dev)
+    data = cifar.cifar_data(cifar.CIFARConfig.parse_args(vision_args()))
+    # (b) the entry point's rank path (its config, model and data on this
+    # spawn's mesh) under ring, then naive from the same seed; cuDNN's
+    # deterministic algorithms, so the two runs can agree bit for bit
+    torch.backends.cudnn.deterministic = True
+    res["trainer"] = {}
+    for alg in ("ring", "naive"):
+        stage(f"ResNet-18 Trainer under {alg}")
+        cfg = cifar.CIFARConfig.parse_args(vision_args("--algorithm", alg))
+        model = cifar.cifar_model(cfg, dev)
+        trainer = Trainer(model, cfg, mesh=mesh)
+        dist.barrier()
+        t0 = time.perf_counter()
+        _, history, acc = trainer.train(data)
+        torch.cuda.synchronize()
+        res["trainer"][alg] = {
+            "seconds": time.perf_counter() - t0, "epoch_losses": [h["avg_loss"] for h in history],
+            "train_accuracy": [h["train_accuracy"] for h in history], "test_accuracy": acc,
+            "weights_sha256": _param_sha(model.parameters()),
+            "plateau": {k: float(v) for k, v in trainer.plateau.state()._asdict().items()}}
+        del model, trainer
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    # the dp step timed alone: a rank's step, the card's images/s, memory, the sync
+    stage("timed dp steps")
+    x_all = torch.from_numpy(data.train_x[:VISION_BATCH])
+    y_all = torch.from_numpy(data.train_y[:VISION_BATCH])
+    model = cifar.cifar_model(cfg, dev).init(0)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    step = make_dp_train_step(model, opt, mesh, "ring")
+    for _ in range(VISION_WARMUP):
+        step(x_all, y_all)
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(VISION_TIMED):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        step(x_all, y_all)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res["step_ms"] = statistics.median(times)
+    res["step_ms_all"] = times
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    grads = [p.grad for _, p in named_params(model, opt)]
+    mb = default_bucket_mb()
+    sync = collective_times(lambda: bucketed_all_reduce(grads, group, ReduceOp.AVG, "ring", mb),
+                            group.pg, reps=5, warmup=1)
+    res["sync_ms"] = {"bucket_mb": mb, "median_ms": statistics.median(sync), "min_ms": min(sync),
+                      "max_ms": max(sync), "grad_bytes": sum(g.numel() * 4 for g in grads)}
+    res["ipc_slot_bytes"] = 4 * group.ipc().capacity
+    del model, opt, step, grads
+    torch.cuda.empty_cache()
+    # one ring step's synced f32 gradients (SGD at lr 0 leaves them in p.grad)
+    stage("f32 dp gradients")
+    model = cifar.cifar_model(cfg, dev).init(0)
+    step = make_dp_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0), mesh, "ring")
+    dp_loss = float(step(x_all, y_all))
+    dp_grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    stage("close")
+    mesh.close()
+    dist.destroy_process_group()
+    if rank == 0:
+        # the plain single-device computation of the same per-rank batch
+        # norm: each half of the batch normalised alone, the losses averaged
+        stage("single-device f32 gradients")
+        model.zero_grad(set_to_none=True)
+        half = VISION_BATCH // 2
+        xs, ys = x_all.to(dev), y_all.to(dev)
+        loss = (model.loss(xs[:half], ys[:half]) + model.loss(xs[half:], ys[half:])) / 2
+        loss.backward()
+        worst, worst_name = 0.0, None
+        for name, p in model.named_parameters():
+            rel = (dp_grads[name] - p.grad).abs().max().item() / max(p.grad.abs().max().item(), 1e-30)
+            if rel >= worst:
+                worst, worst_name = rel, name
+        res["f32"] = {"dp_loss": dp_loss, "single_loss": float(loss.detach()),
+                      "loss_rel_err": abs(dp_loss - float(loss.detach())) / abs(float(loss.detach())),
+                      "grads_max_err_over_max_abs": worst, "grads_worst_tensor": worst_name}
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_vision(dev, card, spawned=None):
+    """The vision family (BASELINE configs 3 and 4) through its entry points: (a)
+    ``cli.train_mnist --model cnn`` on the repo's MNIST (one epoch, batch
+    64, momentum, lr 0.05): holdout accuracy > 0.85, steps/s; (b) ResNet-18
+    at full width, f32, dp = 2 on two spawned ranks sharing the card (the
+    ring over the CUDA IPC transport): ``cli.train_cifar_resnet``'s config
+    (batch 256, lr 0.1, momentum, plateau at patience 1) for 3 epochs of 8
+    steps on the CIFAR-shaped synthetic set, under ring and naive (losses,
+    weights and plateau state bit-identical), identical replicas, the
+    loss falling, the first step's synced f32 gradients within
+    TOL_TRAIN_GRADS of one device's plain computation of the same per-rank
+    batch norm, a rank's step ms, images/s, peak memory and the sync's ms
+    (cost: the ranks time-slice one card); (c) one single-device ResNet-18
+    f32 train step at batch 256, timed, with its peak memory. No kernel of
+    the port lies on this path (cuDNN convolutions, as the JAX package's
+    XLA ones outside any Pallas kernel). ``spawned``: (the vision program's
+    ranks, seconds) of spawn_two_rank_programs; a run alone spawns them."""
+    from dsml_tpu_torch.cli import train_mnist
+    from dsml_tpu_torch.cli.train_cifar_resnet import CIFARConfig, cifar_data, cifar_model
+    from dsml_tpu_torch.parallel.dp import make_dp_train_step
+
+    os.makedirs(VISION_DIR, exist_ok=True)
+    # (a) the MNIST CNN through its entry point, on this process's card
+    log_path = os.path.join(VISION_DIR, "mnist_cnn.jsonl")
+    if os.path.exists(log_path):
+        os.remove(log_path)
+    t0 = time.perf_counter()
+    acc = train_mnist.main(VISION_MNIST_ARGS + ["--log_metrics", log_path])
+    seconds = time.perf_counter() - t0
+    with open(log_path) as f:
+        lines = [json.loads(line) for line in f if line.strip()]
+    epoch, final = lines[0], lines[-1]
+    steps = 40000 // 64  # the loader's 8000 training images, each with its 4 shifts
+    emit({"phase": "vision_cnn", "entry_point": "cli.train_mnist " + " ".join(VISION_MNIST_ARGS),
+          "model": "CNN (conv 32, conv 64, fc 128)", "steps": steps, "avg_loss": epoch["avg_loss"],
+          "train_accuracy": epoch["train_accuracy"], "test_accuracy": acc, "holdout": 2000,
+          "trainer_wall_s": final["wall_time_s"], "steps_per_s": steps / final["wall_time_s"],
+          "seconds": seconds, "card": card,
+          "note": "steps_per_s over the Trainer's wall: the epoch's steps and the training-set "
+                  "and holdout evals; seconds: the entry point's call, the data load included"})
+    check(acc > 0.85, f"the MNIST CNN's holdout accuracy {acc} is not above 0.85")
+    # (c) one device, batch 256
+    cfg = CIFARConfig.parse_args(vision_args())
+    data = cifar_data(cfg)
+    x, y = (torch.from_numpy(a[:VISION_BATCH]) for a in (data.train_x, data.train_y))
+    model = cifar_model(cfg, dev).init(0)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    step = make_dp_train_step(model, opt)
+    for _ in range(3):
+        step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = [], []
+    for _ in range(VISION_SINGLE_TIMED):
+        t0 = time.perf_counter()
+        losses.append(step(x, y))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    single_ms = statistics.median(times)
+    losses = [float(v) for v in losses]
+    emit({"phase": "vision_resnet_single", "model": "ResNet-18 (11.17M parameters)", "dtype": "float32",
+          "tf32": False, "batch": VISION_BATCH, "optimizer": "SGD(0.1, momentum=0.9)",
+          "step_ms": single_ms, "step_ms_min": min(times), "step_ms_max": max(times),
+          "images_per_s": VISION_BATCH / (single_ms / 1e3),
+          "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "losses": losses,
+          "card": card})
+    check(all(np.isfinite(losses)), f"single-device ResNet-18 losses {losses}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    # (b) dp = 2 on the two-rank spawn
+    out, spawn_seconds = spawned or spawn_programs({"vision": (vision_rank, ())}, "vision")
+    ranks = out if spawned else out["vision"]
+    r0 = ranks[0]
+    emit({"phase": "vision_resnet_dp", "model": "ResNet-18", "dtype": "float32", "tf32": False,
+          "dp": 2, "global_batch": VISION_BATCH, "per_rank": VISION_BATCH // 2,
+          "entry_point": "cli.train_cifar_resnet " + " ".join(vision_args()),
+          "steps_per_epoch": 2048 // VISION_BATCH, "epochs": VISION_EPOCHS,
+          "seconds_with_spawn": spawn_seconds, "card": card,
+          "note": "cost, not a speed-up: the two ranks time-slice one card (beside the TinyLlama "
+                  "entry points in the full run); images_per_s is the global batch over a rank's "
+                  "step",
+          "ranks": [{**{k: v for k, v in r.items() if k != "trainer"},
+                     "images_per_s": VISION_BATCH / (r["step_ms"] / 1e3), "trainer": r["trainer"]}
+                    for r in ranks]})
+    for r in ranks:
+        rk, t = r["rank"], r["trainer"]
+        check(t["ring"]["epoch_losses"] == t["naive"]["epoch_losses"]
+              and t["ring"]["weights_sha256"] == t["naive"]["weights_sha256"]
+              and t["ring"]["plateau"] == t["naive"]["plateau"],
+              f"rank {rk}: ring and naive ResNet-18 runs differ: {t}")
+        losses = t["ring"]["epoch_losses"]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"rank {rk}: ResNet-18 epoch losses do not fall: {losses}")
+    check(all(ranks[0]["trainer"][a][k] == ranks[1]["trainer"][a][k] for a in ("ring", "naive")
+              for k in ("epoch_losses", "weights_sha256", "plateau", "test_accuracy")),
+          "the two ResNet-18 replicas diverged")
+    plateau = r0["trainer"]["ring"]["plateau"]
+    check(plateau["count"] == 0 and np.isfinite(plateau["best_value"]),
+          f"the plateau's windows did not close: {plateau}")
+    f32 = r0["f32"]
+    check(f32["loss_rel_err"] <= 1e-5 and f32["grads_max_err_over_max_abs"] <= TOL_TRAIN_GRADS,
+          f"f32 ResNet-18 dp gradients vs one device's per-rank batch norm: {f32}")
+    return single_ms
 
 
 # ---- Llama: TinyLlama-1.1B trained and served ------------------------------------
@@ -8350,6 +8595,7 @@ def main() -> None:
                   "quant_allreduce": lambda: phase_quant_allreduce(card),
                   "dp_slice": lambda: phase_dp_slice(card),
                   "dp_cli": lambda: phase_train_cli_runs(train_cli_start(["dp2"])),
+                  "vision": lambda: phase_vision(dev, card),
                   "llama_cli": lambda: phase_llama_cli(llama_cli_start()),
                   "llama_kernel": lambda: family_kernels(tflash, dev, "llama", LLAMA_HEADS,
                                                          LLAMA_KV_HEADS, D, verify=True),
@@ -8466,6 +8712,10 @@ def main() -> None:
     phase_obs(tflash, dev, card, obs_dp)
     torch.cuda.empty_cache()
     ckpt_launches = phase_checkpoint(tflash, dev, card, ckpt_dp)
+    torch.cuda.empty_cache()
+    # the vision family: the MNIST CNN and single-device ResNet-18 here, on a
+    # card no side process uses; ResNet-18 at dp = 2 rode the two-rank spawn
+    phase_vision(dev, card, (two_rank["vision"], two_seconds))
     torch.cuda.empty_cache()
     # the mesh planner on the card; model parallelism: tp, pp (three
     # schedules, the eval), ZeRO-3/ZeRO-2 on the planner's mesh and pp x tp

@@ -140,6 +140,8 @@ def _children(node):
     for a leaf."""
     if isinstance(node, dict):
         return [(k, node[k]) for k in sorted(node)]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):  # a NamedTuple: fields in order
+        return [(f, getattr(node, f)) for f in node._fields]
     if isinstance(node, (list, tuple)):
         return list(enumerate(node))
     return None
@@ -169,6 +171,8 @@ def _map_tree(fn, tree, prefix: str = ""):
     mapped = [(k, _map_tree(fn, c, f"{prefix}/{k}" if prefix else str(k))) for k, c in children]
     if isinstance(tree, dict):
         return dict(mapped)
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(v for _, v in mapped))
     return type(tree)(v for _, v in mapped)
 
 

@@ -21,6 +21,12 @@ JAX package builds each optimizer:
   (``train_gpt2``): ``1/0/count``, ``1/0/mu/<p>``, ``1/0/nu/<p>``,
   ``1/2/count``.
 
+With the reduce-on-plateau scheduler (``utils.schedules.adaptive_plateau``;
+the JAX trainer's ``chain(<opt>, reduce_on_plateau)``) the tree is
+``0/<the optimizer's tree above>`` and ``1/{scale, best_value,
+plateau_count, cooldown_count, count, avg_value}``
+(``utils.schedules.PlateauState``, in optax's field order).
+
 ``exp_avg`` is ``mu``, ``exp_avg_sq`` is ``nu``, ``momentum_buffer`` is
 ``trace`` (torch's ``None`` before the first step is optax's zero trace),
 torch's per-parameter float ``step`` is Adam's int32 ``count``. The
@@ -157,10 +163,11 @@ def _adam_step(states) -> int:
     return steps.pop() if steps else 0
 
 
-def optax_state(optimizer, model, kind: str, count: int):
+def optax_state(optimizer, model, kind: str, count: int, plateau=None):
     """The optax state tree of ``optimizer`` (see the module table) after
-    ``count`` updates: the live moments, zeros where torch has none yet.
-    Also the restore template of :func:`load_optax_state`."""
+    ``count`` updates: the live moments, zeros where torch has none yet;
+    chained with ``plateau``'s state when given. Also the restore template
+    of :func:`load_optax_state`."""
     _check_kind(kind)
     named = _named_state(optimizer, model)
 
@@ -168,7 +175,8 @@ def optax_state(optimizer, model, kind: str, count: int):
         return nest_paths({n: st[key] if st.get(key) is not None else torch.zeros_like(p)
                            for n, p, st in named})
 
-    return _optax_tree(kind, count, _adam_step(st for _, _, st in named), moments)
+    tree = _optax_tree(kind, count, _adam_step(st for _, _, st in named), moments)
+    return tree if plateau is None else [tree, plateau.state()]
 
 
 def _unpack_optax(kind: str, tree):
@@ -200,12 +208,15 @@ def _set_state(optimizer, groups, p, adam_step, moments: dict) -> None:
                           **moments}
 
 
-def load_optax_state(optimizer, model, kind: str, tree) -> int:
-    """Set ``optimizer``'s state from an optax state tree of ``kind``
-    (restored into :func:`optax_state`'s template, so every tensor is on
-    its parameter's device and in its dtype). Returns the schedule's
-    ``count``: the updates done."""
+def load_optax_state(optimizer, model, kind: str, tree, plateau=None) -> int:
+    """Set ``optimizer``'s state (and ``plateau``'s, when given) from an
+    optax state tree of ``kind`` (restored into :func:`optax_state`'s
+    template, so every tensor is on its parameter's device and in its
+    dtype). Returns the schedule's ``count``: the updates done."""
     _check_kind(kind)
+    if plateau is not None:
+        tree, plateau_state = tree
+        plateau.load_state(plateau_state)
     named = _named_state(optimizer, model)
     count, adam_step, moments = _unpack_optax(kind, tree)
     if moments:

@@ -1,10 +1,12 @@
-"""Model families of the port: GPT-2 and Llama (serving and training) and
-the MNIST MLP. The CNN and ResNet of ``dsml_tpu.models`` come with a later
-slice."""
+"""Model families of the port: GPT-2 and Llama (serving and training), the
+MNIST MLP and CNN (BASELINE config 3) and the CIFAR-10 ResNet-18 (BASELINE
+config 4)."""
 
+from dsml_tpu_torch.models.cnn import CNN
 from dsml_tpu_torch.models.mlp import MLP
+from dsml_tpu_torch.models.resnet import ResNet18
 
-__all__ = ["MLP", "model_by_family"]
+__all__ = ["CNN", "MLP", "ResNet18", "model_by_family"]
 
 
 def model_by_family(family: str, name: str, device=None, **tiny_kwargs):

@@ -13,15 +13,18 @@ A spec is a tuple with one entry per leading dim, each a mesh axis name or
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dsml_tpu_torch.ops.quantization import QuantizedWeight, quantize_weight_blocks, quantized_matmul
 
 __all__ = [
     "ChannelInt8Weight", "qmatmul", "maybe_dequant", "quantize_weights_int8",
-    "quantize_weights_blocked", "he_init", "softmax_xent", "count_correct",
+    "quantize_weights_blocked", "he_init", "same_conv", "softmax_xent", "count_correct",
     "transformer_train_flops", "mlp_train_flops", "with_fsdp", "fsdp_spec_fn", "shard_leaf",
     "spec_dim",
 ]
@@ -207,6 +210,22 @@ def he_init(rng: np.random.Generator, *shape: int, fan_in: int) -> torch.Tensor:
     """He-normal initialization (scale sqrt(2/fan_in)), float32, from the
     same ``rng`` draws as the JAX version."""
     return torch.from_numpy((rng.standard_normal(shape) * np.sqrt(2.0 / fan_in)).astype(np.float32))
+
+
+def same_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """``x`` NCHW convolved with an HWIO weight under XLA's ``"SAME"``
+    padding: a total of ``max((ceil(n / s) - 1)·s + k - n, 0)`` per spatial
+    axis, the smaller half before."""
+    k = w.shape[0]
+    pads = []
+    for n in (x.shape[3], x.shape[2]):  # F.pad's order: the last axis first
+        total = max((math.ceil(n / stride) - 1) * stride + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    if pads[0] == pads[1] and pads[2] == pads[3]:
+        padding = (pads[2], pads[0])
+    else:
+        x, padding = F.pad(x, pads), 0
+    return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride, padding=padding)
 
 
 def softmax_xent(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 The JAX package keeps parameters as a nested tree of dicts and lists
 (``{"wte": ..., "layers": [{"attn": {"wqkv": ...}}, ...]}``); the port's
-modules name the same tensors by their dotted paths (``layers.0.attn.wqkv``),
+modules name the same tensors by their dotted paths (``layers.0.attn.wqkv``;
+ResNet-18's list of stages of lists of blocks as ``stages.1.0.conv1.w``),
 with the same shapes. Arrays cross as numpy, so this module needs neither
 package's model code: a test turns a JAX tree into numpy with
 ``jax.tree.map(np.asarray, params)`` and hands it over.

@@ -24,6 +24,17 @@ running ``step(x, y, lr=None) -> loss``:
 4. the optimizer runs on every rank on identical gradients, so the
    replicas stay identical.
 
+``plateau`` (``utils.schedules.adaptive_plateau``) is the JAX chain's
+``reduce_on_plateau``: it takes the step's group-averaged loss (JAX's
+``value=pmean(loss)``) and returns the scale of this same update, which
+multiplies the learning rate (one host read per plateau window).
+
+A model whose forward couples its rows through batch statistics (one with
+``batch_stats_over(group)``, ``models.resnet.ResNet18``) normalises over
+the whole global batch under the ``"xla"`` sync and in the eval, where the
+JAX step and eval see it whole; under an explicit sync each rank
+normalises its own rows, as inside the JAX ``shard_map``.
+
 ``error_feedback=True`` (the quantized ring family and ``"quant"``) keeps
 this rank's f32 residuals in the step (``step.error_feedback``, one per
 trainable parameter in ``named_params`` order): each sync runs on
@@ -40,6 +51,7 @@ quantized sync (``obs.record_quant_sync_bytes``) after every step.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable
 
@@ -53,7 +65,8 @@ from dsml_tpu_torch.parallel.bucketing import (bucketed_all_reduce, default_buck
                                                plan_buckets, plan_quant_wire_bytes,
                                                supports_error_feedback, tree_order)
 
-__all__ = ["make_dp_train_step", "make_eval_step", "named_params", "rank_rows"]
+__all__ = ["batch_stats_scope", "make_dp_train_step", "make_eval_step", "named_params",
+           "rank_rows"]
 
 
 def rank_rows(t, group):
@@ -79,9 +92,18 @@ def named_params(model, optimizer=None) -> list[tuple[str, torch.Tensor]]:
     return [(k, named[k]) for k in tree_order(k for k, p in named.items() if p.requires_grad)]
 
 
+def batch_stats_scope(model, group):
+    """The context in which ``model``'s batch statistics span ``group``'s
+    ranks (a null context for a model without them, or without a group)."""
+    over = getattr(model, "batch_stats_over", None)
+    if over is None or group is None or group.size == 1:
+        return contextlib.nullcontext()
+    return over(group)
+
+
 def make_dp_train_step(model, optimizer, mesh=None, algorithm: str = "xla", axis: str = "dp",
                        bucket_size_mb: float | None | str = "auto", error_feedback: bool = False,
-                       loss_fn: Callable | None = None):
+                       loss_fn: Callable | None = None, plateau=None):
     """Build ``step(x, y, lr=None) -> loss`` for ``model`` (an
     ``nn.Module`` whose ``loss(x, y)`` is the mean loss of its rows;
     ``loss_fn`` replaces it) on ``mesh``'s ``axis`` group (``mesh=None``
@@ -91,8 +113,10 @@ def make_dp_train_step(model, optimizer, mesh=None, algorithm: str = "xla", axis
     on its rows. ``bucket_size_mb`` (explicit algorithms): ``"auto"`` = the
     ``DSML_BUCKET_MB`` default (4 MiB), a number = that many MiB per
     bucket, ``None`` = one flat buffer. ``lr`` sets every group's learning
-    rate before the update. Returns the mean loss over the global batch (a
-    device scalar, identical on every rank).
+    rate before the update; ``plateau`` then scales it by the scale
+    ``plateau.update(loss)`` gives this update (without ``lr``, the groups'
+    learning rates when the step was built). Returns the mean loss over the
+    global batch (a device scalar, identical on every rank).
 
     ``error_feedback=True`` needs a ring-family algorithm or ``"quant"``
     (else ``ValueError``, as in the JAX package); the residuals start at
@@ -128,6 +152,9 @@ def make_dp_train_step(model, optimizer, mesh=None, algorithm: str = "xla", axis
     signatures = None if algorithm == "xla" else set()
     # EF syncs are plan-shaped even at None (per-dtype buckets)
     plan_mb = bucket_size_mb if bucket_size_mb is not None or not error_feedback else float("inf")
+    # the JAX "xla" step normalises over the global batch; shard_map steps per rank
+    stats_group = group if algorithm == "xla" else None
+    base_lrs = [g["lr"] for g in optimizer.param_groups]
 
     def step(x, y, lr: float | None = None):
         x = rank_rows(x, group).to(device)
@@ -138,8 +165,9 @@ def make_dp_train_step(model, optimizer, mesh=None, algorithm: str = "xla", axis
                 signatures.add(sig)
                 record_collective_plan(algorithm, params, plan_mb, axis)
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(x, y)
-        loss.backward()
+        with batch_stats_scope(model, stats_group):
+            loss = loss_fn(x, y)
+            loss.backward()
         loss = loss.detach()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         if group is not None:
@@ -152,7 +180,11 @@ def make_dp_train_step(model, optimizer, mesh=None, algorithm: str = "xla", axis
             loss = all_reduce(loss, group, ReduceOp.AVG, loss_algorithm)
         for p, g in zip(params, grads):
             p.grad = g
-        if lr is not None:
+        if plateau is not None:
+            scale = plateau.update(loss)
+            for g, base in zip(optimizer.param_groups, base_lrs):
+                g["lr"] = (base if lr is None else lr) * scale
+        elif lr is not None:
             for g in optimizer.param_groups:
                 g["lr"] = lr
         optimizer.step()
@@ -171,14 +203,16 @@ def make_dp_train_step(model, optimizer, mesh=None, algorithm: str = "xla", axis
 def make_eval_step(model, mesh=None, axis: str = "dp"):
     """``eval(x, y) -> correct count`` over the global batch: each rank
     counts its rows' correct argmax logits, the counts summed over the
-    group (a tensor)."""
+    group (a tensor). Batch statistics span the global batch, as in the
+    JAX eval."""
     group = None if mesh is None else mesh.group(axis)
     device = next(model.parameters()).device
 
     @torch.no_grad()
     def correct(x, y):
         x, y = rank_rows(x, group).to(device), rank_rows(y, group).to(device)
-        count = count_correct(model.apply(x), y)
+        with batch_stats_scope(model, group):
+            count = count_correct(model.apply(x), y)
         return count if group is None else all_reduce(count, group, ReduceOp.SUM, "xla")
 
     return correct

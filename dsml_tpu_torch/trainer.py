@@ -57,7 +57,19 @@ implies ``obs.enable()``. With a checkpoint: the ``checkpoint_stall``
 breakdown phase (the save's synchronous part), the goodput marks
 ``restore`` and ``checkpoint_save``, a ``checkpoint_save`` event.
 
-Not ported yet, and raising: the ``plateau`` schedule.
+``cfg.lr_schedule="plateau"`` is the JAX trainer's adaptive scheduler: a
+constant ``cfg.lr`` times the scale of ``utils.schedules.adaptive_plateau``
+(``factor=cfg.plateau_factor``, ``patience=cfg.plateau_patience``, one
+window an epoch: ``accumulation_size = steps_per_epoch``), which the dp
+step feeds the group-averaged loss of every update and which reads the
+host once a window; its six-leaf state is checkpointed at the JAX
+trainer's ``opt_state/1/...`` paths (``checkpoint.optim_state``), so a
+resume inside an epoch keeps the window's ``count`` and ``avg_value``.
+
+Models whose forward couples rows through batch statistics
+(``models.resnet.ResNet18``) normalise as in the JAX trainer: over the
+global batch under ``algorithm="xla"`` and in every eval, over each rank's
+rows under the explicit syncs (``parallel.dp``).
 """
 
 from __future__ import annotations
@@ -82,7 +94,7 @@ from dsml_tpu_torch.utils.config import Config, field
 from dsml_tpu_torch.utils.data import Dataset, prefetch_batches, shard_batches
 from dsml_tpu_torch.utils.logging import get_logger
 from dsml_tpu_torch.utils.metrics import EpochMetrics, MetricsLogger, ProgressBar
-from dsml_tpu_torch.utils.schedules import make_schedule
+from dsml_tpu_torch.utils.schedules import make_schedule, wrap_with_plateau
 
 __all__ = ["TrainConfig", "Trainer"]
 
@@ -95,10 +107,10 @@ class TrainConfig(Config):
     batch_size: int = field(64, help="GLOBAL batch size (reference: 64)")
     lr: float = field(0.01, help="SGD learning rate (reference: 0.01)")
     optimizer: str = field("sgd", help="sgd | momentum | adam | adamw")
-    lr_schedule: str = field("constant", help="constant | cosine | linear | step (plateau: not ported yet)")
+    lr_schedule: str = field("constant", help="constant | cosine | linear | step | plateau (the adaptive reduce-on-plateau scheduler: lr times a scale that decays when the epoch's mean loss stops improving)")
     warmup_steps: int = field(0, help="linear warmup steps for the schedule")
-    plateau_patience: int = field(5, help="plateau schedule: epochs-worth of steps without improvement before decaying (not ported yet)")
-    plateau_factor: float = field(0.5, help="plateau schedule: lr decay factor (not ported yet)")
+    plateau_patience: int = field(5, help="plateau schedule: epochs-worth of steps without improvement before decaying")
+    plateau_factor: float = field(0.5, help="plateau schedule: lr decay factor")
     algorithm: str = field("xla", help="gradient sync: xla | ring | ring2 | auto | naive | q8 (int8 gather) | q8_ring | q8_ring2 | q4_ring | q4_ring2 (block-quantized ring schedules) | quant (per dtype from DSML_QUANT)")
     error_feedback: bool = field(False, help="error-feedback residuals for quantized ring sync (q8_ring/q8_ring2/q4_ring/q4_ring2/quant): each rank's compression error re-enters the next step's gradients")
     bucket_mb: float = field(0.0, help="explicit-sync gradient bucket size in MiB (0 = the DSML_BUCKET_MB default, currently 4; negative = single buffer)")
@@ -143,6 +155,16 @@ def _make_optimizer(cfg: TrainConfig, params, steps_per_epoch: int):
     return makers[cfg.optimizer](), schedule
 
 
+def _make_plateau(cfg: TrainConfig, optimizer, steps_per_epoch: int):
+    """The reduce-on-plateau scheduler of ``lr_schedule="plateau"`` (else
+    None), built as the JAX trainer builds it: one accumulated loss window
+    an epoch, so patience counts epochs."""
+    if cfg.lr_schedule != "plateau":
+        return None
+    return wrap_with_plateau(optimizer, factor=cfg.plateau_factor, patience=cfg.plateau_patience,
+                             accumulation_size=max(steps_per_epoch, 1))
+
+
 @torch.no_grad()
 def _global_norm(tensors) -> float:
     """optax.global_norm in f32: the L2 norm over every element of
@@ -163,6 +185,7 @@ class Trainer:
         self.metrics = MetricsLogger((self.config.log_metrics or None) if self.lead else None)
         self.n_dp = 1 if mesh is None else mesh.shape.get("dp", 1)
         self._eval_fn = make_eval_step(model, mesh)
+        self.plateau = None  # the last run's reduce-on-plateau scheduler (lr_schedule="plateau")
 
     def train(self, data: Dataset, params: dict | None = None):
         """Train for ``cfg.epochs``; ``params`` (a state dict, e.g. from
@@ -180,10 +203,12 @@ class Trainer:
         else:
             model.load_state_dict(params)
         optimizer, schedule = _make_optimizer(cfg, model.parameters(), steps_per_epoch)
+        plateau = self.plateau = _make_plateau(cfg, optimizer, steps_per_epoch)
         # 0 → the DSML_BUCKET_MB default, < 0 → one buffer
         bucket = "auto" if cfg.bucket_mb == 0 else (None if cfg.bucket_mb < 0 else cfg.bucket_mb)
         step = make_dp_train_step(model, optimizer, self.mesh, cfg.algorithm,
-                                  bucket_size_mb=bucket, error_feedback=cfg.error_feedback)
+                                  bucket_size_mb=bucket, error_feedback=cfg.error_feedback,
+                                  plateau=plateau)
         rank = 0 if self.mesh is None else self.mesh.rank
         ef_names = ([n for n, _ in named_params(model, optimizer)]
                     if step.error_feedback is not None else None)
@@ -191,7 +216,7 @@ class Trainer:
         def state_tree(epochs_done: int) -> dict:
             """The checkpointed state, in the JAX trainer's trees."""
             state = {"params": param_tree(model),
-                     "opt_state": optax_state(optimizer, model, cfg.optimizer, count),
+                     "opt_state": optax_state(optimizer, model, cfg.optimizer, count, plateau),
                      "meta": {"epoch": epochs_done}}
             if ef_names is not None:
                 # this rank's residuals: its row of the JAX package's [n, *shape]
@@ -219,7 +244,8 @@ class Trainer:
             if cfg.resume and ckpt.latest_step() is not None:
                 state = ckpt.restore(template=state_tree(0))
                 load_param_tree(model, state["params"])
-                count = load_optax_state(optimizer, model, cfg.optimizer, state["opt_state"])
+                count = load_optax_state(optimizer, model, cfg.optimizer, state["opt_state"],
+                                         plateau)
                 if ef_names is not None:
                     # restoring the residuals keeps a kill-and-resume under a
                     # quantized sync bit-identical to the unkilled run

@@ -200,8 +200,9 @@ def test_make_schedule_equals_optax(name, warmup):
 
 
 def test_plateau_schedule_and_native_loader_raise():
-    with pytest.raises(NotImplementedError, match="plateau"):
-        make_schedule("plateau", 0.1, 10)
+    # the plateau schedule (it raised before the vision slice) is the constant
+    # base the reduce-on-plateau scale multiplies; an unknown name raises
+    assert [make_schedule("plateau", 0.1, 10)(c) for c in (0, 5, 20)] == [0.1, 0.1, 0.1]
     with pytest.raises(ValueError, match="unknown lr schedule"):
         make_schedule("exp", 0.1, 10)
     # the native loader no longer raises: it yields the numpy path's batches
@@ -331,14 +332,15 @@ def test_trainer_epochs_match_jax_trainer(optimizer, schedule, warmup):
 
 
 def test_trainer_raises_for_unported_options():
-    """The plateau schedule raises, naming its slice. The quantized syncs
-    are ported (a single-device Trainer has nothing to sync and trains),
-    and error feedback with the full-precision default sync raises
-    ``ValueError``, as in the JAX package."""
+    """The plateau schedule (it raised before the vision slice) and the
+    quantized syncs are ported: a single-device Trainer trains under each
+    (it has nothing to sync). Error feedback with the full-precision
+    default sync raises ``ValueError``, as in the JAX package."""
     data = tdata.synthetic_classification(100, 4, 2)
-    with pytest.raises(NotImplementedError, match="plateau"):
-        Trainer(MLP((4, 2), device="cpu"),
-                TrainConfig(epochs=1, batch_size=10, lr_schedule="plateau")).train(data)
+    trainer = Trainer(MLP((4, 2), device="cpu"),
+                      TrainConfig(epochs=1, batch_size=10, lr_schedule="plateau"))
+    _, history, _ = trainer.train(data)
+    assert np.isfinite(history[0]["avg_loss"]) and trainer.plateau.accumulation_size == 9
     for algorithm in ("q8_ring", "quant"):
         _, history, _ = Trainer(MLP((4, 2), device="cpu"),
                                 TrainConfig(epochs=1, batch_size=10, algorithm=algorithm)).train(data)
